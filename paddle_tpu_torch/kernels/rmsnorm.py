@@ -62,13 +62,15 @@ def rmsnorm_cuda(x, weight, eps, residual=None):
                          "bytes (16-byte vector loads)")
     x = x.contiguous()
     weight = weight.contiguous()
+    if residual is not None:
+        residual = residual.contiguous()
+    if any(t.data_ptr() % 16 for t in (x, weight, residual) if t is not None):
+        raise ValueError("rmsnorm kernel: x, residual and weight must be "
+                         "16-byte aligned (16-byte vector loads)")
     rows, cols = x.shape
     out = torch.empty_like(x)
     rstd = torch.empty(rows, device=x.device, dtype=torch.float32)
-    h = None
-    if residual is not None:
-        residual = residual.contiguous()
-        h = torch.empty_like(x)
+    h = None if residual is None else torch.empty_like(x)
     fn = _build.function("rmsnorm", "rmsnorm_fwd",
                          [_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P])
     stream = torch.cuda.current_stream(x.device).cuda_stream

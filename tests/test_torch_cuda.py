@@ -128,6 +128,13 @@ def test_wrappers_raise_on_what_the_kernel_does_not_take(gen):
         rmsnorm(x, torch.ones(12, device="cuda", dtype=torch.bfloat16))
     with pytest.raises(ValueError):                # split across devices
         rmsnorm(x.cpu(), torch.ones(12, device="cuda", dtype=torch.bfloat16))
+    # a contiguous view 2 bytes into its storage: misaligned for 16-byte loads
+    x = _rnd(gen, torch.bfloat16, 2 * 64 + 1)[1:].view(2, 64)
+    w = torch.ones(64, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        rmsnorm_cuda(x, w, 1e-5)
+    with pytest.raises(ValueError):
+        rmsnorm_cuda(w.expand(2, 64).contiguous(), w, 1e-5, x)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
