@@ -11,17 +11,23 @@ CUDA toolkit (``nvcc``). It imports nothing of JAX or of ``paddle_tpu``.
    prints the build seconds.
 2. Kernel phases: holds each hand-written kernel against its plain PyTorch
    version on the card in bf16 at the main path's shapes (Llama-2-7B:
-   32 heads of 128, hidden 4096, KV blocks of 16), GQA shapes included,
-   and times kernel, plain version, the one PyTorch call that computes the
-   same function (where there is one) and the least time the card could
-   take (bytes / 3.35 TB/s or bf16 flops / 989 TFLOP/s, whichever is
-   larger). Tolerances, as |kernel - plain| <= atol + rtol * |plain|: both
-   versions accumulate in f32, so bf16 output rounding sets the limit —
-   one bf16 step is 2^-7 relative, hence rtol 1e-2 on every bf16 output,
-   with atol 2e-2 on flash outputs (the tensor-core flash kernel also
-   rounds the probabilities to bf16 before P.V, as FlashAttention does),
-   2e-3 on paged outputs (f32 probabilities, as in the plain version) and
-   1e-3 on RMSNorm outputs; the f32 lse and rstd get atol 1e-3.
+   32 heads of 128, hidden 4096, KV blocks of 16, vocab 32000, training
+   batches of 4 x 2048 tokens), GQA shapes included, and times kernel,
+   plain version, the one PyTorch call that computes the same function
+   (where there is one; for a backward kernel, the backward of that call)
+   and the least time the card could take (bytes / 3.35 TB/s or flops over
+   the peak of their type, whichever is larger). Tolerances, as
+   |kernel - plain| <= atol + rtol * |plain|: both versions accumulate in
+   f32, so bf16 output rounding sets the limit — one bf16 step is 2^-7
+   relative, hence rtol 1e-2 on every bf16 output, with atol 2e-2 on flash
+   outputs (the tensor-core flash kernel also rounds the probabilities to
+   bf16 before P.V, as FlashAttention does), 2e-3 on paged outputs (f32
+   probabilities, as in the plain version) and 1e-3 on RMSNorm outputs;
+   the f32 lse and rstd get atol 1e-3. A gradient is a sum over many rows,
+   so its rounding error scales with its largest summand: bf16 gradients
+   get atol 1e-2 * max|plain| (f32 ones 1e-4 * max|plain|) with the same
+   rtol; the softmax-CE loss and lse, f32 sums of the same bf16 logits in
+   another order, get atol 1e-4, rtol 1e-5.
 3. Serving phase: Llama-2-7B at full width (32 layers) in bf16 with random
    weights from a seeded generator, served through ``LLMEngine``
    (4 slots, max_model_len 1024, block size 16) for 7 requests (6 greedy,
@@ -34,19 +40,35 @@ CUDA toolkit (``nvcc``). It imports nothing of JAX or of ``paddle_tpu``.
    zeroed just before each of the two paths (``LLMEngine.run``: paged
    attention and RMSNorm; the no-cache forward: flash attention and
    RMSNorm) and read just after it; a kernel of a path that was never
-   launched fails the run. The ``launches`` of the JSON line are the sum
-   of both paths.
+   launched fails the run.
 4. Profiles one decode step of 4 running slots: the wall time of
    unprofiled steps against the device busy time (the union of the
    profiled step's kernel intervals), and the kernels that took it.
+5. Whole-step check: one ``LlamaPipelineTrainer`` forward and backward
+   on a narrow model with the 7B head (hidden 512, 4 heads of 128,
+   2 layers, vocab 32000, batch 2 x 512) in bf16 on the card, against the
+   same f32 masters in f32 on the CPU through the plain versions: the loss
+   within STEP_LOSS_TOL, each parameter's gradient within STEP_GRAD_REL_L2
+   relative L2 error. This holds the autograd wiring of every kernel.
+6. Training phase: the serving model freed, ``LlamaPipelineTrainer`` on
+   Llama-2-7B's widths at TRAIN_LAYERS layers (f32 masters, bf16 compute,
+   remat "dots", AdamW lr 1e-4 as ``bench.py`` trains) takes 1 warm-up
+   step and 5 timed steps on one seeded batch of 4 x 2048 tokens: every
+   loss finite, the last below the first. Prints step wall time, tokens/s,
+   MFU (``matmul_flops_per_token(2048)`` against 989 TFLOP/s), peak device
+   memory, and a profile of one more step. The counters are zeroed just
+   before the 5 steps and read just after; a training kernel never
+   launched there fails the run.
 
-The last two lines are one JSON object with every kernel's numbers and one
-with the device. Any failure raises and exits non-zero; without a CUDA
-device, or without the package beside this file, it exits non-zero and
-prints no result.
+The ``launches`` of the JSON line sum the main path's runs: the engine,
+the no-cache forward and the 5 training steps. The last two lines are one
+JSON object with every kernel's numbers and one with the device. Any
+failure raises and exits non-zero; without a CUDA device, or without the
+package beside this file, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -71,13 +93,33 @@ PAGED_ATOL = 2e-3
 # serves the wrong row's or position's token matches almost never.
 TF_TOL = 0.25
 TF_MIN_EXACT = 0.75
+F32_FLOPS = 67e12              # H100 SXM float32 outside the tensor cores
+# training slice: gradients (see the docstring), the softmax-CE loss/lse,
+# and the whole-step check. A bf16 step through 2 layers rounds every
+# activation and weight to 8 significant bits, so the loss moves by ~1e-3
+# of its ~10.4 and the gradients by a few per cent in L2.
+GRAD_FRAC_BF16, GRAD_FRAC_F32 = 1e-2, 1e-4
+CE_ATOL, CE_RTOL = 1e-4, 1e-5
+STEP_LOSS_TOL = 2e-2
+STEP_GRAD_REL_L2 = 5e-2
+TRAIN_LAYERS = 8               # 7B widths; depth cut to fit one 80 GB card
+TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd", "rmsnorm",
+                 "rmsnorm_bwd", "softmax_ce", "softmax_ce_bwd")
 SOURCES = {
     "flash_attention": ("paddle_tpu_torch/csrc/flash_attention.cu",
                         "paddle_tpu/kernels/flash_attention.py:108"),
+    "flash_attention_bwd": ("paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+                            "paddle_tpu/kernels/flash_attention.py:173"),
     "paged_attention": ("paddle_tpu_torch/csrc/paged_attention.cu",
                         "paddle_tpu/kernels/paged_attention.py:89"),
     "rmsnorm": ("paddle_tpu_torch/csrc/rmsnorm.cu",
                 "paddle_tpu/kernels/rmsnorm.py:42"),
+    "rmsnorm_bwd": ("paddle_tpu_torch/csrc/rmsnorm.cu",
+                    "paddle_tpu/kernels/rmsnorm.py:56"),
+    "softmax_ce": ("paddle_tpu_torch/csrc/softmax_ce.cu",
+                   "paddle_tpu/kernels/softmax_ce.py:39"),
+    "softmax_ce_bwd": ("paddle_tpu_torch/csrc/softmax_ce.cu",
+                       "paddle_tpu/kernels/softmax_ce.py:50"),
 }
 
 
@@ -104,9 +146,9 @@ def time_ms(torch, fn, iters=20, warmup=3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(nbytes, flops):
+def bound_ms(nbytes, flops, peak=BF16_FLOPS):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -236,6 +278,162 @@ def flash_phase(torch, g):
     return row
 
 
+def check_grad(torch, name, got, want, frac) -> float:
+    """Hold a gradient within atol = frac * max|plain|, rtol = frac; also
+    prints its relative L2 error."""
+    rel = ((got.float() - want.float()).norm() / want.float().norm()).item()
+    print(f"  {name}: relative L2 error {rel:.3e}")
+    return check(torch, name, got, want,
+                 frac * want.float().abs().max().item(), frac)
+
+
+def flash_bwd_phase(torch, g):
+    from paddle_tpu_torch.kernels.flash_attention import (
+        delta_minus_glse, flash_attention_bwd_cuda, flash_attention_bwd_plain,
+        flash_attention_plain)
+
+    print("[kernel] flash_attention_bwd  [1, S, 32, 128] causal, bf16, "
+          "with an lse cotangent")
+    row = None
+    worst = 0.0
+    for S, Hkv in ((2048, 32), (2048, 8), (1000, 32)):
+        q = torch.randn(1, S, 32, 128, device="cuda", generator=g).bfloat16()
+        k = torch.randn(1, S, Hkv, 128, device="cuda", generator=g).bfloat16()
+        v = torch.randn(1, S, Hkv, 128, device="cuda", generator=g).bfloat16()
+        do = torch.randn(1, S, 32, 128, device="cuda", generator=g).bfloat16()
+        glse = 0.1 * torch.randn(1, 32, S, device="cuda", generator=g)
+        out, lse = flash_attention_plain(q, k, v, causal=True)
+        dg = delta_minus_glse(out, do, glse)
+        got = flash_attention_bwd_cuda(q, k, v, do, lse, dg, True)
+        want = flash_attention_bwd_plain(q, k, v, do, lse, dg, True)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("dq", "dk", "dv"), got, want):
+            worst = max(worst, check_grad(torch, f"S={S} Hkv={Hkv} {name}",
+                                          a, b, GRAD_FRAC_BF16))
+        del got, want
+        if S == 2048 and Hkv == 32:
+            ms = time_ms(torch, lambda: flash_attention_bwd_cuda(
+                q, k, v, do, lse, dg, True))
+            plain = time_ms(torch, lambda: flash_attention_bwd_plain(
+                q, k, v, do, lse, dg, True), iters=3, warmup=1)
+            qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                          for t in (q, k, v))
+            ot = torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True)
+            gt = do.transpose(1, 2)
+            lib = time_ms(torch, lambda: torch.autograd.grad(
+                ot, (qt, kt, vt), gt, retain_graph=True))
+            del ot
+            pairs = S * (S + 1) // 2          # causal (query, key) pairs
+            # read q, k, v, dO, lse, dg; write dq, dk, dv
+            nbytes = 7 * q.numel() * 2 + 2 * 32 * S * 4
+            # five products of 2 * pairs * 128 flops per head
+            bound, by = bound_ms(nbytes, 10 * pairs * 32 * 128)
+            row = dict(shape=f"[1, {S}, 32, 128] causal", ms=ms,
+                       plain_ms=plain, library_ms=lib, bound_ms=bound,
+                       bound_by=by)
+    row["max_abs_err"] = worst
+    return row
+
+
+def rmsnorm_bwd_phase(torch, g):
+    from paddle_tpu_torch.kernels.rmsnorm import (rmsnorm_bwd_cuda,
+                                                  rmsnorm_bwd_plain,
+                                                  rmsnorm_plain)
+
+    print("[kernel] rmsnorm_bwd  [8192, 4096], eps 1e-5")
+    row = None
+    worst = 0.0
+    for dtype, residual in ((torch.bfloat16, False), (torch.bfloat16, True),
+                            (torch.float32, False)):
+        rows = 8192
+        x = torch.randn(rows, 4096, device="cuda", generator=g).to(dtype)
+        w = (1 + 0.1 * torch.randn(4096, device="cuda", generator=g)).to(dtype)
+        r = (torch.randn(rows, 4096, device="cuda", generator=g).to(dtype)
+             if residual else None)
+        gy = torch.randn(rows, 4096, device="cuda", generator=g).to(dtype)
+        _, _, rstd = rmsnorm_plain(x, w, 1e-5, r)
+        dx, dw = rmsnorm_bwd_cuda(x, w, rstd, gy, r)
+        p_dx, p_dw = rmsnorm_bwd_plain(x, w, rstd, gy, r)
+        torch.cuda.synchronize()
+        frac = GRAD_FRAC_BF16 if dtype == torch.bfloat16 else GRAD_FRAC_F32
+        tag = f"{str(dtype)[6:]} residual={residual}"
+        err = check_grad(torch, f"{tag} dx", dx, p_dx, frac)
+        err = max(err, check_grad(torch, f"{tag} dw", dw, p_dw, frac))
+        if dtype == torch.bfloat16:
+            worst = max(worst, err)
+        if dtype == torch.bfloat16 and not residual:
+            ms = time_ms(torch, lambda: rmsnorm_bwd_cuda(x, w, rstd, gy))
+            plain = time_ms(torch, lambda: rmsnorm_bwd_plain(x, w, rstd, gy))
+            xt, wt = x.detach().requires_grad_(), w.detach().requires_grad_()
+            yt = torch.nn.functional.rms_norm(xt, (4096,), wt, 1e-5)
+            lib = time_ms(torch, lambda: torch.autograd.grad(
+                yt, (xt, wt), gy, retain_graph=True))
+            # read x, g, w, rstd; write dx, dw
+            nbytes = 3 * x.numel() * 2 + 2 * w.numel() * 2 + rows * 4
+            bound, by = bound_ms(nbytes, 8 * x.numel(), F32_FLOPS)
+            row = dict(shape=f"[{rows}, 4096] bf16", ms=ms, plain_ms=plain,
+                       library_ms=lib, bound_ms=bound, bound_by=by)
+    row["max_abs_err"] = worst
+    return row
+
+
+def softmax_ce_phases(torch, g):
+    from paddle_tpu_torch.kernels.softmax_ce import (
+        softmax_ce_bwd_cuda, softmax_ce_bwd_plain, softmax_ce_cuda,
+        softmax_ce_plain)
+
+    N, V = 8192, 32000
+    print(f"[kernel] softmax_ce, softmax_ce_bwd  logits [{N}, {V}] bf16, "
+          f"every 10th row at ignore_index")
+    x = (2 * torch.randn(N, V, device="cuda", generator=g)).bfloat16()
+    lab = torch.randint(0, V, (N,), device="cuda", generator=g)
+    lab[::10] = -100
+    valid = lab != -100
+    # what cross_entropy hands the kernels: label 0 on ignored rows, and
+    # the mean's gradient 1 / (valid rows) on the others
+    safe = torch.where(valid, lab, 0)
+    gl = valid.float() / valid.sum()
+    loss, lse = softmax_ce_cuda(x, safe)
+    p_loss, p_lse = softmax_ce_plain(x, safe)
+    dx = softmax_ce_bwd_cuda(x, safe, lse, gl)
+    p_dx = softmax_ce_bwd_plain(x, safe, p_lse, gl)
+    torch.cuda.synchronize()
+    err_f = max(check(torch, "loss (valid rows)", loss[valid], p_loss[valid],
+                      CE_ATOL, CE_RTOL),
+                check(torch, "lse", lse, p_lse, CE_ATOL, CE_RTOL))
+    err_b = check_grad(torch, "dx", dx, p_dx, GRAD_FRAC_BF16)
+    if dx[~valid].abs().max().item() != 0:
+        raise AssertionError("softmax_ce_bwd: an ignored row got a gradient")
+    del p_dx
+    fwd_ms = time_ms(torch, lambda: softmax_ce_cuda(x, safe))
+    fwd_plain = time_ms(torch, lambda: softmax_ce_plain(x, safe), iters=5)
+    fwd_lib = time_ms(torch, lambda: torch.nn.functional.cross_entropy(
+        x, lab, reduction="none"))
+    bwd_ms = time_ms(torch, lambda: softmax_ce_bwd_cuda(x, safe, lse, gl))
+    bwd_plain = time_ms(torch, lambda: softmax_ce_bwd_plain(
+        x, safe, p_lse, gl), iters=5)
+    xt = x.detach().requires_grad_()
+    lt = torch.nn.functional.cross_entropy(xt, lab, reduction="none")
+    bwd_lib = time_ms(torch, lambda: torch.autograd.grad(
+        lt, xt, gl, retain_graph=True))
+    del lt
+    shape = f"[{N}, {V}] bf16"
+    # forward: read the logits and labels, write loss and lse; about five
+    # f32 operations per logit (max, subtract, exp, add, compare)
+    bound_f, by_f = bound_ms(x.numel() * 2 + N * 8 + N * 8, 5 * x.numel(),
+                             F32_FLOPS)
+    # backward: read the logits, labels, lse and g, write dx
+    bound_b, by_b = bound_ms(2 * x.numel() * 2 + N * 16, 5 * x.numel(),
+                             F32_FLOPS)
+    return (dict(shape=shape, ms=fwd_ms, plain_ms=fwd_plain,
+                 library_ms=fwd_lib, bound_ms=bound_f, bound_by=by_f,
+                 max_abs_err=err_f),
+            dict(shape=shape, ms=bwd_ms, plain_ms=bwd_plain,
+                 library_ms=bwd_lib, bound_ms=bound_b, bound_by=by_b,
+                 max_abs_err=err_b))
+
+
 def serving_phase(torch, K):
     from paddle_tpu_torch.models import LlamaForCausalLM, llama_7b
     from paddle_tpu_torch.serving import LLMEngine, SamplingParams
@@ -333,6 +531,18 @@ def serving_phase(torch, K):
     return model, launches
 
 
+def busy_ms(kernels):
+    """Device busy ms: the union of the kernels' intervals (a CPU op's row
+    in ``key_averages()`` repeats its kernels' time, so rows are not
+    summed)."""
+    busy_us, reach = 0.0, -math.inf
+    for s, e in sorted((k.time_range.start, k.time_range.end)
+                       for k in kernels):
+        busy_us += max(0.0, e - max(s, reach))
+        reach = max(reach, e)
+    return busy_us / 1e3
+
+
 def profile_decode_step(torch, model):
     """Where one decode step's time goes (4 running slots, contexts
     ~300-700): the wall time of unprofiled steps against the device busy
@@ -369,12 +579,7 @@ def profile_decode_step(torch, model):
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not kernels:
         raise AssertionError("the profiled decode step traced no kernel")
-    busy_us, reach = 0.0, -math.inf
-    for s, e in sorted((k.time_range.start, k.time_range.end)
-                       for k in kernels):
-        busy_us += max(0.0, e - max(s, reach))
-        reach = max(reach, e)
-    busy = busy_us / 1e3
+    busy = busy_ms(kernels)
     per_name: dict[str, list] = {}
     for k in kernels:
         acc = per_name.setdefault(k.name, [0.0, 0])
@@ -388,6 +593,165 @@ def profile_decode_step(torch, model):
     for name, (ms, n) in sorted(per_name.items(), key=lambda r: -r[1][0])[:8]:
         print(f"  {ms:8.3f} ms  x{n:<5d} {name[:90]}")
     eng.run()
+
+
+def train_config(layers, hidden, heads, inter, seq):
+    from paddle_tpu_torch.models import LlamaConfig
+
+    return LlamaConfig(vocab_size=32000, hidden_size=hidden,
+                       intermediate_size=inter, num_hidden_layers=layers,
+                       num_attention_heads=heads, num_key_value_heads=heads,
+                       max_position_embeddings=seq)
+
+
+def whole_step_check(torch, K):
+    """One trainer forward + backward in bf16 on the card against the same
+    f32 masters in f32 on the CPU (the plain versions)."""
+    from paddle_tpu_torch.models import LlamaPipelineTrainer
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = train_config(2, 512, 4, 1376, 512)
+    print("[whole step] hidden 512, 4 heads of 128, 2 layers, vocab 32000, "
+          "batch 2 x 512: bf16 on the card vs f32 on the CPU")
+    card = LlamaPipelineTrainer(cfg, AdamW(learning_rate=1e-4),
+                                generator=torch.Generator(
+                                    device="cuda").manual_seed(1))
+    cpu = LlamaPipelineTrainer(cfg, AdamW(learning_rate=1e-4), device="cpu")
+    cpu.model.load_state_dict(
+        {k: v.cpu() for k, v in card.model.state_dict().items()})
+    rng = torch.Generator().manual_seed(3)
+    x = torch.randint(0, 32000, (2, 512), generator=rng)
+    y = torch.randint(0, 32000, (2, 512), generator=rng)
+    K.reset_launch_counts()
+    loss = card.loss_and_grads(x, y).item()
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    missing = [k for k in TRAIN_KERNELS if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"the card's trainer step never launched "
+                             f"{missing}")
+    ref = cpu.loss_and_grads(x, y).item()
+    rel = {}
+    for (name, a), b in zip(card.model.named_parameters(),
+                            cpu.model.parameters()):
+        ga, gb = a.grad.float().cpu(), b.grad
+        rel[name] = ((ga - gb).norm() / gb.norm()).item()
+    worst = sorted(rel.items(), key=lambda r: -r[1])[:3]
+    print(f"  loss {loss:.5f} on the card, {ref:.5f} on the CPU (|diff| "
+          f"{abs(loss - ref):.2e}, limit {STEP_LOSS_TOL}); worst gradient "
+          f"relative L2 errors "
+          + ", ".join(f"{n} {e:.2e}" for n, e in worst)
+          + f" (limit {STEP_GRAD_REL_L2}, {len(rel)} parameters)")
+    if not abs(loss - ref) <= STEP_LOSS_TOL:
+        raise AssertionError(f"whole step: loss {loss} vs {ref}")
+    if not worst[0][1] <= STEP_GRAD_REL_L2:
+        raise AssertionError(f"whole step: gradient of {worst[0][0]} off by "
+                             f"{worst[0][1]} in relative L2")
+
+
+def kernel_share(kernels):
+    """Device ms by group of the profiled kernels: ours, GEMMs, the rest."""
+    ours = ("flash_fwd", "flash_bwd", "rmsnorm", "softmax_ce", "paged_")
+    gemm = ("gemm", "nvjet", "xmma", "cutlass", "cublas")
+    share = {"port kernels": 0.0, "GEMMs (cuBLAS)": 0.0, "other": 0.0}
+    for k in kernels:
+        ms = (k.time_range.end - k.time_range.start) / 1e3
+        name = k.name.lower()
+        key = ("port kernels" if any(o in name for o in ours) else
+               "GEMMs (cuBLAS)" if any(o in name for o in gemm) else "other")
+        share[key] += ms
+    return share
+
+
+def training_phase(torch, K):
+    """LlamaPipelineTrainer at Llama-2-7B's widths, TRAIN_LAYERS deep."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.models import LlamaPipelineTrainer
+    from paddle_tpu_torch.optimizer import AdamW
+
+    B, S = 4, 2048
+    cfg = train_config(TRAIN_LAYERS, 4096, 32, 11008, S)
+    print(f"[training] Llama-2-7B widths, {TRAIN_LAYERS} layers, batch "
+          f"{B} x {S}, f32 masters, bf16 compute, remat dots, AdamW lr 1e-4")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    tr = LlamaPipelineTrainer(cfg, AdamW(learning_rate=1e-4), remat="dots",
+                              generator=torch.Generator(
+                                  device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    print(f"  trainer built in {time.monotonic() - t0:.1f}s, "
+          f"{tr.num_params() / 1e9:.3f}B params")
+    data = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randint(0, 32000, (B, S), device="cuda", generator=data)
+    y = torch.randint(0, 32000, (B, S), device="cuda", generator=data)
+    t0 = time.monotonic()
+    losses = [tr.step(x, y).item()]              # warm-up
+    print(f"  warm-up step {time.monotonic() - t0:.2f}s, loss {losses[0]:.4f}")
+    K.reset_launch_counts()
+    walls = []
+    for _ in range(5):
+        t0 = time.monotonic()
+        losses.append(tr.step(x, y).item())
+        torch.cuda.synchronize()
+        walls.append(time.monotonic() - t0)
+    counts = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  losses {[round(v, 4) for v in losses]}")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the loss did not fall: {losses}")
+    missing = [k for k in TRAIN_KERNELS if counts[k] == 0]
+    print(f"  launches in the 5 steps: {counts}")
+    if missing:
+        raise AssertionError(f"the training steps never launched {missing}")
+    step = sum(walls) / len(walls)
+    tok_s = B * S / step
+    flops = tr.matmul_flops_per_token(S)
+    mfu = tok_s * flops / BF16_FLOPS
+    print(f"  step wall {step * 1e3:.1f} ms (mean of 5, min "
+          f"{min(walls) * 1e3:.1f}); {tok_s:.0f} tokens/s; MFU "
+          f"{100 * mfu:.1f}% ({flops / 1e9:.2f} GFLOP/token against "
+          f"{BF16_FLOPS / 1e12:.0f} TFLOP/s); peak memory "
+          f"{peak / 2 ** 30:.1f} GiB")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        tr.step(x, y)
+        torch.cuda.synchronize()
+        prof_wall = (time.monotonic() - t0) * 1e3
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        raise AssertionError("the profiled training step traced no kernel")
+    busy = busy_ms(kernels)
+    # the step is device-bound (the host runs ahead), so its own wall under
+    # the profiler, not the mean of other steps, is the base of the share
+    print(f"[profile] one training step: device busy {busy:.1f} ms in "
+          f"{len(kernels)} kernels, wall {prof_wall:.1f} ms under the "
+          f"profiler, idle {100 * (1 - busy / prof_wall):.1f}%")
+    for group, ms in kernel_share(kernels).items():
+        print(f"  {ms:9.2f} ms  {group}")
+    per_name: dict[str, list] = {}
+    for k in kernels:
+        acc = per_name.setdefault(k.name, [0.0, 0])
+        acc[0] += (k.time_range.end - k.time_range.start) / 1e3
+        acc[1] += 1
+    for name, (ms, n) in sorted(per_name.items(), key=lambda r: -r[1][0])[:12]:
+        print(f"  {ms:9.3f} ms  x{n:<5d} {name[:90]}")
+    # one more step, split: forward + backward, then the optimizer
+    t0 = time.monotonic()
+    tr.loss_and_grads(x, y)
+    torch.cuda.synchronize()
+    t1 = time.monotonic()
+    tr.optimizer.step()
+    tr.optimizer.clear_grad()
+    torch.cuda.synchronize()
+    t2 = time.monotonic()
+    print(f"  one step split: forward + backward {(t1 - t0) * 1e3:.1f} ms, "
+          f"AdamW update {(t2 - t1) * 1e3:.1f} ms")
+    return counts
 
 
 def main() -> int:
@@ -418,6 +782,10 @@ def main() -> int:
     rows = {"rmsnorm": rmsnorm_phase(torch, g),
             "paged_attention": paged_phase(torch, g),
             "flash_attention": flash_phase(torch, g)}
+    torch.cuda.empty_cache()
+    rows["flash_attention_bwd"] = flash_bwd_phase(torch, g)
+    rows["rmsnorm_bwd"] = rmsnorm_bwd_phase(torch, g)
+    rows["softmax_ce"], rows["softmax_ce_bwd"] = softmax_ce_phases(torch, g)
     for name, r in rows.items():
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         print(f"  {name} at {r['shape']}: kernel {r['ms']:.4f} ms, plain "
@@ -428,6 +796,14 @@ def main() -> int:
     model, launches = serving_phase(torch, K)
     profile_decode_step(torch, model)
     del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    whole_step_check(torch, K)
+    gc.collect()
+    torch.cuda.empty_cache()
+    trained = training_phase(torch, K)
+    launches = {k: launches.get(k, 0) + trained[k] for k in trained}
 
     kernels = []
     for name, r in rows.items():

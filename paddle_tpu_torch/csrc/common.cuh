@@ -2,6 +2,7 @@
 // reductions and the C error hook every library exports.
 #pragma once
 
+#include <cmath>
 #include <cstdint>
 
 #include <cuda_bf16.h>
@@ -94,7 +95,33 @@ __device__ __forceinline__ float block_sum(float v, float* scratch) {
   return scratch[32];
 }
 
-#define PTT_EXPORT_ERROR_STRING                                  \
+// Tensor-core product D = A.B + D, m16n8k16, bf16 in, f32 accumulate.
+// Fragment layouts are PTX's (g = lane / 4, t = lane % 4): A (16 x 16,
+// row-major) a0 = A[g][2t, 2t+1], a1 = A[g+8][2t, 2t+1], a2 = A[g][2t+8,
+// 2t+9], a3 = A[g+8][2t+8, 2t+9]; B (16 x 8) b0 = B[2t, 2t+1][g], b1 =
+// B[2t+8, 2t+9][g], so B is read from shared memory stored as [n][k]; C
+// (16 x 8) c0, c1 = C[g][2t, 2t+1] and c2, c3 = C[g+8][2t, 2t+1]. Two
+// adjacent C tiles, packed to bf16 pairwise, are the A fragment of the next
+// product (FlashAttention-2's register re-use).
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+#define PTT_EXPORT_ERROR_STRING                                \
   extern "C" const char* ptt_error_string(int e) {               \
     return cudaGetErrorString(static_cast<cudaError_t>(e));      \
   }

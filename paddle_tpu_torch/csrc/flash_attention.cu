@@ -181,34 +181,14 @@ __global__ void __launch_bounds__(NT)
 // ---------------------------------------------------------------------------
 constexpr int MMA_NT = 128;   // 4 warps, 16 query rows each
 
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 template <int D>
 constexpr size_t mma_smem_bytes() {
   return sizeof(__nv_bfloat16) * ((BQ + BK) * (D + 8) + D * (BK + 8));
 }
 
-// Fragment layouts are PTX's for m16n8k16 (g = lane / 4, t = lane % 4):
-// A rows g and g + 8, columns 2t, 2t + 1 and 2t + 8, 2t + 9; B columns g,
-// rows 2t, 2t + 1 and 2t + 8, 2t + 9; C rows g (c0, c1) and g + 8 (c2,
-// c3), columns 2t, 2t + 1. The score tile's C fragments are re-packed in
-// registers as the A fragments of P for the P.V product.
+// Fragment layouts: see mma_bf16 in common.cuh. The score tile's C
+// fragments are re-packed in registers as the A fragments of P for the
+// P.V product.
 template <int D>
 __global__ void __launch_bounds__(MMA_NT)
     flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,

@@ -10,30 +10,48 @@ policy. Here the choice is the tensor's device and nothing else:
 
 Every wrapper adds one to its entry of :data:`LAUNCHES` where it launches
 its kernel, and nowhere else, so a run can show that its main path went
-through the kernels. The kernels of this slice:
+through the kernels. A gradient goes through a ``torch.autograd.Function``
+whose backward is a kernel too; a raw ``*_cuda`` wrapper, which returns
+buffers a ctypes launch filled, raises when it is handed a tensor that
+requires grad while grad mode is on (:func:`refuse_grad`), so no output is
+ever cut from the autograd graph in silence. The kernels so far:
 
-=================  ==========================  ================================
-name               port                        replaces (TPU kernel)
-=================  ==========================  ================================
-flash_attention    kernels/flash_attention.py  kernels/flash_attention.py
-                   + csrc/flash_attention.cu   ``_fwd_kernel``
-paged_attention    kernels/paged_attention.py  kernels/paged_attention.py
-                   + csrc/paged_attention.cu   ``_paged_kernel``
-rmsnorm            kernels/rmsnorm.py          kernels/rmsnorm.py
-                   + csrc/rmsnorm.cu           ``_fwd_kernel``
-=================  ==========================  ================================
+===================  ============================  ==========================
+name                 port                          replaces (TPU kernel)
+===================  ============================  ==========================
+flash_attention      kernels/flash_attention.py    kernels/flash_attention.py
+                     + csrc/flash_attention.cu     ``_fwd_kernel``
+flash_attention_bwd  kernels/flash_attention.py    kernels/flash_attention.py
+                     + csrc/flash_attention_bwd.cu ``_bwd_dq_kernel``,
+                                                   ``_bwd_dkv_kernel``
+paged_attention      kernels/paged_attention.py    kernels/paged_attention.py
+                     + csrc/paged_attention.cu     ``_paged_kernel``
+rmsnorm              kernels/rmsnorm.py            kernels/rmsnorm.py
+                     + csrc/rmsnorm.cu             ``_fwd_kernel``
+rmsnorm_bwd          kernels/rmsnorm.py            kernels/rmsnorm.py
+                     + csrc/rmsnorm.cu             ``_bwd_kernel``
+softmax_ce           kernels/softmax_ce.py         kernels/softmax_ce.py
+                     + csrc/softmax_ce.cu          ``_fwd_kernel``
+softmax_ce_bwd       kernels/softmax_ce.py         kernels/softmax_ce.py
+                     + csrc/softmax_ce.cu          ``_bwd_kernel``
+===================  ============================  ==========================
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["LAUNCHES", "use_kernel", "launch_counts", "reset_launch_counts"]
+__all__ = ["LAUNCHES", "use_kernel", "refuse_grad", "launch_counts",
+           "reset_launch_counts"]
 
 # launches per kernel since the last reset (plain ints)
 LAUNCHES: dict[str, int] = {
     "flash_attention": 0,
+    "flash_attention_bwd": 0,
     "paged_attention": 0,
     "rmsnorm": 0,
+    "rmsnorm_bwd": 0,
+    "softmax_ce": 0,
+    "softmax_ce_bwd": 0,
 }
 
 
@@ -51,6 +69,19 @@ def use_kernel(*tensors: torch.Tensor) -> bool:
     raise ValueError(
         f"kernel inputs must all lie on one CUDA device or all on the CPU; "
         f"got {sorted(str(t.device) for t in tensors)}")
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise when a raw kernel wrapper would cut the autograd graph: grad
+    mode is on and one of its inputs requires grad. The differentiable
+    entry points call the wrappers inside ``autograd.Function``s, where
+    grad mode is off."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the raw kernel wrapper has no autograd; call the "
+            f"differentiable entry point instead, or run under "
+            f"torch.no_grad()")
 
 
 def launch_counts() -> dict[str, int]:

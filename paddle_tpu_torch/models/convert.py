@@ -2,14 +2,17 @@
 
 The only way the tests give both packages the same weights: the reference
 model's ``functional_state(model)[0]`` / ``state_dict()`` exported as numpy
-goes through :func:`state_from_jax` and into ``load_state_dict``.
+goes through :func:`state_from_jax` and into ``load_state_dict``; the
+reference trainer's parameter dict (``LlamaPipelineTrainer._state[0]``)
+goes through :func:`trainer_state_from_jax` into the port trainer's
+``model``.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-__all__ = ["state_from_jax"]
+__all__ = ["state_from_jax", "trainer_state_from_jax"]
 
 # paddle Linear stores [in, out]; nn.Linear stores [out, in]
 _LINEAR_SUFFIXES = ("qkv_proj.weight", "o_proj.weight", "gate_up_proj.weight",
@@ -33,3 +36,33 @@ def state_from_jax(params: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
             a = a.T
         out[name] = torch.tensor(np.ascontiguousarray(a))  # a copy it owns
     return out
+
+
+# the reference trainer's edge layers and the port model's names for them
+_TRAINER_EDGES = {"embed.weight": "embed_tokens.weight",
+                  "norm.weight": "norm.weight",
+                  "head.weight": "lm_head.weight"}
+
+
+def trainer_state_from_jax(params: dict[str, np.ndarray]
+                           ) -> dict[str, torch.Tensor]:
+    """Map the reference trainer's parameters onto the port model's.
+
+    ``blocks.<name>`` is stacked ``[stages, layers / stages, ...]`` and
+    unstacks, stage-major, into ``layers.<i>.<name>``; ``embed``, ``norm``
+    and ``head`` become ``embed_tokens``, ``norm`` and ``lm_head``. Then
+    :func:`state_from_jax` transposes the linear weights (the head's
+    included)."""
+    flat = {}
+    for name, arr in params.items():
+        a = np.asarray(arr)
+        if name.startswith("blocks."):
+            sub = name[len("blocks."):]
+            layers = a.reshape((-1,) + a.shape[2:])
+            for i in range(layers.shape[0]):
+                flat[f"layers.{i}.{sub}"] = layers[i]
+        elif name in _TRAINER_EDGES:
+            flat[_TRAINER_EDGES[name]] = a
+        else:
+            raise KeyError(f"unknown reference trainer parameter {name!r}")
+    return state_from_jax(flat)

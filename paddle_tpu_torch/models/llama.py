@@ -7,10 +7,12 @@ MLP with a fused ``gate_up_proj``, untied ``lm_head``. The reference's
 tensor-parallel layers are plain ``nn.Linear(bias=False)`` / ``nn.Embedding``
 here (world size 1; tensor parallelism waits for the distributed slice).
 
-Kernels on this path: RMSNorm twice per layer and once at the head, and the
-flash-attention forward for the no-cache forward. A cache view passed as
+Kernels on this path: RMSNorm twice per layer and once at the head, and
+flash attention for the no-cache forward; both are differentiable
+(``autograd.Function``s whose backwards are kernels too), so the no-cache
+forward trains (``models.llama_pipeline``). A cache view passed as
 ``cache=`` (``serving.DenseKVCache`` or ``serving.PagedCacheView``) takes
-over attention for cached decode.
+over attention for cached decode, which runs without autograd.
 """
 from __future__ import annotations
 

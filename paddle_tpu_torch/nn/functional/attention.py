@@ -4,7 +4,7 @@
 Layout is ``[batch, seq, heads, head_dim]``. :func:`sdpa_ref` is the plain
 einsum composition the reference uses off-TPU and the serving cache uses
 for prefill; :func:`scaled_dot_product_attention` is the model's no-cache
-attention and runs the flash-attention forward kernel on the card.
+attention and runs the flash-attention kernels on the card.
 """
 from __future__ import annotations
 
@@ -52,9 +52,10 @@ def sdpa_ref(q, k, v, attn_mask=None, is_causal=False, scale=None):
 def scaled_dot_product_attention(query, key, value, is_causal=False,
                                  scale=None):
     """Dense attention, ``[B, S, H, D]`` layout, GQA when the KV heads
-    divide the query heads. The flash-attention forward kernel on CUDA
-    tensors, its plain version on CPU tensors. Masks and dropout are not
-    in this slice."""
+    divide the query heads; differentiable in query, key and value. The
+    flash-attention kernels (forward, and backward under autograd) on CUDA
+    tensors, their plain versions on CPU tensors. Masks and dropout are not
+    ported yet."""
     out, _ = flash_attention_fwd(query, key, value, causal=is_causal,
                                  sm_scale=scale)
     return out

@@ -1,0 +1,71 @@
+"""Loss functionals (counterpart of ``paddle_tpu/nn/functional/loss.py``;
+this slice ports ``cross_entropy``)."""
+from __future__ import annotations
+
+import torch
+
+from ...kernels.softmax_ce import softmax_ce
+
+__all__ = ["cross_entropy"]
+
+
+def _reduce(loss, reduction):
+    if reduction == "mean":
+        return loss.mean()
+    if reduction == "sum":
+        return loss.sum()
+    return loss
+
+
+def cross_entropy(input, label, weight=None, ignore_index=-100,
+                  reduction="mean", soft_label=False, axis=-1,
+                  use_softmax=True, label_smoothing=0.0):
+    """Paddle's ``cross_entropy`` over ``axis``.
+
+    Hard integer labels over the last axis with the softmax, no weight and
+    no smoothing (the language-model head's case) go through the
+    softmax-CE kernel on the card (its plain version on the CPU), with the
+    reference's handling of ``ignore_index``: ignored rows take label 0
+    into the kernel, their loss is masked to 0 after, and the mean is over
+    the valid rows (at least 1). The loss is then float32. Soft labels,
+    label smoothing and class weights are plain PyTorch compositions of the
+    reference's formulas, in the input's dtype."""
+    ax = axis % input.ndim
+    soft = soft_label or (label.ndim == input.ndim
+                          and label.shape == input.shape)
+    if soft:
+        logp = _log_probs(input, ax, use_softmax)
+        target = label
+        if label_smoothing:
+            target = (target * (1 - label_smoothing)
+                      + label_smoothing / input.shape[ax])
+        return _reduce(-(target * logp).sum(ax), reduction)
+    lbl = label.squeeze(ax) if label.ndim == input.ndim else label
+    if lbl.dtype not in (torch.int32, torch.int64):
+        lbl = lbl.long()
+    valid = lbl != ignore_index
+    safe = torch.where(valid, lbl, torch.zeros_like(lbl))
+    if (use_softmax and not label_smoothing and weight is None
+            and ax == input.ndim - 1):
+        loss = torch.where(valid, softmax_ce(input, safe), 0.0)
+    else:
+        logp = _log_probs(input, ax, use_softmax)
+        picked = logp.gather(ax, safe.long().unsqueeze(ax)).squeeze(ax)
+        if label_smoothing:
+            picked = ((1 - label_smoothing) * picked
+                      + label_smoothing * logp.mean(ax))
+        loss = torch.where(valid, -picked, 0.0)
+        if weight is not None:
+            wsel = torch.where(valid, weight[safe.long()], 0.0)
+            loss = loss * wsel
+            if reduction == "mean":
+                return loss.sum() / wsel.sum().clamp_min(1e-12)
+    if reduction == "mean":
+        return loss.sum() / valid.sum().clamp_min(1).to(loss.dtype)
+    return _reduce(loss, reduction)
+
+
+def _log_probs(input, ax, use_softmax):
+    if use_softmax:
+        return torch.log_softmax(input, dim=ax)
+    return torch.log(input.clamp_min(1e-30))

@@ -15,17 +15,30 @@ rounding, one step of which is 2^-7 relative (rtol 1e-2, atol 2e-2 on
 attention outputs, whose tensor-core products also round the
 probabilities to bf16, and 1e-3 on RMSNorm outputs). The f32 lse and rstd
 get atol 1e-3 in bf16 runs.
+
+Backward kernels: a gradient is a sum over many rows, so its rounding
+error scales with the largest summand, not with each element. f32
+gradients get atol 1e-4 * max|plain| + rtol 1e-4; bf16 ones atol
+1e-2 * max|plain| + rtol 1e-2 (the flash backward also rounds p and ds to
+bf16 as tensor-core operands, and every bf16 output is rounded once more).
+The regression tests at the end hold ``loss.backward()`` through the
+public functionals on the card against the same calls on CPU copies
+(the plain versions), for every input that requires grad.
 """
 import pytest
 import torch
 
 from paddle_tpu_torch import kernels as K
 from paddle_tpu_torch.kernels.flash_attention import (
+    delta_minus_glse, flash_attention_bwd_cuda, flash_attention_bwd_plain,
     flash_attention_cuda, flash_attention_fwd, flash_attention_plain)
 from paddle_tpu_torch.kernels.paged_attention import (
     paged_attention, paged_attention_cuda, paged_attention_plain)
 from paddle_tpu_torch.kernels.rmsnorm import (
-    rmsnorm, rmsnorm_cuda, rmsnorm_plain)
+    rmsnorm, rmsnorm_bwd_cuda, rmsnorm_bwd_plain, rmsnorm_cuda, rmsnorm_plain)
+from paddle_tpu_torch.kernels.softmax_ce import (
+    softmax_ce, softmax_ce_bwd_cuda, softmax_ce_bwd_plain, softmax_ce_cuda,
+    softmax_ce_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -113,7 +126,9 @@ def test_wrappers_launch_on_cuda_and_count(gen):
     paged_attention(q[:, 0], pool, bt, ctx)
     after = K.launch_counts()
     assert {k: after[k] - before[k] for k in after} == {
-        "flash_attention": 1, "paged_attention": 1, "rmsnorm": 1}
+        "flash_attention": 1, "flash_attention_bwd": 0,
+        "paged_attention": 1, "rmsnorm": 1, "rmsnorm_bwd": 0,
+        "softmax_ce": 0, "softmax_ce_bwd": 0}
 
 
 def test_wrappers_raise_on_what_the_kernel_does_not_take(gen):
@@ -159,3 +174,205 @@ def test_tiny_engine_on_the_card_agrees_with_the_full_forward(gen, dtype):
             rows = logits[len(p) - 1:len(p) - 1 + len(o)]
             chosen = rows.gather(1, torch.tensor(o, device="cuda")[:, None])
             assert (rows.max(1, keepdim=True).values - chosen).max() <= tol
+
+
+# ---------------------------------------------------------------------------
+# backward kernels (training slice)
+# ---------------------------------------------------------------------------
+
+def _grad_tol(dtype, want):
+    frac = 1e-4 if dtype == torch.float32 else 1e-2
+    return dict(atol=frac * want.float().abs().max().item(), rtol=frac)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("sq,sk,hkv", [(77, 77, 8), (130, 130, 2),
+                                       (40, 100, 4), (1, 1, 8)])
+def test_flash_bwd_kernel_matches_plain(gen, dtype, d, causal, sq, sk, hkv):
+    q = _rnd(gen, dtype, 2, sq, 8, d)
+    k, v = _rnd(gen, dtype, 2, sk, hkv, d), _rnd(gen, dtype, 2, sk, hkv, d)
+    g = _rnd(gen, dtype, 2, sq, 8, d)
+    g_lse = 0.1 * torch.randn(2, 8, sq, device="cuda", generator=gen)
+    out, lse = flash_attention_plain(q, k, v, causal)
+    dg = delta_minus_glse(out, g, g_lse)
+    got = flash_attention_bwd_cuda(q, k, v, g, lse, dg, causal)
+    want = flash_attention_bwd_plain(q, k, v, g, lse, dg, causal)
+    for a, b in zip(got, want):
+        _close(a, b, **_grad_tol(dtype, b))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("rows,cols", [(1, 256), (37, 4096), (600, 512)])
+def test_rmsnorm_bwd_kernel_matches_plain(gen, dtype, rows, cols):
+    x, r = _rnd(gen, dtype, rows, cols), _rnd(gen, dtype, rows, cols)
+    g = _rnd(gen, dtype, rows, cols)
+    w = (1 + 0.1 * torch.randn(cols, device="cuda", generator=gen)).to(dtype)
+    for res in (None, r):
+        _, _, rstd = rmsnorm_plain(x, w, 1e-5, res)
+        dx, dw = rmsnorm_bwd_cuda(x, w, rstd, g, res)
+        p_dx, p_dw = rmsnorm_bwd_plain(x, w, rstd, g, res)
+        _close(dx, p_dx, **_grad_tol(dtype, p_dx))
+        _close(dw, p_dw, **_grad_tol(dtype, p_dw))
+        again = rmsnorm_bwd_cuda(x, w, rstd, g, res)   # no atomics: same bits
+        torch.testing.assert_close(again[1], dw, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n,vocab", [(7, 1001), (33, 32000), (4, 5)])
+@pytest.mark.parametrize("label_dtype", [torch.int32, torch.int64])
+def test_softmax_ce_kernels_match_plain(gen, dtype, n, vocab, label_dtype):
+    x = (3 * torch.randn(n, vocab, device="cuda", generator=gen)).to(dtype)
+    lab = torch.randint(0, vocab, (n,), device="cuda", generator=gen,
+                        dtype=label_dtype)
+    g = torch.rand(n, device="cuda", generator=gen)
+    loss, lse = softmax_ce_cuda(x, lab)
+    p_loss, p_lse = softmax_ce_plain(x, lab)
+    _close(loss, p_loss, atol=1e-4, rtol=1e-5)
+    _close(lse, p_lse, atol=1e-4, rtol=1e-5)
+    dx = softmax_ce_bwd_cuda(x, lab, lse, g)
+    p_dx = softmax_ce_bwd_plain(x, lab, p_lse, g)
+    _close(dx, p_dx, **_grad_tol(dtype, p_dx))
+
+
+def test_softmax_ce_out_of_range_label_is_nan(gen):
+    x = _rnd(gen, torch.float32, 3, 11)
+    lab = torch.tensor([0, 11, -1], device="cuda")
+    loss, _ = softmax_ce_cuda(x, lab)
+    torch.cuda.synchronize()
+    assert torch.isfinite(loss[0]) and torch.isnan(loss[1:]).all()
+
+
+def test_backward_wrappers_raise_on_what_the_kernels_do_not_take(gen):
+    q = _rnd(gen, torch.float32, 1, 9, 4, 96)
+    lse = torch.zeros(1, 4, 9, device="cuda")
+    with pytest.raises(ValueError):                # head_dim 96
+        flash_attention_bwd_cuda(q, q, q, q, lse, lse)
+    q = _rnd(gen, torch.bfloat16, 1, 9, 4, 64)
+    with pytest.raises(ValueError):                # gradient in f32
+        flash_attention_bwd_cuda(q, q, q, q.float(), lse, lse)
+    with pytest.raises(ValueError):                # lse of the wrong shape
+        flash_attention_bwd_cuda(q, q, q, q, lse[:, :2], lse)
+    x = _rnd(gen, torch.bfloat16, 4, 64)
+    w = torch.ones(64, device="cuda", dtype=torch.bfloat16)
+    rstd = torch.ones(4, device="cuda")
+    with pytest.raises(ValueError):                # gradient dtype differs
+        rmsnorm_bwd_cuda(x, w, rstd, x.float())
+    with pytest.raises(ValueError):                # rstd not float32
+        rmsnorm_bwd_cuda(x, w, rstd.bfloat16(), x)
+    lab = torch.zeros(4, device="cuda", dtype=torch.int64)
+    with pytest.raises(TypeError):                 # no fp16 kernel
+        softmax_ce_cuda(x.half(), lab)
+    with pytest.raises(TypeError):                 # float labels
+        softmax_ce_cuda(x, lab.float())
+    with pytest.raises(ValueError):                # labels of another shape
+        softmax_ce_cuda(x, lab[:3])
+    # a raw wrapper never returns an output cut from the autograd graph
+    xg = x.detach().requires_grad_()
+    with pytest.raises(RuntimeError):
+        rmsnorm_cuda(xg, w, 1e-5)
+    with pytest.raises(RuntimeError):
+        softmax_ce_cuda(xg, lab)
+    with pytest.raises(RuntimeError):
+        flash_attention_cuda(q.requires_grad_(), q, q)
+
+
+def _leaves(*tensors):
+    """(CUDA leaves, CPU leaf copies) that require grad."""
+    cuda = [t.detach().clone().requires_grad_() for t in tensors]
+    cpu = [t.detach().cpu().requires_grad_() for t in tensors]
+    return cuda, cpu
+
+
+def _grads_match(loss_fn, tensors, dtype):
+    cuda, cpu = _leaves(*tensors)
+    before = K.launch_counts()
+    loss_fn(*cuda).backward()
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in K.launch_counts().items()}
+    loss_fn(*cpu).backward()
+    for a, b in zip(cuda, cpu):
+        assert a.grad is not None and b.grad is not None
+        _close(a.grad, b.grad.cuda(), **_grad_tol(dtype, b.grad))
+    return launched
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_regression_backward_through_rms_norm_on_the_card(gen, dtype):
+    from paddle_tpu_torch.nn.functional import rms_norm
+
+    x = _rnd(gen, dtype, 2, 5, 256)
+    w = (1 + 0.1 * torch.randn(256, device="cuda", generator=gen)).to(dtype)
+    t = _rnd(gen, dtype, 2, 5, 256).float().cpu()
+
+    def f(x_, w_):
+        return (rms_norm(x_, w_, 1e-5).float() * t.to(x_.device)).sum()
+
+    n = _grads_match(f, (x, w), dtype)
+    assert n["rmsnorm"] == 1 and n["rmsnorm_bwd"] == 1
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_regression_backward_through_attention_on_the_card(gen, dtype):
+    from paddle_tpu_torch.nn.functional import scaled_dot_product_attention
+
+    q = _rnd(gen, dtype, 2, 70, 8, 64)
+    k, v = _rnd(gen, dtype, 2, 70, 2, 64), _rnd(gen, dtype, 2, 70, 2, 64)
+    t = _rnd(gen, dtype, 2, 70, 8, 64).float().cpu()
+
+    def f(q_, k_, v_):
+        out = scaled_dot_product_attention(q_, k_, v_, is_causal=True)
+        return (out.float() * t.to(q_.device)).sum()
+
+    n = _grads_match(f, (q, k, v), dtype)
+    assert n["flash_attention"] == 1 and n["flash_attention_bwd"] == 1
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_regression_backward_through_cross_entropy_on_the_card(gen, dtype):
+    from paddle_tpu_torch.nn.functional import cross_entropy
+
+    x = (2 * torch.randn(3, 9, 1001, device="cuda", generator=gen)).to(dtype)
+    lab = torch.randint(0, 1001, (3, 9), device="cuda", generator=gen)
+    lab[0, :4] = -100                                  # ignored rows
+
+    def f(x_):
+        return cross_entropy(x_, lab.to(x_.device), ignore_index=-100)
+
+    n = _grads_match(f, (x,), dtype)
+    assert n["softmax_ce"] == 1 and n["softmax_ce_bwd"] == 1
+
+
+def test_trainer_step_on_the_card_matches_the_cpu(gen):
+    """One f32 trainer step, every kernel forward and backward on the card,
+    against the same masters on the CPU through the plain versions."""
+    from paddle_tpu_torch.models import LlamaPipelineTrainer, llama_tiny
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = llama_tiny(vocab=97, hidden=128, layers=2, heads=2, kv_heads=1,
+                     inter=256, seq=64)
+    x = torch.randint(0, 97, (2, 48), generator=torch.Generator().manual_seed(1))
+    y = torch.randint(0, 97, (2, 48), generator=torch.Generator().manual_seed(2))
+    on_card = LlamaPipelineTrainer(cfg, AdamW(learning_rate=1e-3),
+                                   compute_dtype=torch.float32, generator=gen)
+    on_cpu = LlamaPipelineTrainer(cfg, AdamW(learning_rate=1e-3),
+                                  device="cpu")
+    on_cpu.model.load_state_dict(
+        {k: v.cpu() for k, v in on_card.model.state_dict().items()})
+    before = K.launch_counts()
+    loss = on_card.loss_and_grads(x, y).item()
+    launched = {k: v - before[k] for k, v in K.launch_counts().items()}
+    assert loss == pytest.approx(on_cpu.loss_and_grads(x, y).item(),
+                                 rel=1e-5, abs=1e-5)
+    for a, b in zip(on_card.model.parameters(), on_cpu.model.parameters()):
+        _close(a.grad, b.grad.cuda(), **_grad_tol(torch.float32, b.grad))
+    assert all(launched[k] > 0 for k in launched if k != "paged_attention")
+    # Adam's first steps move each weight by about lr * sign(g): compare
+    # the losses that follow, not weights whose gradient is near zero
+    for tr in (on_card, on_cpu):
+        tr.optimizer.step()
+        tr.optimizer.clear_grad()
+    losses = [on_card.step(x, y).item() for _ in range(2)]
+    ref = [on_cpu.step(x, y).item() for _ in range(2)]
+    assert losses == pytest.approx(ref, rel=1e-4, abs=1e-5)

@@ -181,8 +181,9 @@ def test_launch_counters_reset():
     assert K.launch_counts()["rmsnorm"] >= 3
     K.reset_launch_counts()
     assert set(K.launch_counts().values()) == {0}
-    assert set(K.launch_counts()) == {"flash_attention", "paged_attention",
-                                      "rmsnorm"}
+    assert set(K.launch_counts()) == {
+        "flash_attention", "flash_attention_bwd", "paged_attention",
+        "rmsnorm", "rmsnorm_bwd", "softmax_ce", "softmax_ce_bwd"}
 
 
 def test_build_raises_without_nvcc(monkeypatch):
@@ -195,4 +196,5 @@ def test_build_raises_without_nvcc(monkeypatch):
 
 def test_every_kernel_source_is_present():
     names = {p.stem for p in _build.sources()}
-    assert names == {"flash_attention", "paged_attention", "rmsnorm"}
+    assert names == {"flash_attention", "flash_attention_bwd",
+                     "paged_attention", "rmsnorm", "softmax_ce"}
