@@ -16,7 +16,11 @@ CUDA toolkit (``nvcc``). It imports nothing of JAX or of ``paddle_tpu``.
    plain version, the one PyTorch call that computes the same function
    (where there is one; for a backward kernel, the backward of that call)
    and the least time the card could take (bytes / 3.35 TB/s or flops over
-   the peak of their type, whichever is larger). Tolerances, as
+   the peak of their type, whichever is larger). Times are device times:
+   the card sleeps while the host queues the timed calls (``time_ms``), so
+   a kernel shorter than its Python wrapper is not timed at the host's
+   rate; the LayerNorm phase also prints the host's time to queue one
+   call of the wrapper and of ``F.layer_norm``. Tolerances, as
    |kernel - plain| <= atol + rtol * |plain|: both versions accumulate in
    f32, so bf16 output rounding sets the limit — one bf16 step is 2^-7
    relative, hence rtol 1e-2 on every bf16 output, with atol 2e-2 on flash
@@ -27,7 +31,18 @@ CUDA toolkit (``nvcc``). It imports nothing of JAX or of ``paddle_tpu``.
    so its rounding error scales with its largest summand: bf16 gradients
    get atol 1e-2 * max|plain| (f32 ones 1e-4 * max|plain|) with the same
    rtol; the softmax-CE loss and lse, f32 sums of the same bf16 logits in
-   another order, get atol 1e-4, rtol 1e-5.
+   another order, get atol 1e-4, rtol 1e-5. The ERNIE slice's kernels: LayerNorm at
+   [8192, 768] f32 (the ERNIE path's shape under O1) and bf16 and at
+   [1024, 4096] bf16, f32 outputs within LN_F32_ATOL (summation order),
+   bf16 ones within one bf16 step of the output's scale, mean and rstd
+   within LN_F32_ATOL; the flash kernels' dropout at ERNIE's
+   [16, 512, 12, 64] bf16, p 0.1, and with GQA and ragged S (777) at
+   head_dim 128, causal and not: the CUDA mask function's bits equal the
+   plain version's exactly, probes (q = k = 0, v = I) read each kernel's
+   applied mask out of out, dQ and dV and must equal those bits, and
+   outputs and gradients match the plain versions with the same seed under
+   the dense tolerances. The library column of the dropout kernels is
+   ``F.scaled_dot_product_attention(dropout_p=0.1)`` and its backward.
 3. Serving phase: Llama-2-7B at full width (32 layers) in bf16 with random
    weights from a seeded generator, served through ``LLMEngine``
    (4 slots, max_model_len 1024, block size 16) for 7 requests (6 greedy,
@@ -59,9 +74,30 @@ CUDA toolkit (``nvcc``). It imports nothing of JAX or of ``paddle_tpu``.
    memory, and a profile of one more step. The counters are zeroed just
    before the 5 steps and read just after; a training kernel never
    launched there fails the run.
+7. Whole ERNIE step: ``ErnieForMaskedLM`` at hidden 256 (4 heads of 64,
+   2 layers, vocab 40000, attention dropout 0.1, hidden dropout 0), batch
+   2 x 512, one forward, backward and AdamW step (LinearWarmup, global-norm
+   clip) under ``amp.auto_cast(O1, bf16)`` on the card against the same
+   f32 weights in f32 on the CPU through the plain versions, with the same
+   dropout seeds: both losses (before and after the step) within
+   STEP_LOSS_TOL, every gradient within STEP_GRAD_REL_L2 relative L2 but
+   the key projections' biases, whose exact gradient is 0 (the softmax
+   cancels them): on each side their norm must stay below 1e-2 of the key
+   weight gradient's.
+8. ERNIE phase: ERNIE-3.0-Base at its published width and depth (12
+   layers, hidden 768, 12 heads, inter 3072, vocab 40000, hidden and
+   attention dropout 0.1), batch 16 x 512 with 15 % of the positions
+   masked and labelled, f32 parameters under ``auto_cast(O1, bf16)``,
+   AdamW (lr 1e-4, weight decay 0.01) over LinearWarmup with
+   ClipGradByGlobalNorm(1.0): a warm-up step, then ERNIE_STEPS timed steps
+   on the one batch; every loss finite and the last below the first;
+   tokens/s, MFU (``ernie_flops_per_token``), peak memory; the launches
+   per step must be exactly ERNIE_PER_STEP; then one profiled step, and
+   one more split by synchronising into forward, backward, and clipping
+   with the AdamW update.
 
 The ``launches`` of the JSON line sum the main path's runs: the engine,
-the no-cache forward and the 5 training steps. The last two lines are one
+the no-cache forward, the 5 Llama training steps and the ERNIE steps. The last two lines are one
 JSON object with every kernel's numbers and one with the device. Any
 failure raises and exits non-zero; without a CUDA device, or without the
 package beside this file, it exits non-zero and prints no result.
@@ -105,6 +141,19 @@ STEP_GRAD_REL_L2 = 5e-2
 TRAIN_LAYERS = 8               # 7B widths; depth cut to fit one 80 GB card
 TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd", "rmsnorm",
                  "rmsnorm_bwd", "softmax_ce", "softmax_ce_bwd")
+# ERNIE slice. LayerNorm: f32 outputs differ from the plain version's by
+# summation order only (atol 1e-5 at |out| ~ 5); bf16 ones by one rounding
+# of the same f32 value, so by at most one bf16 step of the output's scale.
+LN_F32_ATOL = 1e-5
+ERNIE_STEPS = 10
+ERNIE_DROPOUT = 0.1            # ERNIE-3.0-Base's attention dropout
+# launches per ERNIE-3.0-Base MLM step: the embeddings' LayerNorm, two per
+# layer and the head's; one flash forward and backward (dropout) per layer;
+# one softmax-CE forward and backward for the loss
+ERNIE_PER_STEP = {"layernorm": 26, "flash_attention_dropout": 12,
+                  "flash_attention_bwd_dropout": 12, "softmax_ce": 1,
+                  "softmax_ce_bwd": 1, "flash_attention": 0,
+                  "flash_attention_bwd": 0}
 SOURCES = {
     "flash_attention": ("paddle_tpu_torch/csrc/flash_attention.cu",
                         "paddle_tpu/kernels/flash_attention.py:108"),
@@ -120,6 +169,16 @@ SOURCES = {
                    "paddle_tpu/kernels/softmax_ce.py:39"),
     "softmax_ce_bwd": ("paddle_tpu_torch/csrc/softmax_ce.cu",
                        "paddle_tpu/kernels/softmax_ce.py:50"),
+    "layernorm": ("paddle_tpu_torch/csrc/layernorm.cu",
+                  "paddle_tpu/kernels/layernorm.py:38"),
+    # the dropout instantiations of the flash kernels (`_drop_mask` applied
+    # at flash_attention.py:158 in `_fwd_kernel`, :222 and :277 in the
+    # backward kernels)
+    "flash_attention_dropout": ("paddle_tpu_torch/csrc/flash_attention.cu",
+                                "paddle_tpu/kernels/flash_attention.py:108"),
+    "flash_attention_bwd_dropout": (
+        "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+        "paddle_tpu/kernels/flash_attention.py:173"),
 }
 
 
@@ -131,18 +190,41 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def time_ms(torch, fn, iters=20, warmup=3) -> float:
-    """Mean device time of ``fn`` over ``iters`` back-to-back calls."""
+def time_ms(torch, fn, iters=20, warmup=3, host=None) -> float:
+    """Mean device time of ``fn`` over ``iters`` back-to-back calls. The
+    card first sleeps for longer than the host takes to queue all of them,
+    so the events time the kernels alone and not the Python around each
+    launch (a kernel shorter than its wrapper's host time would otherwise
+    be timed at the host's rate). Where the host took longer to queue
+    than the card slept, the card may have waited for it: the run is
+    repeated with a longer sleep (up to 3 runs). ``host``, a list, gets
+    the host's time to queue one call, in ms."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    one = time.perf_counter() - t0          # host and device, one call
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
+    sleep_s = 2e-3 + 1.5 * iters * one
+    for _ in range(3):
+        # cycles at 2 GHz, above the H100's clock: the sleep lasts at least
+        # sleep_s
+        torch.cuda._sleep(int(2e9 * sleep_s))
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        queued = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        if queued < sleep_s:
+            break
+        sleep_s = 2e-3 + 2 * queued
+    if host is not None:
+        host.append(queued * 1e3 / iters)
     return start.elapsed_time(end) / iters
 
 
@@ -379,59 +461,256 @@ def rmsnorm_bwd_phase(torch, g):
 
 
 def softmax_ce_phases(torch, g):
+    """Both softmax-CE kernels at Llama's logits (every 10th row ignored,
+    the row in the kernels line) and at ERNIE's MLM logits (labels made as
+    ernie_batch makes them: about 85 % of rows at ignore_index)."""
     from paddle_tpu_torch.kernels.softmax_ce import (
         softmax_ce_bwd_cuda, softmax_ce_bwd_plain, softmax_ce_cuda,
         softmax_ce_plain)
 
-    N, V = 8192, 32000
-    print(f"[kernel] softmax_ce, softmax_ce_bwd  logits [{N}, {V}] bf16, "
-          f"every 10th row at ignore_index")
-    x = (2 * torch.randn(N, V, device="cuda", generator=g)).bfloat16()
-    lab = torch.randint(0, V, (N,), device="cuda", generator=g)
-    lab[::10] = -100
-    valid = lab != -100
-    # what cross_entropy hands the kernels: label 0 on ignored rows, and
-    # the mean's gradient 1 / (valid rows) on the others
-    safe = torch.where(valid, lab, 0)
-    gl = valid.float() / valid.sum()
-    loss, lse = softmax_ce_cuda(x, safe)
-    p_loss, p_lse = softmax_ce_plain(x, safe)
-    dx = softmax_ce_bwd_cuda(x, safe, lse, gl)
-    p_dx = softmax_ce_bwd_plain(x, safe, p_lse, gl)
+    rows = None
+    for V, what in ((32000, "every 10th row:"), (40000, "ERNIE's MLM labels:")):
+        N = 8192
+        x = (2 * torch.randn(N, V, device="cuda", generator=g)).bfloat16()
+        if V == 32000:
+            lab = torch.randint(0, V, (N,), device="cuda", generator=g)
+            lab[::10] = -100
+        else:
+            lab = ernie_batch(torch, 16, 512, V, 1, "cuda")[1].reshape(-1)
+        valid = lab != -100
+        n_valid = int(valid.sum().item())
+        print(f"[kernel] softmax_ce, softmax_ce_bwd  logits [{N}, {V}] bf16, "
+              f"{what} {N - n_valid} of {N} rows at ignore_index")
+        # what cross_entropy hands the kernels: label 0 on ignored rows, and
+        # the mean's gradient 1 / (valid rows) on the others
+        safe = torch.where(valid, lab, 0)
+        gl = valid.float() / n_valid
+        loss, lse = softmax_ce_cuda(x, safe)
+        p_loss, p_lse = softmax_ce_plain(x, safe)
+        dx = softmax_ce_bwd_cuda(x, safe, lse, gl)
+        p_dx = softmax_ce_bwd_plain(x, safe, p_lse, gl)
+        torch.cuda.synchronize()
+        err_f = max(check(torch, "loss (valid rows)", loss[valid],
+                          p_loss[valid], CE_ATOL, CE_RTOL),
+                    check(torch, "lse", lse, p_lse, CE_ATOL, CE_RTOL))
+        err_b = check_grad(torch, "dx", dx, p_dx, GRAD_FRAC_BF16)
+        if dx[~valid].abs().max().item() != 0:
+            raise AssertionError("softmax_ce_bwd: an ignored row got a "
+                                 "gradient")
+        del p_dx, dx
+        fwd_ms = time_ms(torch, lambda: softmax_ce_cuda(x, safe))
+        fwd_plain = time_ms(torch, lambda: softmax_ce_plain(x, safe), iters=5)
+        fwd_lib = time_ms(torch, lambda: torch.nn.functional.cross_entropy(
+            x, lab, reduction="none"))
+        bwd_ms = time_ms(torch, lambda: softmax_ce_bwd_cuda(x, safe, lse, gl))
+        bwd_plain = time_ms(torch, lambda: softmax_ce_bwd_plain(
+            x, safe, p_lse, gl), iters=5)
+        xt = x.detach().requires_grad_()
+        lt = torch.nn.functional.cross_entropy(xt, lab, reduction="none")
+        bwd_lib = time_ms(torch, lambda: torch.autograd.grad(
+            lt, xt, gl, retain_graph=True))
+        del lt, xt
+        shape = f"[{N}, {V}] bf16"
+        # forward: read the logits and labels, write loss and lse; about five
+        # f32 operations per logit (max, subtract, exp, add, compare)
+        bound_f, by_f = bound_ms(x.numel() * 2 + N * 8 + N * 8, 5 * x.numel(),
+                                 F32_FLOPS)
+        # backward: read the logits, labels, lse and g, write dx (every row,
+        # the ignored ones as zeros)
+        bound_b, by_b = bound_ms(2 * x.numel() * 2 + N * 16, 5 * x.numel(),
+                                 F32_FLOPS)
+        pair = (dict(shape=shape, ms=fwd_ms, plain_ms=fwd_plain,
+                     library_ms=fwd_lib, bound_ms=bound_f, bound_by=by_f,
+                     max_abs_err=err_f),
+                dict(shape=shape, ms=bwd_ms, plain_ms=bwd_plain,
+                     library_ms=bwd_lib, bound_ms=bound_b, bound_by=by_b,
+                     max_abs_err=err_b))
+        if rows is None:
+            rows = pair
+        else:
+            for name, r in zip(("softmax_ce", "softmax_ce_bwd"), pair):
+                print(f"  {name} at {shape} (ERNIE's MLM loss): kernel "
+                      f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+                      f"library {r['library_ms']:.4f} ms, bound "
+                      f"{r['bound_ms']:.4f} ms ({r['bound_by']}), max abs "
+                      f"err {r['max_abs_err']:.3e}")
+        del x, lab, safe, gl, loss, lse, p_loss, p_lse
+    return rows
+
+
+def layernorm_phase(torch, g):
+    from paddle_tpu_torch.kernels.layernorm import (layer_norm_cuda,
+                                                    layer_norm_plain)
+
+    print("[kernel] layernorm  x [rows, F], w and b [F], eps 1e-5")
+    row = None
+    worst = 0.0
+    for rows, cols, dt in ((8192, 768, torch.float32),
+                           (8192, 768, torch.bfloat16),
+                           (1024, 4096, torch.bfloat16)):
+        x = (2 * torch.randn(rows, cols, device="cuda", generator=g)
+             + 0.5).to(dt)
+        w = (1 + 0.1 * torch.randn(cols, device="cuda", generator=g)).to(dt)
+        b = (0.1 * torch.randn(cols, device="cuda", generator=g)).to(dt)
+        out, mean, rstd = layer_norm_cuda(x, w, b, 1e-5)
+        p_out, p_mean, p_rstd = layer_norm_plain(x, w, b, 1e-5)
+        torch.cuda.synchronize()
+        tag = f"[{rows}, {cols}] {str(dt)[6:]}"
+        if dt == torch.float32:
+            atol, rtol = LN_F32_ATOL, LN_F32_ATOL
+        else:   # one bf16 step at the scale of the largest output
+            top = p_out.float().abs().max().item()
+            atol, rtol = 2.0 ** (math.floor(math.log2(top)) - 7), 0.0
+        err = check(torch, f"{tag} out", out, p_out, atol, rtol)
+        check(torch, f"{tag} mean", mean, p_mean, LN_F32_ATOL, LN_F32_ATOL)
+        check(torch, f"{tag} rstd", rstd, p_rstd, LN_F32_ATOL, LN_F32_ATOL)
+        worst = max(worst, err)
+        host = []
+        ms = time_ms(torch, lambda: layer_norm_cuda(x, w, b, 1e-5),
+                     host=host)
+        plain = time_ms(torch, lambda: layer_norm_plain(x, w, b, 1e-5))
+        lib = time_ms(torch, lambda: torch.nn.functional.layer_norm(
+            x, (cols,), w, b, 1e-5), host=host)
+        size = x.element_size()
+        # read x, w, b; write out, mean, rstd; ~8 f32 operations an element
+        nbytes = 2 * x.numel() * size + 2 * cols * size + 2 * rows * 4
+        bound, by = bound_ms(nbytes, 8 * x.numel(), F32_FLOPS)
+        print(f"  {tag}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+              f"F.layer_norm {lib:.4f} ms, bound {bound:.4f} ms ({by}); "
+              f"host time to queue one call: wrapper {host[0]:.4f} ms, "
+              f"F.layer_norm {host[1]:.4f} ms")
+        if row is None:     # the ERNIE path's shape: f32 under O1
+            row = dict(shape=tag, ms=ms, plain_ms=plain, library_ms=lib,
+                       bound_ms=bound, bound_by=by)
+    row["max_abs_err"] = worst
+    return row
+
+
+def flash_dropout_phases(torch, g):
+    """The flash kernels' dropout: the mask function against its plain
+    version bit for bit, each kernel's applied mask read out by probes,
+    then outputs and gradients against the plain versions."""
+    from paddle_tpu_torch.kernels.flash_attention import (
+        delta_minus_glse, dropout_bits_cuda, dropout_bits_plain,
+        dropout_keep_plain, flash_attention_bwd_cuda,
+        flash_attention_bwd_plain, flash_attention_cuda,
+        flash_attention_plain)
+
+    p, seed = ERNIE_DROPOUT, 20240
+    B, S, H, D = 16, 512, 12, 64
+    print(f"[kernel] flash_attention_dropout, flash_attention_bwd_dropout  "
+          f"[{B}, {S}, {H}, {D}] bf16, p {p}")
+    bits = dropout_bits_cuda(seed, B * H, S, S, "cuda")
+    want = dropout_bits_plain(seed, B * H, S, S, "cuda")
     torch.cuda.synchronize()
-    err_f = max(check(torch, "loss (valid rows)", loss[valid], p_loss[valid],
-                      CE_ATOL, CE_RTOL),
-                check(torch, "lse", lse, p_lse, CE_ATOL, CE_RTOL))
-    err_b = check_grad(torch, "dx", dx, p_dx, GRAD_FRAC_BF16)
-    if dx[~valid].abs().max().item() != 0:
-        raise AssertionError("softmax_ce_bwd: an ignored row got a gradient")
-    del p_dx
-    fwd_ms = time_ms(torch, lambda: softmax_ce_cuda(x, safe))
-    fwd_plain = time_ms(torch, lambda: softmax_ce_plain(x, safe), iters=5)
-    fwd_lib = time_ms(torch, lambda: torch.nn.functional.cross_entropy(
-        x, lab, reduction="none"))
-    bwd_ms = time_ms(torch, lambda: softmax_ce_bwd_cuda(x, safe, lse, gl))
-    bwd_plain = time_ms(torch, lambda: softmax_ce_bwd_plain(
-        x, safe, p_lse, gl), iters=5)
-    xt = x.detach().requires_grad_()
-    lt = torch.nn.functional.cross_entropy(xt, lab, reduction="none")
-    bwd_lib = time_ms(torch, lambda: torch.autograd.grad(
-        lt, xt, gl, retain_graph=True))
-    del lt
-    shape = f"[{N}, {V}] bf16"
-    # forward: read the logits and labels, write loss and lse; about five
-    # f32 operations per logit (max, subtract, exp, add, compare)
-    bound_f, by_f = bound_ms(x.numel() * 2 + N * 8 + N * 8, 5 * x.numel(),
-                             F32_FLOPS)
-    # backward: read the logits, labels, lse and g, write dx
-    bound_b, by_b = bound_ms(2 * x.numel() * 2 + N * 16, 5 * x.numel(),
-                             F32_FLOPS)
-    return (dict(shape=shape, ms=fwd_ms, plain_ms=fwd_plain,
-                 library_ms=fwd_lib, bound_ms=bound_f, bound_by=by_f,
-                 max_abs_err=err_f),
-            dict(shape=shape, ms=bwd_ms, plain_ms=bwd_plain,
-                 library_ms=bwd_lib, bound_ms=bound_b, bound_by=by_b,
-                 max_abs_err=err_b))
+    same = bool(torch.equal(bits, want))
+    print(f"  mask function: {bits.numel()} bits of the CUDA dump equal to "
+          f"the plain version's: {same}")
+    if not same:
+        raise AssertionError("dropout bits differ from the plain version")
+    del bits, want
+    # probes: S_k = D keys, q = k = 0, so every probability is 1 / D
+    for d in (64, 128):
+        Sq, Hp = 300, 4
+        zeros = torch.zeros(2, Sq, Hp, d, device="cuda", dtype=torch.bfloat16)
+        kzero = torch.zeros(2, d, Hp, d, device="cuda", dtype=torch.bfloat16)
+        eye = torch.eye(d, device="cuda", dtype=torch.bfloat16)[
+            None, :, None, :].expand(2, d, Hp, d).contiguous()
+        keep = dropout_keep_plain(seed, 2, Hp, Sq, d, p, "cuda").float()
+        out, _ = flash_attention_cuda(zeros, kzero, eye, False, None, p, seed)
+        lse = torch.full((2, Hp, Sq), math.log(d), device="cuda")
+        dg = torch.zeros(2, Hp, Sq, device="cuda")
+        dq, _, _ = flash_attention_bwd_cuda(zeros, eye, eye,
+                                            torch.ones_like(zeros), lse, dg,
+                                            False, None, p, seed)
+        _, _, dv = flash_attention_bwd_cuda(
+            kzero, kzero, eye, eye, lse[:, :, :d].contiguous(),
+            dg[:, :, :d].contiguous(), False, None, p, seed)
+        torch.cuda.synchronize()
+        reads = {
+            "forward": (out.float() * d * (1 - p)).round().permute(0, 2, 1, 3),
+            "dQ": (dq.float() * d * (1 - p) * math.sqrt(d)).round()
+            .permute(0, 2, 1, 3),
+            "dK/dV": (dv.float() * d * (1 - p)).round().permute(0, 2, 3, 1)}
+        for name, z in reads.items():
+            ref = keep if name != "dK/dV" else keep[:, :, :d]
+            if not torch.equal(z, ref):
+                raise AssertionError(f"the {name} kernel applied another "
+                                     f"mask than the plain bits (d={d})")
+        print(f"  probes, head_dim {d}: the forward, dQ and dK/dV kernels "
+              f"each applied exactly the plain version's mask")
+    worst_f = worst_b = 0.0
+    rows = None
+    for (b_, s_, h_, hkv, d, causal) in ((B, S, H, H, D, False),
+                                         (2, 777, 16, 4, 128, False),
+                                         (2, 777, 16, 4, 128, True)):
+        q = torch.randn(b_, s_, h_, d, device="cuda", generator=g).bfloat16()
+        k = torch.randn(b_, s_, hkv, d, device="cuda", generator=g).bfloat16()
+        v = torch.randn(b_, s_, hkv, d, device="cuda", generator=g).bfloat16()
+        do = torch.randn(b_, s_, h_, d, device="cuda", generator=g).bfloat16()
+        tag = f"[{b_}, {s_}, {h_}, {d}] Hkv={hkv} causal={causal}"
+        out, lse = flash_attention_cuda(q, k, v, causal, None, p, seed)
+        p_out, p_lse = flash_attention_plain(q, k, v, causal, None, p, seed)
+        torch.cuda.synchronize()
+        worst_f = max(worst_f, check(torch, f"{tag} out", out, p_out,
+                                     ATTN_ATOL, BF16_RTOL))
+        check(torch, f"{tag} lse", lse, p_lse, F32_ATOL)
+        dg = delta_minus_glse(p_out, do)
+        got = flash_attention_bwd_cuda(q, k, v, do, p_lse, dg, causal, None,
+                                       p, seed)
+        want = flash_attention_bwd_plain(q, k, v, do, p_lse, dg, causal,
+                                         None, p, seed)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("dq", "dk", "dv"), got, want):
+            worst_b = max(worst_b, check_grad(torch, f"{tag} {name}", a, b,
+                                              GRAD_FRAC_BF16))
+        del got, want, p_out
+        if rows is not None:
+            continue
+        # the ERNIE shape: kernel, plain, library, and the dense kernel
+        fwd = time_ms(torch, lambda: flash_attention_cuda(q, k, v, False,
+                                                          None, p, seed))
+        dense = time_ms(torch, lambda: flash_attention_cuda(q, k, v))
+        fwd_plain = time_ms(torch, lambda: flash_attention_plain(
+            q, k, v, False, None, p, seed), iters=3, warmup=1)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        fwd_lib = time_ms(torch, lambda: sdpa(qt, kt, vt, dropout_p=p))
+        bwd = time_ms(torch, lambda: flash_attention_bwd_cuda(
+            q, k, v, do, lse, dg, False, None, p, seed))
+        bwd_dense = time_ms(torch, lambda: flash_attention_bwd_cuda(
+            q, k, v, do, lse, dg))
+        bwd_plain = time_ms(torch, lambda: flash_attention_bwd_plain(
+            q, k, v, do, lse, dg, False, None, p, seed), iters=3, warmup=1)
+        qg, kg, vg = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
+        og = sdpa(qg, kg, vg, dropout_p=p)
+        bwd_lib = time_ms(torch, lambda: torch.autograd.grad(
+            og, (qg, kg, vg), do.transpose(1, 2), retain_graph=True))
+        del og
+        pairs = s_ * s_
+        # forward: read q, k, v, write out and lse; two products of
+        # 2 * pairs * D flops per head
+        nb_f = 4 * q.numel() * 2 + b_ * h_ * s_ * 4
+        bound_f, by_f = bound_ms(nb_f, 4 * pairs * d * b_ * h_)
+        # backward: read q, k, v, dO, lse, dg, write dq, dk, dv; five
+        # products
+        nb_b = 7 * q.numel() * 2 + 2 * b_ * h_ * s_ * 4
+        bound_b, by_b = bound_ms(nb_b, 10 * pairs * d * b_ * h_)
+        print(f"  {tag}: forward kernel {fwd:.4f} ms (dense kernel "
+              f"{dense:.4f}), plain {fwd_plain:.4f}, SDPA(dropout) "
+              f"{fwd_lib:.4f}, bound {bound_f:.4f} ({by_f}); backward kernel "
+              f"{bwd:.4f} ms (dense {bwd_dense:.4f}), plain {bwd_plain:.4f}, "
+              f"SDPA backward {bwd_lib:.4f}, bound {bound_b:.4f} ({by_b})")
+        shape = f"{tag} bf16 p={p}"
+        rows = (dict(shape=shape, ms=fwd, plain_ms=fwd_plain,
+                     library_ms=fwd_lib, bound_ms=bound_f, bound_by=by_f,
+                     dense_ms=dense),
+                dict(shape=shape, ms=bwd, plain_ms=bwd_plain,
+                     library_ms=bwd_lib, bound_ms=bound_b, bound_by=by_b,
+                     dense_ms=bwd_dense))
+    rows[0]["max_abs_err"], rows[1]["max_abs_err"] = worst_f, worst_b
+    return rows
 
 
 def serving_phase(torch, K):
@@ -651,7 +930,8 @@ def whole_step_check(torch, K):
 
 def kernel_share(kernels):
     """Device ms by group of the profiled kernels: ours, GEMMs, the rest."""
-    ours = ("flash_fwd", "flash_bwd", "rmsnorm", "softmax_ce", "paged_")
+    ours = ("flash_fwd", "flash_bwd", "rmsnorm", "softmax_ce", "paged_",
+            "layernorm")
     gemm = ("gemm", "nvjet", "xmma", "cutlass", "cublas")
     share = {"port kernels": 0.0, "GEMMs (cuBLAS)": 0.0, "other": 0.0}
     for k in kernels:
@@ -754,6 +1034,236 @@ def training_phase(torch, K):
     return counts
 
 
+def ernie_batch(torch, B, S, vocab, seed, device):
+    """Seeded MLM batch: token ids, 15 % of positions carry their token as
+    the label (the rest -100) and show the [MASK] id 3 in the input."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    ids = torch.randint(5, vocab, (B, S), device=device, generator=gen)
+    masked = torch.rand(B, S, device=device, generator=gen) < 0.15
+    labels = torch.where(masked, ids, -100)
+    return torch.where(masked, 3, ids), labels
+
+
+def mlm_loss(F, model, x, y):
+    logits = model(x)
+    return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                           y.reshape(-1))
+
+
+def whole_step_ernie(torch, K):
+    """One ERNIE MLM step (forward, backward, AdamW over LinearWarmup with
+    global-norm clipping) under auto_cast(O1, bf16) on the card, against
+    the same f32 weights in f32 on the CPU through the plain versions,
+    with the same attention-dropout seeds (drawn on the host after
+    framework.seed)."""
+    from paddle_tpu_torch import amp, framework
+    from paddle_tpu_torch.models import ErnieConfig, ErnieForMaskedLM
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.optimizer import AdamW, LinearWarmup
+
+    cfg = ErnieConfig(vocab_size=40000, hidden_size=256, num_hidden_layers=2,
+                      num_attention_heads=4, intermediate_size=1024,
+                      max_position_embeddings=512, hidden_dropout_prob=0.0,
+                      attention_probs_dropout_prob=ERNIE_DROPOUT)
+    print("[whole step ernie] hidden 256, 4 heads of 64, 2 layers, vocab "
+          "40000, batch 2 x 512, attention dropout 0.1: O1 bf16 on the card "
+          "vs f32 on the CPU")
+    card = ErnieForMaskedLM(cfg, seed=1)
+    cpu = ErnieForMaskedLM(cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    x, y = ernie_batch(torch, 2, 512, 40000, 3, "cpu")
+    losses, grads, launched = [], [], None
+    for model in (card, cpu):
+        dev = model.ernie.device
+        opt = AdamW(learning_rate=LinearWarmup(1e-4, 2, 1e-5, 1e-4),
+                    parameters=model.parameters(), weight_decay=0.01,
+                    grad_clip=ClipGradByGlobalNorm(1.0))
+        framework.seed(5)
+        K.reset_launch_counts()
+        with amp.auto_cast(enable=dev.type == "cuda", level="O1"):
+            loss = mlm_loss(F, model, x.to(dev), y.to(dev))
+        loss.backward()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            launched = K.launch_counts()
+        losses.append(loss.item())
+        grads.append({n: p.grad.float().cpu()
+                      for n, p in model.named_parameters()
+                      if p.grad is not None})
+        opt.step()
+        opt.clear_grad()
+        framework.seed(6)
+        with amp.auto_cast(enable=dev.type == "cuda", level="O1"), \
+                torch.no_grad():
+            losses.append(mlm_loss(F, model, x.to(dev), y.to(dev)).item())
+    needed = {k: v for k, v in ERNIE_PER_STEP.items() if v}
+    missing = [k for k in needed if launched[k] == 0]
+    if missing:
+        raise AssertionError(f"the card's ERNIE step never launched "
+                             f"{missing}")
+    if set(grads[0]) != set(grads[1]):
+        raise AssertionError("the card and the CPU gave gradients to "
+                             "different parameters")
+    # the key projection's bias adds q . b_k to every score of a row, which
+    # the softmax cancels (with dropout too: each row of dS sums to 0), so
+    # its exact gradient is 0 and each side holds only its rounding noise,
+    # a sum over tokens of the rounding of dK. Against its own side's key
+    # weight gradient, a sum of the same dK times activations, that noise
+    # is ~1e-4 in bf16 (bf16 step 2^-9 over sqrt(hidden)); rows of dS that
+    # do not sum to 0 (a mask that differs between P and dP) would give
+    # ~1/sqrt(hidden) = 6e-2. Held below 1e-2.
+    key_noise = {}
+    for n in [n for n in grads[1] if n.endswith("self_attn.k_proj.bias")]:
+        w = n.replace("bias", "weight")
+        ratio = [g.pop(n).norm().item() / g[w].norm().item() for g in grads]
+        key_noise[n] = ratio
+        if not max(ratio) <= 1e-2:
+            raise AssertionError(f"whole ERNIE step: {n}'s gradient, 0 in "
+                                 f"exact arithmetic, has {ratio} of the key "
+                                 f"weight gradient's norm (card, CPU)")
+    print("  key-bias gradients (0 in exact arithmetic), norm over the key "
+          "weight gradient's, card / CPU: "
+          + ", ".join(f"layer {n.split('.')[3]} {a:.2e} / {b:.2e}"
+                      for n, (a, b) in key_noise.items()))
+    rel = {n: ((grads[0][n] - g).norm() / g.norm()).item()
+           for n, g in grads[1].items()}
+    worst = sorted(rel.items(), key=lambda r: -r[1])[:3]
+    print(f"  loss {losses[0]:.5f} on the card, {losses[2]:.5f} on the CPU "
+          f"(|diff| {abs(losses[0] - losses[2]):.2e}, limit "
+          f"{STEP_LOSS_TOL}); after the AdamW step {losses[1]:.5f} / "
+          f"{losses[3]:.5f}; worst gradient relative L2 errors "
+          + ", ".join(f"{n} {e:.2e}" for n, e in worst)
+          + f" (limit {STEP_GRAD_REL_L2}, {len(rel)} parameters); launches "
+          f"{ {k: v for k, v in launched.items() if v} }")
+    for a, b in ((losses[0], losses[2]), (losses[1], losses[3])):
+        if not abs(a - b) <= STEP_LOSS_TOL:
+            raise AssertionError(f"whole ERNIE step: loss {a} vs {b}")
+    if not worst[0][1] <= STEP_GRAD_REL_L2:
+        raise AssertionError(f"whole ERNIE step: gradient of {worst[0][0]} "
+                             f"off by {worst[0][1]} in relative L2")
+
+
+def ernie_flops_per_token(cfg, S):
+    """Training flops a token: 6 x the parameters of the token-wise matmuls
+    (per layer the four attention projections and the two MLP matrices,
+    then the MLM transform and decoder) + 12 S hidden per layer for the
+    score and P.V products (forward and backward)."""
+    h, L = cfg.hidden_size, cfg.num_hidden_layers
+    params = L * (4 * h * h + 2 * h * cfg.intermediate_size) \
+        + h * h + h * cfg.vocab_size
+    return 6 * params + 12 * S * h * L
+
+
+def ernie_training_phase(torch, K):
+    """ERNIE-3.0-Base MLM pretraining at its published width and depth."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch import amp, framework
+    from paddle_tpu_torch.models import ErnieForMaskedLM, ernie_base
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.optimizer import AdamW, LinearWarmup
+
+    B, S = 16, 512
+    cfg = ernie_base()
+    print(f"[ernie] ERNIE-3.0-Base (12 layers, hidden 768, 12 heads, inter "
+          f"3072, vocab 40000, dropout 0.1 / 0.1), batch {B} x {S}, f32 "
+          f"params under auto_cast(O1, bf16), AdamW lr 1e-4 over "
+          f"LinearWarmup, ClipGradByGlobalNorm(1.0)")
+    framework.seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    model = ErnieForMaskedLM(cfg, seed=0)
+    sched = LinearWarmup(1e-4, warmup_steps=4, start_lr=1e-5, end_lr=1e-4)
+    opt = AdamW(learning_rate=sched, parameters=model.parameters(),
+                weight_decay=0.01, grad_clip=ClipGradByGlobalNorm(1.0))
+    x, y = ernie_batch(torch, B, S, cfg.vocab_size, 1, "cuda")
+    print(f"  {model.num_params() / 1e6:.1f} M parameters, "
+          f"{int((y != -100).sum())} labelled positions")
+
+    def step():
+        with amp.auto_cast(level="O1", dtype="bfloat16"):
+            loss = mlm_loss(F, model, x, y)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        sched.step()
+        return loss
+
+    t0 = time.monotonic()
+    losses = [step().item()]                      # warm-up
+    print(f"  warm-up step {time.monotonic() - t0:.2f}s, loss "
+          f"{losses[0]:.4f}")
+    K.reset_launch_counts()
+    walls = []
+    for _ in range(ERNIE_STEPS):
+        t0 = time.monotonic()
+        losses.append(step().item())
+        torch.cuda.synchronize()
+        walls.append(time.monotonic() - t0)
+    counts = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  losses {[round(v, 4) for v in losses]}")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite ERNIE loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the ERNIE loss did not fall: {losses}")
+    per_step = {k: counts[k] / ERNIE_STEPS for k in ERNIE_PER_STEP}
+    print(f"  launches per step: {per_step} (expected {ERNIE_PER_STEP})")
+    if per_step != {k: float(v) for k, v in ERNIE_PER_STEP.items()}:
+        raise AssertionError("the ERNIE steps launched other kernels than "
+                             "the model's structure gives")
+    mean = sum(walls) / len(walls)
+    tok_s = B * S / mean
+    flops = ernie_flops_per_token(cfg, S)
+    print(f"  step wall {mean * 1e3:.1f} ms (mean of {ERNIE_STEPS}, min "
+          f"{min(walls) * 1e3:.1f}); {tok_s:.0f} tokens/s; MFU "
+          f"{100 * tok_s * flops / BF16_FLOPS:.1f}% ({flops / 1e9:.3f} "
+          f"GFLOP/token against {BF16_FLOPS / 1e12:.0f} TFLOP/s); peak "
+          f"memory {peak / 2 ** 30:.2f} GiB")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        step()
+        torch.cuda.synchronize()
+        prof_wall = (time.monotonic() - t0) * 1e3
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        raise AssertionError("the profiled ERNIE step traced no kernel")
+    busy = busy_ms(kernels)
+    print(f"[profile] one ERNIE step: device busy {busy:.2f} ms in "
+          f"{len(kernels)} kernels, wall {prof_wall:.2f} ms under the "
+          f"profiler (unprofiled mean {mean * 1e3:.2f} ms), idle "
+          f"{100 * (1 - busy / prof_wall):.1f}% of the profiled wall, "
+          f"{100 * (1 - busy / (mean * 1e3)):.1f}% of the unprofiled mean")
+    for group, ms in kernel_share(kernels).items():
+        print(f"  {ms:9.3f} ms  {group}")
+    per_name: dict[str, list] = {}
+    for k in kernels:
+        acc = per_name.setdefault(k.name, [0.0, 0])
+        acc[0] += (k.time_range.end - k.time_range.start) / 1e3
+        acc[1] += 1
+    for name, (ms, n) in sorted(per_name.items(), key=lambda r: -r[1][0])[:12]:
+        print(f"  {ms:9.3f} ms  x{n:<5d} {name[:90]}")
+    # one more step, split: forward, backward, then clipping and AdamW
+    marks = [time.monotonic()]
+    with amp.auto_cast(level="O1", dtype="bfloat16"):
+        loss = mlm_loss(F, model, x, y)
+    for part in (loss.backward, opt.step):
+        torch.cuda.synchronize()
+        marks.append(time.monotonic())
+        part()
+    torch.cuda.synchronize()
+    marks.append(time.monotonic())
+    opt.clear_grad()
+    fwd, bwd, upd = (1e3 * (b - a) for a, b in zip(marks, marks[1:]))
+    print(f"  one step split: forward {fwd:.1f} ms, backward {bwd:.1f} ms, "
+          f"clip + AdamW update {upd:.1f} ms")
+    del model, opt
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -786,6 +1296,10 @@ def main() -> int:
     rows["flash_attention_bwd"] = flash_bwd_phase(torch, g)
     rows["rmsnorm_bwd"] = rmsnorm_bwd_phase(torch, g)
     rows["softmax_ce"], rows["softmax_ce_bwd"] = softmax_ce_phases(torch, g)
+    rows["layernorm"] = layernorm_phase(torch, g)
+    torch.cuda.empty_cache()
+    (rows["flash_attention_dropout"],
+     rows["flash_attention_bwd_dropout"]) = flash_dropout_phases(torch, g)
     for name, r in rows.items():
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         print(f"  {name} at {r['shape']}: kernel {r['ms']:.4f} ms, plain "
@@ -804,6 +1318,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     trained = training_phase(torch, K)
     launches = {k: launches.get(k, 0) + trained[k] for k in trained}
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    whole_step_ernie(torch, K)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ernie = ernie_training_phase(torch, K)
+    launches = {k: launches[k] + ernie[k] for k in launches}
 
     kernels = []
     for name, r in rows.items():

@@ -121,6 +121,61 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// ---------------------------------------------------------------------------
+// Attention dropout: the keep bit of score (bh = b * H + h, query i, key j)
+// is a pure function of (seed, bh, i, j), shared by the flash forward, dQ
+// and dK/dV kernels (and the bit dump of flash_attention.cu), so backward
+// regenerates exactly the forward's mask whatever tile each kernel walks.
+// h is always the QUERY head (also in the GQA dK/dV kernel). The bits are
+// murmur3's 32-bit finaliser over three chained keys:
+//   kbh  = fmix32(seed ^ fmix32(bh * 0x9E3779B9 + 0x7F4A7C15))
+//   krow = fmix32(kbh ^ (i * 0x85EBCA77 + 0x165667B1))
+//   bits = fmix32(krow + j * 0x9E3779B9)              (all mod 2^32)
+// and the score is kept iff bits >= thresh, thresh = floor(p * 2^32)
+// (capped at 2^32 - 1), so P(keep) = 1 - p to within 2^-32. A kernel
+// computes krow once per query row and one fmix32 per score.
+// kernels/flash_attention.py `dropout_bits_plain` is the same function in
+// torch.int64 ops.
+// ---------------------------------------------------------------------------
+__host__ __device__ __forceinline__ uint32_t ptt_fmix32(uint32_t h) {
+  h ^= h >> 16;
+  h *= 0x85EBCA6Bu;
+  h ^= h >> 13;
+  h *= 0xC2B2AE35u;
+  h ^= h >> 16;
+  return h;
+}
+
+__host__ __device__ __forceinline__ uint32_t drop_row_key(uint32_t seed,
+                                                          uint32_t bh,
+                                                          uint32_t i) {
+  const uint32_t kbh =
+      ptt_fmix32(seed ^ ptt_fmix32(bh * 0x9E3779B9u + 0x7F4A7C15u));
+  return ptt_fmix32(kbh ^ (i * 0x85EBCA77u + 0x165667B1u));
+}
+
+__host__ __device__ __forceinline__ uint32_t drop_bits(uint32_t krow,
+                                                       uint32_t j) {
+  return ptt_fmix32(krow + j * 0x9E3779B9u);
+}
+
+__device__ __forceinline__ bool drop_keep(uint32_t krow, int j,
+                                          uint32_t thresh) {
+  return drop_bits(krow, static_cast<uint32_t>(j)) >= thresh;
+}
+
+// x * z / (1 - p): z the keep bit of (krow, j), rp = 1 / (1 - p)
+__device__ __forceinline__ float drop_apply(float x, uint32_t krow, int j,
+                                            uint32_t thresh, float rp) {
+  return drop_keep(krow, j, thresh) ? x * rp : 0.f;
+}
+
+// the dropout arguments every flash kernel takes (unused when p = 0)
+struct Drop {
+  uint32_t seed, thresh;
+  float rp;
+};
+
 #define PTT_EXPORT_ERROR_STRING                                \
   extern "C" const char* ptt_error_string(int e) {               \
     return cudaGetErrorString(static_cast<cudaError_t>(e));      \

@@ -1,7 +1,14 @@
 // Flash attention forward (dense, causal or not): returns out and lse.
 //
 // Replaces paddle_tpu/kernels/flash_attention.py `_fwd_kernel` (pallas_call
-// in `_core_fwd`) for the case with no mask, no segments and no dropout.
+// in `_core_fwd`) for the case with no mask and no segments, with or without
+// dropout on the probabilities (`_drop_mask` there). With dropout, l sums
+// the un-dropped p while p * z / (1 - p) feeds P.V, as in the reference; the
+// keep bit z of score (b * H + h, i, j) comes from drop_row_key/drop_bits
+// (common.cuh), a function of the element alone, so the backward kernels,
+// which tile differently, regenerate the same mask. Each kernel is a
+// template on DROP: p = 0 runs the DROP = false instantiation, the code
+// without dropout.
 // Layout is the reference's public one, q/out [B, Sq, H, D] and k/v
 // [B, Sk, Hkv, D] with H % Hkv == 0 (query head h reads kv head
 // h / (H / Hkv), so GQA needs no repeated copy of K/V); lse is
@@ -42,12 +49,12 @@ constexpr size_t smem_bytes() {
 // ---------------------------------------------------------------------------
 // f32: CUDA cores
 // ---------------------------------------------------------------------------
-template <typename T, int D>
+template <typename T, int D, bool DROP>
 __global__ void __launch_bounds__(NT)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ out,
                      float* __restrict__ lse, int H, int Hkv, int Sq, int Sk,
-                     float scale, int causal) {
+                     float scale, int causal, Drop dr) {
   static_assert(D % 16 == 0, "head_dim must be a multiple of 16");
   constexpr int LD = D + 1, LP = BK + 1, ND = D / 16;
   extern __shared__ float smem[];
@@ -73,12 +80,14 @@ __global__ void __launch_bounds__(NT)
   }
 
   float m[4], l[4], o[4][ND];
+  uint32_t krow[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     m[i] = NEG_INF;
     l[i] = 0.f;
 #pragma unroll
     for (int c = 0; c < ND; ++c) o[i][c] = 0.f;
+    if constexpr (DROP) krow[i] = drop_row_key(dr.seed, bh, q0 + ty + 16 * i);
   }
 
   int n_kt = (Sk + BK - 1) / BK;
@@ -136,8 +145,11 @@ __global__ void __launch_bounds__(NT)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const float p = expf(sc[i][j] - m_new);
-        P_s[(ty + 16 * i) * LP + tx + 16 * j] = p;
-        rs += p;
+        rs += p;   // l sums the un-dropped p
+        float pv = p;
+        if constexpr (DROP)
+          pv = drop_apply(p, krow[i], k0 + tx + 16 * j, dr.thresh, dr.rp);
+        P_s[(ty + 16 * i) * LP + tx + 16 * j] = pv;
       }
 #pragma unroll
       for (int o_ = 8; o_ > 0; o_ >>= 1)
@@ -189,14 +201,14 @@ constexpr size_t mma_smem_bytes() {
 // Fragment layouts: see mma_bf16 in common.cuh. The score tile's C
 // fragments are re-packed in registers as the A fragments of P for the
 // P.V product.
-template <int D>
+template <int D, bool DROP>
 __global__ void __launch_bounds__(MMA_NT)
     flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
                          const __nv_bfloat16* __restrict__ k,
                          const __nv_bfloat16* __restrict__ v,
                          __nv_bfloat16* __restrict__ out,
                          float* __restrict__ lse, int H, int Hkv, int Sq,
-                         int Sk, float scale, int causal) {
+                         int Sk, float scale, int causal, Drop dr) {
   constexpr int LDK = D + 8, LDV = BK + 8;   // padded rows: no bank conflicts
   constexpr int KS = D / 16, NO = D / 8, NS = BK / 8, CH = D / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -245,6 +257,11 @@ __global__ void __launch_bounds__(MMA_NT)
     n_kt = min(n_kt, last / BK + 1);
   }
   const int qrow[2] = {q0 + wr + g, q0 + wr + g + 8};
+  uint32_t krow[2];
+  if constexpr (DROP) {
+    krow[0] = drop_row_key(dr.seed, bh, qrow[0]);
+    krow[1] = drop_row_key(dr.seed, bh, qrow[1]);
+  }
 
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * BK;
@@ -324,6 +341,14 @@ __global__ void __launch_bounds__(MMA_NT)
       o[n][2] *= alpha[1];
       o[n][3] *= alpha[1];
     }
+    if constexpr (DROP) {   // after l took the un-dropped sum
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          sc[n][e] = drop_apply(sc[n][e], krow[e >> 1],
+                                k0 + n * 8 + 2 * t + (e & 1), dr.thresh, dr.rp);
+    }
 #pragma unroll
     for (int j = 0; j < BK / 16; ++j) {
       const uint32_t pa[4] = {pack_bf16(sc[2 * j][0], sc[2 * j][1]),
@@ -355,53 +380,67 @@ __global__ void __launch_bounds__(MMA_NT)
   }
 }
 
-template <int D>
-int launch_mma(const void* q, const void* k, const void* v, void* out,
-               void* lse, int B, int H, int Hkv, int Sq, int Sk, float scale,
-               int causal, cudaStream_t stream) {
+struct Args {
+  const void *q, *k, *v;
+  void *out, *lse;
+  int B, H, Hkv, Sq, Sk;
+  float scale;
+  int causal;
+  Drop dr;
+};
+
+template <int D, bool DROP>
+int launch_mma(const Args& a, cudaStream_t stream) {
   constexpr size_t smem = mma_smem_bytes<D>();
   cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      flash_fwd_mma_kernel<D, DROP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  dim3 grid((Sq + BQ - 1) / BQ, B * H);
-  flash_fwd_mma_kernel<D><<<grid, MMA_NT, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
-      static_cast<float*>(lse), H, Hkv, Sq, Sk, scale, causal);
+  dim3 grid((a.Sq + BQ - 1) / BQ, a.B * a.H);
+  flash_fwd_mma_kernel<D, DROP><<<grid, MMA_NT, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(a.q),
+      static_cast<const __nv_bfloat16*>(a.k),
+      static_cast<const __nv_bfloat16*>(a.v),
+      static_cast<__nv_bfloat16*>(a.out), static_cast<float*>(a.lse), a.H,
+      a.Hkv, a.Sq, a.Sk, a.scale, a.causal, a.dr);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* out, void* lse,
-           int B, int H, int Hkv, int Sq, int Sk, float scale, int causal,
-           cudaStream_t stream) {
+template <typename T, int D, bool DROP>
+int launch(const Args& a, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      flash_fwd_kernel<T, D, DROP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  dim3 grid((Sq + BQ - 1) / BQ, B * H);
-  flash_fwd_kernel<T, D><<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out),
-      static_cast<float*>(lse), H, Hkv, Sq, Sk, scale, causal);
+  dim3 grid((a.Sq + BQ - 1) / BQ, a.B * a.H);
+  flash_fwd_kernel<T, D, DROP><<<grid, NT, smem, stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<T*>(a.out),
+      static_cast<float*>(a.lse), a.H, a.Hkv, a.Sq, a.Sk, a.scale, a.causal,
+      a.dr);
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch_f32(const void* q, const void* k, const void* v, void* out,
-               void* lse, int B, int H, int Hkv, int Sq, int Sk, int D,
-               float scale, int causal, cudaStream_t stream) {
-  switch (D) {
-    case 64:
-      return launch<float, 64>(q, k, v, out, lse, B, H, Hkv, Sq, Sk, scale,
-                               causal, stream);
-    case 128:
-      return launch<float, 128>(q, k, v, out, lse, B, H, Hkv, Sq, Sk, scale,
-                                causal, stream);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+template <bool DROP>
+int dispatch(const Args& a, int D, int dtype, cudaStream_t st) {
+  if (dtype == PTT_F32 && D == 64) return launch<float, 64, DROP>(a, st);
+  if (dtype == PTT_F32 && D == 128) return launch<float, 128, DROP>(a, st);
+  if (dtype == PTT_BF16 && D == 64) return launch_mma<64, DROP>(a, st);
+  if (dtype == PTT_BF16 && D == 128) return launch_mma<128, DROP>(a, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// bits[bh, i, j] = drop_bits(drop_row_key(seed, bh, i), j), the raw 32 bits
+// every flash kernel compares with its threshold (a check of the mask
+// function against its plain version; no kernel of the model path).
+__global__ void dropout_bits_kernel(uint32_t* __restrict__ bits,
+                                    uint32_t seed, int Sq, int Sk) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  const int i = blockIdx.y, bh = blockIdx.z;
+  if (j >= Sk) return;
+  bits[(static_cast<size_t>(bh) * Sq + i) * Sk + j] =
+      drop_bits(drop_row_key(seed, bh, i), j);
 }
 
 }  // namespace
@@ -409,25 +448,28 @@ int launch_f32(const void* q, const void* k, const void* v, void* out,
 PTT_EXPORT_ERROR_STRING
 
 // q/out [B, Sq, H, D], k/v [B, Sk, Hkv, D] contiguous; lse [B, H, Sq] f32.
-// D is 64 or 128.
+// D is 64 or 128. dropout != 0 applies dropout with keep threshold
+// `thresh` and rp = 1 / (1 - p) from the 32-bit `seed`.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* out, void* lse, int B,
                                    int H, int Hkv, int Sq, int Sk, int D,
                                    float scale, int causal, int dtype,
-                                   void* stream) {
+                                   int dropout, uint32_t seed,
+                                   uint32_t thresh, float rp, void* stream) {
   if (B == 0 || Sq == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == PTT_F32)
-    return launch_f32(q, k, v, out, lse, B, H, Hkv, Sq, Sk, D, scale, causal,
-                      st);
-  if (dtype == PTT_BF16) {
-    if (D == 64)
-      return launch_mma<64>(q, k, v, out, lse, B, H, Hkv, Sq, Sk, scale,
-                            causal, st);
-    if (D == 128)
-      return launch_mma<128>(q, k, v, out, lse, B, H, Hkv, Sq, Sk, scale,
-                             causal, st);
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{q, k, v, out, lse, B, H, Hkv, Sq, Sk, scale, causal,
+               Drop{seed, thresh, rp}};
+  return dropout ? dispatch<true>(a, D, dtype, st)
+                 : dispatch<false>(a, D, dtype, st);
+}
+
+// bits [BH, Sq, Sk] uint32 (see dropout_bits_kernel)
+extern "C" int flash_dropout_bits(void* bits, uint32_t seed, int BH, int Sq,
+                                  int Sk, void* stream) {
+  if (BH == 0 || Sq == 0 || Sk == 0) return 0;
+  dim3 grid((Sk + 255) / 256, Sq, BH);
+  dropout_bits_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<uint32_t*>(bits), seed, Sq, Sk);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -2,12 +2,19 @@
 //
 // Replaces paddle_tpu/kernels/flash_attention.py `_bwd_dq_kernel` and
 // `_bwd_dkv_kernel` (pallas_calls in `_flash_core_bwd`) for the case with
-// no mask, no segments and no dropout. FlashAttention-2's recomputation
+// no mask and no segments, with or without dropout. FlashAttention-2's recomputation
 // scheme: nothing of the forward is kept but out's lse; the caller also
 // passes dg = delta - g_lse per query row, with delta = rowsum(dO * O), so
 // that with p = exp(scale * q.k - lse)
 //   ds = p * (dO.v - delta + g_lse)          (the lse cotangent folds in)
 //   dQ = scale * ds.K,  dK = scale * ds^T.Q,  dV = p^T.dO.
+// With dropout (the reference's `_drop_mask` regenerated at :222 and :277)
+// the keep bit z of (b * H + h, i, j), with h the QUERY head also in the
+// GQA dK/dV kernel, is regenerated from drop_row_key/drop_bits (common.cuh)
+// exactly as the forward drew it, and
+//   dV = (p * z / (1 - p))^T.dO,   ds = p * (dO.v * z / (1 - p) - dg),
+// while delta = rowsum(dO * O) is unchanged. Each kernel is a template on
+// DROP; p = 0 runs the DROP = false instantiation, the code without it.
 // Layout is the forward's: q/dout/dq [B, Sq, H, D], k/v/dk/dv
 // [B, Sk, Hkv, D], lse/dg [B, H, Sq] f32, H % Hkv == 0; causal means
 // query i sees key j iff j <= i + (Sk - Sq), and the kernels mask the
@@ -46,17 +53,17 @@ constexpr size_t dq_smem_bytes() {
 
 template <int D>
 constexpr size_t dkv_smem_bytes() {
-  return sizeof(float) * (4 * 64 * (D + 1) + 2 * BK * (BQ + 1) + 2 * BQ);
+  return sizeof(float) * (4 * 64 * (D + 1) + 2 * BK * (BQ + 1) + 3 * BQ);
 }
 
-template <typename T, int D>
+template <typename T, int D, bool DROP>
 __global__ void __launch_bounds__(NT)
     flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const T* __restrict__ dout,
                         const float* __restrict__ lse,
                         const float* __restrict__ dg, T* __restrict__ dq,
                         int H, int Hkv, int Sq, int Sk, float scale,
-                        int causal) {
+                        int causal, Drop dr) {
   constexpr int LD = D + 1, LP = BK + 1, ND = D / 16;
   extern __shared__ float smem[];
   float* Q_s = smem;             // [BQ, LD]
@@ -86,11 +93,13 @@ __global__ void __launch_bounds__(NT)
     dO_s[r * LD + d] = ok ? to_f(ob[qi * qs + d]) : 0.f;
   }
   float lr[4], gr[4], acc[4][ND];
+  uint32_t rk[4];   // dropout row keys
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int qi = q0 + ty + 16 * i;
     lr[i] = qi < Sq ? lb[qi] : 0.f;
     gr[i] = qi < Sq ? gb[qi] : 0.f;
+    if constexpr (DROP) rk[i] = drop_row_key(dr.seed, bh, qi);
 #pragma unroll
     for (int c = 0; c < ND; ++c) acc[i][c] = 0.f;
   }
@@ -145,7 +154,9 @@ __global__ void __launch_bounds__(NT)
         const int kj = k0 + tx + 16 * j;
         const bool ok = qi < Sq && kj < Sk && (!causal || kj <= qi + off);
         const float p = ok ? expf(s[i][j] * scale - lr[i]) : 0.f;
-        dS_s[(ty + 16 * i) * LP + tx + 16 * j] = p * (dp[i][j] - gr[i]);
+        float dpv = dp[i][j];
+        if constexpr (DROP) dpv = drop_apply(dpv, rk[i], kj, dr.thresh, dr.rp);
+        dS_s[(ty + 16 * i) * LP + tx + 16 * j] = p * (dpv - gr[i]);
       }
     }
     __syncthreads();
@@ -174,14 +185,14 @@ __global__ void __launch_bounds__(NT)
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool DROP>
 __global__ void __launch_bounds__(NT)
     flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v, const T* __restrict__ dout,
                          const float* __restrict__ lse,
                          const float* __restrict__ dg, T* __restrict__ dk,
                          T* __restrict__ dv, int H, int Hkv, int Sq, int Sk,
-                         float scale, int causal) {
+                         float scale, int causal, Drop dr) {
   constexpr int LD = D + 1, LP = BQ + 1, ND = D / 16;
   extern __shared__ float smem[];
   float* K_s = smem;             // [BK, LD]
@@ -192,6 +203,7 @@ __global__ void __launch_bounds__(NT)
   float* dS_s = P_s + BK * LP;   // [BK, LP]  ds^T
   float* L_s = dS_s + BK * LP;   // [BQ]      lse of the query tile
   float* G_s = L_s + BQ;         // [BQ]      dg of the query tile
+  uint32_t* R_s = reinterpret_cast<uint32_t*>(G_s + BQ);  // [BQ] row keys
 
   const int k0 = blockIdx.x * BK;
   const int bh = blockIdx.y, b = bh / Hkv, hk = bh - b * Hkv;
@@ -237,6 +249,7 @@ __global__ void __launch_bounds__(NT)
         const int qi = q0 + tid;
         L_s[tid] = qi < Sq ? lb[qi] : 0.f;
         G_s[tid] = qi < Sq ? gb[qi] : 0.f;
+        if constexpr (DROP) R_s[tid] = drop_row_key(dr.seed, b * H + h, qi);
       }
       __syncthreads();
 
@@ -274,8 +287,14 @@ __global__ void __launch_bounds__(NT)
           const int c = tx + 16 * j, qi = q0 + c;
           const bool ok = kj < Sk && qi < Sq && (!causal || kj <= qi + off);
           const float p = ok ? expf(st[i][j] * scale - L_s[c]) : 0.f;
-          P_s[(ty + 16 * i) * LP + c] = p;
-          dS_s[(ty + 16 * i) * LP + c] = p * (dpt[i][j] - G_s[c]);
+          float pv = p, dpv = dpt[i][j];
+          if constexpr (DROP) {
+            const bool keep = drop_keep(R_s[c], kj, dr.thresh);
+            pv = keep ? p * dr.rp : 0.f;
+            dpv = keep ? dpv * dr.rp : 0.f;
+          }
+          P_s[(ty + 16 * i) * LP + c] = pv;
+          dS_s[(ty + 16 * i) * LP + c] = p * (dpv - G_s[c]);
         }
       }
       __syncthreads();
@@ -333,7 +352,7 @@ template <int D>
 constexpr size_t dkv_mma_smem_bytes() {
   return sizeof(__nv_bfloat16) *
              ((2 * BK + 2 * BQ2) * (D + 8) + 2 * D * (BQ2 + 8)) +
-         sizeof(float) * 2 * BQ2;
+         sizeof(float) * 3 * BQ2;
 }
 
 __device__ __forceinline__ void a_frag(uint32_t* a, const __nv_bfloat16* s,
@@ -347,7 +366,7 @@ __device__ __forceinline__ void a_frag(uint32_t* a, const __nv_bfloat16* s,
 
 // dQ: S = Q.K^T (B = K_s [key][d]), dP = dO.V^T (B = V_s [key][d]),
 // dQ += dS.K (B = Kt_s [d][key]).
-template <int D>
+template <int D, bool DROP>
 __global__ void __launch_bounds__(MMA_NT)
     flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
                             const __nv_bfloat16* __restrict__ k,
@@ -356,7 +375,8 @@ __global__ void __launch_bounds__(MMA_NT)
                             const float* __restrict__ lse,
                             const float* __restrict__ dg,
                             __nv_bfloat16* __restrict__ dq, int H, int Hkv,
-                            int Sq, int Sk, float scale, int causal) {
+                            int Sq, int Sk, float scale, int causal,
+                            Drop dr) {
   constexpr int LDK = D + 8, LDT = BK + 8;
   constexpr int KS = D / 16, NO = D / 8, NS = BK / 8, CH = D / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -390,11 +410,13 @@ __global__ void __launch_bounds__(MMA_NT)
   }
   const int qrow[2] = {q0 + wr + g, q0 + wr + g + 8};
   float lr[2], gr[2];
+  uint32_t rk[2];   // dropout row keys
 #pragma unroll
   for (int hi = 0; hi < 2; ++hi) {
     const size_t o = static_cast<size_t>(bh) * Sq + qrow[hi];
     lr[hi] = qrow[hi] < Sq ? lse[o] : 0.f;
     gr[hi] = qrow[hi] < Sq ? dg[o] : 0.f;
+    if constexpr (DROP) rk[hi] = drop_row_key(dr.seed, bh, qrow[hi]);
   }
   float acc[NO][4];
 #pragma unroll
@@ -449,7 +471,9 @@ __global__ void __launch_bounds__(MMA_NT)
         const int qi = qrow[hi];
         const bool ok = qi < Sq && kj < Sk && (!causal || kj <= qi + off);
         const float p = ok ? __expf(s[n][e] * scale - lr[hi]) : 0.f;
-        s[n][e] = p * (dp[n][e] - gr[hi]);   // ds
+        float dpv = dp[n][e];
+        if constexpr (DROP) dpv = drop_apply(dpv, rk[hi], kj, dr.thresh, dr.rp);
+        s[n][e] = p * (dpv - gr[hi]);   // ds
       }
 #pragma unroll
     for (int j = 0; j < BK / 16; ++j) {
@@ -481,7 +505,7 @@ __global__ void __launch_bounds__(MMA_NT)
 
 // dK/dV: S^T = K.Q^T (B = Q_s [query][d]), dP^T = V.dO^T (B = dO_s),
 // dV += P^T.dO (B = dOt_s [d][query]), dK += dS^T.Q (B = Qt_s [d][query]).
-template <int D>
+template <int D, bool DROP>
 __global__ void __launch_bounds__(MMA_NT)
     flash_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
                              const __nv_bfloat16* __restrict__ k,
@@ -491,7 +515,8 @@ __global__ void __launch_bounds__(MMA_NT)
                              const float* __restrict__ dg,
                              __nv_bfloat16* __restrict__ dk,
                              __nv_bfloat16* __restrict__ dv, int H, int Hkv,
-                             int Sq, int Sk, float scale, int causal) {
+                             int Sq, int Sk, float scale, int causal,
+                             Drop dr) {
   constexpr int LDK = D + 8, LDQ = BQ2 + 8;
   constexpr int KS = D / 16, NO = D / 8, NQ = BQ2 / 8, CH = D / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -503,6 +528,7 @@ __global__ void __launch_bounds__(MMA_NT)
   __nv_bfloat16* dOt_s = Qt_s + D * LDQ;                             // [D, LDQ]
   float* L_s = reinterpret_cast<float*>(dOt_s + D * LDQ);            // [BQ2]
   float* G_s = L_s + BQ2;                                            // [BQ2]
+  uint32_t* R_s = reinterpret_cast<uint32_t*>(G_s + BQ2);            // [BQ2]
 
   const int k0 = blockIdx.x * BK;
   const int bh = blockIdx.y, b = bh / Hkv, hk = bh - b * Hkv;
@@ -563,6 +589,7 @@ __global__ void __launch_bounds__(MMA_NT)
         const int qi = q0 + tid;
         L_s[tid] = qi < Sq ? lb[qi] : 0.f;
         G_s[tid] = qi < Sq ? gb[qi] : 0.f;
+        if constexpr (DROP) R_s[tid] = drop_row_key(dr.seed, b * H + h, qi);
       }
       __syncthreads();
 
@@ -591,8 +618,14 @@ __global__ void __launch_bounds__(MMA_NT)
           const int kj = krow[e >> 1];
           const bool ok = kj < Sk && qi < Sq && (!causal || kj <= qi + off);
           const float p = ok ? __expf(st[n][e] * scale - L_s[c]) : 0.f;
-          dpt[n][e] = p * (dpt[n][e] - G_s[c]);   // ds^T
-          st[n][e] = p;                           // p^T
+          float pv = p, dpv = dpt[n][e];
+          if constexpr (DROP) {
+            const bool keep = drop_keep(R_s[c], kj, dr.thresh);
+            pv = keep ? p * dr.rp : 0.f;
+            dpv = keep ? dpv * dr.rp : 0.f;
+          }
+          dpt[n][e] = p * (dpv - G_s[c]);   // ds^T
+          st[n][e] = pv;                    // (p z / (1 - p))^T
         }
 #pragma unroll
       for (int j = 0; j < BQ2 / 16; ++j) {
@@ -636,6 +669,7 @@ struct Args {
   int B, H, Hkv, Sq, Sk;
   float scale;
   int causal;
+  Drop dr;
 };
 
 template <typename Kern>
@@ -644,7 +678,7 @@ cudaError_t set_smem(Kern kern, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-template <typename T, int D>
+template <typename T, int D, bool DROP>
 int launch_simt(const Args& a, cudaStream_t st) {
   const T* q = static_cast<const T*>(a.q);
   const T* k = static_cast<const T*>(a.k);
@@ -652,24 +686,25 @@ int launch_simt(const Args& a, cudaStream_t st) {
   const T* o = static_cast<const T*>(a.dout);
   const float* lse = static_cast<const float*>(a.lse);
   const float* dg = static_cast<const float*>(a.dg);
-  cudaError_t e = set_smem(flash_bwd_dq_kernel<T, D>, dq_smem_bytes<D>());
+  cudaError_t e =
+      set_smem(flash_bwd_dq_kernel<T, D, DROP>, dq_smem_bytes<D>());
   if (e == cudaSuccess)
-    e = set_smem(flash_bwd_dkv_kernel<T, D>, dkv_smem_bytes<D>());
+    e = set_smem(flash_bwd_dkv_kernel<T, D, DROP>, dkv_smem_bytes<D>());
   if (e != cudaSuccess) return static_cast<int>(e);
-  flash_bwd_dq_kernel<T, D>
+  flash_bwd_dq_kernel<T, D, DROP>
       <<<dim3((a.Sq + BQ - 1) / BQ, a.B * a.H), NT, dq_smem_bytes<D>(), st>>>(
           q, k, v, o, lse, dg, static_cast<T*>(a.dq), a.H, a.Hkv, a.Sq, a.Sk,
-          a.scale, a.causal);
+          a.scale, a.causal, a.dr);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  flash_bwd_dkv_kernel<T, D>
+  flash_bwd_dkv_kernel<T, D, DROP>
       <<<dim3((a.Sk + BK - 1) / BK, a.B * a.Hkv), NT, dkv_smem_bytes<D>(), st>>>(
           q, k, v, o, lse, dg, static_cast<T*>(a.dk), static_cast<T*>(a.dv),
-          a.H, a.Hkv, a.Sq, a.Sk, a.scale, a.causal);
+          a.H, a.Hkv, a.Sq, a.Sk, a.scale, a.causal, a.dr);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
+template <int D, bool DROP>
 int launch_mma(const Args& a, cudaStream_t st) {
   using bf = __nv_bfloat16;
   const bf* q = static_cast<const bf*>(a.q);
@@ -678,21 +713,33 @@ int launch_mma(const Args& a, cudaStream_t st) {
   const bf* o = static_cast<const bf*>(a.dout);
   const float* lse = static_cast<const float*>(a.lse);
   const float* dg = static_cast<const float*>(a.dg);
-  cudaError_t e = set_smem(flash_bwd_dq_mma_kernel<D>, dq_mma_smem_bytes<D>());
+  cudaError_t e =
+      set_smem(flash_bwd_dq_mma_kernel<D, DROP>, dq_mma_smem_bytes<D>());
   if (e == cudaSuccess)
-    e = set_smem(flash_bwd_dkv_mma_kernel<D>, dkv_mma_smem_bytes<D>());
+    e = set_smem(flash_bwd_dkv_mma_kernel<D, DROP>, dkv_mma_smem_bytes<D>());
   if (e != cudaSuccess) return static_cast<int>(e);
-  flash_bwd_dq_mma_kernel<D><<<dim3((a.Sq + BQ - 1) / BQ, a.B * a.H), MMA_NT,
-                               dq_mma_smem_bytes<D>(), st>>>(
-      q, k, v, o, lse, dg, static_cast<bf*>(a.dq), a.H, a.Hkv, a.Sq, a.Sk,
-      a.scale, a.causal);
+  flash_bwd_dq_mma_kernel<D, DROP>
+      <<<dim3((a.Sq + BQ - 1) / BQ, a.B * a.H), MMA_NT,
+          dq_mma_smem_bytes<D>(), st>>>(
+          q, k, v, o, lse, dg, static_cast<bf*>(a.dq), a.H, a.Hkv, a.Sq,
+          a.Sk, a.scale, a.causal, a.dr);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  flash_bwd_dkv_mma_kernel<D><<<dim3((a.Sk + BK - 1) / BK, a.B * a.Hkv),
-                                MMA_NT, dkv_mma_smem_bytes<D>(), st>>>(
-      q, k, v, o, lse, dg, static_cast<bf*>(a.dk), static_cast<bf*>(a.dv),
-      a.H, a.Hkv, a.Sq, a.Sk, a.scale, a.causal);
+  flash_bwd_dkv_mma_kernel<D, DROP>
+      <<<dim3((a.Sk + BK - 1) / BK, a.B * a.Hkv), MMA_NT,
+          dkv_mma_smem_bytes<D>(), st>>>(
+          q, k, v, o, lse, dg, static_cast<bf*>(a.dk), static_cast<bf*>(a.dv),
+          a.H, a.Hkv, a.Sq, a.Sk, a.scale, a.causal, a.dr);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool DROP>
+int dispatch(const Args& a, int D, int dtype, cudaStream_t st) {
+  if (dtype == PTT_F32 && D == 64) return launch_simt<float, 64, DROP>(a, st);
+  if (dtype == PTT_F32 && D == 128) return launch_simt<float, 128, DROP>(a, st);
+  if (dtype == PTT_BF16 && D == 64) return launch_mma<64, DROP>(a, st);
+  if (dtype == PTT_BF16 && D == 128) return launch_mma<128, DROP>(a, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -700,22 +747,22 @@ int launch_mma(const Args& a, cudaStream_t st) {
 PTT_EXPORT_ERROR_STRING
 
 // q/dout/dq [B, Sq, H, D], k/v/dk/dv [B, Sk, Hkv, D], all contiguous and
-// 16-byte aligned; lse and dg [B, H, Sq] f32. D is 64 or 128. Launches the
-// dQ kernel, then the dK/dV kernel, on `stream`; returns the first CUDA
-// error (0 when both launched).
+// 16-byte aligned; lse and dg [B, H, Sq] f32. D is 64 or 128. dropout != 0
+// regenerates the forward's mask from (seed, thresh) and scales kept
+// entries by rp = 1 / (1 - p). Launches the dQ kernel, then the dK/dV
+// kernel, on `stream`; returns the first CUDA error (0 when both launched).
 extern "C" int flash_attention_bwd(const void* q, const void* k,
                                    const void* v, const void* dout,
                                    const void* lse, const void* dg, void* dq,
                                    void* dk, void* dv, int B, int H, int Hkv,
                                    int Sq, int Sk, int D, float scale,
-                                   int causal, int dtype, void* stream) {
+                                   int causal, int dtype, int dropout,
+                                   uint32_t seed, uint32_t thresh, float rp,
+                                   void* stream) {
   if (B == 0 || Sq == 0 || Sk == 0) return 0;
   const Args a{q, k, v, dout, lse, dg, dq, dk, dv,
-               B, H, Hkv, Sq, Sk, scale, causal};
+               B, H, Hkv, Sq, Sk, scale, causal, Drop{seed, thresh, rp}};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == PTT_F32 && D == 64) return launch_simt<float, 64>(a, st);
-  if (dtype == PTT_F32 && D == 128) return launch_simt<float, 128>(a, st);
-  if (dtype == PTT_BF16 && D == 64) return launch_mma<64>(a, st);
-  if (dtype == PTT_BF16 && D == 128) return launch_mma<128>(a, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return dropout ? dispatch<true>(a, D, dtype, st)
+                 : dispatch<false>(a, D, dtype, st);
 }

@@ -14,39 +14,48 @@ through the kernels. A gradient goes through a ``torch.autograd.Function``
 whose backward is a kernel too; a raw ``*_cuda`` wrapper, which returns
 buffers a ctypes launch filled, raises when it is handed a tensor that
 requires grad while grad mode is on (:func:`refuse_grad`), so no output is
-ever cut from the autograd graph in silence. The kernels so far:
+ever cut from the autograd graph in silence. The kernels so far (the
+flash kernels count their dropout instantiations under their own names,
+so a run can show which variant its path took):
 
-===================  ============================  ==========================
-name                 port                          replaces (TPU kernel)
-===================  ============================  ==========================
-flash_attention      kernels/flash_attention.py    kernels/flash_attention.py
-                     + csrc/flash_attention.cu     ``_fwd_kernel``
-flash_attention_bwd  kernels/flash_attention.py    kernels/flash_attention.py
-                     + csrc/flash_attention_bwd.cu ``_bwd_dq_kernel``,
-                                                   ``_bwd_dkv_kernel``
-paged_attention      kernels/paged_attention.py    kernels/paged_attention.py
-                     + csrc/paged_attention.cu     ``_paged_kernel``
-rmsnorm              kernels/rmsnorm.py            kernels/rmsnorm.py
-                     + csrc/rmsnorm.cu             ``_fwd_kernel``
-rmsnorm_bwd          kernels/rmsnorm.py            kernels/rmsnorm.py
-                     + csrc/rmsnorm.cu             ``_bwd_kernel``
-softmax_ce           kernels/softmax_ce.py         kernels/softmax_ce.py
-                     + csrc/softmax_ce.cu          ``_fwd_kernel``
-softmax_ce_bwd       kernels/softmax_ce.py         kernels/softmax_ce.py
-                     + csrc/softmax_ce.cu          ``_bwd_kernel``
-===================  ============================  ==========================
+===========================  =============================  ==================
+name                         port (kernels/ + csrc/)        replaces, in
+                                                            paddle_tpu/kernels
+===========================  =============================  ==================
+flash_attention              flash_attention.py,            flash_attention.py
+                             flash_attention.cu             ``_fwd_kernel``
+flash_attention_dropout      the same, dropout p > 0        with ``_drop_mask``
+flash_attention_bwd          flash_attention.py,            ``_bwd_dq_kernel``,
+                             flash_attention_bwd.cu         ``_bwd_dkv_kernel``
+flash_attention_bwd_dropout  the same, dropout p > 0        with ``_drop_mask``
+layernorm                    layernorm.py, layernorm.cu     layernorm.py
+                                                            ``_fwd_kernel``
+paged_attention              paged_attention.py,            paged_attention.py
+                             paged_attention.cu             ``_paged_kernel``
+rmsnorm                      rmsnorm.py, rmsnorm.cu         rmsnorm.py
+                                                            ``_fwd_kernel``
+rmsnorm_bwd                  rmsnorm.py, rmsnorm.cu         ``_bwd_kernel``
+softmax_ce                   softmax_ce.py, softmax_ce.cu   softmax_ce.py
+                                                            ``_fwd_kernel``
+softmax_ce_bwd               softmax_ce.py, softmax_ce.cu   ``_bwd_kernel``
+===========================  =============================  ==================
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
-__all__ = ["LAUNCHES", "use_kernel", "refuse_grad", "launch_counts",
-           "reset_launch_counts"]
+__all__ = ["LAUNCHES", "use_kernel", "refuse_grad", "plain_math",
+           "launch_counts", "reset_launch_counts"]
 
 # launches per kernel since the last reset (plain ints)
 LAUNCHES: dict[str, int] = {
     "flash_attention": 0,
+    "flash_attention_dropout": 0,
     "flash_attention_bwd": 0,
+    "flash_attention_bwd_dropout": 0,
+    "layernorm": 0,
     "paged_attention": 0,
     "rmsnorm": 0,
     "rmsnorm_bwd": 0,
@@ -82,6 +91,16 @@ def refuse_grad(name: str, *tensors) -> None:
             f"{name}: the raw kernel wrapper has no autograd; call the "
             f"differentiable entry point instead, or run under "
             f"torch.no_grad()")
+
+
+def plain_math(device: torch.device):
+    """A context that turns autocast off on ``device``'s type: a plain
+    version computes in the dtypes it states (f32 products), also inside
+    ``amp.auto_cast``, whose autocast would otherwise run its einsums in
+    bf16."""
+    if device.type not in ("cpu", "cuda"):
+        return contextlib.nullcontext()
+    return torch.autocast(device.type, enabled=False)
 
 
 def launch_counts() -> dict[str, int]:

@@ -1,7 +1,12 @@
-from .convert import state_from_jax, trainer_state_from_jax
+from .convert import ernie_state_from_jax, state_from_jax, trainer_state_from_jax
+from .ernie import (ErnieConfig, ErnieEmbeddings, ErnieForMaskedLM,
+                    ErnieForSequenceClassification, ErnieModel, ernie_base,
+                    ernie_tiny)
 from .llama import LlamaConfig, LlamaForCausalLM, llama_7b, llama_tiny
 from .llama_pipeline import LlamaPipelineTrainer
 
 __all__ = ["LlamaConfig", "LlamaForCausalLM", "LlamaPipelineTrainer",
            "llama_7b", "llama_tiny", "state_from_jax",
-           "trainer_state_from_jax"]
+           "trainer_state_from_jax", "ernie_state_from_jax", "ErnieConfig",
+           "ernie_base", "ernie_tiny", "ErnieEmbeddings", "ErnieModel",
+           "ErnieForMaskedLM", "ErnieForSequenceClassification"]

@@ -1,18 +1,19 @@
-"""Weights from the JAX package's Llama into the port's.
+"""Weights from the JAX package's models into the port's.
 
 The only way the tests give both packages the same weights: the reference
 model's ``functional_state(model)[0]`` / ``state_dict()`` exported as numpy
-goes through :func:`state_from_jax` and into ``load_state_dict``; the
-reference trainer's parameter dict (``LlamaPipelineTrainer._state[0]``)
-goes through :func:`trainer_state_from_jax` into the port trainer's
-``model``.
+goes through :func:`state_from_jax` (Llama) or :func:`ernie_state_from_jax`
+(ERNIE) and into ``load_state_dict``; the reference trainer's parameter
+dict (``LlamaPipelineTrainer._state[0]``) goes through
+:func:`trainer_state_from_jax` into the port trainer's ``model``.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch import nn
 
-__all__ = ["state_from_jax", "trainer_state_from_jax"]
+__all__ = ["state_from_jax", "trainer_state_from_jax", "ernie_state_from_jax"]
 
 # paddle Linear stores [in, out]; nn.Linear stores [out, in]
 _LINEAR_SUFFIXES = ("qkv_proj.weight", "o_proj.weight", "gate_up_proj.weight",
@@ -66,3 +67,29 @@ def trainer_state_from_jax(params: dict[str, np.ndarray]
         else:
             raise KeyError(f"unknown reference trainer parameter {name!r}")
     return state_from_jax(flat)
+
+
+def ernie_state_from_jax(params: dict[str, np.ndarray], model: nn.Module
+                         ) -> dict[str, torch.Tensor]:
+    """Map an ERNIE reference model's parameters onto ``model`` (a port
+    ``ErnieModel`` / ``ErnieForMaskedLM`` / ``ErnieForSequenceClassification``
+    with the same attribute names).
+
+    A paddle ``Linear`` stores ``[in, out]``, ``nn.Linear`` ``[out, in]``:
+    exactly the weights whose module in ``model`` is an ``nn.Linear`` are
+    transposed, found by looking each name's module up on ``model``;
+    everything else copies as it is. Raises on a name ``model`` lacks. CPU
+    copies in the arrays' dtype, for ``load_state_dict``."""
+    out = {}
+    for name, arr in params.items():
+        owner, _, leaf = name.rpartition(".")
+        try:
+            module = model.get_submodule(owner)
+        except AttributeError:
+            raise KeyError(f"the port model has no module {owner!r} for "
+                           f"reference parameter {name!r}") from None
+        a = np.asarray(arr)
+        if isinstance(module, nn.Linear) and leaf == "weight":
+            a = a.T
+        out[name] = torch.tensor(np.ascontiguousarray(a))
+    return out

@@ -1,6 +1,8 @@
+from .activation import gelu, relu, tanh
 from .attention import scaled_dot_product_attention, sdpa_ref
+from .common import dropout
 from .loss import cross_entropy
-from .norm import rms_norm
+from .norm import layer_norm, rms_norm
 
 __all__ = ["scaled_dot_product_attention", "sdpa_ref", "rms_norm",
-           "cross_entropy"]
+           "layer_norm", "cross_entropy", "dropout", "gelu", "relu", "tanh"]

@@ -2,9 +2,10 @@
 ``paddle_tpu/nn/functional/attention.py``).
 
 Layout is ``[batch, seq, heads, head_dim]``. :func:`sdpa_ref` is the plain
-einsum composition the reference uses off-TPU and the serving cache uses
-for prefill; :func:`scaled_dot_product_attention` is the model's no-cache
-attention and runs the flash-attention kernels on the card.
+einsum composition the reference uses off-TPU, the serving cache uses for
+prefill, and float additive masks use everywhere;
+:func:`scaled_dot_product_attention` is the model's attention and runs the
+flash-attention kernels on the card, dropout included.
 """
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ import math
 
 import torch
 
+from ...framework.random import get_generator
 from ...kernels.flash_attention import flash_attention_fwd
 
 __all__ = ["sdpa_ref", "scaled_dot_product_attention"]
@@ -19,14 +21,18 @@ __all__ = ["sdpa_ref", "scaled_dot_product_attention"]
 NEG_INF = -1e30
 
 
-def sdpa_ref(q, k, v, attn_mask=None, is_causal=False, scale=None):
+def sdpa_ref(q, k, v, attn_mask=None, dropout_p=0.0, is_causal=False,
+             scale=None, training=True, generator=None):
     """Plain einsum attention, a transcription of the reference's
-    ``sdpa_ref`` (without dropout). GQA by repeating KV heads (Hkv | Hq).
-    Scores are computed in the inputs' dtype, softmax in f32, and the
-    probabilities are cast back to q's dtype before the product with V —
-    the reference's rounding points. ``attn_mask`` is a bool mask
-    (True = attend) broadcastable to ``[B, H, Sq, Sk]``; causal uses the
-    bottom-right diagonal."""
+    ``sdpa_ref``. GQA by repeating KV heads (Hkv | Hq). Scores are computed
+    in the inputs' dtype, softmax in f32, and the probabilities are cast
+    back to q's dtype before the product with V: the reference's rounding
+    points. ``attn_mask`` is a bool mask (True = attend) or a float
+    additive bias, broadcastable to ``[B, H, Sq, Sk]``; causal uses the
+    bottom-right diagonal. In training, ``dropout_p`` drops probabilities
+    (upscale-in-train) with a keep mask from ``generator`` (default:
+    ``framework.random``'s generator of q's device), so it agrees with the
+    reference in distribution, not in bits."""
     B, Sq, Hq, D = q.shape
     Sk, Hk = k.shape[1], k.shape[2]
     if Hk != Hq:
@@ -34,28 +40,55 @@ def sdpa_ref(q, k, v, attn_mask=None, is_causal=False, scale=None):
         v = v.repeat_interleave(Hq // Hk, dim=2)
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
-    neg = torch.full_like(logits, NEG_INF)
     if is_causal:
         vis = torch.ones(Sq, Sk, dtype=torch.bool, device=q.device).tril(
             Sk - Sq)
-        logits = torch.where(vis, logits, neg)
+        logits = torch.where(vis, logits, torch.full_like(logits, NEG_INF))
     if attn_mask is not None:
-        if attn_mask.dtype != torch.bool:
-            raise TypeError(f"sdpa_ref takes a bool attn_mask; got "
-                            f"{attn_mask.dtype}")
-        logits = torch.where(attn_mask, logits, neg)
+        if attn_mask.dtype == torch.bool:
+            logits = torch.where(attn_mask, logits,
+                                 torch.full_like(logits, NEG_INF))
+        else:
+            logits = logits + attn_mask
     acc_t = torch.promote_types(logits.dtype, torch.float32)
     probs = torch.softmax(logits.to(acc_t), dim=-1).to(q.dtype)
+    if dropout_p and training:
+        g = generator if generator is not None else get_generator(q.device)
+        keep = torch.rand(probs.shape, device=q.device, generator=g) \
+            < (1.0 - dropout_p)
+        probs = probs * keep.to(probs.dtype) / (1.0 - dropout_p)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
-def scaled_dot_product_attention(query, key, value, is_causal=False,
-                                 scale=None):
-    """Dense attention, ``[B, S, H, D]`` layout, GQA when the KV heads
-    divide the query heads; differentiable in query, key and value. The
-    flash-attention kernels (forward, and backward under autograd) on CUDA
-    tensors, their plain versions on CPU tensors. Masks and dropout are not
-    ported yet."""
-    out, _ = flash_attention_fwd(query, key, value, causal=is_causal,
-                                 sm_scale=scale)
-    return out
+def scaled_dot_product_attention(query, key, value, attn_mask=None,
+                                 dropout_p=0.0, is_causal=False,
+                                 training=True, scale=None, name=None,
+                                 seed=None):
+    """Attention in the ``[B, S, H, D]`` layout, GQA when the KV heads
+    divide the query heads; differentiable in query, key and value. Routes
+    as the reference's ``flash_attention_pallas`` does:
+
+    - no mask: the flash-attention kernels on CUDA tensors (forward, and
+      backward under autograd), their plain versions on CPU tensors, with
+      dropout applied in-kernel (``seed`` fixes its mask; by default one
+      is drawn on the host);
+    - a float additive mask: :func:`sdpa_ref`, so the bias differentiates;
+    - a bool mask: the flash kernels' dense-mask path is not ported yet
+      (ROADMAP Queue 2, row 3), so CUDA tensors raise; CPU tensors take
+      :func:`sdpa_ref`.
+    """
+    if not training:
+        dropout_p = 0.0
+    if attn_mask is None:
+        out, _ = flash_attention_fwd(query, key, value, causal=is_causal,
+                                     sm_scale=scale, dropout_p=dropout_p,
+                                     seed=seed)
+        return out
+    if attn_mask.dtype == torch.bool and query.device.type == "cuda":
+        raise NotImplementedError(
+            "scaled_dot_product_attention: a bool attn_mask needs the flash "
+            "kernels' dense-mask path, not ported yet (ROADMAP Queue 2, "
+            "row 3); pass an additive float mask instead")
+    return sdpa_ref(query, key, value, attn_mask=attn_mask,
+                    dropout_p=dropout_p, is_causal=is_causal, scale=scale,
+                    training=training)

@@ -1,3 +1,7 @@
-from .norm import RMSNorm
+from .common import Dropout
+from .norm import LayerNorm, RMSNorm
+from .transformer import (MultiHeadAttention, TransformerEncoder,
+                          TransformerEncoderLayer)
 
-__all__ = ["RMSNorm"]
+__all__ = ["Dropout", "LayerNorm", "RMSNorm", "MultiHeadAttention",
+           "TransformerEncoder", "TransformerEncoderLayer"]

@@ -1,13 +1,40 @@
 """Normalisation layers (counterpart of ``paddle_tpu/nn/layers/norm.py``;
-this slice ports ``RMSNorm``)."""
+ports ``LayerNorm`` and ``RMSNorm``)."""
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from ..functional.norm import rms_norm
+from ..functional.norm import layer_norm, rms_norm
 
-__all__ = ["RMSNorm"]
+__all__ = ["LayerNorm", "RMSNorm"]
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm over the trailing ``normalized_shape`` dims, with a weight
+    (initialised to 1) and a bias (0) unless ``weight_attr`` /
+    ``bias_attr`` is False."""
+
+    def __init__(self, normalized_shape, epsilon=1e-5, weight_attr=None,
+                 bias_attr=None, name=None, *, device=None,
+                 dtype=torch.float32):
+        super().__init__()
+        if isinstance(normalized_shape, int):
+            normalized_shape = [normalized_shape]
+        self._normalized_shape = list(normalized_shape)
+        self._epsilon = epsilon
+        kw = dict(device=device, dtype=dtype)
+        self.weight = (None if weight_attr is False else nn.Parameter(
+            torch.ones(self._normalized_shape, **kw)))
+        self.bias = (None if bias_attr is False else nn.Parameter(
+            torch.zeros(self._normalized_shape, **kw)))
+
+    def forward(self, x):
+        return layer_norm(x, self._normalized_shape, self.weight, self.bias,
+                          self._epsilon)
+
+    def extra_repr(self):
+        return f"{self._normalized_shape}, epsilon={self._epsilon}"
 
 
 class RMSNorm(nn.Module):

@@ -2,13 +2,17 @@
 
 Each optimizer is an update rule ``update(param, grad, state, lr)`` over
 one parameter and its state dict, applied in place by :meth:`step` to every
-parameter that has a ``.grad``; the state keeps paddle's names. Learning
-rate schedulers (``lr.py``) and gradient clipping are not ported yet: the
-learning rate is a number, and there is no ``grad_clip``.
+parameter that has a ``.grad``; the state keeps paddle's names. The
+learning rate is a number or an ``lr.LRScheduler`` (read at each step; the
+caller steps the scheduler); ``grad_clip`` is one of ``nn.clip``'s clips.
+:meth:`step` follows the reference's order: clip all gradients, then fold
+in L2 decay (or, for AdamW, decay inside the update), then update.
 """
 from __future__ import annotations
 
 import torch
+
+from .lr import LRScheduler
 
 __all__ = ["Optimizer"]
 
@@ -17,15 +21,27 @@ class Optimizer:
     _decoupled_wd = False   # AdamW applies its decay in update() instead
 
     def __init__(self, learning_rate=0.001, parameters=None,
-                 weight_decay=None, name=None):
-        self._lr = float(learning_rate)
+                 weight_decay=None, grad_clip=None, name=None):
+        self._lr_scheduler = (learning_rate
+                              if isinstance(learning_rate, LRScheduler)
+                              else None)
+        self._lr = (learning_rate if self._lr_scheduler is not None
+                    else float(learning_rate))
         self._parameter_list = (list(parameters) if parameters is not None
                                 else None)
         self._weight_decay = weight_decay
+        self._grad_clip = grad_clip
         self._accumulators: dict[int, dict[str, torch.Tensor]] = {}
 
     def get_lr(self) -> float:
+        if self._lr_scheduler is not None:
+            return float(self._lr_scheduler())
         return self._lr
+
+    def set_lr(self, value) -> None:
+        if self._lr_scheduler is not None:
+            raise RuntimeError("cannot set_lr when using an LRScheduler")
+        self._lr = float(value)
 
     def init_state(self, param: torch.Tensor) -> dict:
         """The initial state of one parameter (dict of tensors)."""
@@ -48,10 +64,12 @@ class Optimizer:
             raise ValueError("Optimizer constructed without parameters")
         lr = self.get_lr()
         wd = self._weight_decay
-        for p in self._parameter_list:
-            if p.grad is None or not p.requires_grad:
-                continue
-            g = p.grad.to(p.dtype)
+        pairs = [(p, p.grad) for p in self._parameter_list
+                 if p.grad is not None and p.requires_grad]
+        if self._grad_clip is not None:
+            pairs = self._grad_clip(pairs)
+        for p, g in pairs:
+            g = g.to(p.dtype)
             if wd and not self._decoupled_wd:    # L2 decay folded into g
                 g = g + float(wd) * p
             self.update(p, g, self.state_for(p), lr)

@@ -16,8 +16,11 @@ __all__ = ["Adam", "AdamW"]
 
 class Adam(Optimizer):
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
-                 epsilon=1e-8, parameters=None, weight_decay=None, name=None):
-        super().__init__(learning_rate, parameters, weight_decay, name)
+                 epsilon=1e-8, parameters=None, weight_decay=None,
+                 grad_clip=None, lazy_mode=False, multi_precision=False,
+                 name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name)
         self._beta1, self._beta2, self._eps = beta1, beta2, epsilon
 
     def init_state(self, param):
@@ -44,9 +47,15 @@ class AdamW(Adam):
     _decoupled_wd = True
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
-                 epsilon=1e-8, parameters=None, weight_decay=0.01, name=None):
+                 epsilon=1e-8, parameters=None, weight_decay=0.01,
+                 lr_ratio=None, apply_decay_param_fun=None, grad_clip=None,
+                 lazy_mode=False, multi_precision=False, name=None):
+        if lr_ratio is not None or apply_decay_param_fun is not None:
+            raise NotImplementedError(
+                "AdamW: lr_ratio and apply_decay_param_fun are not ported")
         super().__init__(learning_rate, beta1, beta2, epsilon, parameters,
-                         weight_decay, name)
+                         weight_decay, grad_clip, lazy_mode, multi_precision,
+                         name)
 
     def update(self, param, grad, state, lr):
         wd = float(self._weight_decay or 0.0)

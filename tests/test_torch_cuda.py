@@ -21,17 +21,30 @@ error scales with the largest summand, not with each element. f32
 gradients get atol 1e-4 * max|plain| + rtol 1e-4; bf16 ones atol
 1e-2 * max|plain| + rtol 1e-2 (the flash backward also rounds p and ds to
 bf16 as tensor-core operands, and every bf16 output is rounded once more).
-The regression tests at the end hold ``loss.backward()`` through the
-public functionals on the card against the same calls on CPU copies
-(the plain versions), for every input that requires grad.
+The regression tests hold ``loss.backward()`` through the public
+functionals on the card against the same calls on CPU copies (the plain
+versions), for every input that requires grad.
+
+ERNIE slice: the LayerNorm kernel matches its plain version at f32 atol
+1e-5 (rtol 1e-5) and in bf16 to one bf16 step of the output's scale
+(atol 2^-7 * max|plain| rounded down to a power of two, as the output
+rounds once); mean and rstd at 1e-5. The flash kernels' dropout bits
+equal the plain version's exactly, each kernel's applied mask (read out
+by probes) equals them, and outputs and gradients with dropout match the
+plain versions under the dense tolerances above.
 """
+import math
+
 import pytest
 import torch
 
 from paddle_tpu_torch import kernels as K
 from paddle_tpu_torch.kernels.flash_attention import (
-    delta_minus_glse, flash_attention_bwd_cuda, flash_attention_bwd_plain,
+    delta_minus_glse, dropout_bits_cuda, dropout_bits_plain,
+    dropout_keep_plain, flash_attention_bwd_cuda, flash_attention_bwd_plain,
     flash_attention_cuda, flash_attention_fwd, flash_attention_plain)
+from paddle_tpu_torch.kernels.layernorm import (
+    layer_norm_cuda, layer_norm_plain, layernorm)
 from paddle_tpu_torch.kernels.paged_attention import (
     paged_attention, paged_attention_cuda, paged_attention_plain)
 from paddle_tpu_torch.kernels.rmsnorm import (
@@ -126,9 +139,10 @@ def test_wrappers_launch_on_cuda_and_count(gen):
     paged_attention(q[:, 0], pool, bt, ctx)
     after = K.launch_counts()
     assert {k: after[k] - before[k] for k in after} == {
-        "flash_attention": 1, "flash_attention_bwd": 0,
-        "paged_attention": 1, "rmsnorm": 1, "rmsnorm_bwd": 0,
-        "softmax_ce": 0, "softmax_ce_bwd": 0}
+        "flash_attention": 1, "flash_attention_dropout": 0,
+        "flash_attention_bwd": 0, "flash_attention_bwd_dropout": 0,
+        "layernorm": 0, "paged_attention": 1, "rmsnorm": 1,
+        "rmsnorm_bwd": 0, "softmax_ce": 0, "softmax_ce_bwd": 0}
 
 
 def test_wrappers_raise_on_what_the_kernel_does_not_take(gen):
@@ -367,7 +381,9 @@ def test_trainer_step_on_the_card_matches_the_cpu(gen):
                                  rel=1e-5, abs=1e-5)
     for a, b in zip(on_card.model.parameters(), on_cpu.model.parameters()):
         _close(a.grad, b.grad.cuda(), **_grad_tol(torch.float32, b.grad))
-    assert all(launched[k] > 0 for k in launched if k != "paged_attention")
+    trainer_kernels = ("flash_attention", "flash_attention_bwd", "rmsnorm",
+                       "rmsnorm_bwd", "softmax_ce", "softmax_ce_bwd")
+    assert all(launched[k] > 0 for k in trainer_kernels)
     # Adam's first steps move each weight by about lr * sign(g): compare
     # the losses that follow, not weights whose gradient is near zero
     for tr in (on_card, on_cpu):
@@ -376,3 +392,217 @@ def test_trainer_step_on_the_card_matches_the_cpu(gen):
     losses = [on_card.step(x, y).item() for _ in range(2)]
     ref = [on_cpu.step(x, y).item() for _ in range(2)]
     assert losses == pytest.approx(ref, rel=1e-4, abs=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# ERNIE slice: LayerNorm and flash dropout
+# ---------------------------------------------------------------------------
+
+def _ln_tol(out, want):
+    if out.dtype == torch.float32:
+        return dict(atol=1e-5, rtol=1e-5)
+    top = want.float().abs().max().item()
+    return dict(atol=2.0 ** (math.floor(math.log2(top)) - 7), rtol=0.0)
+
+
+@pytest.mark.parametrize("xd,wd", [(torch.float32, torch.float32),
+                                   (torch.bfloat16, torch.bfloat16),
+                                   (torch.bfloat16, torch.float32),
+                                   (torch.float32, torch.bfloat16)])
+@pytest.mark.parametrize("rows,cols", [(1, 64), (37, 768), (300, 1000),
+                                       (8, 4096), (5, 100)])
+def test_layernorm_kernel_matches_plain(gen, xd, wd, rows, cols):
+    x = (2 * torch.randn(rows, cols, device="cuda", generator=gen) + 0.5
+         ).to(xd)
+    w = (1 + 0.1 * torch.randn(cols, device="cuda", generator=gen)).to(wd)
+    b = (0.1 * torch.randn(cols, device="cuda", generator=gen)).to(wd)
+    out, mean, rstd = layer_norm_cuda(x, w, b, 1e-5)
+    p_out, p_mean, p_rstd = layer_norm_plain(x, w, b, 1e-5)
+    assert out.dtype == p_out.dtype
+    _close(out, p_out, **_ln_tol(out, p_out))
+    _close(mean, p_mean, atol=1e-5, rtol=1e-5)
+    _close(rstd, p_rstd, atol=1e-5, rtol=1e-5)
+
+
+def test_layernorm_kernel_misaligned_rows_take_the_scalar_path(gen):
+    for dtype in DTYPES:
+        # a contiguous view one element into its storage
+        x = torch.randn(3 * 64 + 1, device="cuda", generator=gen).to(
+            dtype)[1:].view(3, 64)
+        w = (1 + 0.1 * torch.randn(64, device="cuda", generator=gen)).to(dtype)
+        b = torch.zeros(64, device="cuda", dtype=dtype)
+        out, _, _ = layer_norm_cuda(x, w, b, 1e-5)
+        p_out, _, _ = layer_norm_plain(x, w, b, 1e-5)
+        _close(out, p_out, **_ln_tol(out, p_out))
+    with pytest.raises(TypeError):
+        layer_norm_cuda(x.half(), w.half(), b.half(), 1e-5)
+
+
+def test_dropout_bits_equal_the_plain_function(gen):
+    for seed, bh, sq, sk in ((0, 1, 1, 1), (12345, 24, 77, 130),
+                             (2 ** 31 - 1, 192, 64, 512)):
+        got = dropout_bits_cuda(seed, bh, sq, sk, "cuda")
+        torch.cuda.synchronize()
+        assert torch.equal(got, dropout_bits_plain(seed, bh, sq, sk, "cuda"))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_kernels_apply_the_plain_mask(gen, dtype, d):
+    """Probes with S_k = D: q = k = 0 makes every probability 1 / D, so
+    out reads z / (D (1 - p)) with v = I; dQ with k = v = I and dO = 1
+    reads scale * z / (D (1 - p)); dV with dO = I (S_q = D) reads z^T."""
+    B, H, Sq, p, seed = 2, 3, 150, 0.1, 77
+    zeros = torch.zeros(B, Sq, H, d, device="cuda", dtype=dtype)
+    kzero = torch.zeros(B, d, H, d, device="cuda", dtype=dtype)
+    eye = torch.eye(d, device="cuda", dtype=dtype)[None, :, None, :].expand(
+        B, d, H, d).contiguous()
+    keep = dropout_keep_plain(seed, B, H, Sq, d, p, "cuda").float()
+    out, _ = flash_attention_cuda(zeros, kzero, eye, False, None, p, seed)
+    torch.cuda.synchronize()
+    z = (out.float() * d * (1 - p)).round().permute(0, 2, 1, 3)
+    assert torch.equal(z, keep)
+    lse = torch.full((B, H, Sq), math.log(d), device="cuda")
+    dg = torch.zeros(B, H, Sq, device="cuda")
+    dq, _, _ = flash_attention_bwd_cuda(zeros, eye, eye, torch.ones_like(zeros),
+                                        lse, dg, False, None, p, seed)
+    zq = (dq.float() * d * (1 - p) * math.sqrt(d)).round()
+    assert torch.equal(zq.permute(0, 2, 1, 3), keep)
+    lse2, dg2 = lse[:, :, :d].contiguous(), dg[:, :, :d].contiguous()
+    _, _, dv = flash_attention_bwd_cuda(kzero, kzero, eye, eye, lse2, dg2,
+                                        False, None, p, seed)
+    zv = (dv.float() * d * (1 - p)).round().permute(0, 2, 3, 1)
+    assert torch.equal(zv, keep[:, :, :d])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("sq,sk,hkv", [(77, 77, 8), (130, 130, 2),
+                                       (40, 100, 4)])
+def test_flash_dropout_kernels_match_plain(gen, dtype, d, causal, sq, sk,
+                                           hkv):
+    p, seed = 0.1, 2024
+    q = _rnd(gen, dtype, 2, sq, 8, d)
+    k, v = _rnd(gen, dtype, 2, sk, hkv, d), _rnd(gen, dtype, 2, sk, hkv, d)
+    g = _rnd(gen, dtype, 2, sq, 8, d)
+    out, lse = flash_attention_cuda(q, k, v, causal, None, p, seed)
+    p_out, p_lse = flash_attention_plain(q, k, v, causal, None, p, seed)
+    _close(out, p_out, **_tol(dtype))
+    _close(lse, p_lse, atol=1e-3 if dtype == torch.bfloat16 else 1e-4,
+           rtol=1e-5)
+    dg = delta_minus_glse(p_out, g)
+    got = flash_attention_bwd_cuda(q, k, v, g, p_lse, dg, causal, None, p,
+                                   seed)
+    want = flash_attention_bwd_plain(q, k, v, g, p_lse, dg, causal, None, p,
+                                     seed)
+    for a, b in zip(got, want):
+        _close(a, b, **_grad_tol(dtype, b))
+
+
+def test_dropout_variants_count_under_their_own_names(gen):
+    q = _rnd(gen, torch.bfloat16, 1, 9, 4, 64).requires_grad_()
+    before = K.launch_counts()
+    out, _ = flash_attention_fwd(q, q, q, dropout_p=0.1, seed=3)
+    out.float().sum().backward()
+    layernorm(q.detach()[0], torch.ones(64, device="cuda"),
+              torch.zeros(64, device="cuda"))
+    after = K.launch_counts()
+    assert {k: after[k] - before[k] for k in after if after[k] != before[k]} \
+        == {"flash_attention_dropout": 1, "flash_attention_bwd_dropout": 1,
+            "layernorm": 1}
+
+
+def test_bool_mask_on_the_card_raises(gen):
+    from paddle_tpu_torch.nn.functional import scaled_dot_product_attention
+
+    q = _rnd(gen, torch.bfloat16, 1, 9, 4, 64)
+    mask = torch.ones(1, 1, 9, 9, device="cuda", dtype=torch.bool)
+    with pytest.raises(NotImplementedError, match="Queue 2"):
+        scaled_dot_product_attention(q, q, q, attn_mask=mask)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_regression_backward_through_layer_norm_on_the_card(gen, dtype):
+    from paddle_tpu_torch.nn.functional import layer_norm
+
+    x = _rnd(gen, dtype, 2, 5, 768)
+    w = (1 + 0.1 * torch.randn(768, device="cuda", generator=gen)).to(dtype)
+    b = (0.1 * torch.randn(768, device="cuda", generator=gen)).to(dtype)
+    t = _rnd(gen, dtype, 2, 5, 768).float().cpu()
+    out = layer_norm(x.detach().requires_grad_(), 768, w, b)
+    assert out.grad_fn is not None
+
+    def f(x_, w_, b_):
+        return (layer_norm(x_, 768, w_, b_).float() * t.to(x_.device)).sum()
+
+    n = _grads_match(f, (x, w, b), dtype)
+    assert n["layernorm"] == 1
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_regression_backward_through_dropout_attention_on_the_card(gen,
+                                                                   dtype):
+    from paddle_tpu_torch.nn.functional import scaled_dot_product_attention
+
+    q = _rnd(gen, dtype, 2, 70, 8, 64)
+    k, v = _rnd(gen, dtype, 2, 70, 2, 64), _rnd(gen, dtype, 2, 70, 2, 64)
+    t = _rnd(gen, dtype, 2, 70, 8, 64).float().cpu()
+    out = scaled_dot_product_attention(q.requires_grad_(), k, v,
+                                       dropout_p=0.1, seed=5)
+    assert out.grad_fn is not None
+    q = q.detach()
+
+    def f(q_, k_, v_):
+        out = scaled_dot_product_attention(q_, k_, v_, dropout_p=0.1,
+                                           seed=5)
+        return (out.float() * t.to(q_.device)).sum()
+
+    n = _grads_match(f, (q, k, v), dtype)
+    assert n["flash_attention_dropout"] == 1
+    assert n["flash_attention_bwd_dropout"] == 1
+
+
+def test_ernie_tiny_step_on_the_card_matches_the_cpu(gen):
+    """One f32 ERNIE MLM step with attention dropout 0.1 (same seeds on
+    both sides), every kernel forward and backward on the card, against
+    the same weights on the CPU through the plain versions."""
+    from paddle_tpu_torch import framework
+    from paddle_tpu_torch.models import ErnieForMaskedLM, ernie_tiny
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.nn.functional import cross_entropy
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = ernie_tiny(vocab=211, hidden=128, layers=2, heads=2, inter=256,
+                     seq=64)
+    cfg.attention_probs_dropout_prob = 0.1
+    rng = torch.Generator().manual_seed(1)
+    x = torch.randint(0, 211, (2, 48), generator=rng)
+    y = torch.where(torch.rand(2, 48, generator=rng) < 0.3, x, -100)
+    models = [ErnieForMaskedLM(cfg, generator=gen),
+              ErnieForMaskedLM(cfg, device="cpu")]
+    models[1].load_state_dict({k: v.cpu()
+                               for k, v in models[0].state_dict().items()})
+    losses, launched = [], None
+    for m in models:
+        opt = AdamW(learning_rate=1e-3, parameters=m.parameters(),
+                    grad_clip=ClipGradByGlobalNorm(1.0))
+        dev = m.ernie.device
+        framework.seed(3)
+        before = K.launch_counts()
+        loss = cross_entropy(m(x.to(dev)).reshape(-1, 211),
+                             y.to(dev).reshape(-1))
+        loss.backward()
+        if launched is None:
+            launched = {k: v - before[k] for k, v in K.launch_counts().items()}
+        losses.append(loss.item())
+        opt.step()
+        opt.clear_grad()
+        framework.seed(4)
+        losses.append(cross_entropy(m(x.to(dev)).reshape(-1, 211),
+                                    y.to(dev).reshape(-1)).item())
+    assert losses[:2] == pytest.approx(losses[2:], rel=1e-4, abs=1e-5)
+    assert launched["layernorm"] == 6
+    assert launched["flash_attention_dropout"] == 2
+    assert launched["flash_attention_bwd_dropout"] == 2
+    assert launched["softmax_ce"] == 1 and launched["softmax_ce_bwd"] == 1

@@ -33,8 +33,9 @@ from paddle_tpu.optimizer import AdamW as JAdamW
 
 from paddle_tpu_torch import kernels as K
 from paddle_tpu_torch.kernels.flash_attention import (
-    delta_minus_glse, flash_attention_bwd_cuda, flash_attention_bwd_plain,
-    flash_attention_cuda, flash_attention_fwd, flash_attention_plain)
+    delta_minus_glse, dropout_keep_plain, flash_attention_bwd_cuda,
+    flash_attention_bwd_plain, flash_attention_cuda, flash_attention_fwd,
+    flash_attention_plain)
 from paddle_tpu_torch.kernels.rmsnorm import (
     rmsnorm, rmsnorm_bwd_cuda, rmsnorm_bwd_plain, rmsnorm_cuda,
     rmsnorm_plain, rmsnorm_residual)
@@ -139,6 +140,112 @@ def test_flash_grads_gqa_match_sdpa_ref_vjp(causal, sq, sk):
     (out * _t(g)).sum().backward()
     for leaf, b in zip(leaves, ref):
         np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(b), **TOL)
+
+
+# ---------------------------------------------------------------------------
+# flash attention dropout, backward
+# ---------------------------------------------------------------------------
+
+def _inject_port_mask(monkeypatch, B, H):
+    """The reference's ``_mirror_dropmask`` replaced, in this test only, by
+    the port's mask (``keep / (1 - p)``, ``[B*H, Sq, Sk]``)."""
+    def dropmask(seed, BH, Sq, Sk, dropout_p):
+        keep = dropout_keep_plain(int(np.asarray(seed)[0]), B, H, Sq, Sk,
+                                  dropout_p).reshape(BH, Sq, Sk).numpy()
+        return jnp.asarray(keep.astype(np.float32)) / (1.0 - dropout_p)
+    monkeypatch.setattr(jflash, "_mirror_dropmask", dropmask)
+
+
+@pytest.mark.parametrize("causal,sq,sk", [(False, 37, 37), (True, 37, 37),
+                                          (False, 16, 40)])
+def test_flash_dropout_bwd_plain_matches_mirror(monkeypatch, causal, sq, sk):
+    rng = np.random.RandomState(7)
+    B, H, D, p, seed = 2, 3, 16, 0.25, 4321
+    q = rng.randn(B, sq, H, D).astype(np.float32)
+    k = rng.randn(B, sk, H, D).astype(np.float32)
+    v = rng.randn(B, sk, H, D).astype(np.float32)
+    g = rng.randn(B, sq, H, D).astype(np.float32)
+    glse = (0.3 * rng.randn(B, H, sq)).astype(np.float32)
+    scale = 1.0 / np.sqrt(D)
+    _inject_port_mask(monkeypatch, B, H)
+    jseed = jnp.asarray([seed], jnp.int32)
+    jq, jk, jv, jg = map(_bhsd, (q, k, v, g))
+    jout, jlse = jflash._mirror_fwd(jq, jk, jv, None, None, None, jseed,
+                                    causal, scale, p, H)
+    jdelta = jnp.sum(jg * jout, axis=-1, keepdims=True)
+    ref = jflash._mirror_bwd(jq, jk, jv, jg,
+                             jnp.asarray(glse.reshape(B * H, sq, 1)), jlse,
+                             jdelta, None, None, None, jseed, causal, scale,
+                             p, H)
+    ref = [_bshd(r, B, H) for r in ref]
+
+    out, lse = flash_attention_plain(_t(q), _t(k), _t(v), causal,
+                                     dropout_p=p, seed=seed)
+    dg = delta_minus_glse(out, _t(g), _t(glse))
+    got = flash_attention_bwd_plain(_t(q), _t(k), _t(v), _t(g), lse, dg,
+                                    causal, dropout_p=p, seed=seed)
+    for a, b in zip(got, ref):
+        np.testing.assert_allclose(a.numpy(), b, **TOL)
+
+    # through the autograd Function: the backward regenerates the mask
+    leaves = [_t(a, grad=True) for a in (q, k, v)]
+    out, lse = flash_attention_fwd(*leaves, causal=causal, dropout_p=p,
+                                   seed=seed)
+    ((out * _t(g)).sum() + (lse * _t(glse)).sum()).backward()
+    for leaf, b in zip(leaves, ref):
+        np.testing.assert_allclose(leaf.grad.numpy(), b, **TOL)
+
+
+def test_flash_dropout_gqa_keys_the_mask_by_query_head():
+    """With GQA the mask of query head h is that of head h with the KV
+    heads repeated: the plain versions with 2 KV heads for 4 query heads
+    equal the dense-head run, dK/dV summed over each group."""
+    rng = np.random.RandomState(8)
+    B, S, H, Hkv, D, p, seed = 2, 19, 4, 2, 16, 0.3, 99
+    q = _t(rng.randn(B, S, H, D).astype(np.float32), grad=True)
+    k = _t(rng.randn(B, S, Hkv, D).astype(np.float32), grad=True)
+    v = _t(rng.randn(B, S, Hkv, D).astype(np.float32), grad=True)
+    g = _t(rng.randn(B, S, H, D).astype(np.float32))
+    out, _ = flash_attention_fwd(q, k, v, dropout_p=p, seed=seed)
+    (out * g).sum().backward()
+    q2 = q.detach().clone().requires_grad_()
+    k2 = k.detach().repeat_interleave(2, dim=2).requires_grad_()
+    v2 = v.detach().repeat_interleave(2, dim=2).requires_grad_()
+    out2, _ = flash_attention_fwd(q2, k2, v2, dropout_p=p, seed=seed)
+    (out2 * g).sum().backward()
+    np.testing.assert_allclose(out.detach().numpy(), out2.detach().numpy(),
+                               **TOL)
+    np.testing.assert_allclose(q.grad.numpy(), q2.grad.numpy(), **TOL)
+    for a, b in ((k, k2), (v, v2)):
+        np.testing.assert_allclose(
+            a.grad.numpy(), b.grad.reshape(B, S, Hkv, 2, D).sum(3).numpy(),
+            **TOL)
+
+
+def test_flash_dropout_forward_and_backward_apply_one_mask():
+    """Probes read each plain version's applied mask: with q = k = 0 every
+    probability is 1 / S, so out = z / (S (1 - p)) for v = I; dQ with
+    k = v = I and dO = 1 is scale z / (S (1 - p)); dV with dO = I is the
+    transposed mask. All three equal the keep bits."""
+    B, H, S, p, seed = 2, 3, 16, 0.3, 5
+    D = S
+    scale = 1.0 / np.sqrt(D)
+    eye = torch.eye(S)[None, :, None, :].expand(B, S, H, D).contiguous()
+    zeros = torch.zeros(B, S, H, D)
+    keep = dropout_keep_plain(seed, B, H, S, S, p).float()     # [B,H,i,j]
+    out, lse = flash_attention_plain(zeros, zeros, eye, dropout_p=p,
+                                     seed=seed)
+    z = (out * S * (1 - p)).round().permute(0, 2, 1, 3)
+    assert torch.equal(z, keep)
+    dg = torch.zeros(B, H, S)
+    dq, _, _ = flash_attention_bwd_plain(zeros, eye, eye, torch.ones_like(eye),
+                                         lse, dg, dropout_p=p, seed=seed)
+    zq = (dq / (scale / S / (1 - p))).round().permute(0, 2, 1, 3)
+    assert torch.equal(zq, keep)
+    _, _, dv = flash_attention_bwd_plain(zeros, zeros, eye, eye, lse, dg,
+                                         dropout_p=p, seed=seed)
+    zv = (dv * S * (1 - p)).round().permute(0, 2, 3, 1)
+    assert torch.equal(zv, keep)
 
 
 # ---------------------------------------------------------------------------
