@@ -33,7 +33,8 @@ CUDA toolkit (``nvcc``). It imports nothing of JAX or of ``paddle_tpu``.
    rtol; the softmax-CE loss and lse, f32 sums of the same bf16 logits in
    another order, get atol 1e-4, rtol 1e-5. The ERNIE slice's kernels: LayerNorm at
    [8192, 768] f32 (the ERNIE path's shape under O1) and bf16 and at
-   [1024, 4096] bf16, f32 outputs within LN_F32_ATOL (summation order),
+   [1024, 4096] bf16 and the Conformer's [6400, 144] f32, f32 outputs within
+   LN_F32_ATOL (summation order),
    bf16 ones within one bf16 step of the output's scale, mean and rstd
    within LN_F32_ATOL; the flash kernels' dropout at ERNIE's
    [16, 512, 12, 64] bf16, p 0.1, and with GQA and ragged S (777) at
@@ -95,9 +96,42 @@ CUDA toolkit (``nvcc``). It imports nothing of JAX or of ``paddle_tpu``.
    per step must be exactly ERNIE_PER_STEP; then one profiled step, and
    one more split by synchronising into forward, backward, and clipping
    with the AdamW update.
+9. Conformer slice's kernel phases (run with the other kernel phases):
+   the CTC alpha and beta kernels at ``log_probs [400, 16, 128]`` f32 with
+   labels [16, 48] (and L 100, S 201): ragged input lengths 300-400 and
+   label lengths 24-48, repeated adjacent labels, an empty label and an
+   infeasible row; the lattices' -1e30 entries equal the plain versions',
+   the live ones within CTC_ATOL / CTC_RTOL, the loss and the gradient
+   (kernel path vs ``ctc_grad`` of the plain lattices) too, the
+   infeasible row's gradient 0; library column ``F.ctc_loss`` and its
+   backward, timed only (its log_probs gradient assumes a log-softmax
+   input, so it is not the JAX package's). Flash at head_dim 36
+   ``[16, 400, 4, 36]`` bf16, p 0.1 and 0, forward and backward against
+   the plain versions under the dropout phase's tolerances, the mask read
+   back exactly by the probes.
+10. Whole Conformer step: ``ConformerForCTC`` at hidden 144 (4 heads of
+    36, 2 layers, conv kernel 15, vocab 128), 4 utterances of 400 frames,
+    attention dropout 0.1 (hidden dropout 0), one O1 forward, CTC loss
+    (per frame) and backward on the card against f32 on the CPU: the loss
+    within STEP_LOSS_TOL, every gradient within STEP_GRAD_REL_L2 but the
+    key projections' and depthwise convolutions' biases (0 in exact
+    arithmetic; below 1e-2 of their weight gradient's norm on each side),
+    the batch norms' running buffers within BN_REL_L2.
+11. Conformer phase: ``ConformerConfig()`` (input 80 mels, hidden 144, 4
+    layers, 4 heads, ff_mult 4, conv kernel 15, vocab 128, dropout 0.1),
+    16 utterances of 1600 frames, labels of 24-48 from 1..127, input
+    lengths 300-400 of T' = 400; f32 parameters under auto_cast(O1, bf16),
+    AdamW lr 1e-3, weight decay 0.01: a warm-up step, then CONFORMER_STEPS
+    timed steps; every loss finite and the last below the first;
+    utterances/s, step wall, MFU (``conformer_flops_per_utterance``), peak
+    memory; launches per step exactly CONFORMER_PER_STEP (every other
+    kernel 0); a profiled step, and one split into forward, backward and
+    the AdamW update.
 
 The ``launches`` of the JSON line sum the main path's runs: the engine,
-the no-cache forward, the 5 Llama training steps and the ERNIE steps. The last two lines are one
+the no-cache forward, the 5 Llama training steps, the ERNIE steps and the
+Conformer steps (the ``_d36`` rows: the Conformer steps' launches of the
+dropout flash kernels, all at head_dim 36). The last two lines are one
 JSON object with every kernel's numbers and one with the device. Any
 failure raises and exits non-zero; without a CUDA device, or without the
 package beside this file, it exits non-zero and prints no result.
@@ -154,6 +188,22 @@ ERNIE_PER_STEP = {"layernorm": 26, "flash_attention_dropout": 12,
                   "flash_attention_bwd_dropout": 12, "softmax_ce": 1,
                   "softmax_ce_bwd": 1, "flash_attention": 0,
                   "flash_attention_bwd": 0}
+# Conformer slice. The CTC kernels repeat the plain versions' f32
+# arithmetic step for step: -1e30 ("dead") lattice entries must be equal,
+# the live ones (sums over up to 400 steps of magnitude ~5, |alpha| up to
+# ~3000) within CTC_ATOL + CTC_RTOL * |plain| (expf / logf may differ by an
+# ulp), the log-likelihood within 1e-4 + 1e-5 relative.
+CTC_ATOL, CTC_RTOL = 1e-3, 1e-5
+CONFORMER_STEPS = 10
+CONFORMER_DROPOUT = 0.1        # ConformerConfig's published dropout
+# launches per ConformerForCTC step (4 blocks): five LayerNorms a block;
+# one flash forward and backward (dropout) a block; the CTC alpha kernel
+# in the forward, the beta kernel in the backward; no other kernel
+CONFORMER_PER_STEP = {"layernorm": 20, "flash_attention_dropout": 4,
+                      "flash_attention_bwd_dropout": 4, "ctc_alpha": 1,
+                      "ctc_beta": 1}
+# batch-norm running statistics after one O1 step vs the f32 CPU step
+BN_REL_L2 = 1e-2
 SOURCES = {
     "flash_attention": ("paddle_tpu_torch/csrc/flash_attention.cu",
                         "paddle_tpu/kernels/flash_attention.py:108"),
@@ -179,6 +229,17 @@ SOURCES = {
     "flash_attention_bwd_dropout": (
         "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
         "paddle_tpu/kernels/flash_attention.py:173"),
+    # the same kernels' head_dim-36 instantiations (the Conformer's)
+    "flash_attention_dropout_d36": (
+        "paddle_tpu_torch/csrc/flash_attention.cu",
+        "paddle_tpu/kernels/flash_attention.py:108"),
+    "flash_attention_bwd_dropout_d36": (
+        "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+        "paddle_tpu/kernels/flash_attention.py:173"),
+    "ctc_alpha": ("paddle_tpu_torch/csrc/ctc.cu",
+                  "paddle_tpu/kernels/ctc.py:61"),
+    "ctc_beta": ("paddle_tpu_torch/csrc/ctc.cu",
+                 "paddle_tpu/kernels/ctc.py:92"),
 }
 
 
@@ -547,7 +608,8 @@ def layernorm_phase(torch, g):
     worst = 0.0
     for rows, cols, dt in ((8192, 768, torch.float32),
                            (8192, 768, torch.bfloat16),
-                           (1024, 4096, torch.bfloat16)):
+                           (1024, 4096, torch.bfloat16),
+                           (6400, 144, torch.float32)):   # the Conformer's
         x = (2 * torch.randn(rows, cols, device="cuda", generator=g)
              + 0.5).to(dt)
         w = (1 + 0.1 * torch.randn(cols, device="cuda", generator=g)).to(dt)
@@ -572,11 +634,14 @@ def layernorm_phase(torch, g):
         lib = time_ms(torch, lambda: torch.nn.functional.layer_norm(
             x, (cols,), w, b, 1e-5), host=host)
         size = x.element_size()
+        vec = cols % (16 // size) == 0 and not any(
+            t.data_ptr() % 16 for t in (x, w, b, out))
         # read x, w, b; write out, mean, rstd; ~8 f32 operations an element
         nbytes = 2 * x.numel() * size + 2 * cols * size + 2 * rows * 4
         bound, by = bound_ms(nbytes, 8 * x.numel(), F32_FLOPS)
         print(f"  {tag}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
               f"F.layer_norm {lib:.4f} ms, bound {bound:.4f} ms ({by}); "
+              f"{'16-byte' if vec else 'scalar'} path; "
               f"host time to queue one call: wrapper {host[0]:.4f} ms, "
               f"F.layer_norm {host[1]:.4f} ms")
         if row is None:     # the ERNIE path's shape: f32 under O1
@@ -586,15 +651,53 @@ def layernorm_phase(torch, g):
     return row
 
 
+def mask_probes(torch, d, p, seed):
+    """Read each flash kernel's applied dropout mask back at head_dim d:
+    S_k = d keys and q = k = 0 make every probability 1 / d, so with v = I
+    out holds z / (d (1 - p)), dQ (k = v = I, dO = 1) scale times that,
+    and dV (dO = I, S_q = d) its transpose; each must equal the plain
+    version's keep bits exactly."""
+    from paddle_tpu_torch.kernels.flash_attention import (
+        dropout_keep_plain, flash_attention_bwd_cuda, flash_attention_cuda)
+
+    Sq, Hp = 300, 4
+    zeros = torch.zeros(2, Sq, Hp, d, device="cuda", dtype=torch.bfloat16)
+    kzero = torch.zeros(2, d, Hp, d, device="cuda", dtype=torch.bfloat16)
+    eye = torch.eye(d, device="cuda", dtype=torch.bfloat16)[
+        None, :, None, :].expand(2, d, Hp, d).contiguous()
+    keep = dropout_keep_plain(seed, 2, Hp, Sq, d, p, "cuda").float()
+    out, _ = flash_attention_cuda(zeros, kzero, eye, False, None, p, seed)
+    lse = torch.full((2, Hp, Sq), math.log(d), device="cuda")
+    dg = torch.zeros(2, Hp, Sq, device="cuda")
+    dq, _, _ = flash_attention_bwd_cuda(zeros, eye, eye,
+                                        torch.ones_like(zeros), lse, dg,
+                                        False, None, p, seed)
+    _, _, dv = flash_attention_bwd_cuda(
+        kzero, kzero, eye, eye, lse[:, :, :d].contiguous(),
+        dg[:, :, :d].contiguous(), False, None, p, seed)
+    torch.cuda.synchronize()
+    reads = {
+        "forward": (out.float() * d * (1 - p)).round().permute(0, 2, 1, 3),
+        "dQ": (dq.float() * d * (1 - p) * math.sqrt(d)).round()
+        .permute(0, 2, 1, 3),
+        "dK/dV": (dv.float() * d * (1 - p)).round().permute(0, 2, 3, 1)}
+    for name, z in reads.items():
+        ref = keep if name != "dK/dV" else keep[:, :, :d]
+        if not torch.equal(z, ref):
+            raise AssertionError(f"the {name} kernel applied another "
+                                 f"mask than the plain bits (d={d})")
+    print(f"  probes, head_dim {d}: the forward, dQ and dK/dV kernels "
+          f"each applied exactly the plain version's mask")
+
+
 def flash_dropout_phases(torch, g):
     """The flash kernels' dropout: the mask function against its plain
     version bit for bit, each kernel's applied mask read out by probes,
     then outputs and gradients against the plain versions."""
     from paddle_tpu_torch.kernels.flash_attention import (
         delta_minus_glse, dropout_bits_cuda, dropout_bits_plain,
-        dropout_keep_plain, flash_attention_bwd_cuda,
-        flash_attention_bwd_plain, flash_attention_cuda,
-        flash_attention_plain)
+        flash_attention_bwd_cuda, flash_attention_bwd_plain,
+        flash_attention_cuda, flash_attention_plain)
 
     p, seed = ERNIE_DROPOUT, 20240
     B, S, H, D = 16, 512, 12, 64
@@ -609,36 +712,8 @@ def flash_dropout_phases(torch, g):
     if not same:
         raise AssertionError("dropout bits differ from the plain version")
     del bits, want
-    # probes: S_k = D keys, q = k = 0, so every probability is 1 / D
     for d in (64, 128):
-        Sq, Hp = 300, 4
-        zeros = torch.zeros(2, Sq, Hp, d, device="cuda", dtype=torch.bfloat16)
-        kzero = torch.zeros(2, d, Hp, d, device="cuda", dtype=torch.bfloat16)
-        eye = torch.eye(d, device="cuda", dtype=torch.bfloat16)[
-            None, :, None, :].expand(2, d, Hp, d).contiguous()
-        keep = dropout_keep_plain(seed, 2, Hp, Sq, d, p, "cuda").float()
-        out, _ = flash_attention_cuda(zeros, kzero, eye, False, None, p, seed)
-        lse = torch.full((2, Hp, Sq), math.log(d), device="cuda")
-        dg = torch.zeros(2, Hp, Sq, device="cuda")
-        dq, _, _ = flash_attention_bwd_cuda(zeros, eye, eye,
-                                            torch.ones_like(zeros), lse, dg,
-                                            False, None, p, seed)
-        _, _, dv = flash_attention_bwd_cuda(
-            kzero, kzero, eye, eye, lse[:, :, :d].contiguous(),
-            dg[:, :, :d].contiguous(), False, None, p, seed)
-        torch.cuda.synchronize()
-        reads = {
-            "forward": (out.float() * d * (1 - p)).round().permute(0, 2, 1, 3),
-            "dQ": (dq.float() * d * (1 - p) * math.sqrt(d)).round()
-            .permute(0, 2, 1, 3),
-            "dK/dV": (dv.float() * d * (1 - p)).round().permute(0, 2, 3, 1)}
-        for name, z in reads.items():
-            ref = keep if name != "dK/dV" else keep[:, :, :d]
-            if not torch.equal(z, ref):
-                raise AssertionError(f"the {name} kernel applied another "
-                                     f"mask than the plain bits (d={d})")
-        print(f"  probes, head_dim {d}: the forward, dQ and dK/dV kernels "
-              f"each applied exactly the plain version's mask")
+        mask_probes(torch, d, p, seed)
     worst_f = worst_b = 0.0
     rows = None
     for (b_, s_, h_, hkv, d, causal) in ((B, S, H, H, D, False),
@@ -711,6 +786,188 @@ def flash_dropout_phases(torch, g):
                      dense_ms=bwd_dense))
     rows[0]["max_abs_err"], rows[1]["max_abs_err"] = worst_f, worst_b
     return rows
+
+def ctc_batch(torch, T, B, C, L, seed, device):
+    """Seeded CTC inputs: log-softmax of logits [T, B, C], labels from
+    1..C-1, input lengths over 3T/4..T and label lengths over L/2..L, with
+    repeated adjacent labels (row 1), an empty label (row 2) and an
+    infeasible row (row 3: L equal labels need 2L - 1 frames; it gets
+    L + 2)."""
+    gen = torch.Generator().manual_seed(seed)
+    lp = torch.log_softmax(2 * torch.randn(T, B, C, generator=gen), -1)
+    labels = torch.randint(1, C, (B, L), generator=gen)
+    in_len = torch.randint(3 * T // 4, T + 1, (B,), generator=gen)
+    lbl_len = torch.randint(L // 2, L + 1, (B,), generator=gen)
+    labels[1, 1:5] = labels[1, 0]
+    lbl_len[2] = 0
+    labels[3], lbl_len[3], in_len[3] = 5, L, L + 2
+    return [t.to(device) for t in (lp, labels, in_len, lbl_len)]
+
+
+def check_lattice(torch, name, got, want) -> float:
+    """The -1e30 entries equal, the live ones within CTC_ATOL / CTC_RTOL."""
+    dead = want <= -5e29
+    if not (torch.equal(dead, got <= -5e29)
+            and torch.equal(got[dead], want[dead])):
+        raise AssertionError(f"{name}: the kernel's -1e30 entries differ "
+                             f"from the plain version's")
+    return check(torch, f"{name} (live entries)", got[~dead], want[~dead],
+                 CTC_ATOL, CTC_RTOL)
+
+
+def ctc_phase(torch, g):
+    """The CTC alpha and beta kernels, the loss and its gradient against
+    the plain versions on the card; times at the Conformer's shape."""
+    from paddle_tpu_torch.kernels.ctc import (ctc_alpha_cuda, ctc_alpha_plain,
+                                              ctc_beta_cuda, ctc_beta_plain,
+                                              ctc_grad, ctc_lattice)
+
+    T, B, C = 400, 16, 128
+    print(f"[kernel] ctc_alpha, ctc_beta  log_probs [{T}, {B}, {C}] f32, "
+          f"labels [{B}, L]: ragged lengths, repeats, an empty label, an "
+          f"infeasible row")
+    rows = None
+    worst = [0.0, 0.0]
+    for L in (48, 100):
+        lp, labels, in_len, lbl_len = ctc_batch(torch, T, B, C, L, L, "cuda")
+        S = 2 * L + 1
+        alphas, ll = ctc_alpha_cuda(lp, labels, in_len, lbl_len)
+        betas = ctc_beta_cuda(lp, labels, in_len, lbl_len)
+        p_alphas, p_ll = ctc_alpha_plain(lp, labels, in_len, lbl_len)
+        p_betas = ctc_beta_plain(lp, labels, in_len, lbl_len)
+        torch.cuda.synchronize()
+        tag = f"L {L} (S {S})"
+        worst[0] = max(worst[0], check_lattice(torch, f"{tag} alphas",
+                                               alphas, p_alphas))
+        worst[1] = max(worst[1], check_lattice(torch, f"{tag} betas", betas,
+                                               p_betas))
+        worst[0] = max(worst[0], check(torch, f"{tag} loss", -ll, -p_ll,
+                                       1e-4, CTC_RTOL))
+        x = lp.clone().requires_grad_()
+        ctc_lattice(x, labels, in_len, lbl_len).sum().backward()
+        want = ctc_grad(p_alphas, p_betas, p_ll, labels,
+                        torch.ones(B, device="cuda"), C)
+        torch.cuda.synchronize()
+        worst[1] = max(worst[1], check_grad(torch, f"{tag} d log_probs",
+                                            x.grad, want, GRAD_FRAC_F32))
+        if x.grad[:, 3].any():
+            raise AssertionError("the infeasible row got a gradient")
+        print(f"  {tag}: the infeasible row's loss {-ll[3].item():.3g} and "
+              f"gradient 0 (as the plain version's)")
+        if rows is not None:
+            continue
+        a_ms = time_ms(torch, lambda: ctc_alpha_cuda(lp, labels, in_len,
+                                                     lbl_len))
+        b_ms = time_ms(torch, lambda: ctc_beta_cuda(lp, labels, in_len,
+                                                    lbl_len))
+        a_plain = time_ms(torch, lambda: ctc_alpha_plain(
+            lp, labels, in_len, lbl_len), iters=3, warmup=1)
+        b_plain = time_ms(torch, lambda: ctc_beta_plain(
+            lp, labels, in_len, lbl_len), iters=3, warmup=1)
+        ctc = torch.nn.functional.ctc_loss
+        lib_f = time_ms(torch, lambda: ctc(lp, labels, in_len, lbl_len,
+                                           reduction="none"))
+        xl = lp.clone().requires_grad_()
+        lib_loss = ctc(xl, labels, in_len, lbl_len, reduction="none",
+                       zero_infinity=True).sum()
+        lib_b = time_ms(torch, lambda: torch.autograd.grad(
+            lib_loss, xl, retain_graph=True))
+        # alpha: read log_probs and labels, write alphas and ll; beta: the
+        # same inputs, write betas. ~12 f32 operations a state and step
+        # (three exp, a log, the max and the adds).
+        nb_in = lp.numel() * 4 + labels.numel() * 8 + 2 * B * 8
+        nb_out = T * B * S * 4
+        bound_a, by_a = bound_ms(nb_in + nb_out + B * 4, 12 * T * B * S,
+                                 F32_FLOPS)
+        bound_b, by_b = bound_ms(nb_in + nb_out, 12 * T * B * S, F32_FLOPS)
+        print(f"  {tag}: alpha kernel {a_ms:.4f} ms, plain {a_plain:.4f}, "
+              f"F.ctc_loss {lib_f:.4f}, bound {bound_a:.4f} ({by_a}; and "
+              f"{T} dependent steps: {1e3 * a_ms / T:.2f} us a step); beta "
+              f"kernel {b_ms:.4f} ms, plain {b_plain:.4f}, F.ctc_loss "
+              f"backward {lib_b:.4f}, bound {bound_b:.4f} ({by_b})")
+        shape = f"log_probs [{T}, {B}, {C}] f32, L {L}"
+        rows = (dict(shape=shape, ms=a_ms, plain_ms=a_plain, library_ms=lib_f,
+                     bound_ms=bound_a, bound_by=by_a),
+                dict(shape=shape, ms=b_ms, plain_ms=b_plain, library_ms=lib_b,
+                     bound_ms=bound_b, bound_by=by_b))
+        del xl, lib_loss
+    rows[0]["max_abs_err"], rows[1]["max_abs_err"] = worst
+    return rows
+
+
+def flash_d36_phase(torch, g):
+    """The flash kernels at head_dim 36 (the Conformer's 144 / 4), forward
+    and backward, dropout p 0.1 and 0, against the plain versions; the
+    applied mask read back by the probes; times at the Conformer's
+    [16, 400, 4, 36] bf16."""
+    from paddle_tpu_torch.kernels.flash_attention import (
+        delta_minus_glse, flash_attention_bwd_cuda, flash_attention_bwd_plain,
+        flash_attention_cuda, flash_attention_plain)
+
+    p, seed = CONFORMER_DROPOUT, 36036
+    B, S, H, D = 16, 400, 4, 36
+    print(f"[kernel] flash_attention_dropout, flash_attention_bwd_dropout at "
+          f"head_dim 36  [{B}, {S}, {H}, {D}] bf16, p {p} and 0")
+    mask_probes(torch, D, p, seed)
+    q, k, v, do = (torch.randn(B, S, H, D, device="cuda", generator=g)
+                   .bfloat16() for _ in range(4))
+    worst_f = worst_b = 0.0
+    for drop in (p, 0.0):
+        out, lse = flash_attention_cuda(q, k, v, False, None, drop, seed)
+        p_out, p_lse = flash_attention_plain(q, k, v, False, None, drop, seed)
+        torch.cuda.synchronize()
+        worst_f = max(worst_f, check(torch, f"p {drop} out", out, p_out,
+                                     ATTN_ATOL, BF16_RTOL))
+        check(torch, f"p {drop} lse", lse, p_lse, F32_ATOL)
+        dg = delta_minus_glse(p_out, do)
+        got = flash_attention_bwd_cuda(q, k, v, do, p_lse, dg, False, None,
+                                       drop, seed)
+        want = flash_attention_bwd_plain(q, k, v, do, p_lse, dg, False, None,
+                                         drop, seed)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("dq", "dk", "dv"), got, want):
+            worst_b = max(worst_b, check_grad(torch, f"p {drop} {name}", a, b,
+                                              GRAD_FRAC_BF16))
+    out, lse = flash_attention_cuda(q, k, v, False, None, p, seed)
+    dg = delta_minus_glse(out, do)
+    fwd = time_ms(torch, lambda: flash_attention_cuda(q, k, v, False, None, p,
+                                                      seed))
+    dense = time_ms(torch, lambda: flash_attention_cuda(q, k, v))
+    fwd_plain = time_ms(torch, lambda: flash_attention_plain(
+        q, k, v, False, None, p, seed), iters=3, warmup=1)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    fwd_lib = time_ms(torch, lambda: sdpa(qt, kt, vt, dropout_p=p))
+    bwd = time_ms(torch, lambda: flash_attention_bwd_cuda(
+        q, k, v, do, lse, dg, False, None, p, seed))
+    bwd_dense = time_ms(torch, lambda: flash_attention_bwd_cuda(
+        q, k, v, do, lse, dg))
+    bwd_plain = time_ms(torch, lambda: flash_attention_bwd_plain(
+        q, k, v, do, lse, dg, False, None, p, seed), iters=3, warmup=1)
+    qg, kg, vg = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    og = sdpa(qg, kg, vg, dropout_p=p)
+    bwd_lib = time_ms(torch, lambda: torch.autograd.grad(
+        og, (qg, kg, vg), do.transpose(1, 2), retain_graph=True))
+    del og
+    pairs = S * S
+    # as the dropout phase counts them, at the real width 36
+    bound_f, by_f = bound_ms(4 * q.numel() * 2 + B * H * S * 4,
+                             4 * pairs * D * B * H)
+    bound_b, by_b = bound_ms(7 * q.numel() * 2 + 2 * B * H * S * 4,
+                             10 * pairs * D * B * H)
+    print(f"  [{B}, {S}, {H}, {D}]: forward kernel {fwd:.4f} ms (dense "
+          f"{dense:.4f}), plain {fwd_plain:.4f}, SDPA(dropout) {fwd_lib:.4f}, "
+          f"bound {bound_f:.4f} ({by_f}); backward kernel {bwd:.4f} ms "
+          f"(dense {bwd_dense:.4f}), plain {bwd_plain:.4f}, SDPA backward "
+          f"{bwd_lib:.4f}, bound {bound_b:.4f} ({by_b})")
+    shape = f"[{B}, {S}, {H}, {D}] bf16 p={p}"
+    return (dict(shape=shape, ms=fwd, plain_ms=fwd_plain, library_ms=fwd_lib,
+                 bound_ms=bound_f, bound_by=by_f, dense_ms=dense,
+                 max_abs_err=worst_f),
+            dict(shape=shape, ms=bwd, plain_ms=bwd_plain, library_ms=bwd_lib,
+                 bound_ms=bound_b, bound_by=by_b, dense_ms=bwd_dense,
+                 max_abs_err=worst_b))
 
 
 def serving_phase(torch, K):
@@ -931,7 +1188,7 @@ def whole_step_check(torch, K):
 def kernel_share(kernels):
     """Device ms by group of the profiled kernels: ours, GEMMs, the rest."""
     ours = ("flash_fwd", "flash_bwd", "rmsnorm", "softmax_ce", "paged_",
-            "layernorm")
+            "layernorm", "ctc_")
     gemm = ("gemm", "nvjet", "xmma", "cutlass", "cublas")
     share = {"port kernels": 0.0, "GEMMs (cuBLAS)": 0.0, "other": 0.0}
     for k in kernels:
@@ -1264,6 +1521,249 @@ def ernie_training_phase(torch, K):
     return counts
 
 
+def conformer_batch(torch, B, T, cfg, L, seed, device):
+    """Seeded features [B, T, input_dim], labels from 1..vocab-1 [B, L],
+    label lengths over L/2..L and input lengths over 3/4..1 of the
+    subsampled T' = T / 4."""
+    gen = torch.Generator().manual_seed(seed)
+    feats = torch.randn(B, T, cfg.input_dim, generator=gen)
+    labels = torch.randint(1, cfg.vocab_size, (B, L), generator=gen)
+    t2 = (T + 3) // 4
+    in_len = torch.randint(3 * t2 // 4, t2 + 1, (B,), generator=gen)
+    lbl_len = torch.randint(L // 2, L + 1, (B,), generator=gen)
+    return [t.to(device) for t in (feats, labels, in_len, lbl_len)]
+
+
+def whole_step_conformer(torch, K):
+    """One ConformerForCTC step (forward, CTC loss, backward) under
+    auto_cast(O1, bf16) on the card against the same f32 weights in f32 on
+    the CPU through the plain versions, with the same attention-dropout
+    seeds. Hidden dropout is 0 on both sides (its masks come from each
+    device's generator); the attention keeps p 0.1. The loss is
+    normalised by the input lengths (``norm_by_times``), so it is a
+    per-frame loss of the size of the ERNIE check's and STEP_LOSS_TOL means
+    the same there."""
+    from paddle_tpu_torch import amp, framework
+    from paddle_tpu_torch.models import ConformerConfig, ConformerForCTC
+    from paddle_tpu_torch.nn import Dropout
+    from paddle_tpu_torch.nn.functional import ctc_loss
+
+    cfg = ConformerConfig(hidden=144, num_layers=2, num_heads=4,
+                          conv_kernel=15, vocab_size=128,
+                          dropout=CONFORMER_DROPOUT)
+    print("[whole step conformer] hidden 144, 4 heads of 36, 2 layers, conv "
+          "kernel 15, vocab 128, 4 utterances of 400 frames, attention "
+          "dropout 0.1: O1 bf16 on the card vs f32 on the CPU")
+    card = ConformerForCTC(cfg, seed=1)
+    cpu = ConformerForCTC(cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    feats, labels, in_len, lbl_len = conformer_batch(torch, 4, 400, cfg, 20,
+                                                     3, "cpu")
+    losses, grads, bufs, launched = [], [], [], None
+    for model in (card, cpu):
+        for m in model.modules():
+            if isinstance(m, Dropout):
+                m.p = 0.0
+        dev = model.device
+        framework.seed(5)
+        K.reset_launch_counts()
+        with amp.auto_cast(enable=dev.type == "cuda", level="O1"):
+            loss = ctc_loss(model(feats.to(dev)), labels, in_len, lbl_len,
+                            norm_by_times=True)
+        loss.backward()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            launched = K.launch_counts()
+        losses.append(loss.item())
+        grads.append({n: p.grad.float().cpu()
+                      for n, p in model.named_parameters()})
+        bufs.append({n: b.float().cpu() for n, b in model.named_buffers()})
+    per_step = {k: v for k, v in launched.items() if v}
+    want = {"layernorm": 10, "flash_attention_dropout": 2,   # 2 blocks
+            "flash_attention_bwd_dropout": 2, "ctc_alpha": 1, "ctc_beta": 1}
+    if per_step != want:
+        raise AssertionError(f"the card's Conformer step launched {per_step}, "
+                             f"expected {want}")
+    # exactly 0 in exact arithmetic, so each side holds rounding noise:
+    # the key projections' biases (the softmax cancels a per-row constant,
+    # with dropout too) and the depthwise convolutions' biases (training
+    # batch norm cancels a per-channel constant). Held below 1e-2 of their
+    # side's weight gradient's norm, as the ERNIE check holds its key biases.
+    noise = {}
+    for n in [n for n in grads[1] if n.endswith(("attn.k_proj.bias",
+                                                  "conv.dw.bias"))]:
+        w = n.replace("bias", "weight")
+        ratio = [gr.pop(n).norm().item() / gr[w].norm().item()
+                 for gr in grads]
+        noise[n] = ratio
+        if not max(ratio) <= 1e-2:
+            raise AssertionError(f"whole Conformer step: {n}'s gradient, 0 "
+                                 f"in exact arithmetic, has {ratio} of its "
+                                 f"weight gradient's norm (card, CPU)")
+    print("  biases with a gradient of 0 in exact arithmetic, norm over "
+          "their weight gradient's, card / CPU: "
+          + ", ".join(f"{n.split('.', 2)[2]} {a:.2e} / {b:.2e}"
+                      for n, (a, b) in noise.items()))
+    rel = {n: ((grads[0][n] - gr).norm() / gr.norm()).item()
+           for n, gr in grads[1].items()}
+    worst = sorted(rel.items(), key=lambda r: -r[1])[:3]
+    bn = {n: ((bufs[0][n] - b).norm() / b.norm()).item()
+          for n, b in bufs[1].items()}
+    worst_bn = max(bn.items(), key=lambda r: r[1])
+    print(f"  per-frame loss {losses[0]:.5f} on the card, {losses[1]:.5f} on "
+          f"the CPU (|diff| {abs(losses[0] - losses[1]):.2e}, limit "
+          f"{STEP_LOSS_TOL}); worst gradient relative L2 errors "
+          + ", ".join(f"{n} {e:.2e}" for n, e in worst)
+          + f" (limit {STEP_GRAD_REL_L2}, {len(rel)} parameters); batch-norm "
+          f"buffers after the step: worst relative L2 {worst_bn[1]:.2e} "
+          f"({worst_bn[0]}, limit {BN_REL_L2}, {len(bn)} buffers); launches "
+          f"{per_step}")
+    if not abs(losses[0] - losses[1]) <= STEP_LOSS_TOL:
+        raise AssertionError(f"whole Conformer step: loss {losses}")
+    if not worst[0][1] <= STEP_GRAD_REL_L2:
+        raise AssertionError(f"whole Conformer step: gradient of "
+                             f"{worst[0][0]} off by {worst[0][1]}")
+    if not worst_bn[1] <= BN_REL_L2:
+        raise AssertionError(f"whole Conformer step: buffer {worst_bn[0]} off "
+                             f"by {worst_bn[1]}")
+
+
+def conformer_flops_per_utterance(cfg, T):
+    """Training flops an utterance of T frames (3x the forward's): the two
+    subsampling convolutions and the projection; per block the four
+    feed-forward matrices, the four attention projections, the score and
+    P.V products, the two pointwise and the depthwise convolutions; the
+    head."""
+    h, k, V = cfg.hidden, cfg.conv_kernel, cfg.vocab_size
+    t1, f1 = (T + 1) // 2, (cfg.input_dim + 1) // 2
+    t2, f2 = (t1 + 1) // 2, (f1 + 1) // 2
+    front = 2 * 9 * h * t1 * f1 + 2 * 9 * h * h * t2 * f2 \
+        + 2 * t2 * (h * f2) * h
+    block = (2 * 2 * 2 * t2 * h * cfg.ff_mult * h      # two feed-forwards
+             + 4 * 2 * t2 * h * h                       # q, k, v, out
+             + 2 * 2 * t2 * t2 * h                      # scores and P.V
+             + 2 * t2 * h * 2 * h + 2 * t2 * h * k      # pw1, depthwise
+             + 2 * t2 * h * h)                          # pw2
+    return 3 * (front + cfg.num_layers * block + 2 * t2 * h * V)
+
+
+def conformer_training_phase(torch, K):
+    """ConformerForCTC at the repo's configuration (tools/model_bench.py's
+    ConformerConfig()), published dropout kept, 16 utterances of 1600
+    frames."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch import amp, framework
+    from paddle_tpu_torch.models import ConformerConfig, ConformerForCTC
+    from paddle_tpu_torch.nn.functional import ctc_loss
+    from paddle_tpu_torch.optimizer import AdamW
+
+    B, T = 16, 1600
+    cfg = ConformerConfig()
+    print(f"[conformer] ConformerConfig() (input 80 mels, hidden 144, 4 "
+          f"layers, 4 heads of 36, ff_mult 4, conv kernel 15, vocab 128 "
+          f"with blank 0, subsample 4, dropout {cfg.dropout}), {B} "
+          f"utterances of {T} frames, f32 params under auto_cast(O1, "
+          f"bf16), AdamW lr 1e-3, weight decay 0.01")
+    framework.seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    model = ConformerForCTC(cfg, seed=0)
+    opt = AdamW(learning_rate=1e-3, parameters=model.parameters(),
+                weight_decay=0.01)
+    feats, labels, in_len, lbl_len = conformer_batch(torch, B, T, cfg, 48, 1,
+                                                     "cuda")
+    print(f"  {model.num_params() / 1e6:.2f} M parameters; input lengths "
+          f"{in_len.min().item()}-{in_len.max().item()} of "
+          f"{(T + 3) // 4}, label lengths "
+          f"{lbl_len.min().item()}-{lbl_len.max().item()}")
+
+    def forward():
+        with amp.auto_cast(level="O1", dtype="bfloat16"):
+            return ctc_loss(model(feats), labels, in_len, lbl_len)
+
+    def step():
+        loss = forward()
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+
+    t0 = time.monotonic()
+    losses = [step().item()]                      # warm-up
+    print(f"  warm-up step {time.monotonic() - t0:.2f}s, loss "
+          f"{losses[0]:.4f}")
+    K.reset_launch_counts()
+    walls = []
+    for _ in range(CONFORMER_STEPS):
+        t0 = time.monotonic()
+        losses.append(step().item())
+        torch.cuda.synchronize()
+        walls.append(time.monotonic() - t0)
+    counts = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  losses {[round(v, 3) for v in losses]}")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite Conformer loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the Conformer loss did not fall: {losses}")
+    per_step = {k: v / CONFORMER_STEPS for k, v in counts.items()}
+    want = {k: float(CONFORMER_PER_STEP.get(k, 0)) for k in counts}
+    print(f"  launches per step: "
+          f"{ {k: v for k, v in per_step.items() if v} } (expected "
+          f"{CONFORMER_PER_STEP}, every other kernel 0)")
+    if per_step != want:
+        raise AssertionError("the Conformer steps launched other kernels "
+                             "than the model's structure gives")
+    mean = sum(walls) / len(walls)
+    flops = conformer_flops_per_utterance(cfg, T)
+    print(f"  step wall {mean * 1e3:.1f} ms (mean of {CONFORMER_STEPS}, min "
+          f"{min(walls) * 1e3:.1f}); {B / mean:.1f} utterances/s; MFU "
+          f"{100 * B / mean * flops / BF16_FLOPS:.2f}% "
+          f"({flops / 1e9:.2f} GFLOP an utterance against "
+          f"{BF16_FLOPS / 1e12:.0f} TFLOP/s); peak memory "
+          f"{peak / 2 ** 30:.2f} GiB")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        step()
+        torch.cuda.synchronize()
+        prof_wall = (time.monotonic() - t0) * 1e3
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        raise AssertionError("the profiled Conformer step traced no kernel")
+    busy = busy_ms(kernels)
+    print(f"[profile] one Conformer step: device busy {busy:.2f} ms in "
+          f"{len(kernels)} kernels, wall {prof_wall:.2f} ms under the "
+          f"profiler (unprofiled mean {mean * 1e3:.2f} ms), idle "
+          f"{100 * (1 - busy / prof_wall):.1f}% of the profiled wall, "
+          f"{100 * (1 - busy / (mean * 1e3)):.1f}% of the unprofiled mean")
+    for group, ms in kernel_share(kernels).items():
+        print(f"  {ms:9.3f} ms  {group}")
+    per_name: dict[str, list] = {}
+    for k in kernels:
+        acc = per_name.setdefault(k.name, [0.0, 0])
+        acc[0] += (k.time_range.end - k.time_range.start) / 1e3
+        acc[1] += 1
+    for name, (ms, n) in sorted(per_name.items(), key=lambda r: -r[1][0])[:12]:
+        print(f"  {ms:9.3f} ms  x{n:<5d} {name[:90]}")
+    # one more step, split: forward, backward, then the AdamW update
+    marks = [time.monotonic()]
+    loss = forward()
+    for part in (loss.backward, opt.step):
+        torch.cuda.synchronize()
+        marks.append(time.monotonic())
+        part()
+    torch.cuda.synchronize()
+    marks.append(time.monotonic())
+    opt.clear_grad()
+    fwd, bwd, upd = (1e3 * (b - a) for a, b in zip(marks, marks[1:]))
+    print(f"  one step split: forward {fwd:.1f} ms, backward {bwd:.1f} ms, "
+          f"AdamW update {upd:.1f} ms")
+    del model, opt
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -1300,6 +1800,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     (rows["flash_attention_dropout"],
      rows["flash_attention_bwd_dropout"]) = flash_dropout_phases(torch, g)
+    (rows["flash_attention_dropout_d36"],
+     rows["flash_attention_bwd_dropout_d36"]) = flash_d36_phase(torch, g)
+    rows["ctc_alpha"], rows["ctc_beta"] = ctc_phase(torch, g)
     for name, r in rows.items():
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         print(f"  {name} at {r['shape']}: kernel {r['ms']:.4f} ms, plain "
@@ -1326,6 +1829,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     ernie = ernie_training_phase(torch, K)
     launches = {k: launches[k] + ernie[k] for k in launches}
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    whole_step_conformer(torch, K)
+    gc.collect()
+    torch.cuda.empty_cache()
+    conformer = conformer_training_phase(torch, K)
+    launches = {k: launches[k] + conformer[k] for k in conformer}
+    # the head_dim-36 rows: the Conformer steps' launches of those kernels
+    launches["flash_attention_dropout_d36"] = \
+        conformer["flash_attention_dropout"]
+    launches["flash_attention_bwd_dropout_d36"] = \
+        conformer["flash_attention_bwd_dropout"]
 
     kernels = []
     for name, r in rows.items():

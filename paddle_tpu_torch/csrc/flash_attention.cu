@@ -14,7 +14,10 @@
 // h / (H / Hkv), so GQA needs no repeated copy of K/V); lse is
 // [B, H, Sq] f32. Causal means query i sees key j iff j <= i + (Sk - Sq),
 // the reference's sdpa_ref convention (equal to the Pallas kernel's
-// q_ids >= k_ids at Sq == Sk).
+// q_ids >= k_ids at Sq == Sk). Head widths are 36 (the Conformer's), 64 and
+// 128: 36 rides zero-padded to 48 in shared memory (pad16, BfChunk in
+// common.cuh), with 8-byte loads (a row starts 72-byte aligned) and stores
+// of the 36 real columns only; 64 and 128 compile as before.
 //
 // Bound on the H100: at long S, flops (4 * S^2 * D per head, halved by
 // causality) against 989 TFLOP/s in bf16. Two kernels share the tiling:
@@ -43,7 +46,7 @@ constexpr int BQ = 64, BK = 64, NT = 256;
 
 template <int D>
 constexpr size_t smem_bytes() {
-  return sizeof(float) * ((BQ + 2 * BK) * (D + 1) + BQ * (BK + 1));
+  return sizeof(float) * ((BQ + 2 * BK) * (pad16<D>() + 1) + BQ * (BK + 1));
 }
 
 // ---------------------------------------------------------------------------
@@ -55,8 +58,8 @@ __global__ void __launch_bounds__(NT)
                      const T* __restrict__ v, T* __restrict__ out,
                      float* __restrict__ lse, int H, int Hkv, int Sq, int Sk,
                      float scale, int causal, Drop dr) {
-  static_assert(D % 16 == 0, "head_dim must be a multiple of 16");
-  constexpr int LD = D + 1, LP = BK + 1, ND = D / 16;
+  constexpr int DP = pad16<D>();   // the tiles' width; columns >= D are 0
+  constexpr int LD = DP + 1, LP = BK + 1, ND = DP / 16;
   extern __shared__ float smem[];
   float* Q_s = smem;             // [BQ, LD]
   float* K_s = Q_s + BQ * LD;    // [BK, LD]
@@ -74,9 +77,10 @@ __global__ void __launch_bounds__(NT)
   const T* vb = v + (static_cast<size_t>(b) * Sk * Hkv + hk) * D;
   const int off = Sk - Sq;
 
-  for (int e = tid; e < BQ * D; e += NT) {
-    const int r = e / D, d = e - r * D, qi = q0 + r;
-    Q_s[r * LD + d] = qi < Sq ? to_f(qb[qi * qs + d]) * scale : 0.f;
+  for (int e = tid; e < BQ * DP; e += NT) {
+    const int r = e / DP, d = e - r * DP, qi = q0 + r;
+    Q_s[r * LD + d] =
+        qi < Sq && (DP == D || d < D) ? to_f(qb[qi * qs + d]) * scale : 0.f;
   }
 
   float m[4], l[4], o[4][ND];
@@ -99,9 +103,9 @@ __global__ void __launch_bounds__(NT)
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();  // Q_s written / last tile's K_s, V_s, P_s consumed
-    for (int e = tid; e < BK * D; e += NT) {
-      const int r = e / D, d = e - r * D, kj = k0 + r;
-      const bool ok = kj < Sk;
+    for (int e = tid; e < BK * DP; e += NT) {
+      const int r = e / DP, d = e - r * DP, kj = k0 + r;
+      const bool ok = kj < Sk && (DP == D || d < D);
       K_s[r * LD + d] = ok ? to_f(kb[kj * ks + d]) : 0.f;
       V_s[r * LD + d] = ok ? to_f(vb[kj * ks + d]) : 0.f;
     }
@@ -183,7 +187,8 @@ __global__ void __launch_bounds__(NT)
     const float inv = 1.f / ls;
     T* orow = out + (static_cast<size_t>(b) * Sq + qi) * qs + static_cast<size_t>(h) * D;
 #pragma unroll
-    for (int c = 0; c < ND; ++c) orow[tx + 16 * c] = from_f<T>(o[i][c] * inv);
+    for (int c = 0; c < ND; ++c)
+      if (DP == D || tx + 16 * c < D) orow[tx + 16 * c] = from_f<T>(o[i][c] * inv);
     if (tx == 0) lse[(static_cast<size_t>(b) * H + h) * Sq + qi] = m[i] + logf(ls);
   }
 }
@@ -195,7 +200,8 @@ constexpr int MMA_NT = 128;   // 4 warps, 16 query rows each
 
 template <int D>
 constexpr size_t mma_smem_bytes() {
-  return sizeof(__nv_bfloat16) * ((BQ + BK) * (D + 8) + D * (BK + 8));
+  constexpr int DP = pad16<D>();
+  return sizeof(__nv_bfloat16) * ((BQ + BK) * (DP + 8) + DP * (BK + 8));
 }
 
 // Fragment layouts: see mma_bf16 in common.cuh. The score tile's C
@@ -209,12 +215,15 @@ __global__ void __launch_bounds__(MMA_NT)
                          __nv_bfloat16* __restrict__ out,
                          float* __restrict__ lse, int H, int Hkv, int Sq,
                          int Sk, float scale, int causal, Drop dr) {
-  constexpr int LDK = D + 8, LDV = BK + 8;   // padded rows: no bank conflicts
-  constexpr int KS = D / 16, NO = D / 8, NS = BK / 8, CH = D / 8;
+  constexpr int DP = pad16<D>();   // the tiles' width; columns >= D are 0
+  constexpr int LDK = DP + 8, LDV = BK + 8;  // padded rows: no bank conflicts
+  constexpr int KS = DP / 16, NO = DP / 8, NS = BK / 8;
+  using V = typename BfChunk<D>::V;
+  constexpr int CW = BfChunk<D>::W, CH = D / CW;   // chunks of a row
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* Q_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [BQ, LDK]
   __nv_bfloat16* K_s = Q_s + BQ * LDK;                               // [BK, LDK]
-  __nv_bfloat16* Vt_s = K_s + BK * LDK;                              // [D, LDV]
+  __nv_bfloat16* Vt_s = K_s + BK * LDK;                              // [DP, LDV]
 
   const int q0 = blockIdx.x * BQ;
   const int bh = blockIdx.y, b = bh / H, h = bh - b * H;
@@ -227,12 +236,18 @@ __global__ void __launch_bounds__(MMA_NT)
   const __nv_bfloat16* kb = k + (static_cast<size_t>(b) * Sk * Hkv + hk) * D;
   const __nv_bfloat16* vb = v + (static_cast<size_t>(b) * Sk * Hkv + hk) * D;
   const int off = Sk - Sq;
-  const uint4 zero = make_uint4(0, 0, 0, 0);
+  const V zero{};
 
+  if constexpr (DP != D) {   // zero padding, never overwritten
+    const __nv_bfloat16 z = __float2bfloat16(0.f);
+    for (int e = tid; e < (BQ + BK) * (DP - D); e += MMA_NT)
+      Q_s[(e / (DP - D)) * LDK + D + e % (DP - D)] = z;   // Q_s, then K_s
+    for (int e = tid; e < (DP - D) * LDV; e += MMA_NT) Vt_s[D * LDV + e] = z;
+  }
   for (int e = tid; e < BQ * CH; e += MMA_NT) {
     const int r = e / CH, c = e - r * CH, qi = q0 + r;
-    *reinterpret_cast<uint4*>(Q_s + r * LDK + c * 8) =
-        qi < Sq ? *reinterpret_cast<const uint4*>(qb + qi * qs + c * 8) : zero;
+    *reinterpret_cast<V*>(Q_s + r * LDK + c * CW) =
+        qi < Sq ? *reinterpret_cast<const V*>(qb + qi * qs + c * CW) : zero;
   }
   __syncthreads();
   uint32_t qa[KS][4];
@@ -268,19 +283,17 @@ __global__ void __launch_bounds__(MMA_NT)
     __syncthreads();  // last tile's K_s / Vt_s consumed
     for (int e = tid; e < BK * CH; e += MMA_NT) {
       const int r = e / CH, c = e - r * CH, kj = k0 + r;
-      *reinterpret_cast<uint4*>(K_s + r * LDK + c * 8) =
-          kj < Sk ? *reinterpret_cast<const uint4*>(kb + kj * ks + c * 8)
-                  : zero;
+      *reinterpret_cast<V*>(K_s + r * LDK + c * CW) =
+          kj < Sk ? *reinterpret_cast<const V*>(kb + kj * ks + c * CW) : zero;
     }
     // V transposed into Vt_s[d][key]; keys run fastest across threads so
     // the 2-byte stores of a warp fall in distinct banks
     for (int e = tid; e < BK * CH; e += MMA_NT) {
       const int r = e % BK, c = e / BK, kj = k0 + r;
-      uint4 u = kj < Sk ? *reinterpret_cast<const uint4*>(vb + kj * ks + c * 8)
-                        : zero;
+      V u = kj < Sk ? *reinterpret_cast<const V*>(vb + kj * ks + c * CW) : zero;
       const __nv_bfloat16* hv = reinterpret_cast<const __nv_bfloat16*>(&u);
 #pragma unroll
-      for (int i = 0; i < 8; ++i) Vt_s[(c * 8 + i) * LDV + r] = hv[i];
+      for (int i = 0; i < CW; ++i) Vt_s[(c * CW + i) * LDV + r] = hv[i];
     }
     __syncthreads();
 
@@ -373,8 +386,9 @@ __global__ void __launch_bounds__(MMA_NT)
         out + (static_cast<size_t>(b) * Sq + qi) * qs + static_cast<size_t>(h) * D;
 #pragma unroll
     for (int n = 0; n < NO; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(orow + n * 8 + 2 * t) =
-          __floats2bfloat162_rn(o[n][2 * hi] * inv, o[n][2 * hi + 1] * inv);
+      if (DP == D || n * 8 + 2 * t < D)   // D is even: pairs never straddle
+        *reinterpret_cast<__nv_bfloat162*>(orow + n * 8 + 2 * t) =
+            __floats2bfloat162_rn(o[n][2 * hi] * inv, o[n][2 * hi + 1] * inv);
     if (t == 0)
       lse[(static_cast<size_t>(b) * H + h) * Sq + qi] = m[hi] + logf(ls);
   }
@@ -424,6 +438,8 @@ int launch(const Args& a, cudaStream_t stream) {
 
 template <bool DROP>
 int dispatch(const Args& a, int D, int dtype, cudaStream_t st) {
+  if (dtype == PTT_F32 && D == 36) return launch<float, 36, DROP>(a, st);
+  if (dtype == PTT_BF16 && D == 36) return launch_mma<36, DROP>(a, st);
   if (dtype == PTT_F32 && D == 64) return launch<float, 64, DROP>(a, st);
   if (dtype == PTT_F32 && D == 128) return launch<float, 128, DROP>(a, st);
   if (dtype == PTT_BF16 && D == 64) return launch_mma<64, DROP>(a, st);
@@ -448,7 +464,7 @@ __global__ void dropout_bits_kernel(uint32_t* __restrict__ bits,
 PTT_EXPORT_ERROR_STRING
 
 // q/out [B, Sq, H, D], k/v [B, Sk, Hkv, D] contiguous; lse [B, H, Sq] f32.
-// D is 64 or 128. dropout != 0 applies dropout with keep threshold
+// D is 36, 64 or 128. dropout != 0 applies dropout with keep threshold
 // `thresh` and rp = 1 / (1 - p) from the 32-bit `seed`.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* out, void* lse, int B,

@@ -19,7 +19,8 @@
 // [B, Sk, Hkv, D], lse/dg [B, H, Sq] f32, H % Hkv == 0; causal means
 // query i sees key j iff j <= i + (Sk - Sq), and the kernels mask the
 // ragged edges of Sq and Sk themselves (the TPU version halved its block
-// until it divided S).
+// until it divided S). Head widths 36, 64 and 128; 36 is zero-padded to 48
+// in shared memory as in the forward (common.cuh pad16, BfChunk).
 //
 // Bound on the H100: flops, five products of the forward's size (QK^T and
 // dO.V^T are recomputed, then dQ, dK, dV), halved by causality. Two
@@ -48,12 +49,13 @@ constexpr int BQ = 64, BK = 64, NT = 256;
 // ---------------------------------------------------------------------------
 template <int D>
 constexpr size_t dq_smem_bytes() {
-  return sizeof(float) * (4 * 64 * (D + 1) + 64 * (BK + 1));
+  return sizeof(float) * (4 * 64 * (pad16<D>() + 1) + 64 * (BK + 1));
 }
 
 template <int D>
 constexpr size_t dkv_smem_bytes() {
-  return sizeof(float) * (4 * 64 * (D + 1) + 2 * BK * (BQ + 1) + 3 * BQ);
+  return sizeof(float) *
+         (4 * 64 * (pad16<D>() + 1) + 2 * BK * (BQ + 1) + 3 * BQ);
 }
 
 template <typename T, int D, bool DROP>
@@ -64,7 +66,8 @@ __global__ void __launch_bounds__(NT)
                         const float* __restrict__ dg, T* __restrict__ dq,
                         int H, int Hkv, int Sq, int Sk, float scale,
                         int causal, Drop dr) {
-  constexpr int LD = D + 1, LP = BK + 1, ND = D / 16;
+  constexpr int DP = pad16<D>();   // the tiles' width; columns >= D are 0
+  constexpr int LD = DP + 1, LP = BK + 1, ND = DP / 16;
   extern __shared__ float smem[];
   float* Q_s = smem;             // [BQ, LD]
   float* dO_s = Q_s + BQ * LD;   // [BQ, LD]
@@ -86,9 +89,9 @@ __global__ void __launch_bounds__(NT)
   const float* gb = dg + static_cast<size_t>(bh) * Sq;
   const int off = Sk - Sq;
 
-  for (int e = tid; e < BQ * D; e += NT) {
-    const int r = e / D, d = e - r * D, qi = q0 + r;
-    const bool ok = qi < Sq;
+  for (int e = tid; e < BQ * DP; e += NT) {
+    const int r = e / DP, d = e - r * DP, qi = q0 + r;
+    const bool ok = qi < Sq && (DP == D || d < D);
     Q_s[r * LD + d] = ok ? to_f(qb[qi * qs + d]) : 0.f;
     dO_s[r * LD + d] = ok ? to_f(ob[qi * qs + d]) : 0.f;
   }
@@ -112,9 +115,9 @@ __global__ void __launch_bounds__(NT)
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();  // Q_s, dO_s written / last tile's K_s, V_s, dS_s read
-    for (int e = tid; e < BK * D; e += NT) {
-      const int r = e / D, d = e - r * D, kj = k0 + r;
-      const bool ok = kj < Sk;
+    for (int e = tid; e < BK * DP; e += NT) {
+      const int r = e / DP, d = e - r * DP, kj = k0 + r;
+      const bool ok = kj < Sk && (DP == D || d < D);
       K_s[r * LD + d] = ok ? to_f(kb[kj * ks + d]) : 0.f;
       V_s[r * LD + d] = ok ? to_f(vb[kj * ks + d]) : 0.f;
     }
@@ -181,7 +184,9 @@ __global__ void __launch_bounds__(NT)
     T* row = dq + (static_cast<size_t>(b) * Sq + qi) * qs +
              static_cast<size_t>(h) * D;
 #pragma unroll
-    for (int c = 0; c < ND; ++c) row[tx + 16 * c] = from_f<T>(acc[i][c] * scale);
+    for (int c = 0; c < ND; ++c)
+      if (DP == D || tx + 16 * c < D)
+        row[tx + 16 * c] = from_f<T>(acc[i][c] * scale);
   }
 }
 
@@ -193,7 +198,8 @@ __global__ void __launch_bounds__(NT)
                          const float* __restrict__ dg, T* __restrict__ dk,
                          T* __restrict__ dv, int H, int Hkv, int Sq, int Sk,
                          float scale, int causal, Drop dr) {
-  constexpr int LD = D + 1, LP = BQ + 1, ND = D / 16;
+  constexpr int DP = pad16<D>();   // the tiles' width; columns >= D are 0
+  constexpr int LD = DP + 1, LP = BQ + 1, ND = DP / 16;
   extern __shared__ float smem[];
   float* K_s = smem;             // [BK, LD]
   float* V_s = K_s + BK * LD;    // [BK, LD]
@@ -215,9 +221,9 @@ __global__ void __launch_bounds__(NT)
   const T* vb = v + (static_cast<size_t>(b) * Sk * Hkv + hk) * D;
   const int off = Sk - Sq;
 
-  for (int e = tid; e < BK * D; e += NT) {
-    const int r = e / D, d = e - r * D, kj = k0 + r;
-    const bool ok = kj < Sk;
+  for (int e = tid; e < BK * DP; e += NT) {
+    const int r = e / DP, d = e - r * DP, kj = k0 + r;
+    const bool ok = kj < Sk && (DP == D || d < D);
     K_s[r * LD + d] = ok ? to_f(kb[kj * ks + d]) : 0.f;
     V_s[r * LD + d] = ok ? to_f(vb[kj * ks + d]) : 0.f;
   }
@@ -239,9 +245,9 @@ __global__ void __launch_bounds__(NT)
     for (int qt = qt_lo; qt < n_qt; ++qt) {
       const int q0 = qt * BQ;
       __syncthreads();  // K_s, V_s written / last tile's smem read
-      for (int e = tid; e < BQ * D; e += NT) {
-        const int r = e / D, d = e - r * D, qi = q0 + r;
-        const bool ok = qi < Sq;
+      for (int e = tid; e < BQ * DP; e += NT) {
+        const int r = e / DP, d = e - r * DP, qi = q0 + r;
+        const bool ok = qi < Sq && (DP == D || d < D);
         Q_s[r * LD + d] = ok ? to_f(qb[qi * qs + d]) : 0.f;
         dO_s[r * LD + d] = ok ? to_f(ob[qi * qs + d]) : 0.f;
       }
@@ -328,6 +334,7 @@ __global__ void __launch_bounds__(NT)
                      static_cast<size_t>(hk) * D;
 #pragma unroll
     for (int c = 0; c < ND; ++c) {
+      if (DP != D && tx + 16 * c >= D) continue;
       dk[o + tx + 16 * c] = from_f<T>(ak[i][c] * scale);
       dv[o + tx + 16 * c] = from_f<T>(av[i][c]);
     }
@@ -345,14 +352,26 @@ constexpr int BQ2 = 32;   // query tile of the dK/dV kernel (register budget)
 
 template <int D>
 constexpr size_t dq_mma_smem_bytes() {
-  return sizeof(__nv_bfloat16) * ((2 * BQ + 2 * BK) * (D + 8) + D * (BK + 8));
+  constexpr int DP = pad16<D>();
+  return sizeof(__nv_bfloat16) * ((2 * BQ + 2 * BK) * (DP + 8) + DP * (BK + 8));
 }
 
 template <int D>
 constexpr size_t dkv_mma_smem_bytes() {
+  constexpr int DP = pad16<D>();
   return sizeof(__nv_bfloat16) *
-             ((2 * BK + 2 * BQ2) * (D + 8) + 2 * D * (BQ2 + 8)) +
+             ((2 * BK + 2 * BQ2) * (DP + 8) + 2 * DP * (BQ2 + 8)) +
          sizeof(float) * 3 * BQ2;
+}
+
+// Zero the padding columns [D, DP) of `rows` rows of stride `ld` from `s`
+// (several tiles at once where they lie back to back with one stride).
+template <int D, int DP>
+__device__ __forceinline__ void zero_pad_cols(__nv_bfloat16* s, int rows,
+                                              int ld, int tid, int nt) {
+  const __nv_bfloat16 z = __float2bfloat16(0.f);
+  for (int e = tid; e < rows * (DP - D); e += nt)
+    s[(e / (DP - D)) * ld + D + e % (DP - D)] = z;
 }
 
 __device__ __forceinline__ void a_frag(uint32_t* a, const __nv_bfloat16* s,
@@ -377,14 +396,17 @@ __global__ void __launch_bounds__(MMA_NT)
                             __nv_bfloat16* __restrict__ dq, int H, int Hkv,
                             int Sq, int Sk, float scale, int causal,
                             Drop dr) {
-  constexpr int LDK = D + 8, LDT = BK + 8;
-  constexpr int KS = D / 16, NO = D / 8, NS = BK / 8, CH = D / 8;
+  constexpr int DP = pad16<D>();   // the tiles' width; columns >= D are 0
+  constexpr int LDK = DP + 8, LDT = BK + 8;
+  constexpr int KS = DP / 16, NO = DP / 8, NS = BK / 8;
+  using V = typename BfChunk<D>::V;
+  constexpr int CW = BfChunk<D>::W, CH = D / CW;   // chunks of a row
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* Q_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [BQ, LDK]
   __nv_bfloat16* dO_s = Q_s + BQ * LDK;                              // [BQ, LDK]
   __nv_bfloat16* K_s = dO_s + BQ * LDK;                              // [BK, LDK]
   __nv_bfloat16* V_s = K_s + BK * LDK;                               // [BK, LDK]
-  __nv_bfloat16* Kt_s = V_s + BK * LDK;                              // [D, LDT]
+  __nv_bfloat16* Kt_s = V_s + BK * LDK;                              // [DP, LDT]
 
   const int q0 = blockIdx.x * BQ;
   const int bh = blockIdx.y, b = bh / H, h = bh - b * H;
@@ -398,15 +420,20 @@ __global__ void __launch_bounds__(MMA_NT)
   const __nv_bfloat16* kb = k + (static_cast<size_t>(b) * Sk * Hkv + hk) * D;
   const __nv_bfloat16* vb = v + (static_cast<size_t>(b) * Sk * Hkv + hk) * D;
   const int off = Sk - Sq;
-  const uint4 zero = make_uint4(0, 0, 0, 0);
+  const V zero{};
 
+  if constexpr (DP != D) {   // zero padding, never overwritten
+    zero_pad_cols<D, DP>(Q_s, 2 * BQ + 2 * BK, LDK, tid, MMA_NT);
+    for (int e = tid; e < (DP - D) * LDT; e += MMA_NT)
+      Kt_s[D * LDT + e] = __float2bfloat16(0.f);
+  }
   for (int e = tid; e < BQ * CH; e += MMA_NT) {
     const int r = e / CH, c = e - r * CH, qi = q0 + r;
     const bool ok = qi < Sq;
-    *reinterpret_cast<uint4*>(Q_s + r * LDK + c * 8) =
-        ok ? *reinterpret_cast<const uint4*>(qb + qi * qs + c * 8) : zero;
-    *reinterpret_cast<uint4*>(dO_s + r * LDK + c * 8) =
-        ok ? *reinterpret_cast<const uint4*>(ob + qi * qs + c * 8) : zero;
+    *reinterpret_cast<V*>(Q_s + r * LDK + c * CW) =
+        ok ? *reinterpret_cast<const V*>(qb + qi * qs + c * CW) : zero;
+    *reinterpret_cast<V*>(dO_s + r * LDK + c * CW) =
+        ok ? *reinterpret_cast<const V*>(ob + qi * qs + c * CW) : zero;
   }
   const int qrow[2] = {q0 + wr + g, q0 + wr + g + 8};
   float lr[2], gr[2];
@@ -435,14 +462,13 @@ __global__ void __launch_bounds__(MMA_NT)
     for (int e = tid; e < BK * CH; e += MMA_NT) {
       const int r = e % BK, c = e / BK, kj = k0 + r;
       const bool ok = kj < Sk;
-      const uint4 uk =
-          ok ? *reinterpret_cast<const uint4*>(kb + kj * ks + c * 8) : zero;
-      *reinterpret_cast<uint4*>(K_s + r * LDK + c * 8) = uk;
-      *reinterpret_cast<uint4*>(V_s + r * LDK + c * 8) =
-          ok ? *reinterpret_cast<const uint4*>(vb + kj * ks + c * 8) : zero;
+      const V uk = ok ? *reinterpret_cast<const V*>(kb + kj * ks + c * CW) : zero;
+      *reinterpret_cast<V*>(K_s + r * LDK + c * CW) = uk;
+      *reinterpret_cast<V*>(V_s + r * LDK + c * CW) =
+          ok ? *reinterpret_cast<const V*>(vb + kj * ks + c * CW) : zero;
       const __nv_bfloat16* hv = reinterpret_cast<const __nv_bfloat16*>(&uk);
 #pragma unroll
-      for (int i = 0; i < 8; ++i) Kt_s[(c * 8 + i) * LDT + r] = hv[i];
+      for (int i = 0; i < CW; ++i) Kt_s[(c * CW + i) * LDT + r] = hv[i];
     }
     __syncthreads();
 
@@ -497,9 +523,10 @@ __global__ void __launch_bounds__(MMA_NT)
                          static_cast<size_t>(h) * D;
 #pragma unroll
     for (int n = 0; n < NO; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(row + n * 8 + 2 * t) =
-          __floats2bfloat162_rn(acc[n][2 * hi] * scale,
-                                acc[n][2 * hi + 1] * scale);
+      if (DP == D || n * 8 + 2 * t < D)   // D is even: pairs never straddle
+        *reinterpret_cast<__nv_bfloat162*>(row + n * 8 + 2 * t) =
+            __floats2bfloat162_rn(acc[n][2 * hi] * scale,
+                                  acc[n][2 * hi + 1] * scale);
   }
 }
 
@@ -517,16 +544,19 @@ __global__ void __launch_bounds__(MMA_NT)
                              __nv_bfloat16* __restrict__ dv, int H, int Hkv,
                              int Sq, int Sk, float scale, int causal,
                              Drop dr) {
-  constexpr int LDK = D + 8, LDQ = BQ2 + 8;
-  constexpr int KS = D / 16, NO = D / 8, NQ = BQ2 / 8, CH = D / 8;
+  constexpr int DP = pad16<D>();   // the tiles' width; columns >= D are 0
+  constexpr int LDK = DP + 8, LDQ = BQ2 + 8;
+  constexpr int KS = DP / 16, NO = DP / 8, NQ = BQ2 / 8;
+  using V = typename BfChunk<D>::V;
+  constexpr int CW = BfChunk<D>::W, CH = D / CW;   // chunks of a row
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* K_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [BK, LDK]
   __nv_bfloat16* V_s = K_s + BK * LDK;                               // [BK, LDK]
   __nv_bfloat16* Q_s = V_s + BK * LDK;                               // [BQ2, LDK]
   __nv_bfloat16* dO_s = Q_s + BQ2 * LDK;                             // [BQ2, LDK]
-  __nv_bfloat16* Qt_s = dO_s + BQ2 * LDK;                            // [D, LDQ]
-  __nv_bfloat16* dOt_s = Qt_s + D * LDQ;                             // [D, LDQ]
-  float* L_s = reinterpret_cast<float*>(dOt_s + D * LDQ);            // [BQ2]
+  __nv_bfloat16* Qt_s = dO_s + BQ2 * LDK;                            // [DP, LDQ]
+  __nv_bfloat16* dOt_s = Qt_s + DP * LDQ;                            // [DP, LDQ]
+  float* L_s = reinterpret_cast<float*>(dOt_s + DP * LDQ);           // [BQ2]
   float* G_s = L_s + BQ2;                                            // [BQ2]
   uint32_t* R_s = reinterpret_cast<uint32_t*>(G_s + BQ2);            // [BQ2]
 
@@ -540,15 +570,22 @@ __global__ void __launch_bounds__(MMA_NT)
   const __nv_bfloat16* kb = k + (static_cast<size_t>(b) * Sk * Hkv + hk) * D;
   const __nv_bfloat16* vb = v + (static_cast<size_t>(b) * Sk * Hkv + hk) * D;
   const int off = Sk - Sq;
-  const uint4 zero = make_uint4(0, 0, 0, 0);
+  const V zero{};
 
+  if constexpr (DP != D) {   // zero padding, never overwritten
+    zero_pad_cols<D, DP>(K_s, 2 * BK + 2 * BQ2, LDK, tid, MMA_NT);
+    for (int e = tid; e < (DP - D) * LDQ; e += MMA_NT) {
+      Qt_s[D * LDQ + e] = __float2bfloat16(0.f);
+      dOt_s[D * LDQ + e] = __float2bfloat16(0.f);
+    }
+  }
   for (int e = tid; e < BK * CH; e += MMA_NT) {
     const int r = e / CH, c = e - r * CH, kj = k0 + r;
     const bool ok = kj < Sk;
-    *reinterpret_cast<uint4*>(K_s + r * LDK + c * 8) =
-        ok ? *reinterpret_cast<const uint4*>(kb + kj * ks + c * 8) : zero;
-    *reinterpret_cast<uint4*>(V_s + r * LDK + c * 8) =
-        ok ? *reinterpret_cast<const uint4*>(vb + kj * ks + c * 8) : zero;
+    *reinterpret_cast<V*>(K_s + r * LDK + c * CW) =
+        ok ? *reinterpret_cast<const V*>(kb + kj * ks + c * CW) : zero;
+    *reinterpret_cast<V*>(V_s + r * LDK + c * CW) =
+        ok ? *reinterpret_cast<const V*>(vb + kj * ks + c * CW) : zero;
   }
   const int krow[2] = {k0 + wr + g, k0 + wr + g + 8};
   float ak[NO][4], av[NO][4];
@@ -571,18 +608,16 @@ __global__ void __launch_bounds__(MMA_NT)
       for (int e = tid; e < BQ2 * CH; e += MMA_NT) {
         const int r = e % BQ2, c = e / BQ2, qi = q0 + r;
         const bool ok = qi < Sq;
-        const uint4 uq =
-            ok ? *reinterpret_cast<const uint4*>(qb + qi * qs + c * 8) : zero;
-        const uint4 uo =
-            ok ? *reinterpret_cast<const uint4*>(ob + qi * qs + c * 8) : zero;
-        *reinterpret_cast<uint4*>(Q_s + r * LDK + c * 8) = uq;
-        *reinterpret_cast<uint4*>(dO_s + r * LDK + c * 8) = uo;
+        const V uq = ok ? *reinterpret_cast<const V*>(qb + qi * qs + c * CW) : zero;
+        const V uo = ok ? *reinterpret_cast<const V*>(ob + qi * qs + c * CW) : zero;
+        *reinterpret_cast<V*>(Q_s + r * LDK + c * CW) = uq;
+        *reinterpret_cast<V*>(dO_s + r * LDK + c * CW) = uo;
         const __nv_bfloat16* hq = reinterpret_cast<const __nv_bfloat16*>(&uq);
         const __nv_bfloat16* ho = reinterpret_cast<const __nv_bfloat16*>(&uo);
 #pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          Qt_s[(c * 8 + i) * LDQ + r] = hq[i];
-          dOt_s[(c * 8 + i) * LDQ + r] = ho[i];
+        for (int i = 0; i < CW; ++i) {
+          Qt_s[(c * CW + i) * LDQ + r] = hq[i];
+          dOt_s[(c * CW + i) * LDQ + r] = ho[i];
         }
       }
       if (tid < BQ2) {
@@ -655,6 +690,7 @@ __global__ void __launch_bounds__(MMA_NT)
                      static_cast<size_t>(hk) * D;
 #pragma unroll
     for (int n = 0; n < NO; ++n) {
+      if (DP != D && n * 8 + 2 * t >= D) continue;   // D even: no straddle
       *reinterpret_cast<__nv_bfloat162*>(dk + o + n * 8 + 2 * t) =
           __floats2bfloat162_rn(ak[n][2 * hi] * scale, ak[n][2 * hi + 1] * scale);
       *reinterpret_cast<__nv_bfloat162*>(dv + o + n * 8 + 2 * t) =
@@ -735,6 +771,8 @@ int launch_mma(const Args& a, cudaStream_t st) {
 
 template <bool DROP>
 int dispatch(const Args& a, int D, int dtype, cudaStream_t st) {
+  if (dtype == PTT_F32 && D == 36) return launch_simt<float, 36, DROP>(a, st);
+  if (dtype == PTT_BF16 && D == 36) return launch_mma<36, DROP>(a, st);
   if (dtype == PTT_F32 && D == 64) return launch_simt<float, 64, DROP>(a, st);
   if (dtype == PTT_F32 && D == 128) return launch_simt<float, 128, DROP>(a, st);
   if (dtype == PTT_BF16 && D == 64) return launch_mma<64, DROP>(a, st);
@@ -747,7 +785,7 @@ int dispatch(const Args& a, int D, int dtype, cudaStream_t st) {
 PTT_EXPORT_ERROR_STRING
 
 // q/dout/dq [B, Sq, H, D], k/v/dk/dv [B, Sk, Hkv, D], all contiguous and
-// 16-byte aligned; lse and dg [B, H, Sq] f32. D is 64 or 128. dropout != 0
+// 16-byte aligned; lse and dg [B, H, Sq] f32. D is 36, 64 or 128. dropout != 0
 // regenerates the forward's mask from (seed, thresh) and scales kept
 // entries by rp = 1 / (1 - p). Launches the dQ kernel, then the dK/dV
 // kernel, on `stream`; returns the first CUDA error (0 when both launched).

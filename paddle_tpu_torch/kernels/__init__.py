@@ -22,6 +22,9 @@ so a run can show which variant its path took):
 name                         port (kernels/ + csrc/)        replaces, in
                                                             paddle_tpu/kernels
 ===========================  =============================  ==================
+ctc_alpha                    ctc.py, ctc.cu                 ctc.py
+                                                            ``_alpha_kernel``
+ctc_beta                     ctc.py, ctc.cu                 ``_beta_kernel``
 flash_attention              flash_attention.py,            flash_attention.py
                              flash_attention.cu             ``_fwd_kernel``
 flash_attention_dropout      the same, dropout p > 0        with ``_drop_mask``
@@ -51,6 +54,8 @@ __all__ = ["LAUNCHES", "use_kernel", "refuse_grad", "plain_math",
 
 # launches per kernel since the last reset (plain ints)
 LAUNCHES: dict[str, int] = {
+    "ctc_alpha": 0,
+    "ctc_beta": 0,
     "flash_attention": 0,
     "flash_attention_dropout": 0,
     "flash_attention_bwd": 0,

@@ -42,6 +42,13 @@ themselves. In bf16 the products run on the tensor cores (``mma.sync``,
 f32 accumulation; probabilities and ds are rounded to bf16 as operands,
 as in FlashAttention); in f32 on the CUDA cores. ``wgmma``/TMA tiles are
 the next step toward the bound (PERF.md).
+
+Head widths 36, 64 and 128. 36 (the Conformer's 144 over 4 heads) rides
+zero-padded to 48 in the kernels' shared-memory tiles, since the
+tensor-core product steps its depth by 16; its rows start only 8-byte
+aligned, so it moves in 8-byte chunks, and only the 36 real columns are
+stored. The softmax scale stays ``1 / sqrt(36)`` and the dropout bits do
+not depend on the width.
 """
 from __future__ import annotations
 
@@ -61,7 +68,7 @@ __all__ = ["flash_attention_fwd", "flash_attention_plain",
 
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128)
+_HEAD_DIMS = (36, 64, 128)   # 36: the Conformer's 144 / 4
 _P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint32
 _M32 = 0xFFFFFFFF
 

@@ -1,4 +1,7 @@
-from .convert import ernie_state_from_jax, state_from_jax, trainer_state_from_jax
+from .conformer import (ConformerConfig, ConformerEncoder, ConformerForCTC,
+                        conformer_tiny)
+from .convert import (conformer_state_from_jax, ernie_state_from_jax,
+                      state_from_jax, trainer_state_from_jax)
 from .ernie import (ErnieConfig, ErnieEmbeddings, ErnieForMaskedLM,
                     ErnieForSequenceClassification, ErnieModel, ernie_base,
                     ernie_tiny)
@@ -9,4 +12,6 @@ __all__ = ["LlamaConfig", "LlamaForCausalLM", "LlamaPipelineTrainer",
            "llama_7b", "llama_tiny", "state_from_jax",
            "trainer_state_from_jax", "ernie_state_from_jax", "ErnieConfig",
            "ernie_base", "ernie_tiny", "ErnieEmbeddings", "ErnieModel",
-           "ErnieForMaskedLM", "ErnieForSequenceClassification"]
+           "ErnieForMaskedLM", "ErnieForSequenceClassification",
+           "ConformerConfig", "conformer_tiny", "ConformerEncoder",
+           "ConformerForCTC", "conformer_state_from_jax"]

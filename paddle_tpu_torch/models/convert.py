@@ -3,7 +3,8 @@
 The only way the tests give both packages the same weights: the reference
 model's ``functional_state(model)[0]`` / ``state_dict()`` exported as numpy
 goes through :func:`state_from_jax` (Llama) or :func:`ernie_state_from_jax`
-(ERNIE) and into ``load_state_dict``; the reference trainer's parameter
+(ERNIE) or :func:`conformer_state_from_jax` (Conformer, with its batch-norm
+buffers) and into ``load_state_dict``; the reference trainer's parameter
 dict (``LlamaPipelineTrainer._state[0]``) goes through
 :func:`trainer_state_from_jax` into the port trainer's ``model``.
 """
@@ -13,7 +14,8 @@ import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["state_from_jax", "trainer_state_from_jax", "ernie_state_from_jax"]
+__all__ = ["state_from_jax", "trainer_state_from_jax", "ernie_state_from_jax",
+           "conformer_state_from_jax"]
 
 # paddle Linear stores [in, out]; nn.Linear stores [out, in]
 _LINEAR_SUFFIXES = ("qkv_proj.weight", "o_proj.weight", "gate_up_proj.weight",
@@ -93,3 +95,14 @@ def ernie_state_from_jax(params: dict[str, np.ndarray], model: nn.Module
             a = a.T
         out[name] = torch.tensor(np.ascontiguousarray(a))
     return out
+
+
+def conformer_state_from_jax(arrays: dict[str, np.ndarray], model: nn.Module
+                             ) -> dict[str, torch.Tensor]:
+    """Map a Conformer reference model's parameters AND buffers (the batch
+    norms' ``_mean`` and ``_variance``, from ``named_buffers()``) onto the
+    port ``model`` (``ConformerForCTC``), by the same module lookup as
+    :func:`ernie_state_from_jax`: only ``nn.Linear`` weights are
+    transposed; convolution weights (``[out, in / groups, *k]`` in both
+    packages), norms and buffers copy as they are."""
+    return ernie_state_from_jax(arrays, model)

@@ -1,10 +1,12 @@
 from . import functional
 from .clip import ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue
 from .decode import sample_logits
-from .layers import (Dropout, LayerNorm, MultiHeadAttention, RMSNorm,
+from .layers import (BatchNorm1D, Conv1D, Conv2D, CTCLoss, Dropout,
+                     LayerList, LayerNorm, MultiHeadAttention, RMSNorm,
                      TransformerEncoder, TransformerEncoderLayer)
 
 __all__ = ["functional", "sample_logits", "ClipGradByGlobalNorm",
-           "ClipGradByNorm", "ClipGradByValue", "Dropout", "LayerNorm",
-           "MultiHeadAttention", "RMSNorm", "TransformerEncoder",
-           "TransformerEncoderLayer"]
+           "ClipGradByNorm", "ClipGradByValue", "BatchNorm1D", "Conv1D",
+           "Conv2D", "CTCLoss", "Dropout",
+           "LayerList", "LayerNorm", "MultiHeadAttention", "RMSNorm",
+           "TransformerEncoder", "TransformerEncoderLayer"]

@@ -1,0 +1,95 @@
+"""Convolution functionals (counterpart of
+``paddle_tpu/nn/functional/conv.py``; ports ``conv1d`` and ``conv2d``).
+
+The reference computes convolutions with XLA's ``conv_general_dilated``,
+in no Pallas kernel of its own, so the port's counterpart is PyTorch's
+library convolution, as ``torch.matmul`` is for the projections. Paddle's
+semantics are kept: weights ``[out, in / groups, *k]``; ``padding`` an int,
+one int per spatial dim, a ``[before, after]`` pair per dim (flat or
+nested), or ``"SAME"`` / ``"VALID"``; ``data_format`` channels first
+(``"NCL"``, ``"NCHW"``) or last (``"NLC"``, ``"NHWC"``). Convolutions are
+on amp's white list: under ``auto_cast`` they compute in the amp dtype.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as TF
+
+from ...amp import cast_for
+
+__all__ = ["conv1d", "conv2d"]
+
+_CHANNELS_LAST = ("NLC", "NWC", "NHWC")
+
+
+def _tuple(v, n):
+    if isinstance(v, (list, tuple)):
+        return tuple(int(x) for x in v)
+    return (int(v),) * n
+
+
+def _pad_pairs(padding, n):
+    """``[(before, after)] * n`` from Paddle's int / per-dim / pair forms."""
+    if isinstance(padding, int):
+        return [(padding, padding)] * n
+    padding = list(padding)
+    if len(padding) == n and all(isinstance(p, int) for p in padding):
+        return [(p, p) for p in padding]
+    if len(padding) == 2 * n and all(isinstance(p, int) for p in padding):
+        return [(padding[2 * i], padding[2 * i + 1]) for i in range(n)]
+    return [tuple(int(q) for q in p) for p in padding]
+
+
+def _same_pairs(x, weight, stride, dilation, n):
+    """XLA's ``"SAME"``: output ``ceil(in / stride)``, the extra padding at
+    the end."""
+    pairs = []
+    for i in range(n):
+        size, k = x.shape[2 + i], weight.shape[2 + i]
+        eff = (k - 1) * dilation[i] + 1
+        out = -(-size // stride[i])
+        total = max((out - 1) * stride[i] + eff - size, 0)
+        pairs.append((total // 2, total - total // 2))
+    return pairs
+
+
+def _conv(x, weight, bias, stride, padding, dilation, groups, n,
+          data_format):
+    x, weight, bias = cast_for(f"conv{n}d", x, weight, bias)
+    channels_last = data_format in _CHANNELS_LAST
+    if channels_last:
+        x = x.movedim(-1, 1)
+    st, dl = _tuple(stride, n), _tuple(dilation, n)
+    if isinstance(padding, str):
+        if padding.upper() == "VALID":
+            pairs = [(0, 0)] * n
+        elif padding.upper() == "SAME":
+            pairs = _same_pairs(x, weight, st, dl, n)
+        else:
+            raise ValueError(f"conv{n}d: unknown padding {padding!r}")
+    else:
+        pairs = _pad_pairs(padding, n)
+    if all(a == b for a, b in pairs):
+        pad = tuple(a for a, _ in pairs)
+    else:   # asymmetric: pad explicitly (F.pad takes the last dim first)
+        x = TF.pad(x, [p for pair in reversed(pairs) for p in pair])
+        pad = 0
+    conv = TF.conv1d if n == 1 else TF.conv2d
+    out = conv(x, weight, bias, st, pad, dl, groups)
+    return out.movedim(1, -1) if channels_last else out
+
+
+def conv1d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
+           data_format="NCL", name=None):
+    """1-D convolution of ``x`` ``[N, C, L]`` (or ``[N, L, C]``) with
+    ``weight`` ``[out, C / groups, k]``."""
+    return _conv(x, weight, bias, stride, padding, dilation, groups, 1,
+                 data_format)
+
+
+def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
+           data_format="NCHW", name=None):
+    """2-D convolution of ``x`` ``[N, C, H, W]`` (or ``[N, H, W, C]``) with
+    ``weight`` ``[out, C / groups, kh, kw]``."""
+    return _conv(x, weight, bias, stride, padding, dilation, groups, 2,
+                 data_format)

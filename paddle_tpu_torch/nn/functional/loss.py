@@ -1,12 +1,13 @@
 """Loss functionals (counterpart of ``paddle_tpu/nn/functional/loss.py``;
-this slice ports ``cross_entropy``)."""
+ports ``cross_entropy`` and ``ctc_loss``)."""
 from __future__ import annotations
 
 import torch
 
+from ...kernels.ctc import ctc_lattice
 from ...kernels.softmax_ce import softmax_ce
 
-__all__ = ["cross_entropy"]
+__all__ = ["cross_entropy", "ctc_loss"]
 
 
 def _reduce(loss, reduction):
@@ -69,3 +70,25 @@ def _log_probs(input, ax, use_softmax):
     if use_softmax:
         return torch.log_softmax(input, dim=ax)
     return torch.log(input.clamp_min(1e-30))
+
+
+def ctc_loss(log_probs, labels, input_lengths, label_lengths, blank=0,
+             reduction="mean", norm_by_times=False):
+    """CTC loss of ``log_probs`` ``[T, B, C]`` (Paddle's layout) against
+    ``labels`` ``[B, L]`` padded with blank, with ``input_lengths`` and
+    ``label_lengths`` ``[B]``; differentiable in log_probs.
+
+    The lattice runs the CTC alpha and beta kernels on CUDA tensors and
+    their plain versions on CPU tensors (``kernels/ctc.py``); labels and
+    lengths follow log_probs to its device. ``norm_by_times`` divides each
+    utterance's loss by its input length (at least 1); the reductions are
+    the JAX package's (``"mean"`` is the batch mean, not upstream Paddle's
+    division by the label lengths). The loss is float32."""
+    dev = log_probs.device
+    labels, input_lengths, label_lengths = (
+        t.to(dev) for t in (labels, input_lengths, label_lengths))
+    loss = ctc_lattice(log_probs, labels, input_lengths, label_lengths,
+                       blank)
+    if norm_by_times:
+        loss = loss / input_lengths.to(loss.dtype).clamp_min(1.0)
+    return _reduce(loss, reduction)

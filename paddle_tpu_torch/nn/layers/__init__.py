@@ -1,7 +1,11 @@
-from .common import Dropout
-from .norm import LayerNorm, RMSNorm
+from .common import Dropout, LayerList
+from .conv import Conv1D, Conv2D
+from .loss import CTCLoss
+from .norm import BatchNorm1D, LayerNorm, RMSNorm
 from .transformer import (MultiHeadAttention, TransformerEncoder,
                           TransformerEncoderLayer)
 
-__all__ = ["Dropout", "LayerNorm", "RMSNorm", "MultiHeadAttention",
-           "TransformerEncoder", "TransformerEncoderLayer"]
+__all__ = ["Dropout", "LayerList", "Conv1D", "Conv2D", "CTCLoss",
+           "BatchNorm1D", "LayerNorm", "RMSNorm",
+           "MultiHeadAttention", "TransformerEncoder",
+           "TransformerEncoderLayer"]

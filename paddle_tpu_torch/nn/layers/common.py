@@ -1,5 +1,5 @@
-"""Common layers (counterpart of ``paddle_tpu/nn/layers/common.py``; this
-slice ports ``Dropout``). ``Linear`` and ``Embedding`` are ``torch.nn``'s:
+"""Common layers (counterpart of ``paddle_tpu/nn/layers/common.py``; ports
+``Dropout``, and ``LayerList`` of ``paddle_tpu/nn/layer.py``). ``Linear`` and ``Embedding`` are ``torch.nn``'s:
 a Paddle ``Linear`` stores its weight ``[in, out]``, ``nn.Linear``
 ``[out, in]``, and ``models/convert.py`` transposes."""
 from __future__ import annotations
@@ -8,7 +8,7 @@ from torch import nn
 
 from ..functional.common import dropout
 
-__all__ = ["Dropout"]
+__all__ = ["Dropout", "LayerList"]
 
 
 class Dropout(nn.Module):
@@ -22,3 +22,8 @@ class Dropout(nn.Module):
 
     def extra_repr(self):
         return f"p={self.p}, axis={self.axis}, mode={self.mode}"
+
+
+class LayerList(nn.ModuleList):
+    """Paddle's ``LayerList``: ``torch.nn.ModuleList`` under its name
+    (sub-layers named ``"0"``, ``"1"``, ... as in the reference)."""

@@ -32,6 +32,15 @@ rounds once); mean and rstd at 1e-5. The flash kernels' dropout bits
 equal the plain version's exactly, each kernel's applied mask (read out
 by probes) equals them, and outputs and gradients with dropout match the
 plain versions under the dense tolerances above.
+
+Conformer slice: flash at head_dim 36 (zero-padded to 48 in the kernels)
+under the same tolerances, dropout on and off, and its applied mask read
+back exactly. The CTC kernels against their plain versions: the -1e30
+("dead") entries of alpha and beta equal exactly, the live ones within
+atol 1e-3 + rtol 1e-5 (the same f32 recursion; expf/logf may differ by an
+ulp, and a lattice entry is a sum over up to T steps of magnitude ~5),
+the log-likelihood rtol 1e-5; the gradient through ``ctc_loss`` against
+the CPU's plain version within the f32 gradient tolerance.
 """
 import math
 
@@ -142,7 +151,8 @@ def test_wrappers_launch_on_cuda_and_count(gen):
         "flash_attention": 1, "flash_attention_dropout": 0,
         "flash_attention_bwd": 0, "flash_attention_bwd_dropout": 0,
         "layernorm": 0, "paged_attention": 1, "rmsnorm": 1,
-        "rmsnorm_bwd": 0, "softmax_ce": 0, "softmax_ce_bwd": 0}
+        "rmsnorm_bwd": 0, "softmax_ce": 0, "softmax_ce_bwd": 0,
+        "ctc_alpha": 0, "ctc_beta": 0}
 
 
 def test_wrappers_raise_on_what_the_kernel_does_not_take(gen):
@@ -606,3 +616,177 @@ def test_ernie_tiny_step_on_the_card_matches_the_cpu(gen):
     assert launched["flash_attention_dropout"] == 2
     assert launched["flash_attention_bwd_dropout"] == 2
     assert launched["softmax_ce"] == 1 and launched["softmax_ce_bwd"] == 1
+
+
+# ---------------------------------------------------------------------------
+# Conformer slice: flash at head_dim 36, the CTC kernels
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("p", [0.0, 0.1])
+@pytest.mark.parametrize("causal,sq,sk,hkv", [(False, 400, 400, 4),
+                                              (True, 77, 77, 2),
+                                              (False, 40, 100, 4)])
+def test_flash_head_dim_36_matches_plain(gen, dtype, p, causal, sq, sk, hkv):
+    q = _rnd(gen, dtype, 2, sq, 4, 36)
+    k, v = _rnd(gen, dtype, 2, sk, hkv, 36), _rnd(gen, dtype, 2, sk, hkv, 36)
+    g = _rnd(gen, dtype, 2, sq, 4, 36)
+    out, lse = flash_attention_cuda(q, k, v, causal, None, p, 99)
+    p_out, p_lse = flash_attention_plain(q, k, v, causal, None, p, 99)
+    _close(out, p_out, **_tol(dtype))
+    _close(lse, p_lse, atol=1e-3 if dtype == torch.bfloat16 else 1e-4,
+           rtol=1e-5)
+    dg = delta_minus_glse(p_out, g)
+    got = flash_attention_bwd_cuda(q, k, v, g, p_lse, dg, causal, None, p, 99)
+    want = flash_attention_bwd_plain(q, k, v, g, p_lse, dg, causal, None, p,
+                                     99)
+    for a, b in zip(got, want):
+        _close(a, b, **_grad_tol(dtype, b))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_head_dim_36_applies_the_plain_mask(gen, dtype):
+    """The probes of ``test_flash_kernels_apply_the_plain_mask`` at
+    D = 36, whose padding columns must neither leak into the real ones nor
+    be stored."""
+    d, B, H, Sq, p, seed = 36, 2, 3, 150, 0.1, 78
+    zeros = torch.zeros(B, Sq, H, d, device="cuda", dtype=dtype)
+    kzero = torch.zeros(B, d, H, d, device="cuda", dtype=dtype)
+    eye = torch.eye(d, device="cuda", dtype=dtype)[None, :, None, :].expand(
+        B, d, H, d).contiguous()
+    keep = dropout_keep_plain(seed, B, H, Sq, d, p, "cuda").float()
+    out, _ = flash_attention_cuda(zeros, kzero, eye, False, None, p, seed)
+    torch.cuda.synchronize()
+    assert torch.equal((out.float() * d * (1 - p)).round()
+                       .permute(0, 2, 1, 3), keep)
+    lse = torch.full((B, H, Sq), math.log(d), device="cuda")
+    dg = torch.zeros(B, H, Sq, device="cuda")
+    dq, _, _ = flash_attention_bwd_cuda(zeros, eye, eye, torch.ones_like(zeros),
+                                        lse, dg, False, None, p, seed)
+    zq = (dq.float() * d * (1 - p) * math.sqrt(d)).round()
+    assert torch.equal(zq.permute(0, 2, 1, 3), keep)
+    _, _, dv = flash_attention_bwd_cuda(
+        kzero, kzero, eye, eye, lse[:, :, :d].contiguous(),
+        dg[:, :, :d].contiguous(), False, None, p, seed)
+    zv = (dv.float() * d * (1 - p)).round().permute(0, 2, 3, 1)
+    assert torch.equal(zv, keep[:, :, :d])
+
+
+def _ctc_batch(T, B, C, L, seed):
+    """Ragged lengths, repeated labels (row 1), an empty label (row 2) and
+    an infeasible row (row 3), on the card (with L = 0 every label is
+    empty)."""
+    g = torch.Generator().manual_seed(seed)
+    lp = torch.log_softmax(2 * torch.randn(T, B, C, generator=g), -1)
+    labels = torch.randint(1, C, (B, L), generator=g)
+    in_len = torch.randint(3 * T // 4, T + 1, (B,), generator=g)
+    lbl_len = torch.randint(L // 2, L + 1, (B,), generator=g)
+    lbl_len[2] = 0
+    if L:
+        labels[1, 1:4] = labels[1, 0]
+        labels[3], lbl_len[3], in_len[3] = 5, L, L + 2
+    return [t.cuda() for t in (lp, labels, in_len, lbl_len)]
+
+
+def _lattice_close(got, want):
+    torch.cuda.synchronize()
+    dead = want <= -5e29
+    assert torch.equal(dead, got <= -5e29)
+    assert torch.equal(got[dead], want[dead])
+    torch.testing.assert_close(got[~dead], want[~dead], atol=1e-3, rtol=1e-5)
+
+
+@pytest.mark.parametrize("T,B,C,L", [(400, 16, 128, 48), (400, 5, 128, 100),
+                                     (9, 4, 6, 3), (60, 4, 30, 0)])
+def test_ctc_kernels_match_plain(gen, T, B, C, L):
+    from paddle_tpu_torch.kernels.ctc import (ctc_alpha_cuda, ctc_alpha_plain,
+                                              ctc_beta_cuda, ctc_beta_plain)
+
+    args = _ctc_batch(T, B, C, L, T + L)
+    alphas, ll = ctc_alpha_cuda(*args)
+    p_alphas, p_ll = ctc_alpha_plain(*args)
+    _lattice_close(alphas, p_alphas)
+    _close(ll, p_ll, atol=1e-4, rtol=1e-5)
+    _lattice_close(ctc_beta_cuda(*args), ctc_beta_plain(*args))
+
+
+def test_regression_ctc_loss_on_the_card_launches_the_kernels(gen):
+    from paddle_tpu_torch.kernels.ctc import MAX_STATES, ctc_alpha_cuda
+    from paddle_tpu_torch.nn.functional import ctc_loss
+
+    lp, labels, in_len, lbl_len = _ctc_batch(80, 6, 20, 12, 3)
+    x = lp.clone().requires_grad_()
+    before = K.launch_counts()
+    loss = ctc_loss(x, labels, in_len, lbl_len)
+    assert loss.grad_fn is not None
+    loss.backward()
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in K.launch_counts().items()
+                if v != before[k]}
+    assert launched == {"ctc_alpha": 1, "ctc_beta": 1}
+    xc = lp.cpu().requires_grad_()
+    ref = ctc_loss(xc, labels.cpu(), in_len.cpu(), lbl_len.cpu())
+    ref.backward()
+    _close(loss, ref.cuda(), atol=1e-4, rtol=1e-5)
+    _close(x.grad, xc.grad.cuda(), **_grad_tol(torch.float32, xc.grad))
+    assert not x.grad[:, 3].any()              # the infeasible row
+    again = lp.clone().requires_grad_()        # the same bits again
+    ctc_loss(again, labels, in_len, lbl_len).backward()
+    torch.testing.assert_close(again.grad, x.grad, atol=0, rtol=0)
+    long = torch.zeros(2, (MAX_STATES + 1) // 2, device="cuda",
+                       dtype=torch.int64)
+    with pytest.raises(ValueError, match="extended states"):
+        ctc_alpha_cuda(lp[:, :2], long, in_len[:2], lbl_len[:2])
+    with pytest.raises(RuntimeError):          # the raw wrapper: no autograd
+        ctc_alpha_cuda(x, labels, in_len, lbl_len)
+
+
+def test_conformer_tiny_step_on_the_card_matches_the_cpu(gen):
+    """One f32 ConformerForCTC step at head_dim 36 with attention dropout
+    0.1 (same seeds; hidden dropout 0, whose masks come from each device's
+    generator), against the same weights on the CPU. cuDNN's f32
+    convolutions would run in TF32 by default (three decimal digits), so
+    this test turns that off, as it holds f32 against f32."""
+    from paddle_tpu_torch import framework
+    from paddle_tpu_torch.models import ConformerForCTC, conformer_tiny
+    from paddle_tpu_torch.nn import Dropout
+    from paddle_tpu_torch.nn.functional import ctc_loss
+
+    cfg = conformer_tiny(vocab=40, hidden=72, layers=2, heads=2)
+    cfg.dropout = 0.1
+    models = [ConformerForCTC(cfg, generator=gen),
+              ConformerForCTC(cfg, device="cpu")]
+    models[1].load_state_dict({k: v.cpu()
+                               for k, v in models[0].state_dict().items()})
+    rng = torch.Generator().manual_seed(2)
+    x = torch.rand(3, 64, 16, generator=rng)
+    labels = torch.randint(1, 40, (3, 5), generator=rng)
+    in_len, lbl_len = torch.tensor([16, 14, 12]), torch.tensor([5, 4, 3])
+    out = []
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    for m in models:
+        for mod in m.modules():
+            if isinstance(mod, Dropout):
+                mod.p = 0.0
+        framework.seed(3)
+        before = K.launch_counts()
+        dev = m.device
+        loss = ctc_loss(m(x.to(dev)), labels, in_len, lbl_len)
+        loss.backward()
+        launched = {k: v - before[k] for k, v in K.launch_counts().items()
+                    if v != before[k]}
+        out.append((loss.item(), launched,
+                    {n: p.grad.cpu() for n, p in m.named_parameters()},
+                    {n: b.cpu() for n, b in m.named_buffers()}))
+    torch.backends.cudnn.allow_tf32 = tf32
+    (l0, launched, g0, b0), (l1, _, g1, b1) = out
+    assert l0 == pytest.approx(l1, rel=1e-4)
+    assert launched == {"layernorm": 10, "flash_attention_dropout": 2,
+                        "flash_attention_bwd_dropout": 2, "ctc_alpha": 1,
+                        "ctc_beta": 1}
+    for n in g1:
+        torch.testing.assert_close(g0[n], g1[n], atol=1e-4, rtol=1e-3,
+                                   msg=n)
+    for n in b1:
+        torch.testing.assert_close(b0[n], b1[n], atol=1e-5, rtol=1e-4)

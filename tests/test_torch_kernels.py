@@ -350,7 +350,8 @@ def test_launch_counters_reset():
     assert set(K.launch_counts()) == {
         "flash_attention", "flash_attention_dropout", "flash_attention_bwd",
         "flash_attention_bwd_dropout", "layernorm", "paged_attention",
-        "rmsnorm", "rmsnorm_bwd", "softmax_ce", "softmax_ce_bwd"}
+        "rmsnorm", "rmsnorm_bwd", "softmax_ce", "softmax_ce_bwd",
+        "ctc_alpha", "ctc_beta"}
 
 
 def test_build_raises_without_nvcc(monkeypatch):
@@ -363,5 +364,5 @@ def test_build_raises_without_nvcc(monkeypatch):
 
 def test_every_kernel_source_is_present():
     names = {p.stem for p in _build.sources()}
-    assert names == {"flash_attention", "flash_attention_bwd", "layernorm",
-                     "paged_attention", "rmsnorm", "softmax_ce"}
+    assert names == {"ctc", "flash_attention", "flash_attention_bwd",
+                     "layernorm", "paged_attention", "rmsnorm", "softmax_ce"}
