@@ -127,14 +127,34 @@ CUDA toolkit (``nvcc``). It imports nothing of JAX or of ``paddle_tpu``.
     memory; launches per step exactly CONFORMER_PER_STEP (every other
     kernel 0); a profiled step, and one split into forward, backward and
     the AdamW update.
+12. RNN-T slice's kernel phase (run with the other kernel phases): the
+    RNN-T alpha and beta-gradient kernels on blank / emit lattices built
+    as ``rnnt_loss`` builds them from seeded joint logits over vocab 128,
+    at the slice's ``[16, 400, 49]`` (t_len 300-400, u_len 24-48), a
+    long-label ``[8, 200, 513]`` and the edges (u_len 0, t_len 1, both;
+    U + 1 = 1024): -1e30 cells equal the plain versions', live alphas and
+    betas within CTC_ATOL / CTC_RTOL, the log-likelihood within 1e-4 +
+    1e-5 relative, the posteriors within RNNT_POST_ATOL, ``bhat[0, 0]``
+    against the alphas' log-likelihood; times at the slice's shape with
+    the dependent-step count ``max(t_len + u_len)``; no library column (no
+    PyTorch call computes the RNN-T loss).
+13. Whole RNN-T step: ``ConformerForRNNT`` (predictor LSTM 144) under the
+    whole Conformer step's settings and limits (phase 10), the per-frame
+    loss being each utterance's RNN-T loss over its input length, then the
+    batch mean; every gradient, the LSTM's and the embedding's included.
+14. RNN-T phase: ``ConformerForRNNT(ConformerConfig())`` trained as in
+    phase 11 on the same kind of batch (labels of 24-48, so U + 1 = 49);
+    launches per step exactly RNNT_PER_STEP (no CTC kernel); MFU from
+    ``conformer_flops_per_utterance`` with the RNN-T head.
 
 The ``launches`` of the JSON line sum the main path's runs: the engine,
-the no-cache forward, the 5 Llama training steps, the ERNIE steps and the
-Conformer steps (the ``_d36`` rows: the Conformer steps' launches of the
-dropout flash kernels, all at head_dim 36). The last two lines are one
-JSON object with every kernel's numbers and one with the device. Any
-failure raises and exits non-zero; without a CUDA device, or without the
-package beside this file, it exits non-zero and prints no result.
+the no-cache forward, the 5 Llama training steps, the ERNIE steps, the
+Conformer-CTC and the RNN-T steps (the ``_d36`` rows: the Conformer
+steps' launches of the dropout flash kernels, all at head_dim 36). The
+last two lines are one JSON object with every kernel's numbers and one
+with the device. Any failure raises and exits non-zero; without a CUDA
+device, or without the package beside this file, it exits non-zero and
+prints no result.
 """
 from __future__ import annotations
 
@@ -204,6 +224,18 @@ CONFORMER_PER_STEP = {"layernorm": 20, "flash_attention_dropout": 4,
                       "ctc_beta": 1}
 # batch-norm running statistics after one O1 step vs the f32 CPU step
 BN_REL_L2 = 1e-2
+# RNN-T slice. The lattice kernels repeat the plain versions' f32
+# arithmetic cell for cell: alphas and betas are held as CTC's lattices
+# (dead cells equal, live ones within CTC_ATOL + CTC_RTOL * |plain|), the
+# log-likelihood within 1e-4 + 1e-5 relative, and the posteriors gb / ge,
+# probabilities in [0, 1], within RNNT_POST_ATOL.
+RNNT_POST_ATOL = 1e-5
+# launches per ConformerForRNNT step (4 blocks): the encoder's as the CTC
+# model's, the RNN-T alpha kernel in the forward, the beta-gradient kernel
+# in the backward, no CTC kernel
+RNNT_PER_STEP = {"layernorm": 20, "flash_attention_dropout": 4,
+                 "flash_attention_bwd_dropout": 4, "rnnt_alpha": 1,
+                 "rnnt_beta_grad": 1}
 SOURCES = {
     "flash_attention": ("paddle_tpu_torch/csrc/flash_attention.cu",
                         "paddle_tpu/kernels/flash_attention.py:108"),
@@ -240,6 +272,10 @@ SOURCES = {
                   "paddle_tpu/kernels/ctc.py:61"),
     "ctc_beta": ("paddle_tpu_torch/csrc/ctc.cu",
                  "paddle_tpu/kernels/ctc.py:92"),
+    "rnnt_alpha": ("paddle_tpu_torch/csrc/rnnt.cu",
+                   "paddle_tpu/kernels/rnnt.py:100"),
+    "rnnt_beta_grad": ("paddle_tpu_torch/csrc/rnnt.cu",
+                       "paddle_tpu/kernels/rnnt.py:122"),
 }
 
 
@@ -895,6 +931,114 @@ def ctc_phase(torch, g):
     return rows
 
 
+def rnnt_lattices(torch, B, T, U1, tl_range, ul_range, seed, edges=False,
+                  V=128):
+    """The blank and emit lattices ``[B, T, U1]`` f32 as ``rnnt_loss``
+    builds them from seeded joint logits ``[B, T, U1, V]``: log-softmax,
+    the blank column, the labels' log-probs, emits past u_len and at column
+    U1 - 1 at -1e30. t_len and u_len are drawn from the inclusive ranges;
+    with ``edges`` row 0 has u_len 0, row 1 t_len 1 and row 2 both."""
+    from paddle_tpu_torch.kernels.rnnt import NEG
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    lp = torch.log_softmax(torch.randn(B, T, U1, V, device="cuda",
+                                       generator=gen), -1)
+    labels = torch.randint(1, V, (B, U1 - 1), device="cuda", generator=gen)
+    tl = torch.randint(tl_range[0], tl_range[1] + 1, (B,), device="cuda",
+                       generator=gen)
+    ul = torch.randint(ul_range[0], ul_range[1] + 1, (B,), device="cuda",
+                       generator=gen)
+    if edges:
+        ul[0], tl[1], tl[2], ul[2] = 0, 1, 1, 0
+    blank = lp[..., 0].contiguous()
+    emit = lp[:, :, :U1 - 1].gather(
+        3, labels[:, None, :, None].expand(B, T, U1 - 1, 1)).squeeze(3)
+    emit = torch.where(torch.arange(U1 - 1, device="cuda") < ul[:, None, None],
+                       emit, NEG)
+    emit = torch.nn.functional.pad(emit, (0, 1), value=NEG)
+    return blank, emit, tl, ul
+
+
+def rnnt_phase(torch, g):
+    """The RNN-T alpha and beta-gradient kernels against their plain
+    versions on the card at the slice's shape, a long-label shape and the
+    edges; times at the slice's shape."""
+    import importlib.util
+
+    from paddle_tpu_torch.kernels.rnnt import (
+        rnnt_alpha_cuda, rnnt_alpha_plain, rnnt_beta_grad_cuda,
+        rnnt_beta_grad_plain)
+
+    cases = [("slice [16, 400, 49]", (16, 400, 49, (300, 400), (24, 48))),
+             ("long labels [8, 200, 513]", (8, 200, 513, (150, 200),
+                                            (256, 512))),
+             ("edges [4, 50, 1024]", (4, 50, 1024, (40, 50), (900, 1023))),
+             ("edges [3, 9, 7]", (3, 9, 7, (1, 9), (0, 6)))]
+    print("[rnnt] rnnt_alpha, rnnt_beta_grad  blank/emit [B, T, U + 1] f32 "
+          "from joint logits over vocab 128; edges: u_len 0, t_len 1, both, "
+          "U + 1 = 1024")
+    rows = None
+    worst = [0.0, 0.0]
+    for i, (tag, (B, T, U1, tlr, ulr)) in enumerate(cases):
+        args = rnnt_lattices(torch, B, T, U1, tlr, ulr, 5 + i,
+                             edges=tag.startswith("edges"))
+        alphas, ll = rnnt_alpha_cuda(*args)
+        p_alphas, p_ll = rnnt_alpha_plain(*args)
+        gb, ge, betas = rnnt_beta_grad_cuda(*args[:2], p_alphas, *args[2:],
+                                            p_ll, with_betas=True)
+        p_gb, p_ge, p_betas = rnnt_beta_grad_plain(
+            *args[:2], p_alphas, *args[2:], p_ll, with_betas=True)
+        torch.cuda.synchronize()
+        worst[0] = max(worst[0], check_lattice(torch, f"{tag} alphas",
+                                               alphas, p_alphas),
+                       check(torch, f"{tag} loss", -ll, -p_ll, 1e-4,
+                             CTC_RTOL))
+        worst[1] = max(worst[1], check_lattice(torch, f"{tag} betas", betas,
+                                               p_betas),
+                       check(torch, f"{tag} gb", gb, p_gb, RNNT_POST_ATOL),
+                       check(torch, f"{tag} ge", ge, p_ge, RNNT_POST_ATOL))
+        check(torch, f"{tag} bhat[0, 0] vs ll from the alphas",
+              betas[:, 0, 0], ll, 1e-4, CTC_RTOL)
+        if rows is not None:
+            continue
+        tl, ul = args[2], args[3]
+        steps = int((tl + ul).max())
+        live = int((tl * (ul + 1)).sum())
+        a_ms = time_ms(torch, lambda: rnnt_alpha_cuda(*args))
+        b_ms = time_ms(torch, lambda: rnnt_beta_grad_cuda(
+            *args[:2], alphas, *args[2:], ll))
+        a_plain = time_ms(torch, lambda: rnnt_alpha_plain(*args), iters=3,
+                          warmup=1)
+        b_plain = time_ms(torch, lambda: rnnt_beta_grad_plain(
+            *args[:2], alphas, *args[2:], ll), iters=3, warmup=1)
+        # the live cells' inputs read once (the dead ones are never read),
+        # the whole outputs written once; ~10 f32 operations a live cell
+        # forward (the adds, max, two exp, a log), ~22 backward (the
+        # recursion and the two posteriors)
+        lat = B * T * U1 * 4
+        lens = 2 * B * 4 + B * 4
+        bound_a, by_a = bound_ms(2 * live * 4 + lat + lens, 10 * live,
+                                 F32_FLOPS)
+        bound_b, by_b = bound_ms(3 * live * 4 + 2 * lat + lens, 22 * live,
+                                 F32_FLOPS)
+        audio = "" if importlib.util.find_spec("torchaudio") else "not "
+        print(f"  {tag}: alpha kernel {a_ms:.4f} ms, plain {a_plain:.4f}, "
+              f"bound {bound_a:.4f} ({by_a}; and {steps} dependent steps, "
+              f"max(t_len + u_len): {1e3 * a_ms / steps:.2f} us a step); "
+              f"beta-gradient kernel {b_ms:.4f} ms, plain {b_plain:.4f}, "
+              f"bound {bound_b:.4f} ({by_b}; {1e3 * b_ms / steps:.2f} us a "
+              f"step); library: none (no PyTorch call computes the RNN-T "
+              f"loss; torchaudio, a separate package with one, is {audio}"
+              f"installed)")
+        shape = f"blank/emit [{B}, {T}, {U1}] f32, {steps} dependent steps"
+        rows = (dict(shape=shape, ms=a_ms, plain_ms=a_plain, library_ms=None,
+                     bound_ms=bound_a, bound_by=by_a, dependent_steps=steps),
+                dict(shape=shape, ms=b_ms, plain_ms=b_plain, library_ms=None,
+                     bound_ms=bound_b, bound_by=by_b, dependent_steps=steps))
+    rows[0]["max_abs_err"], rows[1]["max_abs_err"] = worst
+    return rows
+
+
 def flash_d36_phase(torch, g):
     """The flash kernels at head_dim 36 (the Conformer's 144 / 4), forward
     and backward, dropout p 0.1 and 0, against the plain versions; the
@@ -1188,7 +1332,7 @@ def whole_step_check(torch, K):
 def kernel_share(kernels):
     """Device ms by group of the profiled kernels: ours, GEMMs, the rest."""
     ours = ("flash_fwd", "flash_bwd", "rmsnorm", "softmax_ce", "paged_",
-            "layernorm", "ctc_")
+            "layernorm", "ctc_", "rnnt_")
     gemm = ("gemm", "nvjet", "xmma", "cutlass", "cublas")
     share = {"port kernels": 0.0, "GEMMs (cuBLAS)": 0.0, "other": 0.0}
     for k in kernels:
@@ -1534,28 +1678,50 @@ def conformer_batch(torch, B, T, cfg, L, seed, device):
     return [t.to(device) for t in (feats, labels, in_len, lbl_len)]
 
 
-def whole_step_conformer(torch, K):
-    """One ConformerForCTC step (forward, CTC loss, backward) under
-    auto_cast(O1, bf16) on the card against the same f32 weights in f32 on
-    the CPU through the plain versions, with the same attention-dropout
-    seeds. Hidden dropout is 0 on both sides (its masks come from each
-    device's generator); the attention keeps p 0.1. The loss is
-    normalised by the input lengths (``norm_by_times``), so it is a
-    per-frame loss of the size of the ERNIE check's and STEP_LOSS_TOL means
-    the same there."""
-    from paddle_tpu_torch import amp, framework
-    from paddle_tpu_torch.models import ConformerConfig, ConformerForCTC
-    from paddle_tpu_torch.nn import Dropout
-    from paddle_tpu_torch.nn.functional import ctc_loss
+def conformer_head(head):
+    """``(model class, loss of (model, feats, labels, in_len, lbl_len,
+    per_frame), expected launches per step of the 4-layer model)`` of the
+    Conformer's CTC or RNN-T head."""
+    from paddle_tpu_torch.models import ConformerForCTC, ConformerForRNNT
+    from paddle_tpu_torch.nn.functional import ctc_loss, rnnt_loss
 
+    if head == "ctc":
+        def loss(model, feats, labels, in_len, lbl_len, per_frame=False):
+            return ctc_loss(model(feats), labels, in_len, lbl_len,
+                            norm_by_times=per_frame)
+        return ConformerForCTC, loss, CONFORMER_PER_STEP
+
+    def loss(model, feats, labels, in_len, lbl_len, per_frame=False):
+        out = rnnt_loss(model(feats, labels), labels, in_len, lbl_len,
+                        reduction="none" if per_frame else "mean")
+        return (out / in_len.to(out.device)).mean() if per_frame else out
+    return ConformerForRNNT, loss, RNNT_PER_STEP
+
+
+def whole_step_conformer(torch, K, head="ctc"):
+    """One Conformer step (forward, loss, backward) with the CTC or the
+    RNN-T head under auto_cast(O1, bf16) on the card against the same f32
+    weights in f32 on the CPU through the plain versions, with the same
+    attention-dropout seeds. Hidden dropout is 0 on both sides (its masks
+    come from each device's generator); the attention keeps p 0.1. The
+    loss is per frame (CTC: ``norm_by_times``; RNN-T: each utterance's
+    loss over its input length, then the batch mean), so it is of the size
+    of the ERNIE check's and STEP_LOSS_TOL means the same there."""
+    from paddle_tpu_torch import amp, framework
+    from paddle_tpu_torch.models import ConformerConfig
+    from paddle_tpu_torch.nn import Dropout
+
+    Model, loss_fn, per_layers = conformer_head(head)
+    tag = "conformer" if head == "ctc" else "rnnt"
     cfg = ConformerConfig(hidden=144, num_layers=2, num_heads=4,
                           conv_kernel=15, vocab_size=128,
                           dropout=CONFORMER_DROPOUT)
-    print("[whole step conformer] hidden 144, 4 heads of 36, 2 layers, conv "
-          "kernel 15, vocab 128, 4 utterances of 400 frames, attention "
-          "dropout 0.1: O1 bf16 on the card vs f32 on the CPU")
-    card = ConformerForCTC(cfg, seed=1)
-    cpu = ConformerForCTC(cfg, device="cpu")
+    print(f"[whole step {tag}] {Model.__name__} at hidden 144, 4 heads of "
+          f"36, 2 layers, conv kernel 15, vocab 128, 4 utterances of 400 "
+          f"frames, labels of 10-20, attention dropout 0.1: O1 bf16 on the "
+          f"card vs f32 on the CPU")
+    card = Model(cfg, seed=1)
+    cpu = Model(cfg, device="cpu")
     cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
     feats, labels, in_len, lbl_len = conformer_batch(torch, 4, 400, cfg, 20,
                                                      3, "cpu")
@@ -1568,8 +1734,8 @@ def whole_step_conformer(torch, K):
         framework.seed(5)
         K.reset_launch_counts()
         with amp.auto_cast(enable=dev.type == "cuda", level="O1"):
-            loss = ctc_loss(model(feats.to(dev)), labels, in_len, lbl_len,
-                            norm_by_times=True)
+            loss = loss_fn(model, feats.to(dev), labels.to(dev), in_len,
+                           lbl_len, per_frame=True)
         loss.backward()
         if dev.type == "cuda":
             torch.cuda.synchronize()
@@ -1579,10 +1745,12 @@ def whole_step_conformer(torch, K):
                       for n, p in model.named_parameters()})
         bufs.append({n: b.float().cpu() for n, b in model.named_buffers()})
     per_step = {k: v for k, v in launched.items() if v}
-    want = {"layernorm": 10, "flash_attention_dropout": 2,   # 2 blocks
-            "flash_attention_bwd_dropout": 2, "ctc_alpha": 1, "ctc_beta": 1}
+    # 2 of the 4 layers: half the per-layer kernels, one loss's pair
+    want = {k: v // 2 if k in ("layernorm", "flash_attention_dropout",
+                               "flash_attention_bwd_dropout") else v
+            for k, v in per_layers.items()}
     if per_step != want:
-        raise AssertionError(f"the card's Conformer step launched {per_step}, "
+        raise AssertionError(f"the card's {tag} step launched {per_step}, "
                              f"expected {want}")
     # exactly 0 in exact arithmetic, so each side holds rounding noise:
     # the key projections' biases (the softmax cancels a per-row constant,
@@ -1597,8 +1765,8 @@ def whole_step_conformer(torch, K):
                  for gr in grads]
         noise[n] = ratio
         if not max(ratio) <= 1e-2:
-            raise AssertionError(f"whole Conformer step: {n}'s gradient, 0 "
-                                 f"in exact arithmetic, has {ratio} of its "
+            raise AssertionError(f"whole {tag} step: {n}'s gradient, 0 in "
+                                 f"exact arithmetic, has {ratio} of its "
                                  f"weight gradient's norm (card, CPU)")
     print("  biases with a gradient of 0 in exact arithmetic, norm over "
           "their weight gradient's, card / CPU: "
@@ -1610,6 +1778,10 @@ def whole_step_conformer(torch, K):
     bn = {n: ((bufs[0][n] - b).norm() / b.norm()).item()
           for n, b in bufs[1].items()}
     worst_bn = max(bn.items(), key=lambda r: r[1])
+    if head == "rnnt":
+        print("  predictor and embedding gradients, relative L2: "
+              + ", ".join(f"{n} {e:.2e}" for n, e in rel.items()
+                          if n.startswith(("predictor", "embed"))))
     print(f"  per-frame loss {losses[0]:.5f} on the card, {losses[1]:.5f} on "
           f"the CPU (|diff| {abs(losses[0] - losses[1]):.2e}, limit "
           f"{STEP_LOSS_TOL}); worst gradient relative L2 errors "
@@ -1619,21 +1791,23 @@ def whole_step_conformer(torch, K):
           f"({worst_bn[0]}, limit {BN_REL_L2}, {len(bn)} buffers); launches "
           f"{per_step}")
     if not abs(losses[0] - losses[1]) <= STEP_LOSS_TOL:
-        raise AssertionError(f"whole Conformer step: loss {losses}")
+        raise AssertionError(f"whole {tag} step: loss {losses}")
     if not worst[0][1] <= STEP_GRAD_REL_L2:
-        raise AssertionError(f"whole Conformer step: gradient of "
-                             f"{worst[0][0]} off by {worst[0][1]}")
+        raise AssertionError(f"whole {tag} step: gradient of {worst[0][0]} "
+                             f"off by {worst[0][1]}")
     if not worst_bn[1] <= BN_REL_L2:
-        raise AssertionError(f"whole Conformer step: buffer {worst_bn[0]} off "
+        raise AssertionError(f"whole {tag} step: buffer {worst_bn[0]} off "
                              f"by {worst_bn[1]}")
 
 
-def conformer_flops_per_utterance(cfg, T):
+def conformer_flops_per_utterance(cfg, T, U1=None):
     """Training flops an utterance of T frames (3x the forward's): the two
     subsampling convolutions and the projection; per block the four
     feed-forward matrices, the four attention projections, the score and
-    P.V products, the two pointwise and the depthwise convolutions; the
-    head."""
+    P.V products, the two pointwise and the depthwise convolutions; then
+    the CTC head, or, with ``U1`` label positions (U + 1), the RNN-T head:
+    the encoder projection, the LSTM predictor (input and recurrent
+    products) and the joint ``2 T' U1 h V``."""
     h, k, V = cfg.hidden, cfg.conv_kernel, cfg.vocab_size
     t1, f1 = (T + 1) // 2, (cfg.input_dim + 1) // 2
     t2, f2 = (t1 + 1) // 2, (f1 + 1) // 2
@@ -1644,34 +1818,41 @@ def conformer_flops_per_utterance(cfg, T):
              + 2 * 2 * t2 * t2 * h                      # scores and P.V
              + 2 * t2 * h * 2 * h + 2 * t2 * h * k      # pw1, depthwise
              + 2 * t2 * h * h)                          # pw2
-    return 3 * (front + cfg.num_layers * block + 2 * t2 * h * V)
+    if U1 is None:
+        head = 2 * t2 * h * V
+    else:   # predictor width = hidden (the default)
+        head = (2 * t2 * h * h + U1 * 2 * (2 * h * 4 * h)
+                + 2 * t2 * U1 * h * V)
+    return 3 * (front + cfg.num_layers * block + head)
 
 
-def conformer_training_phase(torch, K):
-    """ConformerForCTC at the repo's configuration (tools/model_bench.py's
-    ConformerConfig()), published dropout kept, 16 utterances of 1600
-    frames."""
+def conformer_training_phase(torch, K, head="ctc"):
+    """The Conformer with the CTC or the RNN-T head at the repo's
+    configuration (tools/model_bench.py's ConformerConfig()), published
+    dropout kept, 16 utterances of 1600 frames."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from paddle_tpu_torch import amp, framework
-    from paddle_tpu_torch.models import ConformerConfig, ConformerForCTC
-    from paddle_tpu_torch.nn.functional import ctc_loss
+    from paddle_tpu_torch.models import ConformerConfig
     from paddle_tpu_torch.optimizer import AdamW
 
-    B, T = 16, 1600
+    Model, loss_fn, per_layers = conformer_head(head)
+    tag = "conformer" if head == "ctc" else "conformer rnnt"
+    B, T, L = 16, 1600, 48
     cfg = ConformerConfig()
-    print(f"[conformer] ConformerConfig() (input 80 mels, hidden 144, 4 "
-          f"layers, 4 heads of 36, ff_mult 4, conv kernel 15, vocab 128 "
-          f"with blank 0, subsample 4, dropout {cfg.dropout}), {B} "
-          f"utterances of {T} frames, f32 params under auto_cast(O1, "
-          f"bf16), AdamW lr 1e-3, weight decay 0.01")
+    print(f"[{tag}] {Model.__name__}(ConformerConfig()) (input 80 mels, "
+          f"hidden 144, 4 layers, 4 heads of 36, ff_mult 4, conv kernel 15, "
+          f"vocab 128 with blank 0, subsample 4, dropout {cfg.dropout}"
+          + (", predictor LSTM 144" if head == "rnnt" else "")
+          + f"), {B} utterances of {T} frames, f32 params under "
+          f"auto_cast(O1, bf16), AdamW lr 1e-3, weight decay 0.01")
     framework.seed(0)
     torch.cuda.reset_peak_memory_stats()
-    model = ConformerForCTC(cfg, seed=0)
+    model = Model(cfg, seed=0)
     opt = AdamW(learning_rate=1e-3, parameters=model.parameters(),
                 weight_decay=0.01)
-    feats, labels, in_len, lbl_len = conformer_batch(torch, B, T, cfg, 48, 1,
+    feats, labels, in_len, lbl_len = conformer_batch(torch, B, T, cfg, L, 1,
                                                      "cuda")
     print(f"  {model.num_params() / 1e6:.2f} M parameters; input lengths "
           f"{in_len.min().item()}-{in_len.max().item()} of "
@@ -1680,7 +1861,7 @@ def conformer_training_phase(torch, K):
 
     def forward():
         with amp.auto_cast(level="O1", dtype="bfloat16"):
-            return ctc_loss(model(feats), labels, in_len, lbl_len)
+            return loss_fn(model, feats, labels, in_len, lbl_len)
 
     def step():
         loss = forward()
@@ -1704,19 +1885,20 @@ def conformer_training_phase(torch, K):
     peak = torch.cuda.max_memory_allocated()
     print(f"  losses {[round(v, 3) for v in losses]}")
     if not all(math.isfinite(v) for v in losses):
-        raise AssertionError(f"non-finite Conformer loss: {losses}")
+        raise AssertionError(f"non-finite {tag} loss: {losses}")
     if not losses[-1] < losses[0]:
-        raise AssertionError(f"the Conformer loss did not fall: {losses}")
+        raise AssertionError(f"the {tag} loss did not fall: {losses}")
     per_step = {k: v / CONFORMER_STEPS for k, v in counts.items()}
-    want = {k: float(CONFORMER_PER_STEP.get(k, 0)) for k in counts}
+    want = {k: float(per_layers.get(k, 0)) for k in counts}
     print(f"  launches per step: "
           f"{ {k: v for k, v in per_step.items() if v} } (expected "
-          f"{CONFORMER_PER_STEP}, every other kernel 0)")
+          f"{per_layers}, every other kernel 0)")
     if per_step != want:
-        raise AssertionError("the Conformer steps launched other kernels "
-                             "than the model's structure gives")
+        raise AssertionError(f"the {tag} steps launched other kernels than "
+                             f"the model's structure gives")
     mean = sum(walls) / len(walls)
-    flops = conformer_flops_per_utterance(cfg, T)
+    flops = conformer_flops_per_utterance(
+        cfg, T, None if head == "ctc" else L + 1)
     print(f"  step wall {mean * 1e3:.1f} ms (mean of {CONFORMER_STEPS}, min "
           f"{min(walls) * 1e3:.1f}); {B / mean:.1f} utterances/s; MFU "
           f"{100 * B / mean * flops / BF16_FLOPS:.2f}% "
@@ -1731,9 +1913,9 @@ def conformer_training_phase(torch, K):
         prof_wall = (time.monotonic() - t0) * 1e3
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not kernels:
-        raise AssertionError("the profiled Conformer step traced no kernel")
+        raise AssertionError(f"the profiled {tag} step traced no kernel")
     busy = busy_ms(kernels)
-    print(f"[profile] one Conformer step: device busy {busy:.2f} ms in "
+    print(f"[profile] one {tag} step: device busy {busy:.2f} ms in "
           f"{len(kernels)} kernels, wall {prof_wall:.2f} ms under the "
           f"profiler (unprofiled mean {mean * 1e3:.2f} ms), idle "
           f"{100 * (1 - busy / prof_wall):.1f}% of the profiled wall, "
@@ -1803,6 +1985,7 @@ def main() -> int:
     (rows["flash_attention_dropout_d36"],
      rows["flash_attention_bwd_dropout_d36"]) = flash_d36_phase(torch, g)
     rows["ctc_alpha"], rows["ctc_beta"] = ctc_phase(torch, g)
+    rows["rnnt_alpha"], rows["rnnt_beta_grad"] = rnnt_phase(torch, g)
     for name, r in rows.items():
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         print(f"  {name} at {r['shape']}: kernel {r['ms']:.4f} ms, plain "
@@ -1836,12 +2019,17 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     conformer = conformer_training_phase(torch, K)
-    launches = {k: launches[k] + conformer[k] for k in conformer}
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    whole_step_conformer(torch, K, "rnnt")
+    gc.collect()
+    torch.cuda.empty_cache()
+    rnnt = conformer_training_phase(torch, K, "rnnt")
+    launches = {k: launches[k] + conformer[k] + rnnt[k] for k in conformer}
     # the head_dim-36 rows: the Conformer steps' launches of those kernels
-    launches["flash_attention_dropout_d36"] = \
-        conformer["flash_attention_dropout"]
-    launches["flash_attention_bwd_dropout_d36"] = \
-        conformer["flash_attention_bwd_dropout"]
+    for name in ("flash_attention_dropout", "flash_attention_bwd_dropout"):
+        launches[f"{name}_d36"] = conformer[name] + rnnt[name]
 
     kernels = []
     for name, r in rows.items():

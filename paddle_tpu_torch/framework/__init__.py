@@ -1,3 +1,3 @@
-from .random import get_generator, next_seed, seed
+from .random import get_generator, next_seed, seed, weights_generator
 
-__all__ = ["get_generator", "next_seed", "seed"]
+__all__ = ["get_generator", "next_seed", "seed", "weights_generator"]

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["seed", "get_generator", "next_seed"]
+__all__ = ["seed", "get_generator", "weights_generator", "next_seed"]
 
 _state = {"seed": 0}
 _generators: dict[torch.device, torch.Generator] = {}
@@ -44,6 +44,17 @@ def get_generator(device="cpu") -> torch.Generator:
         g = _generators[dev] = torch.Generator(device=dev)
         g.manual_seed(_state["seed"])
     return g
+
+
+def weights_generator(device, generator=None, seed=None) -> torch.Generator:
+    """The generator a model draws its weights from: ``generator`` when
+    given, else a fresh one on ``device`` seeded with ``seed``, else
+    ``device``'s generator."""
+    if generator is not None:
+        return generator
+    if seed is not None:
+        return torch.Generator(device=device).manual_seed(int(seed))
+    return get_generator(device)
 
 
 def next_seed() -> int:

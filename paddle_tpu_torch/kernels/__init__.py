@@ -18,10 +18,10 @@ ever cut from the autograd graph in silence. The kernels so far (the
 flash kernels count their dropout instantiations under their own names,
 so a run can show which variant its path took):
 
-===========================  =============================  ==================
+===========================  =============================  =====================
 name                         port (kernels/ + csrc/)        replaces, in
                                                             paddle_tpu/kernels
-===========================  =============================  ==================
+===========================  =============================  =====================
 ctc_alpha                    ctc.py, ctc.cu                 ctc.py
                                                             ``_alpha_kernel``
 ctc_beta                     ctc.py, ctc.cu                 ``_beta_kernel``
@@ -38,10 +38,13 @@ paged_attention              paged_attention.py,            paged_attention.py
 rmsnorm                      rmsnorm.py, rmsnorm.cu         rmsnorm.py
                                                             ``_fwd_kernel``
 rmsnorm_bwd                  rmsnorm.py, rmsnorm.cu         ``_bwd_kernel``
+rnnt_alpha                   rnnt.py, rnnt.cu               rnnt.py
+                                                            ``_alpha_kernel``
+rnnt_beta_grad               rnnt.py, rnnt.cu               ``_beta_grad_kernel``
 softmax_ce                   softmax_ce.py, softmax_ce.cu   softmax_ce.py
                                                             ``_fwd_kernel``
 softmax_ce_bwd               softmax_ce.py, softmax_ce.cu   ``_bwd_kernel``
-===========================  =============================  ==================
+===========================  =============================  =====================
 """
 from __future__ import annotations
 
@@ -64,6 +67,8 @@ LAUNCHES: dict[str, int] = {
     "paged_attention": 0,
     "rmsnorm": 0,
     "rmsnorm_bwd": 0,
+    "rnnt_alpha": 0,
+    "rnnt_beta_grad": 0,
     "softmax_ce": 0,
     "softmax_ce_bwd": 0,
 }

@@ -1,5 +1,5 @@
 from .conformer import (ConformerConfig, ConformerEncoder, ConformerForCTC,
-                        conformer_tiny)
+                        ConformerForRNNT, conformer_tiny)
 from .convert import (conformer_state_from_jax, ernie_state_from_jax,
                       state_from_jax, trainer_state_from_jax)
 from .ernie import (ErnieConfig, ErnieEmbeddings, ErnieForMaskedLM,
@@ -14,4 +14,4 @@ __all__ = ["LlamaConfig", "LlamaForCausalLM", "LlamaPipelineTrainer",
            "ernie_base", "ernie_tiny", "ErnieEmbeddings", "ErnieModel",
            "ErnieForMaskedLM", "ErnieForSequenceClassification",
            "ConformerConfig", "conformer_tiny", "ConformerEncoder",
-           "ConformerForCTC", "conformer_state_from_jax"]
+           "ConformerForCTC", "ConformerForRNNT", "conformer_state_from_jax"]

@@ -1,27 +1,31 @@
-"""Conformer-CTC speech encoder (counterpart of
-``paddle_tpu/models/conformer.py``; ``BASELINE.md`` config #5, the CTC
-head that ``tools/model_bench.py`` trains; Gulati et al. 2020).
+"""Conformer speech encoder with its CTC and RNN-T heads (counterpart of
+``paddle_tpu/models/conformer.py``; ``BASELINE.md`` config #5, "CTC +
+RNNT"; Gulati et al. 2020).
 
 A two-conv 4x time subsampling front end, then blocks of half-step
 feed-forward, multi-head self-attention, the convolution module
 (pointwise -> GLU -> depthwise -> batch norm -> swish -> pointwise) and a
 second half-step feed-forward, each block closed by a LayerNorm; a linear
-head gives ``[T', B, vocab]`` log-probs for ``ctc_loss`` (blank 0).
+head gives ``[T', B, vocab]`` log-probs for ``ctc_loss`` (blank 0);
+``ConformerForRNNT`` adds an LSTM predictor over the labels and an
+additive joint network, ``[B, T', U + 1, vocab]`` logits for
+``rnnt_loss``.
 
 Per block the path runs 5 LayerNorm kernels and the flash kernels (no
 mask: with in-kernel dropout at the config's rate while training, at
 head_dim 36 in the default config); the loss runs the CTC alpha and beta
-kernels. Convolutions, batch norm and the projections are PyTorch library
+kernels, the RNN-T loss the RNN-T alpha and beta-gradient kernels.
+Convolutions, batch norm, the projections and the LSTM are PyTorch library
 calls, as the reference leaves them to XLA. The attribute names are the
 reference's, so a state dict (its BN buffers included) converts key for
-key (``models/convert.py`` ``conformer_state_from_jax``). ``ConformerForRNNT``
-comes with the RNN-T slice.
+key (``models/convert.py`` ``conformer_state_from_jax``).
 
 Entry points build on ``cuda`` unless ``device="cpu"``, with weights
 drawn from ``generator`` (or a fresh one seeded with ``seed``; default
 ``framework.random``'s generator of the device) by the reference's
 initialisers: Xavier-uniform linear weights and zero biases, Kaiming-uniform
-convolutions with uniform biases, LayerNorm and BatchNorm at 1 and 0.
+convolutions with uniform biases, LayerNorm and BatchNorm at 1 and 0, the
+label embedding ``Normal(0, 1)``, the LSTM ``Uniform(+-1 / sqrt(H))``.
 """
 from __future__ import annotations
 
@@ -31,15 +35,15 @@ import torch
 from torch import nn
 
 from ..core import resolve_device
-from ..framework.random import get_generator
+from ..framework.random import weights_generator
 from ..nn import functional as F
-from ..nn.layers import (BatchNorm1D, Conv1D, Conv2D, Dropout, LayerList,
-                         LayerNorm, MultiHeadAttention)
+from ..nn.layers import (LSTM, BatchNorm1D, Conv1D, Conv2D, Dropout,
+                         LayerList, LayerNorm, LSTMCell, MultiHeadAttention)
 from ..nn.layers.conv import _ConvNd
 
 __all__ = ["ConformerConfig", "conformer_tiny", "ConvSubsampling",
            "FeedForwardModule", "ConvModule", "ConformerBlock",
-           "ConformerEncoder", "ConformerForCTC"]
+           "ConformerEncoder", "ConformerForCTC", "ConformerForRNNT"]
 
 
 @dataclass
@@ -160,8 +164,10 @@ def _init(model, generator):
             nn.init.xavier_uniform_(m.weight, generator=generator)
             if m.bias is not None:
                 m.bias.zero_()
-        elif isinstance(m, _ConvNd):
+        elif isinstance(m, (_ConvNd, LSTMCell)):
             m.reset_parameters(generator)
+        elif isinstance(m, nn.Embedding):
+            m.weight.normal_(0.0, 1.0, generator=generator)
 
 
 class ConformerForCTC(nn.Module):
@@ -177,10 +183,7 @@ class ConformerForCTC(nn.Module):
         self.cfg = cfg
         self.encoder = ConformerEncoder(cfg, **kw)
         self.head = nn.Linear(cfg.hidden, cfg.vocab_size, **kw)
-        if generator is None:
-            generator = (torch.Generator(device=dev).manual_seed(int(seed))
-                         if seed is not None else get_generator(dev))
-        _init(self, generator)
+        _init(self, weights_generator(dev, generator, seed))
 
     @property
     def device(self) -> torch.device:
@@ -189,6 +192,44 @@ class ConformerForCTC(nn.Module):
     def forward(self, feats):
         h = self.head(self.encoder(feats))
         return F.log_softmax(h, axis=-1).transpose(0, 1)
+
+    def num_params(self):
+        return sum(p.numel() for p in self.parameters())
+
+
+class ConformerForRNNT(nn.Module):
+    """Encoder + LSTM predictor + additive joint network: ``feats`` ``[B, T,
+    input_dim]`` and ``labels`` ``[B, U]`` to RNN-T logits ``[B, T', U + 1,
+    vocab]`` for ``rnnt_loss`` (blank 0). The predictor reads ``[0; embed
+    (labels)]`` (a zero start-of-sequence row); the joint is
+    ``joint(swish(enc_proj(enc)[:, :, None] + pred[:, None]))``. Under
+    ``auto_cast`` O1 the bf16 encoder projection plus the f32 predictor
+    output is f32, by type promotion, as in the reference."""
+
+    def __init__(self, cfg: ConformerConfig, predictor_hidden=None,
+                 device=None, dtype=torch.float32, generator=None, seed=None):
+        super().__init__()
+        dev = resolve_device(device)
+        kw = dict(device=dev, dtype=dtype)
+        ph = predictor_hidden or cfg.hidden
+        self.cfg = cfg
+        self.encoder = ConformerEncoder(cfg, **kw)
+        self.embed = nn.Embedding(cfg.vocab_size, ph, **kw)
+        self.predictor = LSTM(ph, ph, **kw)
+        self.enc_proj = nn.Linear(cfg.hidden, ph, **kw)
+        self.joint = nn.Linear(ph, cfg.vocab_size, **kw)
+        _init(self, weights_generator(dev, generator, seed))
+
+    @property
+    def device(self) -> torch.device:
+        return self.joint.weight.device
+
+    def forward(self, feats, labels):
+        enc = self.enc_proj(self.encoder(feats))             # [B, T', ph]
+        emb = self.embed(labels.long())                      # [B, U, ph]
+        bos = emb.new_zeros(emb.shape[0], 1, emb.shape[2])
+        pred, _ = self.predictor(torch.cat([bos, emb], dim=1))
+        return self.joint(F.swish(enc[:, :, None] + pred[:, None]))
 
     def num_params(self):
         return sum(p.numel() for p in self.parameters())

@@ -3,8 +3,8 @@
 The only way the tests give both packages the same weights: the reference
 model's ``functional_state(model)[0]`` / ``state_dict()`` exported as numpy
 goes through :func:`state_from_jax` (Llama) or :func:`ernie_state_from_jax`
-(ERNIE) or :func:`conformer_state_from_jax` (Conformer, with its batch-norm
-buffers) and into ``load_state_dict``; the reference trainer's parameter
+(ERNIE) or :func:`conformer_state_from_jax` (Conformer-CTC and -RNN-T, with
+the batch-norm buffers) and into ``load_state_dict``; the reference trainer's parameter
 dict (``LlamaPipelineTrainer._state[0]``) goes through
 :func:`trainer_state_from_jax` into the port trainer's ``model``.
 """
@@ -101,8 +101,9 @@ def conformer_state_from_jax(arrays: dict[str, np.ndarray], model: nn.Module
                              ) -> dict[str, torch.Tensor]:
     """Map a Conformer reference model's parameters AND buffers (the batch
     norms' ``_mean`` and ``_variance``, from ``named_buffers()``) onto the
-    port ``model`` (``ConformerForCTC``), by the same module lookup as
-    :func:`ernie_state_from_jax`: only ``nn.Linear`` weights are
-    transposed; convolution weights (``[out, in / groups, *k]`` in both
-    packages), norms and buffers copy as they are."""
+    port ``model`` (``ConformerForCTC`` or ``ConformerForRNNT``), by the
+    same module lookup as :func:`ernie_state_from_jax`: only ``nn.Linear``
+    weights are transposed; convolution weights (``[out, in / groups, *k]``
+    in both packages), norms, buffers, the LSTM's ``[4H, in]`` /
+    ``[4H, H]`` weights and the label embedding copy as they are."""
     return ernie_state_from_jax(arrays, model)

@@ -22,7 +22,7 @@ import torch
 from torch import nn
 
 from ..core import resolve_device
-from ..framework.random import get_generator
+from ..framework.random import weights_generator
 from ..nn import functional as F
 from ..nn.layers import Dropout, LayerNorm, TransformerEncoder
 from ..nn.layers import TransformerEncoderLayer
@@ -55,14 +55,6 @@ def ernie_tiny(vocab=512, hidden=64, layers=2, heads=4, inter=128, seq=128):
                        intermediate_size=inter, max_position_embeddings=seq,
                        hidden_dropout_prob=0.0,
                        attention_probs_dropout_prob=0.0)
-
-
-def _generator(dev, generator, seed):
-    if generator is not None:
-        return generator
-    if seed is not None:
-        return torch.Generator(device=dev).manual_seed(int(seed))
-    return get_generator(dev)
 
 
 @torch.no_grad()
@@ -119,7 +111,7 @@ class ErnieModel(nn.Module):
             attn_dropout=cfg.attention_probs_dropout_prob, **kw)
         self.encoder = TransformerEncoder(enc_layer, cfg.num_hidden_layers)
         self.pooler = nn.Linear(cfg.hidden_size, cfg.hidden_size, **kw)
-        _init([self], _generator(dev, generator, seed))
+        _init([self], weights_generator(dev, generator, seed))
 
     @property
     def device(self) -> torch.device:
@@ -145,7 +137,7 @@ class ErnieForMaskedLM(nn.Module):
         super().__init__()
         dev = resolve_device(device)
         kw = dict(device=dev, dtype=dtype)
-        gen = _generator(dev, generator, seed)
+        gen = weights_generator(dev, generator, seed)
         self.ernie = ErnieModel(cfg, dev, dtype, generator=gen)
         self.transform = nn.Linear(cfg.hidden_size, cfg.hidden_size, **kw)
         self.layer_norm = LayerNorm(cfg.hidden_size, **kw)
@@ -169,7 +161,7 @@ class ErnieForSequenceClassification(nn.Module):
                  dtype=torch.float32, generator=None, seed=None):
         super().__init__()
         dev = resolve_device(device)
-        gen = _generator(dev, generator, seed)
+        gen = weights_generator(dev, generator, seed)
         self.ernie = ErnieModel(cfg, dev, dtype, generator=gen)
         self.dropout = Dropout(cfg.hidden_dropout_prob)
         self.classifier = nn.Linear(cfg.hidden_size, num_classes, device=dev,

@@ -1,12 +1,13 @@
 from . import functional
 from .clip import ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue
 from .decode import sample_logits
-from .layers import (BatchNorm1D, Conv1D, Conv2D, CTCLoss, Dropout,
-                     LayerList, LayerNorm, MultiHeadAttention, RMSNorm,
-                     TransformerEncoder, TransformerEncoderLayer)
+from .layers import (LSTM, RNN, BatchNorm1D, BiRNN, Conv1D, Conv2D, CTCLoss,
+                     Dropout, LayerList, LayerNorm, LSTMCell,
+                     MultiHeadAttention, RMSNorm, TransformerEncoder,
+                     TransformerEncoderLayer)
 
 __all__ = ["functional", "sample_logits", "ClipGradByGlobalNorm",
            "ClipGradByNorm", "ClipGradByValue", "BatchNorm1D", "Conv1D",
-           "Conv2D", "CTCLoss", "Dropout",
+           "Conv2D", "CTCLoss", "Dropout", "LSTM", "LSTMCell", "RNN", "BiRNN",
            "LayerList", "LayerNorm", "MultiHeadAttention", "RMSNorm",
            "TransformerEncoder", "TransformerEncoderLayer"]

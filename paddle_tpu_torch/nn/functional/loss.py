@@ -1,13 +1,14 @@
 """Loss functionals (counterpart of ``paddle_tpu/nn/functional/loss.py``;
-ports ``cross_entropy`` and ``ctc_loss``)."""
+ports ``cross_entropy``, ``ctc_loss`` and ``rnnt_loss``)."""
 from __future__ import annotations
 
 import torch
 
 from ...kernels.ctc import ctc_lattice
+from ...kernels.rnnt import NEG, rnnt_lattice
 from ...kernels.softmax_ce import softmax_ce
 
-__all__ = ["cross_entropy", "ctc_loss"]
+__all__ = ["cross_entropy", "ctc_loss", "rnnt_loss"]
 
 
 def _reduce(loss, reduction):
@@ -91,4 +92,48 @@ def ctc_loss(log_probs, labels, input_lengths, label_lengths, blank=0,
                        blank)
     if norm_by_times:
         loss = loss / input_lengths.to(loss.dtype).clamp_min(1.0)
+    return _reduce(loss, reduction)
+
+
+def rnnt_loss(logits, labels, logit_lengths, label_lengths, blank=0,
+              fastemit_lambda=0.0, reduction="mean"):
+    """RNN-Transducer loss (Graves 2012) of the joint network's ``logits``
+    ``[B, T, U + 1, V]`` against ``labels`` ``[B, U]``, with
+    ``logit_lengths`` and ``label_lengths`` ``[B]``; differentiable in
+    logits. The loss is float32 (the logits are upcast first, as the
+    reference's ``lg.astype(float32)``).
+
+    The reference's steps: ``log_softmax``; ``blank_lp = lp[..., blank]``
+    ``[B, T, U + 1]``; ``emit_lp`` the labels' log-probs at ``u < U``;
+    FastEmit's ``+ log1p(fastemit_lambda)`` on every emit log-prob; emits
+    at ``u >= label_length`` set to -1e30 (and a -1e30 column at ``U``).
+    Every complete path takes exactly ``label_length`` emits, so FastEmit
+    shifts each utterance's loss by ``-label_length * log1p(lambda)`` and
+    leaves every gradient unchanged (the reference's behaviour, kept; Yu
+    et al.'s FastEmit scales the emit gradient instead). The lattice runs
+    the RNN-T alpha and beta-gradient kernels on CUDA tensors and their
+    plain versions on CPU tensors (``kernels/rnnt.py``); its gradients
+    reach the logits through autograd of the gather and ``log_softmax``.
+    Labels and lengths follow logits to its device. ``"mean"`` is the
+    mean over the batch (the JAX package's ``_reduce``), not a division
+    by the label lengths."""
+    dev = logits.device
+    labels, logit_lengths, label_lengths = (
+        t.to(dev) for t in (labels, logit_lengths, label_lengths))
+    B, T, U1, V = logits.shape
+    U = U1 - 1
+    if labels.shape != (B, U):
+        raise ValueError(f"rnnt_loss: labels must be [{B}, {U}] for logits "
+                         f"{tuple(logits.shape)}; got {tuple(labels.shape)}")
+    lp = torch.log_softmax(logits.float(), dim=-1)
+    blank_lp = lp[..., blank].contiguous()
+    idx = labels.long().clamp(0, V - 1)[:, None, :, None].expand(B, T, U, 1)
+    emit_lp = lp[:, :, :U].gather(3, idx).squeeze(3)
+    if fastemit_lambda:
+        emit_lp = emit_lp + torch.log1p(torch.tensor(
+            fastemit_lambda, dtype=torch.float32, device=dev))
+    valid = torch.arange(U, device=dev) < label_lengths[:, None]
+    emit_lp = torch.where(valid[:, None, :], emit_lp, NEG)
+    emit_lp = torch.nn.functional.pad(emit_lp, (0, 1), value=NEG)
+    loss = rnnt_lattice(blank_lp, emit_lp, logit_lengths, label_lengths)
     return _reduce(loss, reduction)

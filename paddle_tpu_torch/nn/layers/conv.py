@@ -4,7 +4,8 @@ ports ``Conv1D`` and ``Conv2D``). Weights are Paddle's ``[out, in / groups,
 initialised as Paddle does: ``KaimingUniform`` over ``fan_in = in / groups
 * prod(k)`` (bound ``sqrt(6 / fan_in)``) and a ``Uniform(+-1 /
 sqrt(fan_in))`` bias, drawn from ``generator`` (default:
-``framework.random``'s generator of the device)."""
+``framework.random``'s generator of the device). Each builds on ``cuda``
+unless ``device="cpu"`` (``core.resolve_device``)."""
 from __future__ import annotations
 
 import math
@@ -12,6 +13,7 @@ import math
 import torch
 from torch import nn
 
+from ...core import resolve_device
 from ...framework.random import get_generator
 from ..functional.conv import conv1d, conv2d
 
@@ -33,7 +35,7 @@ class _ConvNd(nn.Module):
         self._stride, self._padding = stride, padding
         self._dilation, self._groups = dilation, groups
         self._data_format = data_format
-        kw = dict(device=device, dtype=dtype)
+        kw = dict(device=resolve_device(device), dtype=dtype)
         self.weight = nn.Parameter(torch.empty(
             out_channels, in_channels // groups, *k, **kw))
         self.bias = None if bias_attr is False else nn.Parameter(

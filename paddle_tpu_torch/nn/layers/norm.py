@@ -1,11 +1,14 @@
 """Normalisation layers (counterpart of ``paddle_tpu/nn/layers/norm.py``;
-ports ``LayerNorm``, ``RMSNorm`` and ``BatchNorm1D``)."""
+ports ``LayerNorm``, ``RMSNorm`` and ``BatchNorm1D``). Each builds on
+``cuda`` unless ``device="cpu"`` (``core.resolve_device``: with no card
+and no device named, construction raises)."""
 from __future__ import annotations
 
 import torch
 from torch import nn
 
 from ...amp import cast_for
+from ...core import resolve_device
 from ..functional.norm import (batch_norm, batch_norm_stats, layer_norm,
                                rms_norm)
 
@@ -25,7 +28,7 @@ class LayerNorm(nn.Module):
             normalized_shape = [normalized_shape]
         self._normalized_shape = list(normalized_shape)
         self._epsilon = epsilon
-        kw = dict(device=device, dtype=dtype)
+        kw = dict(device=resolve_device(device), dtype=dtype)
         self.weight = (None if weight_attr is False else nn.Parameter(
             torch.ones(self._normalized_shape, **kw)))
         self.bias = (None if bias_attr is False else nn.Parameter(
@@ -45,8 +48,8 @@ class RMSNorm(nn.Module):
     def __init__(self, hidden_size, epsilon=1e-6, *, device=None,
                  dtype=torch.float32):
         super().__init__()
-        self.weight = nn.Parameter(
-            torch.ones(hidden_size, device=device, dtype=dtype))
+        self.weight = nn.Parameter(torch.ones(
+            hidden_size, device=resolve_device(device), dtype=dtype))
         self.epsilon = epsilon
 
     def forward(self, x):
@@ -74,7 +77,7 @@ class BatchNorm1D(nn.Module):
                  use_global_stats=None, name=None, *, device=None,
                  dtype=torch.float32):
         super().__init__()
-        kw = dict(device=device, dtype=dtype)
+        kw = dict(device=resolve_device(device), dtype=dtype)
         self._momentum, self._epsilon = momentum, epsilon
         self._data_format = data_format
         self._use_global_stats = use_global_stats

@@ -7,7 +7,8 @@ Attention goes through ``nn.functional.scaled_dot_product_attention``: the
 flash kernels (dropout in-kernel) without a mask, the einsum composition
 with a float additive mask, as the reference routes them. The projections
 are ``nn.Linear`` (weights ``[out, in]``; ``models/convert.py`` transposes
-the reference's ``[in, out]``).
+the reference's ``[in, out]``). The layers build on ``cuda`` unless
+``device="cpu"`` (``core.resolve_device``).
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ import copy
 
 from torch import nn
 
+from ...core import resolve_device
 from .. import functional as F
 from .common import Dropout
 from .norm import LayerNorm
@@ -37,7 +39,8 @@ class MultiHeadAttention(nn.Module):
         self.head_dim = embed_dim // num_heads
         if self.head_dim * num_heads != embed_dim:
             raise ValueError("embed_dim must be divisible by num_heads")
-        kw = dict(bias=bias_attr is not False, device=device, dtype=dtype)
+        kw = dict(bias=bias_attr is not False, device=resolve_device(device),
+                  dtype=dtype)
         self.q_proj = nn.Linear(embed_dim, embed_dim, **kw)
         self.k_proj = nn.Linear(self.kdim, embed_dim, **kw)
         self.v_proj = nn.Linear(self.vdim, embed_dim, **kw)
@@ -73,7 +76,7 @@ class TransformerEncoderLayer(nn.Module):
                  normalize_before=False, weight_attr=None, bias_attr=None,
                  *, device=None, dtype=None):
         super().__init__()
-        kw = dict(device=device, dtype=dtype)
+        kw = dict(device=resolve_device(device), dtype=dtype)
         self.normalize_before = normalize_before
         self.self_attn = MultiHeadAttention(
             d_model, nhead,

@@ -35,6 +35,7 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
+from ..core import resolve_device
 from ..kernels.paged_attention import paged_attention
 from ..nn.functional.attention import sdpa_ref
 
@@ -166,14 +167,15 @@ def _chain_hash(parent_hash: str, block_tokens) -> str:
 class PagedKVCache:
     """The block pool plus per-sequence block tables (host bookkeeping),
     and with ``prefix_cache=True`` the content-addressed prefix index, the
-    LRU pool of unreferenced completed prefixes and copy-on-write."""
+    LRU pool of unreferenced completed prefixes and copy-on-write. The
+    pool lies on ``cuda`` unless ``device="cpu"``."""
 
     def __init__(self, num_layers, num_blocks, kv_heads, block_size,
-                 head_dim, dtype=torch.float32, device="cpu",
+                 head_dim, dtype=torch.float32, device=None,
                  prefix_cache: bool = False):
         self.pool = torch.zeros(
             (num_layers, num_blocks, 2, kv_heads, block_size, head_dim),
-            dtype=dtype, device=device)
+            dtype=dtype, device=resolve_device(device))
         self.allocator = BlockAllocator(num_blocks)
         self.block_size = int(block_size)
         self.tables: dict[object, list[int]] = {}

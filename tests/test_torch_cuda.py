@@ -41,6 +41,15 @@ atol 1e-3 + rtol 1e-5 (the same f32 recursion; expf/logf may differ by an
 ulp, and a lattice entry is a sum over up to T steps of magnitude ~5),
 the log-likelihood rtol 1e-5; the gradient through ``ctc_loss`` against
 the CPU's plain version within the f32 gradient tolerance.
+
+RNN-T slice: the alpha and beta-gradient kernels against their plain
+versions at the smoke's shapes (``[16, 400, 49]``, ``[8, 200, 513]``) and
+edges (``u_len = 0``, ``t_len = 1``, ``U + 1 = 1024``): dead cells equal
+exactly, live alphas and betas within atol 1e-3 + rtol 1e-5 as CTC's, the
+log-likelihood and ``bhat[0, 0]`` rtol 1e-5 (atol 1e-4), the posteriors
+(probabilities) atol 1e-5; ``rnnt_loss`` gradients against the CPU's plain
+versions within the f32 gradient tolerance; a ``ConformerForRNNT`` step
+against the CPU with exactly its structure's launches.
 """
 import math
 
@@ -152,7 +161,7 @@ def test_wrappers_launch_on_cuda_and_count(gen):
         "flash_attention_bwd": 0, "flash_attention_bwd_dropout": 0,
         "layernorm": 0, "paged_attention": 1, "rmsnorm": 1,
         "rmsnorm_bwd": 0, "softmax_ce": 0, "softmax_ce_bwd": 0,
-        "ctc_alpha": 0, "ctc_beta": 0}
+        "ctc_alpha": 0, "ctc_beta": 0, "rnnt_alpha": 0, "rnnt_beta_grad": 0}
 
 
 def test_wrappers_raise_on_what_the_kernel_does_not_take(gen):
@@ -790,3 +799,137 @@ def test_conformer_tiny_step_on_the_card_matches_the_cpu(gen):
                                    msg=n)
     for n in b1:
         torch.testing.assert_close(b0[n], b1[n], atol=1e-5, rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# RNN-T slice: the RNN-T lattice kernels, ConformerForRNNT
+# ---------------------------------------------------------------------------
+
+def _rnnt_batch(B, T, U1, seed, edges=False):
+    """Log-prob lattices ``[B, T, U1]`` (blank and one emit class of a
+    3-way log-softmax), t_len over 3T/4..T and u_len over (U1-1)/2..U1-1,
+    emits past u_len and at column U1-1 at -1e30; with ``edges`` row 0
+    has u_len 0, row 1 t_len 1 and row 2 both."""
+    from paddle_tpu_torch.kernels.rnnt import NEG
+
+    g = torch.Generator().manual_seed(seed)
+    lp = torch.log_softmax(2 * torch.randn(B, T, U1, 3, generator=g), -1)
+    tl = torch.randint(3 * T // 4, T + 1, (B,), generator=g)
+    ul = torch.randint((U1 - 1) // 2, U1, (B,), generator=g)
+    if edges:
+        ul[0], tl[1], tl[2], ul[2] = 0, 1, 1, 0
+    emit = torch.where(torch.arange(U1) < ul[:, None, None], lp[..., 1], NEG)
+    return [t.cuda() for t in (lp[..., 0].contiguous(), emit, tl, ul)]
+
+
+@pytest.mark.parametrize("B,T,U1,edges", [(16, 400, 49, False),
+                                          (8, 200, 513, False),
+                                          (4, 50, 1024, True),
+                                          (3, 9, 7, True)])
+def test_rnnt_kernels_match_plain(gen, B, T, U1, edges):
+    from paddle_tpu_torch.kernels.rnnt import (
+        rnnt_alpha_cuda, rnnt_alpha_plain, rnnt_beta_grad_cuda,
+        rnnt_beta_grad_plain)
+
+    args = _rnnt_batch(B, T, U1, T + U1, edges)
+    alphas, ll = rnnt_alpha_cuda(*args)
+    p_alphas, p_ll = rnnt_alpha_plain(*args)
+    _lattice_close(alphas, p_alphas)
+    _close(ll, p_ll, atol=1e-4, rtol=1e-5)
+    gb, ge, betas = rnnt_beta_grad_cuda(*args[:2], p_alphas, *args[2:], p_ll,
+                                        with_betas=True)
+    p_gb, p_ge, p_betas = rnnt_beta_grad_plain(*args[:2], p_alphas,
+                                               *args[2:], p_ll,
+                                               with_betas=True)
+    _lattice_close(betas, p_betas)
+    _close(gb, p_gb, atol=1e-5, rtol=0)
+    _close(ge, p_ge, atol=1e-5, rtol=0)
+    _close(betas[:, 0, 0], ll, atol=1e-4, rtol=1e-5)
+
+
+def test_regression_rnnt_loss_on_the_card_launches_the_kernels(gen):
+    from paddle_tpu_torch.kernels.rnnt import (MAX_STATES, rnnt_alpha_cuda,
+                                               rnnt_beta_grad_cuda)
+    from paddle_tpu_torch.nn.functional import rnnt_loss
+
+    g = torch.Generator().manual_seed(4)
+    logits = torch.randn(3, 30, 8, 11, generator=g)
+    labels = torch.randint(1, 11, (3, 7), generator=g)
+    tl, ul = torch.tensor([30, 1, 21]), torch.tensor([7, 3, 0])
+    x = logits.cuda().requires_grad_()
+    before = K.launch_counts()
+    loss = rnnt_loss(x, labels, tl, ul, reduction="sum", fastemit_lambda=0.01)
+    assert loss.grad_fn is not None
+    loss.backward()
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in K.launch_counts().items()
+                if v != before[k]}
+    assert launched == {"rnnt_alpha": 1, "rnnt_beta_grad": 1}
+    xc = logits.clone().requires_grad_()
+    ref = rnnt_loss(xc, labels, tl, ul, reduction="sum", fastemit_lambda=0.01)
+    ref.backward()
+    _close(loss, ref.cuda(), atol=1e-4, rtol=1e-5)
+    _close(x.grad, xc.grad.cuda(), **_grad_tol(torch.float32, xc.grad))
+    again = logits.cuda().requires_grad_()          # the same bits again
+    rnnt_loss(again, labels, tl, ul, reduction="sum",
+              fastemit_lambda=0.01).backward()
+    torch.testing.assert_close(again.grad, x.grad, atol=0, rtol=0)
+    lat = torch.zeros(2, 3, 4, device="cuda", requires_grad=True)
+    lens = torch.ones(2, device="cuda", dtype=torch.int64)
+    with pytest.raises(RuntimeError):          # the raw wrappers: no autograd
+        rnnt_alpha_cuda(lat, lat, lens, lens)
+    with pytest.raises(RuntimeError):
+        rnnt_beta_grad_cuda(lat, lat, lat, lens, lens,
+                            torch.zeros(2, device="cuda"))
+    wide = torch.zeros(1, 2, MAX_STATES + 1, device="cuda")
+    with pytest.raises(ValueError, match="label positions"):
+        rnnt_alpha_cuda(wide, wide, lens[:1], lens[:1])
+
+
+def test_conformer_rnnt_tiny_step_on_the_card_matches_the_cpu(gen):
+    """One f32 ConformerForRNNT step (head_dim 36, attention dropout 0.1 with
+    the same seeds, hidden dropout 0) against the same weights on the CPU,
+    cuDNN's TF32 off as in the CTC model's test; the launches are exactly
+    the model's structure."""
+    from paddle_tpu_torch import framework
+    from paddle_tpu_torch.models import ConformerForRNNT, conformer_tiny
+    from paddle_tpu_torch.nn import Dropout
+    from paddle_tpu_torch.nn.functional import rnnt_loss
+
+    cfg = conformer_tiny(vocab=40, hidden=72, layers=2, heads=2)
+    cfg.dropout = 0.1
+    models = [ConformerForRNNT(cfg, generator=gen),
+              ConformerForRNNT(cfg, device="cpu")]
+    models[1].load_state_dict({k: v.cpu()
+                               for k, v in models[0].state_dict().items()})
+    rng = torch.Generator().manual_seed(2)
+    x = torch.rand(3, 64, 16, generator=rng)
+    labels = torch.randint(1, 40, (3, 5), generator=rng)
+    tl, ul = torch.tensor([16, 14, 12]), torch.tensor([5, 4, 0])
+    out = []
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for m in models:
+            for mod in m.modules():
+                if isinstance(mod, Dropout):
+                    mod.p = 0.0
+            framework.seed(3)
+            before = K.launch_counts()
+            dev = m.device
+            loss = rnnt_loss(m(x.to(dev), labels.to(dev)), labels, tl, ul)
+            loss.backward()
+            launched = {k: v - before[k] for k, v in K.launch_counts().items()
+                        if v != before[k]}
+            out.append((loss.item(), launched,
+                        {n: p.grad.cpu() for n, p in m.named_parameters()}))
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    (l0, launched, g0), (l1, _, g1) = out
+    assert l0 == pytest.approx(l1, rel=1e-4)
+    assert launched == {"layernorm": 10, "flash_attention_dropout": 2,
+                        "flash_attention_bwd_dropout": 2, "rnnt_alpha": 1,
+                        "rnnt_beta_grad": 1}
+    for n in g1:
+        torch.testing.assert_close(g0[n], g1[n], atol=1e-4, rtol=1e-3,
+                                   msg=n)

@@ -1,0 +1,50 @@
+"""The port's rule for placement: every public entry point builds on
+``cuda`` unless the caller asks for the CPU by name (``core.resolve_device``).
+With no card visible and no device named, construction raises
+``RuntimeError``; it never carries on on the CPU quietly. On a machine with
+a card the default is to use it, so these tests skip there."""
+import pytest
+import torch
+
+from paddle_tpu_torch import nn as tnn
+from paddle_tpu_torch.models import (ConformerForCTC, ConformerForRNNT,
+                                     ErnieForMaskedLM, LlamaForCausalLM,
+                                     conformer_tiny, ernie_tiny, llama_tiny)
+from paddle_tpu_torch.serving import PagedKVCache
+
+ENTRY_POINTS = {
+    "LayerNorm": lambda **kw: tnn.LayerNorm(8, **kw),
+    "RMSNorm": lambda **kw: tnn.RMSNorm(8, **kw),
+    "BatchNorm1D": lambda **kw: tnn.BatchNorm1D(8, **kw),
+    "Conv1D": lambda **kw: tnn.Conv1D(4, 4, 3, **kw),
+    "Conv2D": lambda **kw: tnn.Conv2D(1, 4, 3, **kw),
+    "MultiHeadAttention": lambda **kw: tnn.MultiHeadAttention(8, 2, **kw),
+    "TransformerEncoderLayer": lambda **kw: tnn.TransformerEncoderLayer(
+        8, 2, 16, **kw),
+    "LSTMCell": lambda **kw: tnn.LSTMCell(4, 8, **kw),
+    "LSTM": lambda **kw: tnn.LSTM(4, 8, num_layers=2, direction="bidirect",
+                                  **kw),
+    "PagedKVCache": lambda **kw: PagedKVCache(1, 4, 1, 4, 8, **kw),
+    "LlamaForCausalLM": lambda **kw: LlamaForCausalLM(
+        llama_tiny(vocab=61, hidden=32, layers=1), **kw),
+    "ErnieForMaskedLM": lambda **kw: ErnieForMaskedLM(ernie_tiny(), **kw),
+    "ConformerForCTC": lambda **kw: ConformerForCTC(conformer_tiny(), **kw),
+    "ConformerForRNNT": lambda **kw: ConformerForRNNT(conformer_tiny(),
+                                                      **kw),
+}
+
+
+@pytest.mark.parametrize("name", list(ENTRY_POINTS))
+def test_entry_point_refuses_the_cpu_by_default(name):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is to use it")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ENTRY_POINTS[name]()
+
+
+@pytest.mark.parametrize("name", list(ENTRY_POINTS))
+def test_entry_point_builds_on_the_cpu_when_asked(name):
+    obj = ENTRY_POINTS[name](device="cpu")
+    tensors = [obj.pool] if isinstance(obj, PagedKVCache) else \
+        list(obj.parameters())
+    assert tensors and all(t.device.type == "cpu" for t in tensors)

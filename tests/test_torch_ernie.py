@@ -220,7 +220,7 @@ def test_encoder_layer_matches_reference(normalize_before):
                 normalize_before=normalize_before)
     params = _export(jl, 5)
     tl = TLayer(32, 4, 64, dropout=0.0, activation="gelu",
-                normalize_before=normalize_before)
+                normalize_before=normalize_before, device="cpu")
     tl.load_state_dict(ernie_state_from_jax(params, tl))
     x = np.random.RandomState(5).randn(2, 9, 32).astype(np.float32)
     bias = np.zeros((2, 1, 1, 9), np.float32)

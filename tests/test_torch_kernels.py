@@ -351,7 +351,7 @@ def test_launch_counters_reset():
         "flash_attention", "flash_attention_dropout", "flash_attention_bwd",
         "flash_attention_bwd_dropout", "layernorm", "paged_attention",
         "rmsnorm", "rmsnorm_bwd", "softmax_ce", "softmax_ce_bwd",
-        "ctc_alpha", "ctc_beta"}
+        "ctc_alpha", "ctc_beta", "rnnt_alpha", "rnnt_beta_grad"}
 
 
 def test_build_raises_without_nvcc(monkeypatch):
@@ -365,4 +365,5 @@ def test_build_raises_without_nvcc(monkeypatch):
 def test_every_kernel_source_is_present():
     names = {p.stem for p in _build.sources()}
     assert names == {"ctc", "flash_attention", "flash_attention_bwd",
-                     "layernorm", "paged_attention", "rmsnorm", "softmax_ce"}
+                     "layernorm", "paged_attention", "rmsnorm", "rnnt",
+                     "softmax_ce"}

@@ -106,7 +106,7 @@ class TestBlockAllocator:
 
     def test_cache_tables_and_utilization(self):
         c = PagedKVCache(num_layers=1, num_blocks=9, kv_heads=1,
-                         block_size=4, head_dim=8)
+                         block_size=4, head_dim=8, device="cpu")
         assert c.allocate("a", 10)          # 3 blocks
         assert c.extend("a", 13)            # 4th block
         assert c.utilization() == pytest.approx(4 / 8)
@@ -120,7 +120,8 @@ class TestBlockAllocator:
 class TestPrefixCache:
     def _cache(self, num_blocks=17):
         return PagedKVCache(num_layers=1, num_blocks=num_blocks, kv_heads=1,
-                            block_size=4, head_dim=4, prefix_cache=True)
+                            block_size=4, head_dim=4, prefix_cache=True,
+                            device="cpu")
 
     def test_match_shares_blocks_and_allocates_tail(self):
         c = self._cache()
@@ -184,7 +185,7 @@ def test_paged_cache_storm_matches_reference(seed):
     rng = np.random.RandomState(seed)
     mk = dict(num_layers=1, num_blocks=13, kv_heads=1, block_size=4,
               head_dim=4, prefix_cache=True)
-    j, t = JPagedKVCache(**mk), PagedKVCache(**mk)
+    j, t = JPagedKVCache(**mk), PagedKVCache(**mk, device="cpu")
     prefixes = [list(rng.randint(0, 5, 12)) for _ in range(3)]
     live: dict[int, list[int]] = {}
     for sid in range(60):
