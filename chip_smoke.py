@@ -147,12 +147,57 @@ CUDA toolkit (``nvcc``). It imports nothing of JAX or of ``paddle_tpu``.
     launches per step exactly RNNT_PER_STEP (no CTC kernel); MFU from
     ``conformer_flops_per_utterance`` with the RNN-T head.
 
+15. Flash slice's kernel phases (run with the other kernel phases):
+    ``[flash mask]``, the flash kernels with a bool mask, first at the
+    inputs phase 17 gives them (``[16, 512, 12, 64]`` bf16, dropout 0.1,
+    not causal, phase 17's own key-padding mask ``[16, 1, 1, 512]``: the
+    kernel row's main shape), then at tools/attn_bench.py
+    bench_masked(2048)'s ``[4, 2048, 8, 128]`` bf16 with a key-padding
+    mask ``[4, 1, 1, 2048]`` (lengths 1024-2047; a sub-row), then every
+    mask mode (one, batch, head, B*H; row dim 1 or Sq; key dim 1) and a
+    per-query mask with a fully masked row, causal with dropout, and not
+    causal with and without dropout, bf16 and f32; library column SDPA
+    with the same bool mask and dropout rate; bound over the unmasked
+    (query, key) pairs. ``[flash varlen]``, packed sequences at
+    bench_varlen(8192, 16)'s cuts with Llama-2-7B's 32 heads of 128,
+    causal, bf16 (plain versions a head at a time), a non-causal case with
+    cu_q != cu_k, an empty key part, tails past cu[-1] and GQA; library
+    column SDPA over jagged nested tensors with ``is_causal`` where the
+    card's torch takes it (else none, with the reason printed); bound
+    ``4 D H sum L_i^2 / 2`` flops forward (2.5x backward); then the main
+    path, ``F.flash_attn_unpadded`` forward and backward with its launches
+    counted. ``[flash head_dim]``: every multiple of 8 from 8 to 256 and
+    the widths 6, 7, 33 and 34, f32 and bf16, forward and backward; then
+    phase 18's kernel at its inputs (f32 ``[4, 128, 4, 16]``, dropout 0.1:
+    the row's main shape) and the bf16 kernels at ``[16, 512, 768 / D,
+    D]`` for D 16, 96 and 256 (sub-rows), each checked and timed.
+    Tolerances as the dense phases' (f32: atol 1e-4 + rtol 1e-4,
+    summation order only); every timed input is checked first.
+16. Whole encoder step: ``nn.TransformerEncoder`` (hidden 256, 4 heads of
+    64, 2 post-norm layers, ffn 1024, attention dropout 0.1, hidden
+    dropout 0 since its masks come from each device's own generator) with
+    a linear head to 40000 and ``cross_entropy``, batch 2 x 512 with a
+    bool key-padding mask, one O1 step on the card against f32 on the CPU
+    under phase 7's limits; launches exactly 2 + 2 masked flash, 4
+    LayerNorm, 1 + 1 softmax-CE.
+17. Encoder phase: the same encoder at ERNIE-3.0-Base's published widths
+    (12 layers, hidden 768, 12 heads, ffn 3072, dropout 0.1) with the
+    head, batch 16 x 512 with a key-padding mask of lengths 256-512, O1,
+    AdamW lr 1e-4: a warm-up step and ENCODER_STEPS timed steps on one
+    batch; losses finite and falling; step wall, tokens/s over the real
+    (unpadded) tokens, MFU (``encoder_flops_per_token``), peak memory,
+    a profiled step's busy and idle share; launches per step exactly
+    ENCODER_PER_STEP.
+18. ``ernie_tiny()`` (head_dim 16) attending on the card: one f32 MLM
+    forward and backward against the CPU's plain versions.
+
 The ``launches`` of the JSON line sum the main path's runs: the engine,
 the no-cache forward, the 5 Llama training steps, the ERNIE steps, the
-Conformer-CTC and the RNN-T steps (the ``_d36`` rows: the Conformer
-steps' launches of the dropout flash kernels, all at head_dim 36). The
-last two lines are one JSON object with every kernel's numbers and one
-with the device. Any failure raises and exits non-zero; without a CUDA
+Conformer-CTC and the RNN-T steps, the encoder steps and the
+``F.flash_attn_unpadded`` call (the ``_d36`` rows: the Conformer steps'
+launches of the dropout flash kernels, all at head_dim 36; the ``_d16``
+rows: the ``ernie_tiny()`` step's). The last two lines are one JSON object
+with every kernel's numbers and one with the device. Any failure raises and exits non-zero; without a CUDA
 device, or without the package beside this file, it exits non-zero and
 prints no result.
 """
@@ -236,6 +281,26 @@ RNNT_POST_ATOL = 1e-5
 RNNT_PER_STEP = {"layernorm": 20, "flash_attention_dropout": 4,
                  "flash_attention_bwd_dropout": 4, "rnnt_alpha": 1,
                  "rnnt_beta_grad": 1}
+# Flash slice: the flash kernels' bool mask, varlen and head widths. The
+# mask phase's main shape is tools/attn_bench.py bench_masked(2048)'s, the
+# varlen phase's its bench_varlen(8192, 16) at Llama-2-7B's 32 heads of
+# 128. Small f32 cases hold the kernels as the card tests do (atol 1e-4 +
+# rtol 1e-4: summation order only); the head_dim-16 model step runs f32 on
+# both sides, so its gradients differ by summation order through two layers.
+MASK_SHAPE = (4, 2048, 8, 128)
+VARLEN_SHAPE = (8192, 16, 32, 128)
+F32_SMALL_ATOL = 1e-4
+D16_GRAD_REL_L2 = 1e-3
+# the head_dim-16 model step's attention: ernie_tiny() at batch 4 x 128
+D16_ATTN = (4, 128, 4, 16)
+ENCODER_STEPS = 10
+# [encoder mask]: batch, length, heads and head width of its attention
+ENCODER_ATTN = (16, 512, 12, 64)
+# launches per step of the ERNIE-3.0-Base-wide encoder (12 post-norm
+# layers): one masked flash forward and backward a layer, two LayerNorms a
+# layer, one softmax-CE forward and backward for the head's loss
+ENCODER_PER_STEP = {"flash_attention_mask": 12, "flash_attention_bwd_mask": 12,
+                    "layernorm": 24, "softmax_ce": 1, "softmax_ce_bwd": 1}
 SOURCES = {
     "flash_attention": ("paddle_tpu_torch/csrc/flash_attention.cu",
                         "paddle_tpu/kernels/flash_attention.py:108"),
@@ -276,6 +341,24 @@ SOURCES = {
                    "paddle_tpu/kernels/rnnt.py:100"),
     "rnnt_beta_grad": ("paddle_tpu_torch/csrc/rnnt.cu",
                        "paddle_tpu/kernels/rnnt.py:122"),
+    # the flash kernels with a bool mask (`_tile_mask` at :73, applied in
+    # all three kernels), on packed sequences (segment ids and the [lo, hi)
+    # tables, `flash_attn_varlen_pallas` :860) and at head_dim 16
+    "flash_attention_mask": ("paddle_tpu_torch/csrc/flash_attention.cu",
+                             "paddle_tpu/kernels/flash_attention.py:108"),
+    "flash_attention_bwd_mask": (
+        "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+        "paddle_tpu/kernels/flash_attention.py:173"),
+    "flash_attention_varlen": ("paddle_tpu_torch/csrc/flash_attention.cu",
+                               "paddle_tpu/kernels/flash_attention.py:108"),
+    "flash_attention_bwd_varlen": (
+        "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+        "paddle_tpu/kernels/flash_attention.py:173"),
+    "flash_attention_d16": ("paddle_tpu_torch/csrc/flash_attention.cu",
+                            "paddle_tpu/kernels/flash_attention.py:108"),
+    "flash_attention_bwd_d16": (
+        "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+        "paddle_tpu/kernels/flash_attention.py:173"),
 }
 
 
@@ -1112,6 +1195,640 @@ def flash_d36_phase(torch, g):
             dict(shape=shape, ms=bwd, plain_ms=bwd_plain, library_ms=bwd_lib,
                  bound_ms=bound_b, bound_by=by_b, dense_ms=bwd_dense,
                  max_abs_err=worst_b))
+
+
+# ---------------------------------------------------------------------------
+# flash slice: the flash kernels' bool mask, varlen and head widths
+# ---------------------------------------------------------------------------
+
+def _check_pair(torch, F, tag, q, k, v, do, causal=False, p=0.0, seed=11,
+                mask=None, glse=None):
+    """Forward and backward of the flash kernels against the plain versions
+    on the given inputs (an lse cotangent ``glse`` folded in where given);
+    returns the worst forward and backward errors and the lse and dg the
+    timed backward takes."""
+    out, lse = F.flash_attention_cuda(q, k, v, causal, None, p, seed, mask)
+    p_out, p_lse = F.flash_attention_plain(q, k, v, causal, None, p, seed,
+                                           mask)
+    torch.cuda.synchronize()
+    f32 = q.dtype == torch.float32
+    ef = check(torch, f"{tag} out", out, p_out, F32_SMALL_ATOL if f32
+               else ATTN_ATOL, F32_SMALL_ATOL if f32 else BF16_RTOL)
+    check(torch, f"{tag} lse", lse, p_lse, F32_SMALL_ATOL if f32
+          else F32_ATOL)
+    dg = F.delta_minus_glse(p_out, do, glse)
+    got = F.flash_attention_bwd_cuda(q, k, v, do, p_lse, dg, causal, None, p,
+                                     seed, mask)
+    want = F.flash_attention_bwd_plain(q, k, v, do, p_lse, dg, causal, None,
+                                       p, seed, mask)
+    torch.cuda.synchronize()
+    eb = max(check_grad(torch, f"{tag} {n}", a, b,
+                        GRAD_FRAC_F32 if f32 else GRAD_FRAC_BF16)
+             for n, a, b in zip(("dq", "dk", "dv"), got, want))
+    return ef, eb, lse, dg
+
+
+def _flash_case(torch, g, F, tag, B, Sq, Sk, H, Hkv, D, dt, causal, p=0.0,
+                mask=None, seed=11):
+    """Forward and backward of the flash kernels against the plain versions
+    on one small case (an lse cotangent included); returns the worst
+    forward and backward errors."""
+    q = torch.randn(B, Sq, H, D, device="cuda", generator=g).to(dt)
+    k, v = (torch.randn(B, Sk, Hkv, D, device="cuda", generator=g).to(dt)
+            for _ in range(2))
+    do = torch.randn(B, Sq, H, D, device="cuda", generator=g).to(dt)
+    glse = 0.1 * torch.randn(B, H, Sq, device="cuda", generator=g)
+    return _check_pair(torch, F, tag, q, k, v, do, causal, p, seed, mask,
+                       glse)[:2]
+
+
+def _timed_pair(torch, fwd, bwd, fwd_plain, bwd_plain, fwd_lib, bwd_lib,
+                plain_iters=3):
+    """Device ms of kernel, plain version and library call, forward and
+    backward (the library's backward is its autograd backward)."""
+    t = [time_ms(torch, fwd), time_ms(torch, bwd)]
+    t += [time_ms(torch, fwd_plain, iters=plain_iters, warmup=1),
+          time_ms(torch, bwd_plain, iters=plain_iters, warmup=1)]
+    if fwd_lib is None:
+        return t + [None, None]
+    return t + [time_ms(torch, fwd_lib), time_ms(torch, bwd_lib)]
+
+
+def _sdpa_lib(torch, q, k, v, do, **kw):
+    """The one PyTorch call computing the same attention (SDPA, in its
+    [B, H, S, D] layout) and its autograd backward, for timing."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    qg, kg, vg = (t.detach().requires_grad_() for t in (qt, kt, vt))
+    og = sdpa(qg, kg, vg, **kw)
+    gt = do.transpose(1, 2)
+    return (lambda: sdpa(qt, kt, vt, **kw),
+            lambda: torch.autograd.grad(og, (qg, kg, vg), gt,
+                                        retain_graph=True))
+
+
+def _flash_timed(torch, F, tag, q, k, v, do, lse, dg, p=0.0, seed=11,
+                 mask=None, pairs=None, peak=BF16_FLOPS):
+    """Kernel, plain version, SDPA (the same bool mask and dropout rate)
+    and bound, forward and backward, non-causal; ``pairs`` counts the
+    (query, key) pairs the data needs a head (unmasked keys), all by
+    default. Returns (times, bounds) as :func:`_rows` takes them."""
+    B, S, H, D = q.shape
+    lib_f, lib_b = _sdpa_lib(torch, q, k, v, do, attn_mask=mask,
+                             dropout_p=p)
+    times = _timed_pair(
+        torch, lambda: F.flash_attention_cuda(q, k, v, False, None, p, seed,
+                                              mask),
+        lambda: F.flash_attention_bwd_cuda(q, k, v, do, lse, dg, False, None,
+                                           p, seed, mask),
+        lambda: F.flash_attention_plain(q, k, v, False, None, p, seed, mask),
+        lambda: F.flash_attention_bwd_plain(q, k, v, do, lse, dg, False, None,
+                                            p, seed, mask),
+        lib_f, lib_b)
+    pairs = B * S * S if pairs is None else pairs
+    nb = q.numel() * q.element_size()
+    mb = 0 if mask is None else B * S       # a key-padding mask's bytes
+    bounds = (bound_ms(4 * nb + B * H * S * 4 + mb, 4 * pairs * H * D, peak),
+              bound_ms(7 * nb + 2 * B * H * S * 4 + mb, 10 * pairs * H * D,
+                       peak))
+    print(f"  {tag}: forward kernel {times[0]:.4f} ms, plain {times[2]:.4f}, "
+          f"SDPA {times[4]:.4f}, bound {bounds[0][0]:.4f} ({bounds[0][1]}); "
+          f"backward kernel {times[1]:.4f} ms, plain {times[3]:.4f}, SDPA "
+          f"backward {times[5]:.4f}, bound {bounds[1][0]:.4f} "
+          f"({bounds[1][1]})")
+    return times, bounds
+
+
+def _rows(shape, times, bounds, errs, **extra):
+    fwd, bwd = ({"shape": shape, "ms": times[i], "plain_ms": times[2 + i],
+                 "library_ms": times[4 + i], "bound_ms": bounds[i][0],
+                 "bound_by": bounds[i][1], "max_abs_err": errs[i], **extra}
+                for i in (0, 1))
+    return fwd, bwd
+
+
+def _sub_rows(rows, key, more):
+    """Put the forward and backward rows of ``more`` under ``key`` of
+    ``rows``' (their errors fold into the main rows')."""
+    for r, m in zip(rows, more):
+        r[key] = {n: m[n] for n in ("shape", "ms", "plain_ms", "library_ms",
+                                    "bound_ms", "bound_by")}
+        r["max_abs_err"] = max(r["max_abs_err"], m["max_abs_err"])
+
+
+def flash_mask_phase(torch, g):
+    """The flash kernels with a bool mask. First at the inputs the
+    [encoder mask] path gives them: [16, 512, 12, 64] bf16, attention
+    dropout 0.1, not causal, that path's own key-padding mask [16, 1, 1,
+    512] (its batch's seed); then tools/attn_bench.py's bench_masked(2048)
+    shape with its key-padding mask; each forward and backward against the
+    plain versions and timed against SDPA with the same bool mask (and
+    dropout rate). Then one small case for each mask mode and a per-query
+    mask with a fully masked row, causal with dropout and not, with and
+    without dropout, bf16 and f32."""
+    import numpy as np
+
+    from paddle_tpu_torch.kernels import flash_attention as F
+
+    B, S, H, D = ENCODER_ATTN
+    _, mask, _, lens = encoder_main_batch(torch, "cuda")
+    p, seed = ERNIE_DROPOUT, 20241
+    print(f"[flash mask] flash_attention_mask, flash_attention_bwd_mask  "
+          f"[{B}, {S}, {H}, {D}] bf16, p {p}, not causal, the encoder "
+          f"path's key-padding mask [{B}, 1, 1, {S}], lengths "
+          f"{lens.tolist()}")
+    q, k, v, do = (torch.randn(B, S, H, D, device="cuda", generator=g)
+                   .bfloat16() for _ in range(4))
+    ef, eb, lse, dg = _check_pair(torch, F, "encoder", q, k, v, do, False, p,
+                                  seed, mask)
+    times, bounds = _flash_timed(torch, F, f"[{B}, {S}, {H}, {D}] masked, "
+                                 f"p {p}", q, k, v, do, lse, dg, p, seed,
+                                 mask, S * int(lens.sum()))
+    rows = _rows(f"[{B}, {S}, {H}, {D}] bf16 p={p}, key-padding mask "
+                 f"[{B}, 1, 1, {S}] (the encoder path's)", times, bounds,
+                 (ef, eb))
+    del q, k, v, do, lse, dg, mask
+
+    B, S, H, D = MASK_SHAPE
+    lens = np.random.RandomState(0).randint(S // 2, S, size=B)
+    print(f"  bench_masked(2048): [{B}, {S}, {H}, {D}] bf16, key-padding "
+          f"bool mask [{B}, 1, 1, {S}], lengths {lens.tolist()}")
+    mask = (torch.arange(S, device="cuda")[None, :]
+            < torch.tensor(lens, device="cuda")[:, None])[:, None, None, :]
+    q, k, v, do = (torch.randn(B, S, H, D, device="cuda", generator=g)
+                   .bfloat16() for _ in range(4))
+    ef, eb, lse, dg = _check_pair(torch, F, "bench_masked", q, k, v, do,
+                                  mask=mask)
+    times, bounds = _flash_timed(torch, F, f"[{B}, {S}, {H}, {D}] masked", q,
+                                 k, v, do, lse, dg, mask=mask,
+                                 pairs=S * int(lens.sum()))
+    _sub_rows(rows, "bench_masked", _rows(
+        f"[{B}, {S}, {H}, {D}] bf16, key-padding mask", times, bounds,
+        (ef, eb)))
+    del q, k, v, do, lse, dg, mask
+    b_, s_, h_ = 2, 130, 4
+    for dt in (torch.bfloat16, torch.float32):
+        for shape in ((1, 1, 1, s_), (b_, 1, 1, s_), (1, h_, s_, s_),
+                      (b_, h_, s_, s_), (b_, 1, s_, s_)):
+            for causal, p in ((False, 0.0), (False, 0.1), (True, 0.1)):
+                m = torch.rand(*shape, device="cuda", generator=g) > 0.3
+                if shape == (b_, 1, s_, s_):
+                    m[0, 0, 5] = False       # a row with every key masked
+                ef, eb = _flash_case(
+                    torch, g, F, f"{dt} mask {list(shape)} causal={causal} "
+                    f"p={p}", b_, s_, s_, h_, 2, 64, dt, causal, p, m)
+                if dt == torch.bfloat16:
+                    for r, e in zip(rows, (ef, eb)):
+                        r["max_abs_err"] = max(r["max_abs_err"], e)
+    return rows
+
+
+def varlen_cu(T, nseq, seed=0):
+    """tools/attn_bench.py bench_varlen's cuts: nseq documents packed into
+    T tokens, the cuts drawn from a seeded numpy generator."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    cuts = np.sort(rng.choice(np.arange(1, T), nseq - 1, replace=False))
+    return np.concatenate([[0], cuts, [T]]).astype(np.int32)
+
+
+def _varlen_lib(torch, q, k, v, do, cu, want):
+    """The one PyTorch call computing causal attention over packed
+    sequences: SDPA over jagged nested tensors (offsets ``cu``), and its
+    autograd backward, for timing. Returns the two calls and a note, or
+    None, None and the reason where this torch does not take them; its
+    output is held against the plain version's ``want`` (a wrong function
+    is not a library time)."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    offs = cu.long()
+
+    def nest(t):
+        return torch.nested.nested_tensor_from_jagged(
+            t, offs).transpose(1, 2)
+
+    try:
+        qn, kn, vn = (nest(t) for t in (q, k, v))
+        out = sdpa(qn, kn, vn, is_causal=True).transpose(1, 2).values()
+        torch.cuda.synchronize()
+    except (RuntimeError, ValueError, NotImplementedError) as e:
+        reason = f"none: SDPA over jagged nested tensors refused ({e})"
+        return None, None, reason.splitlines()[0][:200]
+    err = (out.float() - want.float()).abs().max().item()
+    if not err <= ATTN_ATOL + BF16_RTOL * want.float().abs().max().item():
+        return None, None, (f"none: SDPA over jagged nested tensors "
+                            f"computes another function (max |diff| "
+                            f"{err:.3e} from the plain version)")
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    og = sdpa(*(nest(t) for t in leaves),
+              is_causal=True).transpose(1, 2).values()
+    return (lambda: sdpa(qn, kn, vn, is_causal=True),
+            lambda: torch.autograd.grad(og, leaves, do, retain_graph=True),
+            f"SDPA over jagged nested tensors, is_causal (max |diff| "
+            f"{err:.3e} from the plain version)")
+
+
+def flash_varlen_phase(torch, g, K):
+    """The flash kernels on packed sequences: bench_varlen(8192, 16) at
+    Llama-2-7B's attention width (32 heads of 128), causal, bf16, forward
+    and backward against the plain versions (computed a head at a time);
+    a small non-causal case with cu_q != cu_k, GQA, dropout and a tail
+    past cu[-1]; times against SDPA over jagged nested tensors (where the
+    card's torch takes them); then the main path: F.flash_attn_unpadded forward
+    and backward through autograd, its launches counted."""
+    from paddle_tpu_torch.kernels import flash_attention as F
+    from paddle_tpu_torch.nn import functional as NF
+
+    T, NSEQ, H, D = VARLEN_SHAPE
+    cu_np = varlen_cu(T, NSEQ)
+    lens = (cu_np[1:] - cu_np[:-1]).tolist()
+    print(f"[flash varlen] flash_attention_varlen, flash_attention_bwd_varlen"
+          f"  T {T} packed from {NSEQ} documents (lengths {lens}), "
+          f"H = Hkv = {H}, D {D}, bf16, causal")
+    cu = torch.tensor(cu_np, device="cuda")
+    hosts = (cu_np.tolist(), cu_np.tolist())
+    q, k, v, do = (torch.randn(T, H, D, device="cuda", generator=g)
+                   .bfloat16() for _ in range(4))
+    out, lse = F.flash_attn_varlen_cuda(q, k, v, cu, cu, True,
+                                        cu_host=hosts)
+    p_out, p_lse = F.flash_attn_varlen_plain(q, k, v, cu, cu, True,
+                                             cu_host=hosts)
+    torch.cuda.synchronize()
+    worst_f = check(torch, "main out", out, p_out, ATTN_ATOL, BF16_RTOL)
+    check(torch, "main lse", lse, p_lse, F32_ATOL)
+    dg = F.delta_minus_glse(p_out, do)
+    got = F.flash_attn_varlen_bwd_cuda(q, k, v, do, p_lse, dg, cu, cu, True,
+                                       cu_host=hosts)
+    want = F.flash_attn_varlen_bwd_plain(q, k, v, do, p_lse, dg, cu, cu,
+                                         True, cu_host=hosts)
+    torch.cuda.synchronize()
+    worst_b = max(check_grad(torch, f"main {n}", a, b, GRAD_FRAC_BF16)
+                  for n, a, b in zip(("dq", "dk", "dv"), got, want))
+    del got, want
+    # cu_q != cu_k (non-causal), an empty key part, tails past cu[-1], GQA
+    cq = torch.tensor([0, 50, 61, 130, 200], device="cuda", dtype=torch.int32)
+    ck = torch.tensor([0, 7, 90, 90, 150], device="cuda", dtype=torch.int32)
+    for dt in (torch.bfloat16, torch.float32):
+        for p in (0.0, 0.1):
+            qs = torch.randn(210, 8, 64, device="cuda", generator=g).to(dt)
+            ks, vs = (torch.randn(160, 2, 64, device="cuda", generator=g)
+                      .to(dt) for _ in range(2))
+            dos = torch.randn(210, 8, 64, device="cuda", generator=g).to(dt)
+            f32 = dt == torch.float32
+            tag = f"{dt} cu_q != cu_k, tails, GQA 8/2, p {p}"
+            o, l_ = F.flash_attn_varlen_cuda(qs, ks, vs, cq, ck, False, None,
+                                             p, 5)
+            po, pl = F.flash_attn_varlen_plain(qs, ks, vs, cq, ck, False,
+                                               None, p, 5)
+            torch.cuda.synchronize()
+            ef = check(torch, f"{tag} out", o, po, F32_SMALL_ATOL if f32
+                       else ATTN_ATOL, F32_SMALL_ATOL if f32 else BF16_RTOL)
+            check(torch, f"{tag} lse", l_, pl, F32_SMALL_ATOL if f32
+                  else F32_ATOL)
+            gs = F.flash_attn_varlen_bwd_cuda(
+                qs, ks, vs, dos, pl, F.delta_minus_glse(po, dos), cq, ck,
+                False, None, p, 5)
+            ws = F.flash_attn_varlen_bwd_plain(
+                qs, ks, vs, dos, pl, F.delta_minus_glse(po, dos), cq, ck,
+                False, None, p, 5)
+            torch.cuda.synchronize()
+            eb = max(check_grad(torch, f"{tag} {n}", a, b,
+                                GRAD_FRAC_F32 if f32 else GRAD_FRAC_BF16)
+                     for n, a, b in zip(("dq", "dk", "dv"), gs, ws))
+            if not f32:
+                worst_f, worst_b = max(worst_f, ef), max(worst_b, eb)
+    lib_f, lib_b, lib_note = _varlen_lib(torch, q, k, v, do, cu, p_out)
+    del p_out
+    times = _timed_pair(
+        torch, lambda: F.flash_attn_varlen_cuda(q, k, v, cu, cu, True,
+                                                cu_host=hosts),
+        lambda: F.flash_attn_varlen_bwd_cuda(q, k, v, do, lse, dg, cu, cu,
+                                             True, cu_host=hosts),
+        lambda: F.flash_attn_varlen_plain(q, k, v, cu, cu, True,
+                                          cu_host=hosts),
+        lambda: F.flash_attn_varlen_bwd_plain(q, k, v, do, lse, dg, cu, cu,
+                                              True, cu_host=hosts),
+        lib_f, lib_b, plain_iters=2)
+    del lib_f, lib_b
+    half = sum(n * n for n in lens) / 2   # causal (query, key) pairs
+    nb = q.numel() * 2
+    bounds = (bound_ms(4 * nb + H * T * 4, 4 * D * H * half),
+              bound_ms(7 * nb + 2 * H * T * 4, 10 * D * H * half))
+    lib = [("none" if t is None else f"{t:.4f}") for t in times[4:]]
+    print(f"  T {T}, {NSEQ} documents: forward kernel {times[0]:.4f} ms, "
+          f"plain {times[2]:.4f}, library {lib[0]}, bound "
+          f"{bounds[0][0]:.4f} ({bounds[0][1]}); backward kernel "
+          f"{times[1]:.4f} ms, plain {times[3]:.4f}, library backward "
+          f"{lib[1]}, bound {bounds[1][0]:.4f} ({bounds[1][1]}); library: "
+          f"{lib_note}")
+    # the main path: the public entry, forward and backward, counted
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    K.reset_launch_counts()
+    o, none = NF.flash_attn_unpadded(*leaves, cu, cu, causal=True)
+    o.backward(do)
+    torch.cuda.synchronize()
+    launched = K.launch_counts()
+    if none is not None or not all(
+            torch.isfinite(t.grad.float()).all() for t in leaves):
+        raise AssertionError("F.flash_attn_unpadded: bad output or gradient")
+    print(f"  F.flash_attn_unpadded forward + backward: launches "
+          f"{ {n: c for n, c in launched.items() if c} }")
+    rows = _rows(f"T {T}, {NSEQ} documents, H {H}, D {D} bf16 causal",
+                 times, bounds, (worst_f, worst_b), library=lib_note)
+    return rows, launched
+
+
+def flash_head_dim_phase(torch, g):
+    """Every head width class: each multiple of 8 from 8 to 256, the odd
+    widths 7 and 33 and the 4-byte-chunk widths 6 and 34, f32 and bf16,
+    forward and backward against the plain versions (causal on alternate
+    widths, dropout on the odd ones). Then the kernel the head_dim-16 model
+    step launches, at that step's inputs (f32 [4, 128, 4, 16], dropout 0.1),
+    and the bf16 tensor-core kernels at [16, 512, H, D], H = 768 / D
+    rounded, for D 16, 96 and 256: each against the plain versions and
+    timed against SDPA."""
+    from paddle_tpu_torch.kernels import flash_attention as F
+
+    widths = [6, 7, 33, 34] + list(range(8, 257, 8))
+    print(f"[flash head_dim] the flash kernels at head_dim {widths}, f32 and "
+          f"bf16, [2, 70, 4 (Hkv 2), D]")
+    worst = [0.0, 0.0]
+    for dt in (torch.bfloat16, torch.float32):
+        for d in widths:
+            ef, eb = _flash_case(torch, g, F, f"{dt} D={d}", 2, 70, 70, 4, 2,
+                                 d, dt, d % 16 == 8, 0.1 if d % 2 else 0.0)
+            worst = [max(worst[0], ef), max(worst[1], eb)]
+    B, S, H, d = D16_ATTN
+    p, seed = ERNIE_DROPOUT, 20242
+    q, k, v, do = (torch.randn(B, S, H, d, device="cuda", generator=g)
+                   for _ in range(4))
+    ef, eb, lse, dg = _check_pair(torch, F, f"ernie_tiny [{B}, {S}, {H}, "
+                                  f"{d}] f32 p {p}", q, k, v, do, p=p,
+                                  seed=seed)
+    times, bounds = _flash_timed(torch, F, f"[{B}, {S}, {H}, {d}] f32 p {p}",
+                                 q, k, v, do, lse, dg, p, seed,
+                                 peak=F32_FLOPS)
+    rows = _rows(f"[{B}, {S}, {H}, {d}] f32 p={p} (ernie_tiny's attention)",
+                 times, bounds, (max(ef, worst[0]), max(eb, worst[1])))
+    for d in (16, 96, 256):
+        B, S, H = 16, 512, round(768 / d)
+        q, k, v, do = (torch.randn(B, S, H, d, device="cuda", generator=g)
+                       .bfloat16() for _ in range(4))
+        ef, eb, lse, dg = _check_pair(torch, F, f"[{B}, {S}, {H}, {d}] bf16",
+                                      q, k, v, do)
+        times, bounds = _flash_timed(torch, F, f"[{B}, {S}, {H}, {d}] bf16",
+                                     q, k, v, do, lse, dg)
+        _sub_rows(rows, f"bf16_d{d}", _rows(f"[{B}, {S}, {H}, {d}] bf16",
+                                            times, bounds, (ef, eb)))
+        del q, k, v, do, lse, dg
+    return rows
+
+
+def head_dim16_model_step(torch, K):
+    """The repo's ernie_tiny() (hidden 64, 4 heads of 16) attending on the
+    card: one f32 MLM forward and backward with attention dropout 0.1 (the
+    same host-drawn seeds on both sides) against the same weights on the
+    CPU through the plain versions; returns the card's launches."""
+    from paddle_tpu_torch import framework
+    from paddle_tpu_torch.models import ErnieForMaskedLM, ernie_tiny
+    from paddle_tpu_torch.nn import functional as NF
+
+    cfg = ernie_tiny()
+    cfg.attention_probs_dropout_prob = 0.1
+    V = cfg.vocab_size
+    print(f"[head_dim 16 model] ErnieForMaskedLM(ernie_tiny()) (hidden 64, 4 "
+          f"heads of 16, vocab {V}), f32, attention dropout 0.1, batch "
+          f"4 x 128: the card against the CPU")
+    card = ErnieForMaskedLM(cfg, seed=2)
+    cpu = ErnieForMaskedLM(cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    B, S = D16_ATTN[:2]
+    x, y = ernie_batch(torch, B, S, V, 4, "cpu")
+    losses, grads, launched = [], [], None
+    for model in (card, cpu):
+        dev = model.ernie.device
+        framework.seed(9)
+        K.reset_launch_counts()
+        loss = mlm_loss(NF, model, x.to(dev), y.to(dev))
+        loss.backward()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            launched = K.launch_counts()
+        losses.append(loss.item())
+        grads.append({n: p.grad.float().cpu()
+                      for n, p in model.named_parameters()
+                      if p.grad is not None})
+    # the key biases' exact gradient is 0 (see whole_step_ernie): skipped
+    rel = max(((grads[0][n] - gr).norm() / gr.norm()).item()
+              for n, gr in grads[1].items()
+              if not n.endswith("self_attn.k_proj.bias") and gr.norm() > 0)
+    print(f"  loss {losses[0]:.6f} on the card, {losses[1]:.6f} on the CPU; "
+          f"worst gradient relative L2 {rel:.2e}; launches "
+          f"{ {k: v for k, v in launched.items() if v} }")
+    if not abs(losses[0] - losses[1]) <= 1e-4 * abs(losses[1]) + 1e-5:
+        raise AssertionError(f"head_dim-16 step: loss {losses}")
+    if not rel <= D16_GRAD_REL_L2:
+        raise AssertionError(f"head_dim-16 step: gradient off by {rel}")
+    if not (launched["flash_attention_dropout"]
+            and launched["flash_attention_bwd_dropout"]):
+        raise AssertionError("head_dim-16 step: flash kernels not launched")
+    return launched
+
+
+def encoder_model(torch, d_model, nhead, layers, vocab, device, dropout,
+                  attn_dropout, seed):
+    """``nn.TransformerEncoder`` of post-norm layers with a linear head to
+    ``vocab``, weights from a seeded generator."""
+    from paddle_tpu_torch.nn import TransformerEncoder, TransformerEncoderLayer
+
+    torch.manual_seed(seed)
+    enc = TransformerEncoder(TransformerEncoderLayer(
+        d_model, nhead, 4 * d_model, dropout=dropout,
+        attn_dropout=attn_dropout, device=device), layers)
+    head = torch.nn.Linear(d_model, vocab, device=device)
+    return torch.nn.ModuleDict({"encoder": enc, "head": head})
+
+
+def encoder_batch(torch, B, S, d_model, vocab, lo, seed, device):
+    """Seeded inputs [B, S, d_model], a bool key-padding mask [B, 1, 1, S]
+    of lengths lo..S, and token targets with -100 on the padding."""
+    g = torch.Generator().manual_seed(seed)
+    lens = torch.randint(lo, S + 1, (B,), generator=g)
+    keep = torch.arange(S)[None, :] < lens[:, None]
+    x = torch.randn(B, S, d_model, generator=g)
+    y = torch.where(keep, torch.randint(0, vocab, (B, S), generator=g), -100)
+    return x.to(device), keep[:, None, None, :].to(device), y.to(device), lens
+
+
+def encoder_main_batch(torch, device):
+    """[encoder mask]'s batch: ERNIE-3.0-Base's hidden 768 and vocab 40000,
+    lengths 256-512, seed 1."""
+    B, S, H, D = ENCODER_ATTN
+    return encoder_batch(torch, B, S, H * D, 40000, 256, 1, device)
+
+
+def encoder_loss(torch, F, model, x, mask, y):
+    logits = model["head"](model["encoder"](x, mask))
+    return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                           y.reshape(-1))
+
+
+def whole_step_encoder_mask(torch, K):
+    """One training step of nn.TransformerEncoder with a bool key-padding
+    mask under O1 on the card against f32 on the CPU through the plain
+    versions, same weights and attention-dropout seeds (hidden dropout 0:
+    its masks come from each device's own generator)."""
+    from paddle_tpu_torch import amp, framework
+    from paddle_tpu_torch.nn import functional as F
+
+    print("[whole step encoder mask] TransformerEncoder hidden 256, 4 heads "
+          "of 64, 2 layers, ffn 1024, attention dropout 0.1, vocab 40000, "
+          "batch 2 x 512 with a key-padding mask: O1 bf16 on the card vs f32 "
+          "on the CPU")
+    card = encoder_model(torch, 256, 4, 2, 40000, "cuda", 0.0, ERNIE_DROPOUT,
+                         7)
+    cpu = encoder_model(torch, 256, 4, 2, 40000, "cpu", 0.0, ERNIE_DROPOUT, 7)
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    x, mask, y, lens = encoder_batch(torch, 2, 512, 256, 40000, 256, 3, "cpu")
+    print(f"  lengths {lens.tolist()}")
+    losses, grads, launched = [], [], None
+    for model in (card, cpu):
+        dev = next(model.parameters()).device
+        framework.seed(5)
+        K.reset_launch_counts()
+        with amp.auto_cast(enable=dev.type == "cuda", level="O1"):
+            loss = encoder_loss(torch, F, model, x.to(dev), mask.to(dev),
+                                y.to(dev))
+        loss.backward()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            launched = K.launch_counts()
+        losses.append(loss.item())
+        grads.append({n: p.grad.float().cpu()
+                      for n, p in model.named_parameters()
+                      if p.grad is not None})
+    want = {"flash_attention_mask": 2, "flash_attention_bwd_mask": 2,
+            "layernorm": 4, "softmax_ce": 1, "softmax_ce_bwd": 1}
+    if {k: v for k, v in launched.items() if v} != want:
+        raise AssertionError(f"whole encoder step launched {launched}, "
+                             f"expected {want}")
+    # the key bias cancels in the softmax (see whole_step_ernie)
+    for n in [n for n in grads[1] if n.endswith("self_attn.k_proj.bias")]:
+        w = n.replace("bias", "weight")
+        ratio = [gr.pop(n).norm().item() / gr[w].norm().item()
+                 for gr in grads]
+        if not max(ratio) <= 1e-2:
+            raise AssertionError(f"whole encoder step: {n}'s gradient, 0 "
+                                 f"in exact arithmetic, is {ratio} of the "
+                                 f"key weight gradient's norm")
+    rel = {n: ((grads[0][n] - gr).norm() / gr.norm()).item()
+           for n, gr in grads[1].items()}
+    worst = sorted(rel.items(), key=lambda r: -r[1])[:3]
+    print(f"  loss {losses[0]:.5f} on the card, {losses[1]:.5f} on the CPU "
+          f"(|diff| {abs(losses[0] - losses[1]):.2e}, limit "
+          f"{STEP_LOSS_TOL}); worst gradient relative L2 errors "
+          + ", ".join(f"{n} {e:.2e}" for n, e in worst)
+          + f" (limit {STEP_GRAD_REL_L2}, {len(rel)} parameters); launches "
+          f"{want}")
+    if not abs(losses[0] - losses[1]) <= STEP_LOSS_TOL:
+        raise AssertionError(f"whole encoder step: loss {losses}")
+    if not worst[0][1] <= STEP_GRAD_REL_L2:
+        raise AssertionError(f"whole encoder step: gradient of "
+                             f"{worst[0][0]} off by {worst[0][1]}")
+
+
+def encoder_flops_per_token(L, h, ffn, vocab, S):
+    """Training flops a token: 6 x the token-wise matmuls' parameters (four
+    attention projections and two FFN matrices a layer, the head) + 12 S h
+    per layer for the score and P.V products, forward and backward."""
+    return 6 * (L * (4 * h * h + 2 * h * ffn) + h * vocab) + 12 * S * h * L
+
+
+def encoder_mask_phase(torch, K):
+    """The slice's full-width training path: nn.TransformerEncoder at
+    ERNIE-3.0-Base's published widths with a bool key-padding mask."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch import amp, framework
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.optimizer import AdamW
+
+    (B, S, nh, hd), L, V = ENCODER_ATTN, 12, 40000
+    h = nh * hd
+    print(f"[encoder mask] TransformerEncoder at ERNIE-3.0-Base widths ({L} "
+          f"layers, hidden {h}, {nh} heads of {h // nh}, ffn {4 * h}, dropout "
+          f"0.1), linear head to {V} with cross_entropy, batch {B} x {S} "
+          f"with a bool key-padding mask [{B}, 1, 1, {S}], lengths 256-512, "
+          f"f32 params under auto_cast(O1, bf16), AdamW lr 1e-4")
+    framework.seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    model = encoder_model(torch, h, nh, L, V, "cuda", 0.1, 0.1, 0)
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                weight_decay=0.01)
+    x, mask, y, lens = encoder_main_batch(torch, "cuda")
+    real = int(lens.sum())
+    print(f"  {sum(p.numel() for p in model.parameters()) / 1e6:.1f} M "
+          f"parameters; {real} real tokens of {B * S}")
+
+    def step():
+        with amp.auto_cast(level="O1", dtype="bfloat16"):
+            loss = encoder_loss(torch, F, model, x, mask, y)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+
+    t0 = time.monotonic()
+    losses = [step().item()]
+    print(f"  warm-up step {time.monotonic() - t0:.2f}s, loss "
+          f"{losses[0]:.4f}")
+    K.reset_launch_counts()
+    walls = []
+    for _ in range(ENCODER_STEPS):
+        t0 = time.monotonic()
+        losses.append(step().item())
+        torch.cuda.synchronize()
+        walls.append(time.monotonic() - t0)
+    counts = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  losses {[round(v, 4) for v in losses]}")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite encoder loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the encoder loss did not fall: {losses}")
+    per_step = {k: c / ENCODER_STEPS for k, c in counts.items() if c}
+    print(f"  launches per step: {per_step} (expected {ENCODER_PER_STEP})")
+    if per_step != {k: float(v) for k, v in ENCODER_PER_STEP.items()}:
+        raise AssertionError("the encoder steps launched other kernels than "
+                             "the model's structure gives")
+    mean = sum(walls) / len(walls)
+    tok_s = real / mean
+    flops = encoder_flops_per_token(L, h, 4 * h, V, S)
+    print(f"  step wall {mean * 1e3:.1f} ms (mean of {ENCODER_STEPS}, min "
+          f"{min(walls) * 1e3:.1f}); {tok_s:.0f} real tokens/s; MFU "
+          f"{100 * tok_s * flops / BF16_FLOPS:.1f}% ({flops / 1e9:.3f} "
+          f"GFLOP a real token against {BF16_FLOPS / 1e12:.0f} TFLOP/s); "
+          f"peak memory {peak / 2 ** 30:.2f} GiB")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        step()
+        torch.cuda.synchronize()
+        prof_wall = (time.monotonic() - t0) * 1e3
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        raise AssertionError("the profiled encoder step traced no kernel")
+    busy = busy_ms(kernels)
+    print(f"[profile] one encoder step: device busy {busy:.2f} ms in "
+          f"{len(kernels)} kernels, wall {prof_wall:.2f} ms under the "
+          f"profiler (unprofiled mean {mean * 1e3:.2f} ms), idle "
+          f"{100 * (1 - busy / prof_wall):.1f}% of the profiled wall, "
+          f"{100 * (1 - busy / (mean * 1e3)):.1f}% of the unprofiled mean")
+    for group, ms in kernel_share(kernels).items():
+        print(f"  {ms:9.3f} ms  {group}")
+    del model, opt
+    return counts
 
 
 def serving_phase(torch, K):
@@ -1986,6 +2703,15 @@ def main() -> int:
      rows["flash_attention_bwd_dropout_d36"]) = flash_d36_phase(torch, g)
     rows["ctc_alpha"], rows["ctc_beta"] = ctc_phase(torch, g)
     rows["rnnt_alpha"], rows["rnnt_beta_grad"] = rnnt_phase(torch, g)
+    torch.cuda.empty_cache()
+    (rows["flash_attention_mask"],
+     rows["flash_attention_bwd_mask"]) = flash_mask_phase(torch, g)
+    torch.cuda.empty_cache()
+    ((rows["flash_attention_varlen"], rows["flash_attention_bwd_varlen"]),
+     varlen) = flash_varlen_phase(torch, g, K)
+    torch.cuda.empty_cache()
+    (rows["flash_attention_d16"],
+     rows["flash_attention_bwd_d16"]) = flash_head_dim_phase(torch, g)
     for name, r in rows.items():
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         print(f"  {name} at {r['shape']}: kernel {r['ms']:.4f} ms, plain "
@@ -2026,10 +2752,23 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     rnnt = conformer_training_phase(torch, K, "rnnt")
-    launches = {k: launches[k] + conformer[k] + rnnt[k] for k in conformer}
-    # the head_dim-36 rows: the Conformer steps' launches of those kernels
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    whole_step_encoder_mask(torch, K)
+    gc.collect()
+    torch.cuda.empty_cache()
+    encoder = encoder_mask_phase(torch, K)
+    gc.collect()
+    torch.cuda.empty_cache()
+    d16 = head_dim16_model_step(torch, K)
+    launches = {k: launches[k] + conformer[k] + rnnt[k] + encoder[k]
+                + varlen[k] for k in conformer}
+    # the head_dim-36 rows: the Conformer steps' launches of those kernels;
+    # the head_dim-16 rows: the tiny ERNIE step's
     for name in ("flash_attention_dropout", "flash_attention_bwd_dropout"):
         launches[f"{name}_d36"] = conformer[name] + rnnt[name]
+        launches[name.replace("_dropout", "_d16")] = d16[name]
 
     kernels = []
     for name, r in rows.items():
@@ -2040,7 +2779,9 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "shape": r["shape"]})
+            "shape": r["shape"],
+            # sub-rows (other shapes of the same kernel), notes
+            **{n: x for n, x in r.items() if isinstance(x, (dict, str))}})
     for k in kernels:
         for key in ("ms", "plain_ms", "bound_ms", "max_abs_err"):
             if not math.isfinite(k[key]):

@@ -4,7 +4,6 @@
 
 #include <cmath>
 #include <cstdint>
-#include <type_traits>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -112,24 +111,6 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
-
-// Head widths that are not a multiple of 16 (36: the Conformer's 144 / 4)
-// ride in shared memory zero-padded to pad16<D>(), the depth step of
-// m16n8k16; the padding columns stay 0, so they add nothing to a product,
-// and the kernels store only the D real columns. A row of such a tensor
-// starts only (2 * D)-byte aligned, so the bf16 kernels move it in chunks
-// of BfChunk<D>::W elements: 16 bytes where D is a multiple of 8, else 8.
-template <int D>
-__host__ __device__ constexpr int pad16() {
-  return (D + 15) / 16 * 16;
-}
-
-template <int D>
-struct BfChunk {
-  static_assert(D % 4 == 0, "head_dim must be a multiple of 4");
-  static constexpr int W = D % 8 == 0 ? 8 : 4;
-  using V = typename std::conditional<W == 8, uint4, uint2>::type;
-};
 
 __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);

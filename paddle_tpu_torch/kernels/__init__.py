@@ -15,8 +15,8 @@ whose backward is a kernel too; a raw ``*_cuda`` wrapper, which returns
 buffers a ctypes launch filled, raises when it is handed a tensor that
 requires grad while grad mode is on (:func:`refuse_grad`), so no output is
 ever cut from the autograd graph in silence. The kernels so far (the
-flash kernels count their dropout instantiations under their own names,
-so a run can show which variant its path took):
+flash kernels count their dropout, bool-mask and varlen variants under
+their own names, so a run can show which variant its path took):
 
 ===========================  =============================  =====================
 name                         port (kernels/ + csrc/)        replaces, in
@@ -28,9 +28,13 @@ ctc_beta                     ctc.py, ctc.cu                 ``_beta_kernel``
 flash_attention              flash_attention.py,            flash_attention.py
                              flash_attention.cu             ``_fwd_kernel``
 flash_attention_dropout      the same, dropout p > 0        with ``_drop_mask``
+flash_attention_mask         the same, a bool mask          with ``_tile_mask``
+flash_attention_varlen       the same, packed sequences     with segment ids
 flash_attention_bwd          flash_attention.py,            ``_bwd_dq_kernel``,
                              flash_attention_bwd.cu         ``_bwd_dkv_kernel``
 flash_attention_bwd_dropout  the same, dropout p > 0        with ``_drop_mask``
+flash_attention_bwd_mask     the same, a bool mask          with ``_tile_mask``
+flash_attention_bwd_varlen   the same, packed sequences     with segment ids
 layernorm                    layernorm.py, layernorm.cu     layernorm.py
                                                             ``_fwd_kernel``
 paged_attention              paged_attention.py,            paged_attention.py
@@ -61,8 +65,12 @@ LAUNCHES: dict[str, int] = {
     "ctc_beta": 0,
     "flash_attention": 0,
     "flash_attention_dropout": 0,
+    "flash_attention_mask": 0,
+    "flash_attention_varlen": 0,
     "flash_attention_bwd": 0,
     "flash_attention_bwd_dropout": 0,
+    "flash_attention_bwd_mask": 0,
+    "flash_attention_bwd_varlen": 0,
     "layernorm": 0,
     "paged_attention": 0,
     "rmsnorm": 0,

@@ -5,7 +5,9 @@ Layout is ``[batch, seq, heads, head_dim]``. :func:`sdpa_ref` is the plain
 einsum composition the reference uses off-TPU, the serving cache uses for
 prefill, and float additive masks use everywhere;
 :func:`scaled_dot_product_attention` is the model's attention and runs the
-flash-attention kernels on the card, dropout included.
+flash-attention kernels on the card, dropout and bool masks included;
+:func:`flash_attention` is the reference's API shape of the same, and
+:func:`flash_attn_unpadded` its varlen entry over packed sequences.
 """
 from __future__ import annotations
 
@@ -14,9 +16,10 @@ import math
 import torch
 
 from ...framework.random import get_generator
-from ...kernels.flash_attention import flash_attention_fwd
+from ...kernels.flash_attention import flash_attention_fwd, flash_attn_varlen
 
-__all__ = ["sdpa_ref", "scaled_dot_product_attention"]
+__all__ = ["sdpa_ref", "scaled_dot_product_attention", "flash_attention",
+           "flash_attn_unpadded"]
 
 NEG_INF = -1e30
 
@@ -68,27 +71,59 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     divide the query heads; differentiable in query, key and value. Routes
     as the reference's ``flash_attention_pallas`` does:
 
-    - no mask: the flash-attention kernels on CUDA tensors (forward, and
-      backward under autograd), their plain versions on CPU tensors, with
-      dropout applied in-kernel (``seed`` fixes its mask; by default one
-      is drawn on the host);
-    - a float additive mask: :func:`sdpa_ref`, so the bias differentiates;
-    - a bool mask: the flash kernels' dense-mask path is not ported yet
-      (ROADMAP Queue 2, row 3), so CUDA tensors raise; CPU tensors take
-      :func:`sdpa_ref`.
+    - no mask, or a bool mask (True = attend; any shape broadcastable to
+      ``[B, H, Sq, Sk]``, read by the kernels without being widened): the
+      flash-attention kernels on CUDA tensors (forward, and backward under
+      autograd), their plain versions on CPU tensors, which mask as the
+      reference's ``_mirror_fwd`` does (a row whose every visible key is
+      masked averages V over the hidden keys, not zeros); dropout is
+      applied in-kernel (``seed`` fixes its mask; by default one is drawn
+      on the host); the mask gets no gradient;
+    - a float additive mask: :func:`sdpa_ref`, so the bias differentiates.
     """
     if not training:
         dropout_p = 0.0
-    if attn_mask is None:
+    if attn_mask is None or attn_mask.dtype == torch.bool:
         out, _ = flash_attention_fwd(query, key, value, causal=is_causal,
                                      sm_scale=scale, dropout_p=dropout_p,
-                                     seed=seed)
+                                     seed=seed, mask=attn_mask)
         return out
-    if attn_mask.dtype == torch.bool and query.device.type == "cuda":
-        raise NotImplementedError(
-            "scaled_dot_product_attention: a bool attn_mask needs the flash "
-            "kernels' dense-mask path, not ported yet (ROADMAP Queue 2, "
-            "row 3); pass an additive float mask instead")
     return sdpa_ref(query, key, value, attn_mask=attn_mask,
                     dropout_p=dropout_p, is_causal=is_causal, scale=scale,
                     training=training)
+
+
+def flash_attention(query, key, value, dropout=0.0, causal=False,
+                    return_softmax=False, fixed_seed_offset=None, rng_name="",
+                    training=True, name=None):
+    """The reference's ``flash_attention`` API shape over
+    :func:`scaled_dot_product_attention` (no mask): returns ``(out, None)``
+    (the kernels materialise no softmax). ``fixed_seed_offset`` fixes the
+    dropout mask's seed."""
+    out = scaled_dot_product_attention(
+        query, key, value, dropout_p=dropout, is_causal=causal,
+        training=training, seed=fixed_seed_offset)
+    return out, None
+
+
+def flash_attn_unpadded(query, key, value, cu_seqlens_q, cu_seqlens_k,
+                        max_seqlen_q=None, max_seqlen_k=None, scale=None,
+                        dropout=0.0, causal=False, return_softmax=False,
+                        fixed_seed_offset=None, rng_name="", training=True,
+                        name=None):
+    """Varlen (packed-sequence) flash attention, the reference's
+    ``flash_attn_unpadded``: query ``[total_q, H, D]``, key and value
+    ``[total_k, Hkv, D]``, ``cu_seqlens_*`` int32 ``[nseq + 1]`` cumulative
+    offsets from 0. Tokens attend within their own sequence; ``causal`` is
+    positional in the packed rows and needs ``cu_seqlens_q ==
+    cu_seqlens_k`` (raises otherwise); tokens past ``cu_seqlens[-1]`` get
+    zeros. The kernels on CUDA tensors, the plain versions on CPU tensors,
+    differentiable in query, key and value. ``cu_seqlens`` is copied to the
+    host once a call (it sizes the kernels' grid), so ``max_seqlen_*`` are
+    taken for the API and not needed. Returns ``(out, None)``."""
+    if not training:
+        dropout = 0.0
+    out, _ = flash_attn_varlen(query, key, value, cu_seqlens_q, cu_seqlens_k,
+                               causal=causal, sm_scale=scale,
+                               dropout_p=dropout, seed=fixed_seed_offset)
+    return out, None

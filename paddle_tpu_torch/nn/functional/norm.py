@@ -12,13 +12,34 @@ from ...kernels.rmsnorm import rmsnorm
 __all__ = ["layer_norm", "rms_norm", "batch_norm", "batch_norm_stats"]
 
 
-def rms_norm(x, weight, epsilon=1e-6):
-    """RMSNorm over the last dim: ``x * rsqrt(mean(x^2) + eps) * weight``,
-    computed in f32 and cast to x's dtype; differentiable in x and weight.
-    Runs the RMSNorm kernels (forward, and backward under autograd) for
-    CUDA tensors (always: the reference's TPU opt-in does not carry over)
-    and their plain versions for CPU tensors."""
-    return rmsnorm(x, weight, epsilon)
+def rms_norm(x, weight=None, epsilon=1e-6, axis=-1, name=None):
+    """RMSNorm, the reference's: ``x * rsqrt(mean(x^2) + eps)`` over
+    ``axis``, computed in f32 and cast to x's dtype, times ``weight``;
+    differentiable in x and weight. The output's dtype is the reference's,
+    x's and weight's promoted (a bf16 x with an f32 weight gives f32).
+
+    On amp's black list: under ``amp.auto_cast`` bf16/f16 inputs are cast
+    to f32 first. With a weight over the last dim it runs the RMSNorm
+    kernels (forward, and backward under autograd) for CUDA tensors
+    (always: the reference's TPU opt-in does not carry over) and their
+    plain versions for CPU tensors, which take x and weight in one dtype:
+    a narrower weight is cast to x's here, and a wider one multiplies the
+    kernel's output normalised with a unit weight, as the reference rounds.
+    Without a weight, or over another axis, it is the reference's
+    composition."""
+    x, weight = cast_for("rms_norm", x, weight)
+    if weight is not None and axis in (-1, x.ndim - 1):
+        dt = torch.promote_types(x.dtype, weight.dtype)
+        if x.dtype == dt:
+            return rmsnorm(x, weight.to(dt), epsilon)
+        # a wider weight: the reference rounds normalize(x) to x's dtype
+        # before the product, so the kernel normalises with a unit weight
+        return rmsnorm(x, torch.ones_like(weight, dtype=x.dtype),
+                       epsilon) * weight
+    xf = x.float()
+    ms = xf.square().mean(axis, keepdim=True)
+    out = (xf / torch.sqrt(ms + epsilon)).to(x.dtype)
+    return out if weight is None else out * weight
 
 
 def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5,

@@ -4,8 +4,10 @@
 incremental caches come with the Whisper slice).
 
 Attention goes through ``nn.functional.scaled_dot_product_attention``: the
-flash kernels (dropout in-kernel) without a mask, the einsum composition
-with a float additive mask, as the reference routes them. The projections
+flash kernels (dropout in-kernel) without a mask or with a bool mask
+(``attn_mask`` / ``src_mask``, True = attend, e.g. a key-padding mask
+``[B, 1, 1, S]``, passed through unchanged), the einsum composition with a
+float additive mask, as the reference routes them. The projections
 are ``nn.Linear`` (weights ``[out, in]``; ``models/convert.py`` transposes
 the reference's ``[in, out]``). The layers build on ``cuda`` unless
 ``device="cpu"`` (``core.resolve_device``).

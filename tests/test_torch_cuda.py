@@ -50,6 +50,16 @@ log-likelihood and ``bhat[0, 0]`` rtol 1e-5 (atol 1e-4), the posteriors
 (probabilities) atol 1e-5; ``rnnt_loss`` gradients against the CPU's plain
 versions within the f32 gradient tolerance; a ``ConformerForRNNT`` step
 against the CPU with exactly its structure's launches.
+
+Flash slice: the flash kernels against their plain versions, under the
+dense tolerances, at head widths 1 to 256 (96 and 200 among them, which
+earlier slices refused), on rows misaligned for 16-byte loads, with bool
+masks of every broadcast mode (a fully masked row included) and the
+reference's canonical masks with a mode, and on packed sequences (an
+empty sequence, tails past cu[-1], cu_q != cu_k, GQA, dropout); the
+public entries count their own variants (``_mask``, ``_varlen``); head
+widths past 256 raise; ``nn.RMSNorm`` with an f32 weight runs under
+``amp.auto_cast`` on a bf16 input (F2).
 """
 import math
 
@@ -60,7 +70,8 @@ from paddle_tpu_torch import kernels as K
 from paddle_tpu_torch.kernels.flash_attention import (
     delta_minus_glse, dropout_bits_cuda, dropout_bits_plain,
     dropout_keep_plain, flash_attention_bwd_cuda, flash_attention_bwd_plain,
-    flash_attention_cuda, flash_attention_fwd, flash_attention_plain)
+    flash_attention_cuda, flash_attention_fwd, flash_attention_plain,
+    mask_view)
 from paddle_tpu_torch.kernels.layernorm import (
     layer_norm_cuda, layer_norm_plain, layernorm)
 from paddle_tpu_torch.kernels.paged_attention import (
@@ -158,7 +169,9 @@ def test_wrappers_launch_on_cuda_and_count(gen):
     after = K.launch_counts()
     assert {k: after[k] - before[k] for k in after} == {
         "flash_attention": 1, "flash_attention_dropout": 0,
+        "flash_attention_mask": 0, "flash_attention_varlen": 0,
         "flash_attention_bwd": 0, "flash_attention_bwd_dropout": 0,
+        "flash_attention_bwd_mask": 0, "flash_attention_bwd_varlen": 0,
         "layernorm": 0, "paged_attention": 1, "rmsnorm": 1,
         "rmsnorm_bwd": 0, "softmax_ce": 0, "softmax_ce_bwd": 0,
         "ctc_alpha": 0, "ctc_beta": 0, "rnnt_alpha": 0, "rnnt_beta_grad": 0}
@@ -168,8 +181,8 @@ def test_wrappers_raise_on_what_the_kernel_does_not_take(gen):
     q = _rnd(gen, torch.float16, 1, 9, 4, 64)
     with pytest.raises(TypeError):                 # no fp16 kernel
         flash_attention_fwd(q, q, q)
-    q = _rnd(gen, torch.float32, 1, 9, 4, 96)
-    with pytest.raises(ValueError):                # head_dim 96
+    q = _rnd(gen, torch.float32, 1, 9, 4, 264)
+    with pytest.raises(ValueError, match="1..256"):   # head_dim past 256
         flash_attention_fwd(q, q, q)
     x = _rnd(gen, torch.bfloat16, 2, 12)
     with pytest.raises(ValueError):                # 24-byte rows
@@ -278,9 +291,9 @@ def test_softmax_ce_out_of_range_label_is_nan(gen):
 
 
 def test_backward_wrappers_raise_on_what_the_kernels_do_not_take(gen):
-    q = _rnd(gen, torch.float32, 1, 9, 4, 96)
+    q = _rnd(gen, torch.float32, 1, 9, 4, 264)
     lse = torch.zeros(1, 4, 9, device="cuda")
-    with pytest.raises(ValueError):                # head_dim 96
+    with pytest.raises(ValueError, match="1..256"):   # head_dim past 256
         flash_attention_bwd_cuda(q, q, q, q, lse, lse)
     q = _rnd(gen, torch.bfloat16, 1, 9, 4, 64)
     with pytest.raises(ValueError):                # gradient in f32
@@ -532,13 +545,20 @@ def test_dropout_variants_count_under_their_own_names(gen):
             "layernorm": 1}
 
 
-def test_bool_mask_on_the_card_raises(gen):
+def test_bool_mask_on_the_card_runs_the_mask_kernels(gen):
+    """A bool attn_mask takes the flash kernels' mask variant, forward and
+    backward, and its gradients match the CPU's plain versions."""
     from paddle_tpu_torch.nn.functional import scaled_dot_product_attention
 
-    q = _rnd(gen, torch.bfloat16, 1, 9, 4, 64)
-    mask = torch.ones(1, 1, 9, 9, device="cuda", dtype=torch.bool)
-    with pytest.raises(NotImplementedError, match="Queue 2"):
-        scaled_dot_product_attention(q, q, q, attn_mask=mask)
+    mask = torch.rand(2, 1, 1, 9, device="cuda", generator=gen) > 0.3
+    mask[..., 0] = True
+    tensors = [_rnd(gen, torch.bfloat16, 2, 9, 4, 64) for _ in range(3)]
+    launched = _grads_match(
+        lambda q, k, v: scaled_dot_product_attention(
+            q, k, v, attn_mask=mask.to(q.device)).float().square().sum(),
+        tensors, torch.bfloat16)
+    assert {k: v for k, v in launched.items() if v} == {
+        "flash_attention_mask": 1, "flash_attention_bwd_mask": 1}
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -933,3 +953,160 @@ def test_conformer_rnnt_tiny_step_on_the_card_matches_the_cpu(gen):
     for n in g1:
         torch.testing.assert_close(g0[n], g1[n], atol=1e-4, rtol=1e-3,
                                    msg=n)
+
+
+# ---------------------------------------------------------------------------
+# flash slice: bool masks, varlen, every head width; rms_norm under amp
+# ---------------------------------------------------------------------------
+
+def _flash_pair(gen, dtype, B, Sq, Sk, H, Hkv, D, causal, p=0.0, mask=None):
+    """The flash kernels against the plain versions, forward and backward
+    (an lse cotangent included), on one case."""
+    q = _rnd(gen, dtype, B, Sq, H, D)
+    k, v = _rnd(gen, dtype, B, Sk, Hkv, D), _rnd(gen, dtype, B, Sk, Hkv, D)
+    g = _rnd(gen, dtype, B, Sq, H, D)
+    g_lse = 0.1 * torch.randn(B, H, Sq, device="cuda", generator=gen)
+    out, lse = flash_attention_cuda(q, k, v, causal, None, p, 5, mask)
+    p_out, p_lse = flash_attention_plain(q, k, v, causal, None, p, 5, mask)
+    _close(out, p_out, **_tol(dtype))
+    _close(lse, p_lse, atol=1e-3 if dtype == torch.bfloat16 else 1e-4,
+           rtol=1e-5)
+    dg = delta_minus_glse(p_out, g, g_lse)
+    got = flash_attention_bwd_cuda(q, k, v, g, p_lse, dg, causal, None, p, 5,
+                                   mask)
+    want = flash_attention_bwd_plain(q, k, v, g, p_lse, dg, causal, None, p,
+                                     5, mask)
+    for a, b in zip(got, want):
+        _close(a, b, **_grad_tol(dtype, b))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d", [1, 7, 16, 18, 33, 34, 40, 96, 136, 200,
+                               256])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_every_head_dim_matches_plain(gen, dtype, d, causal):
+    """Head widths ride zero-padded to their class (multiples of 16 up to
+    128, of 32 up to 256); 96 used to raise."""
+    _flash_pair(gen, dtype, 2, 77, 77, 4, 2, d, causal, 0.1 if d % 2 else 0.0)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_misaligned_rows_take_narrower_chunks(gen, dtype):
+    """Views 2 bytes into their storage: the kernels move rows in 2-byte
+    chunks instead of raising, and still match."""
+    def view(*shape):
+        n = math.prod(shape)
+        return _rnd(gen, dtype, n + 1)[1:].view(*shape)
+    q, k, v, g = (view(1, 33, 4, 64) for _ in range(4))
+    out, lse = flash_attention_cuda(q, k, v, True)
+    p_out, p_lse = flash_attention_plain(q, k, v, True)
+    _close(out, p_out, **_tol(dtype))
+    dg = delta_minus_glse(p_out, g)
+    for a, b in zip(flash_attention_bwd_cuda(q, k, v, g, p_lse, dg, True),
+                    flash_attention_bwd_plain(q, k, v, g, p_lse, dg, True)):
+        _close(a, b, **_grad_tol(dtype, b))
+
+
+MASK_SHAPES = [(1, 1, 1, 130), (2, 1, 1, 130), (1, 4, 130, 130),
+               (2, 4, 130, 130), (2, 1, 130, 130), (130, 1)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", MASK_SHAPES)
+@pytest.mark.parametrize("causal,p", [(False, 0.0), (False, 0.1),
+                                     (True, 0.1)])
+def test_flash_mask_kernels_match_plain(gen, dtype, shape, causal, p):
+    """Every mask mode, row dim 1 or Sq, key dim 1; with a fully masked row
+    in the per-query masks (the mirror's average over the hidden keys)."""
+    mask = torch.rand(*shape, device="cuda", generator=gen) > 0.3
+    if len(shape) == 4 and shape[2] == 130:
+        mask[0, 0, 5] = False
+    _flash_pair(gen, dtype, 2, 130, 130, 4, 2, 64, causal, p, mask)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("mode,n", [("one", 1), ("batch", 2), ("head", 2),
+                                    ("bh", 4)])
+def test_flash_canonical_mask_with_mode_matches_plain(gen, dtype, mode, n):
+    """The reference's canonical [N, Sq, Sk] with its mode, B == H."""
+    mask = torch.rand(n, 70, 70, device="cuda", generator=gen) > 0.4
+    q, k, v = (_rnd(gen, dtype, 2, 70, 2, 64) for _ in range(3))
+    m4 = mask_view(mask, 2, 2, 70, 70, mode)
+    out, lse = flash_attention_cuda(q, k, v, True, mask=m4)
+    p_out, p_lse = flash_attention_plain(q, k, v, True, mask=m4)
+    _close(out, p_out, **_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("p", [0.0, 0.1])
+def test_flash_varlen_kernels_match_plain(gen, dtype, causal, p):
+    """Packed sequences with an empty one, tails past cu[-1], GQA; without
+    causality cu_q != cu_k with an empty key part."""
+    from paddle_tpu_torch.kernels.flash_attention import (
+        flash_attn_varlen_bwd_cuda, flash_attn_varlen_bwd_plain,
+        flash_attn_varlen_cuda, flash_attn_varlen_plain)
+
+    cq = torch.tensor([0, 50, 50, 130, 200], device="cuda", dtype=torch.int32)
+    ck = cq if causal else torch.tensor([0, 7, 90, 90, 150], device="cuda",
+                                        dtype=torch.int32)
+    tk = 210 if causal else 160
+    q, g = _rnd(gen, dtype, 210, 8, 64), _rnd(gen, dtype, 210, 8, 64)
+    k, v = _rnd(gen, dtype, tk, 2, 64), _rnd(gen, dtype, tk, 2, 64)
+    out, lse = flash_attn_varlen_cuda(q, k, v, cq, ck, causal, None, p, 3)
+    p_out, p_lse = flash_attn_varlen_plain(q, k, v, cq, ck, causal, None, p,
+                                           3)
+    _close(out, p_out, **_tol(dtype))
+    _close(lse, p_lse, atol=1e-3 if dtype == torch.bfloat16 else 1e-4,
+           rtol=1e-5)
+    assert not out[200:].any()
+    dg = delta_minus_glse(p_out, g)
+    got = flash_attn_varlen_bwd_cuda(q, k, v, g, p_lse, dg, cq, ck, causal,
+                                     None, p, 3)
+    want = flash_attn_varlen_bwd_plain(q, k, v, g, p_lse, dg, cq, ck, causal,
+                                       None, p, 3)
+    for a, b in zip(got, want):
+        _close(a, b, **_grad_tol(dtype, b))
+
+
+def test_flash_attn_unpadded_on_the_card_counts_the_varlen_kernels(gen):
+    from paddle_tpu_torch.nn.functional import flash_attn_unpadded
+
+    cu = torch.tensor([0, 40, 41, 130], device="cuda", dtype=torch.int32)
+    tensors = [_rnd(gen, torch.bfloat16, 140, 4, 96) for _ in range(3)]
+    launched = _grads_match(
+        lambda q, k, v: flash_attn_unpadded(
+            q, k, v, cu.to(q.device), cu.to(q.device),
+            causal=True)[0].float().square().sum(),
+        tensors, torch.bfloat16)
+    assert {k: v for k, v in launched.items() if v} == {
+        "flash_attention_varlen": 1, "flash_attention_bwd_varlen": 1}
+
+
+def test_rms_norm_layer_under_auto_cast_on_the_card(gen):
+    """F2: nn.RMSNorm (f32 weight) on a bf16 input under amp O1 runs the
+    kernels in f32, forward and backward, and matches the CPU."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.nn import RMSNorm
+
+    layers = [RMSNorm(256), RMSNorm(256, device="cpu")]
+    x = _rnd(gen, torch.bfloat16, 6, 256)
+    # a random projection: the x-gradient of sum(out ** 2) is all
+    # cancellation (out is scale-free in x), this one's is not
+    proj = _rnd(gen, torch.float32, 6, 256)
+    xs = [x.clone().requires_grad_(), x.cpu().requires_grad_()]
+    before = K.launch_counts()
+    outs = []
+    for layer, xi in zip(layers, xs):
+        with amp.auto_cast(level="O1", dtype="bfloat16"):
+            out = layer(xi)
+        assert out.dtype == torch.float32
+        (out * proj.to(out.device)).sum().backward()
+        outs.append(out)
+    launched = {k: v - before[k] for k, v in K.launch_counts().items()}
+    assert launched["rmsnorm"] == 1 and launched["rmsnorm_bwd"] == 1
+    _close(outs[0], outs[1].cuda(), atol=1e-5, rtol=1e-5)
+    _close(xs[0].grad, xs[1].grad.cuda(), **_grad_tol(torch.bfloat16,
+                                                      xs[1].grad))
+    _close(layers[0].weight.grad, layers[1].weight.grad.cuda(),
+           **_grad_tol(torch.float32, layers[1].weight.grad))

@@ -181,8 +181,9 @@ def test_dropout_bits_keep_share_and_independence():
 
 def test_sdpa_routes_masks_as_the_reference():
     """No mask: the flash path; a float bias: ``sdpa_ref``, the reference's
-    einsum composition with the bias added; a bool mask on CPU tensors:
-    ``sdpa_ref``; ``training=False`` turns dropout off."""
+    einsum composition with the bias added; a bool mask: the flash path's
+    plain version on CPU tensors, equal to ``sdpa_ref`` on rows that keep a
+    key; ``training=False`` turns dropout off."""
     rng = np.random.RandomState(9)
     q = rng.randn(2, 6, 2, 8).astype(np.float32)
     k = rng.randn(2, 6, 2, 8).astype(np.float32)
@@ -348,8 +349,10 @@ def test_launch_counters_reset():
     K.reset_launch_counts()
     assert set(K.launch_counts().values()) == {0}
     assert set(K.launch_counts()) == {
-        "flash_attention", "flash_attention_dropout", "flash_attention_bwd",
-        "flash_attention_bwd_dropout", "layernorm", "paged_attention",
+        "flash_attention", "flash_attention_dropout", "flash_attention_mask",
+        "flash_attention_varlen", "flash_attention_bwd",
+        "flash_attention_bwd_dropout", "flash_attention_bwd_mask",
+        "flash_attention_bwd_varlen", "layernorm", "paged_attention",
         "rmsnorm", "rmsnorm_bwd", "softmax_ce", "softmax_ce_bwd",
         "ctc_alpha", "ctc_beta", "rnnt_alpha", "rnnt_beta_grad"}
 
