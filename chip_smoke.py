@@ -191,6 +191,14 @@ CUDA toolkit (``nvcc``). It imports nothing of JAX or of ``paddle_tpu``.
 18. ``ernie_tiny()`` (head_dim 16) attending on the card: one f32 MLM
     forward and backward against the CPU's plain versions.
 
+Flash design: bf16 at head_dim 64 and 128 with 16-byte rows takes the
+wgmma / TMA kernels (``csrc/flash_attention{,_bwd}_sm90.cu``, counted
+under ``flash_attention{,_bwd}_sm90``), every other input the mma.sync
+and CUDA-core ones (``_mma``). Each flash row records the design its timed launches ran and
+must be ``sm90`` (rows 1, 1a, 1b, 2, 2a, 2b and their dropout rows) or
+``mma`` (the ``_d36`` and ``_d16`` rows, and their sub-rows); the Llama,
+ERNIE and encoder steps must launch every flash kernel on ``sm90``.
+
 The ``launches`` of the JSON line sum the main path's runs: the engine,
 the no-cache forward, the 5 Llama training steps, the ERNIE steps, the
 Conformer-CTC and the RNN-T steps, the encoder steps and the
@@ -252,7 +260,9 @@ ERNIE_DROPOUT = 0.1            # ERNIE-3.0-Base's attention dropout
 ERNIE_PER_STEP = {"layernorm": 26, "flash_attention_dropout": 12,
                   "flash_attention_bwd_dropout": 12, "softmax_ce": 1,
                   "softmax_ce_bwd": 1, "flash_attention": 0,
-                  "flash_attention_bwd": 0}
+                  "flash_attention_bwd": 0, "flash_attention_sm90": 12,
+                  "flash_attention_bwd_sm90": 12, "flash_attention_mma": 0,
+                  "flash_attention_bwd_mma": 0}
 # Conformer slice. The CTC kernels repeat the plain versions' f32
 # arithmetic step for step: -1e30 ("dead") lattice entries must be equal,
 # the live ones (sums over up to 400 steps of magnitude ~5, |alpha| up to
@@ -265,8 +275,9 @@ CONFORMER_DROPOUT = 0.1        # ConformerConfig's published dropout
 # one flash forward and backward (dropout) a block; the CTC alpha kernel
 # in the forward, the beta kernel in the backward; no other kernel
 CONFORMER_PER_STEP = {"layernorm": 20, "flash_attention_dropout": 4,
-                      "flash_attention_bwd_dropout": 4, "ctc_alpha": 1,
-                      "ctc_beta": 1}
+                      "flash_attention_bwd_dropout": 4,
+                      "flash_attention_mma": 4, "flash_attention_bwd_mma": 4,
+                      "ctc_alpha": 1, "ctc_beta": 1}
 # batch-norm running statistics after one O1 step vs the f32 CPU step
 BN_REL_L2 = 1e-2
 # RNN-T slice. The lattice kernels repeat the plain versions' f32
@@ -279,7 +290,8 @@ RNNT_POST_ATOL = 1e-5
 # model's, the RNN-T alpha kernel in the forward, the beta-gradient kernel
 # in the backward, no CTC kernel
 RNNT_PER_STEP = {"layernorm": 20, "flash_attention_dropout": 4,
-                 "flash_attention_bwd_dropout": 4, "rnnt_alpha": 1,
+                 "flash_attention_bwd_dropout": 4, "flash_attention_mma": 4,
+                 "flash_attention_bwd_mma": 4, "rnnt_alpha": 1,
                  "rnnt_beta_grad": 1}
 # Flash slice: the flash kernels' bool mask, varlen and head widths. The
 # mask phase's main shape is tools/attn_bench.py bench_masked(2048)'s, the
@@ -300,12 +312,18 @@ ENCODER_ATTN = (16, 512, 12, 64)
 # layers): one masked flash forward and backward a layer, two LayerNorms a
 # layer, one softmax-CE forward and backward for the head's loss
 ENCODER_PER_STEP = {"flash_attention_mask": 12, "flash_attention_bwd_mask": 12,
+                    "flash_attention_sm90": 12,
+                    "flash_attention_bwd_sm90": 12,
                     "layernorm": 24, "softmax_ce": 1, "softmax_ce_bwd": 1}
+# The flash rows at bf16 head_dim 64 / 128 run the wgmma / TMA kernels
+# (the sm90 design); the head_dim-36 and -16 rows the mma.sync and
+# CUDA-core ones (the mma design)
 SOURCES = {
-    "flash_attention": ("paddle_tpu_torch/csrc/flash_attention.cu",
+    "flash_attention": ("paddle_tpu_torch/csrc/flash_attention_sm90.cu",
                         "paddle_tpu/kernels/flash_attention.py:108"),
-    "flash_attention_bwd": ("paddle_tpu_torch/csrc/flash_attention_bwd.cu",
-                            "paddle_tpu/kernels/flash_attention.py:173"),
+    "flash_attention_bwd": (
+        "paddle_tpu_torch/csrc/flash_attention_bwd_sm90.cu",
+        "paddle_tpu/kernels/flash_attention.py:173"),
     "paged_attention": ("paddle_tpu_torch/csrc/paged_attention.cu",
                         "paddle_tpu/kernels/paged_attention.py:89"),
     "rmsnorm": ("paddle_tpu_torch/csrc/rmsnorm.cu",
@@ -321,10 +339,11 @@ SOURCES = {
     # the dropout instantiations of the flash kernels (`_drop_mask` applied
     # at flash_attention.py:158 in `_fwd_kernel`, :222 and :277 in the
     # backward kernels)
-    "flash_attention_dropout": ("paddle_tpu_torch/csrc/flash_attention.cu",
-                                "paddle_tpu/kernels/flash_attention.py:108"),
+    "flash_attention_dropout": (
+        "paddle_tpu_torch/csrc/flash_attention_sm90.cu",
+        "paddle_tpu/kernels/flash_attention.py:108"),
     "flash_attention_bwd_dropout": (
-        "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+        "paddle_tpu_torch/csrc/flash_attention_bwd_sm90.cu",
         "paddle_tpu/kernels/flash_attention.py:173"),
     # the same kernels' head_dim-36 instantiations (the Conformer's)
     "flash_attention_dropout_d36": (
@@ -344,15 +363,16 @@ SOURCES = {
     # the flash kernels with a bool mask (`_tile_mask` at :73, applied in
     # all three kernels), on packed sequences (segment ids and the [lo, hi)
     # tables, `flash_attn_varlen_pallas` :860) and at head_dim 16
-    "flash_attention_mask": ("paddle_tpu_torch/csrc/flash_attention.cu",
+    "flash_attention_mask": ("paddle_tpu_torch/csrc/flash_attention_sm90.cu",
                              "paddle_tpu/kernels/flash_attention.py:108"),
     "flash_attention_bwd_mask": (
-        "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+        "paddle_tpu_torch/csrc/flash_attention_bwd_sm90.cu",
         "paddle_tpu/kernels/flash_attention.py:173"),
-    "flash_attention_varlen": ("paddle_tpu_torch/csrc/flash_attention.cu",
-                               "paddle_tpu/kernels/flash_attention.py:108"),
+    "flash_attention_varlen": (
+        "paddle_tpu_torch/csrc/flash_attention_sm90.cu",
+        "paddle_tpu/kernels/flash_attention.py:108"),
     "flash_attention_bwd_varlen": (
-        "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+        "paddle_tpu_torch/csrc/flash_attention_bwd_sm90.cu",
         "paddle_tpu/kernels/flash_attention.py:173"),
     "flash_attention_d16": ("paddle_tpu_torch/csrc/flash_attention.cu",
                             "paddle_tpu/kernels/flash_attention.py:108"),
@@ -506,6 +526,7 @@ def paged_phase(torch, g):
 
 
 def flash_phase(torch, g):
+    from paddle_tpu_torch import kernels as K
     from paddle_tpu_torch.kernels.flash_attention import (
         flash_attention_cuda, flash_attention_plain)
 
@@ -523,7 +544,9 @@ def flash_phase(torch, g):
         check(torch, f"S={S} Hkv={Hkv} lse", la, lb, F32_ATOL)
         worst = max(worst, err)
         if S == 2048:
+            before = K.launch_counts()
             ms = time_ms(torch, lambda: flash_attention_cuda(q, k, v, True))
+            design = ran_design(K, before)
             plain = time_ms(torch, lambda: flash_attention_plain(
                 q, k, v, True), iters=5)
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -535,7 +558,7 @@ def flash_phase(torch, g):
             bound, by = bound_ms(nbytes, 4 * pairs * 32 * 128)
             row = dict(shape=f"[1, {S}, 32, 128] causal", ms=ms,
                        plain_ms=plain, library_ms=lib, bound_ms=bound,
-                       bound_by=by)
+                       bound_by=by, design=design)
     row["max_abs_err"] = worst
     return row
 
@@ -549,7 +572,41 @@ def check_grad(torch, name, got, want, frac) -> float:
                  frac * want.float().abs().max().item(), frac)
 
 
+def ran_design(K, before, base="flash_attention"):
+    """The flash design (``sm90``: the wgmma / TMA kernels, ``mma``: the
+    mma.sync / CUDA-core ones) whose launch counter under ``base`` moved since
+    the counts ``before``; raises unless exactly one did."""
+    moved = [d for d in ("sm90", "mma")
+             if K.LAUNCHES[f"{base}_{d}"] != before[f"{base}_{d}"]]
+    if len(moved) != 1:
+        raise AssertionError(f"{base}: designs launched {moved}, want one")
+    return moved[0]
+
+
+def want_design(rows, design):
+    """Every row of ``rows`` (and its sub-rows) ran ``design``."""
+    for r in rows:
+        got = [r["design"]] + [x["design"] for x in r.values()
+                               if isinstance(x, dict) and "design" in x]
+        if any(d != design for d in got):
+            raise AssertionError(f"{r['shape']}: ran {got}, want {design}")
+
+
+def all_sm90(what, counts):
+    """Every flash launch among ``counts`` went through the sm90 kernels."""
+    for base in ("flash_attention", "flash_attention_bwd"):
+        total = counts[f"{base}_sm90"] + counts[f"{base}_mma"]
+        if not total or counts[f"{base}_mma"]:
+            raise AssertionError(f"{what}: {base} launches {total}, of them "
+                                 f"{counts[f'{base}_mma']} on the mma.sync "
+                                 f"kernels; want all on sm90")
+    print(f"  {what}: every flash launch ran the sm90 kernels "
+          f"({counts['flash_attention_sm90']} forward, "
+          f"{counts['flash_attention_bwd_sm90']} backward)")
+
+
 def flash_bwd_phase(torch, g):
+    from paddle_tpu_torch import kernels as K
     from paddle_tpu_torch.kernels.flash_attention import (
         delta_minus_glse, flash_attention_bwd_cuda, flash_attention_bwd_plain,
         flash_attention_plain)
@@ -574,8 +631,10 @@ def flash_bwd_phase(torch, g):
                                           a, b, GRAD_FRAC_BF16))
         del got, want
         if S == 2048 and Hkv == 32:
+            before = K.launch_counts()
             ms = time_ms(torch, lambda: flash_attention_bwd_cuda(
                 q, k, v, do, lse, dg, True))
+            design = ran_design(K, before, "flash_attention_bwd")
             plain = time_ms(torch, lambda: flash_attention_bwd_plain(
                 q, k, v, do, lse, dg, True), iters=3, warmup=1)
             qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
@@ -593,7 +652,7 @@ def flash_bwd_phase(torch, g):
             bound, by = bound_ms(nbytes, 10 * pairs * 32 * 128)
             row = dict(shape=f"[1, {S}, 32, 128] causal", ms=ms,
                        plain_ms=plain, library_ms=lib, bound_ms=bound,
-                       bound_by=by)
+                       bound_by=by, design=design)
     row["max_abs_err"] = worst
     return row
 
@@ -813,6 +872,7 @@ def flash_dropout_phases(torch, g):
     """The flash kernels' dropout: the mask function against its plain
     version bit for bit, each kernel's applied mask read out by probes,
     then outputs and gradients against the plain versions."""
+    from paddle_tpu_torch import kernels as K
     from paddle_tpu_torch.kernels.flash_attention import (
         delta_minus_glse, dropout_bits_cuda, dropout_bits_plain,
         flash_attention_bwd_cuda, flash_attention_bwd_plain,
@@ -862,16 +922,20 @@ def flash_dropout_phases(torch, g):
         if rows is not None:
             continue
         # the ERNIE shape: kernel, plain, library, and the dense kernel
+        before = K.launch_counts()
         fwd = time_ms(torch, lambda: flash_attention_cuda(q, k, v, False,
                                                           None, p, seed))
+        design_f = ran_design(K, before)
         dense = time_ms(torch, lambda: flash_attention_cuda(q, k, v))
         fwd_plain = time_ms(torch, lambda: flash_attention_plain(
             q, k, v, False, None, p, seed), iters=3, warmup=1)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         sdpa = torch.nn.functional.scaled_dot_product_attention
         fwd_lib = time_ms(torch, lambda: sdpa(qt, kt, vt, dropout_p=p))
+        before = K.launch_counts()
         bwd = time_ms(torch, lambda: flash_attention_bwd_cuda(
             q, k, v, do, lse, dg, False, None, p, seed))
+        design_b = ran_design(K, before, "flash_attention_bwd")
         bwd_dense = time_ms(torch, lambda: flash_attention_bwd_cuda(
             q, k, v, do, lse, dg))
         bwd_plain = time_ms(torch, lambda: flash_attention_bwd_plain(
@@ -899,10 +963,10 @@ def flash_dropout_phases(torch, g):
         shape = f"{tag} bf16 p={p}"
         rows = (dict(shape=shape, ms=fwd, plain_ms=fwd_plain,
                      library_ms=fwd_lib, bound_ms=bound_f, bound_by=by_f,
-                     dense_ms=dense),
+                     dense_ms=dense, design=design_f),
                 dict(shape=shape, ms=bwd, plain_ms=bwd_plain,
                      library_ms=bwd_lib, bound_ms=bound_b, bound_by=by_b,
-                     dense_ms=bwd_dense))
+                     dense_ms=bwd_dense, design=design_b))
     rows[0]["max_abs_err"], rows[1]["max_abs_err"] = worst_f, worst_b
     return rows
 
@@ -1127,6 +1191,7 @@ def flash_d36_phase(torch, g):
     and backward, dropout p 0.1 and 0, against the plain versions; the
     applied mask read back by the probes; times at the Conformer's
     [16, 400, 4, 36] bf16."""
+    from paddle_tpu_torch import kernels as K
     from paddle_tpu_torch.kernels.flash_attention import (
         delta_minus_glse, flash_attention_bwd_cuda, flash_attention_bwd_plain,
         flash_attention_cuda, flash_attention_plain)
@@ -1157,16 +1222,20 @@ def flash_d36_phase(torch, g):
                                               GRAD_FRAC_BF16))
     out, lse = flash_attention_cuda(q, k, v, False, None, p, seed)
     dg = delta_minus_glse(out, do)
+    before = K.launch_counts()
     fwd = time_ms(torch, lambda: flash_attention_cuda(q, k, v, False, None, p,
                                                       seed))
+    design_f = ran_design(K, before)
     dense = time_ms(torch, lambda: flash_attention_cuda(q, k, v))
     fwd_plain = time_ms(torch, lambda: flash_attention_plain(
         q, k, v, False, None, p, seed), iters=3, warmup=1)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     fwd_lib = time_ms(torch, lambda: sdpa(qt, kt, vt, dropout_p=p))
+    before = K.launch_counts()
     bwd = time_ms(torch, lambda: flash_attention_bwd_cuda(
         q, k, v, do, lse, dg, False, None, p, seed))
+    design_b = ran_design(K, before, "flash_attention_bwd")
     bwd_dense = time_ms(torch, lambda: flash_attention_bwd_cuda(
         q, k, v, do, lse, dg))
     bwd_plain = time_ms(torch, lambda: flash_attention_bwd_plain(
@@ -1191,10 +1260,10 @@ def flash_d36_phase(torch, g):
     shape = f"[{B}, {S}, {H}, {D}] bf16 p={p}"
     return (dict(shape=shape, ms=fwd, plain_ms=fwd_plain, library_ms=fwd_lib,
                  bound_ms=bound_f, bound_by=by_f, dense_ms=dense,
-                 max_abs_err=worst_f),
+                 max_abs_err=worst_f, design=design_f),
             dict(shape=shape, ms=bwd, plain_ms=bwd_plain, library_ms=bwd_lib,
                  bound_ms=bound_b, bound_by=by_b, dense_ms=bwd_dense,
-                 max_abs_err=worst_b))
+                 max_abs_err=worst_b, design=design_b))
 
 
 # ---------------------------------------------------------------------------
@@ -1245,13 +1314,19 @@ def _flash_case(torch, g, F, tag, B, Sq, Sk, H, Hkv, D, dt, causal, p=0.0,
 def _timed_pair(torch, fwd, bwd, fwd_plain, bwd_plain, fwd_lib, bwd_lib,
                 plain_iters=3):
     """Device ms of kernel, plain version and library call, forward and
-    backward (the library's backward is its autograd backward)."""
+    backward (the library's backward is its autograd backward), then the
+    flash design each kernel ran."""
+    from paddle_tpu_torch import kernels as K
+
+    before = K.launch_counts()
     t = [time_ms(torch, fwd), time_ms(torch, bwd)]
+    designs = [ran_design(K, before), ran_design(K, before,
+                                                 "flash_attention_bwd")]
     t += [time_ms(torch, fwd_plain, iters=plain_iters, warmup=1),
           time_ms(torch, bwd_plain, iters=plain_iters, warmup=1)]
     if fwd_lib is None:
-        return t + [None, None]
-    return t + [time_ms(torch, fwd_lib), time_ms(torch, bwd_lib)]
+        return t + [None, None] + designs
+    return t + [time_ms(torch, fwd_lib), time_ms(torch, bwd_lib)] + designs
 
 
 def _sdpa_lib(torch, q, k, v, do, **kw):
@@ -1302,7 +1377,8 @@ def _flash_timed(torch, F, tag, q, k, v, do, lse, dg, p=0.0, seed=11,
 def _rows(shape, times, bounds, errs, **extra):
     fwd, bwd = ({"shape": shape, "ms": times[i], "plain_ms": times[2 + i],
                  "library_ms": times[4 + i], "bound_ms": bounds[i][0],
-                 "bound_by": bounds[i][1], "max_abs_err": errs[i], **extra}
+                 "bound_by": bounds[i][1], "max_abs_err": errs[i],
+                 "design": times[6 + i], **extra}
                 for i in (0, 1))
     return fwd, bwd
 
@@ -1312,7 +1388,7 @@ def _sub_rows(rows, key, more):
     ``rows``' (their errors fold into the main rows')."""
     for r, m in zip(rows, more):
         r[key] = {n: m[n] for n in ("shape", "ms", "plain_ms", "library_ms",
-                                    "bound_ms", "bound_by")}
+                                    "bound_ms", "bound_by", "design")}
         r["max_abs_err"] = max(r["max_abs_err"], m["max_abs_err"])
 
 
@@ -1514,7 +1590,7 @@ def flash_varlen_phase(torch, g, K):
     nb = q.numel() * 2
     bounds = (bound_ms(4 * nb + H * T * 4, 4 * D * H * half),
               bound_ms(7 * nb + 2 * H * T * 4, 10 * D * H * half))
-    lib = [("none" if t is None else f"{t:.4f}") for t in times[4:]]
+    lib = [("none" if t is None else f"{t:.4f}") for t in times[4:6]]
     print(f"  T {T}, {NSEQ} documents: forward kernel {times[0]:.4f} ms, "
           f"plain {times[2]:.4f}, library {lib[0]}, bound "
           f"{bounds[0][0]:.4f} ({bounds[0][1]}); backward kernel "
@@ -1708,6 +1784,7 @@ def whole_step_encoder_mask(torch, K):
                       for n, p in model.named_parameters()
                       if p.grad is not None})
     want = {"flash_attention_mask": 2, "flash_attention_bwd_mask": 2,
+            "flash_attention_sm90": 2, "flash_attention_bwd_sm90": 2,
             "layernorm": 4, "softmax_ce": 1, "softmax_ce_bwd": 1}
     if {k: v for k, v in launched.items() if v} != want:
         raise AssertionError(f"whole encoder step launched {launched}, "
@@ -1802,6 +1879,7 @@ def encoder_mask_phase(torch, K):
     if per_step != {k: float(v) for k, v in ENCODER_PER_STEP.items()}:
         raise AssertionError("the encoder steps launched other kernels than "
                              "the model's structure gives")
+    all_sm90("the encoder steps", counts)
     mean = sum(walls) / len(walls)
     tok_s = real / mean
     flops = encoder_flops_per_token(L, h, 4 * h, V, S)
@@ -2105,6 +2183,7 @@ def training_phase(torch, K):
     print(f"  launches in the 5 steps: {counts}")
     if missing:
         raise AssertionError(f"the training steps never launched {missing}")
+    all_sm90("the training steps", counts)
     step = sum(walls) / len(walls)
     tok_s = B * S / step
     flops = tr.matmul_flops_per_token(S)
@@ -2329,6 +2408,7 @@ def ernie_training_phase(torch, K):
         raise AssertionError(f"the ERNIE loss did not fall: {losses}")
     per_step = {k: counts[k] / ERNIE_STEPS for k in ERNIE_PER_STEP}
     print(f"  launches per step: {per_step} (expected {ERNIE_PER_STEP})")
+    all_sm90("the ERNIE steps", counts)
     if per_step != {k: float(v) for k, v in ERNIE_PER_STEP.items()}:
         raise AssertionError("the ERNIE steps launched other kernels than "
                              "the model's structure gives")
@@ -2464,7 +2544,9 @@ def whole_step_conformer(torch, K, head="ctc"):
     per_step = {k: v for k, v in launched.items() if v}
     # 2 of the 4 layers: half the per-layer kernels, one loss's pair
     want = {k: v // 2 if k in ("layernorm", "flash_attention_dropout",
-                               "flash_attention_bwd_dropout") else v
+                               "flash_attention_bwd_dropout",
+                               "flash_attention_mma",
+                               "flash_attention_bwd_mma") else v
             for k, v in per_layers.items()}
     if per_step != want:
         raise AssertionError(f"the card's {tag} step launched {per_step}, "
@@ -2712,9 +2794,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     (rows["flash_attention_d16"],
      rows["flash_attention_bwd_d16"]) = flash_head_dim_phase(torch, g)
+    # bf16 at head_dim 64 / 128: the wgmma / TMA kernels; head_dim 36, the
+    # f32 kernel and the other widths: the mma.sync / CUDA-core ones
+    for name, r in rows.items():
+        if name.startswith("flash_attention"):
+            want_design([r], "mma" if name.endswith(("_d36", "_d16"))
+                        else "sm90")
     for name, r in rows.items():
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
-        print(f"  {name} at {r['shape']}: kernel {r['ms']:.4f} ms, plain "
+        print(f"  {name} ({r.get('design', 'cuda')}) at {r['shape']}: kernel "
+              f"{r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, library {lib} ms, bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
     torch.cuda.empty_cache()

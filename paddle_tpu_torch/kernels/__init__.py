@@ -16,7 +16,10 @@ buffers a ctypes launch filled, raises when it is handed a tensor that
 requires grad while grad mode is on (:func:`refuse_grad`), so no output is
 ever cut from the autograd graph in silence. The kernels so far (the
 flash kernels count their dropout, bool-mask and varlen variants under
-their own names, so a run can show which variant its path took):
+their own names, so a run can show which variant its path took, and each
+launch once more under the design that ran it:
+``flash_attention{,_bwd}_sm90``, the wgmma / TMA kernels
+``flash_attention{,_bwd}_sm90.cu``, or ``_mma``, the mma.sync ones):
 
 ===========================  =============================  =====================
 name                         port (kernels/ + csrc/)        replaces, in
@@ -67,10 +70,14 @@ LAUNCHES: dict[str, int] = {
     "flash_attention_dropout": 0,
     "flash_attention_mask": 0,
     "flash_attention_varlen": 0,
+    "flash_attention_sm90": 0,
+    "flash_attention_mma": 0,
     "flash_attention_bwd": 0,
     "flash_attention_bwd_dropout": 0,
     "flash_attention_bwd_mask": 0,
     "flash_attention_bwd_varlen": 0,
+    "flash_attention_bwd_sm90": 0,
+    "flash_attention_bwd_mma": 0,
     "layernorm": 0,
     "paged_attention": 0,
     "rmsnorm": 0,

@@ -7,15 +7,15 @@ Replaces ``paddle_tpu/kernels/flash_attention.py`` ``_fwd_kernel`` (its
 ``(out, lse)`` becomes :class:`FlashAttentionFunction` (dense batches) and
 :class:`FlashVarlenFunction` (packed sequences), with every option of the
 reference's kernels: causal or not, dropout on the probabilities, a dense
-bool mask, varlen segments and any head width 1..256. The kernels are
-``csrc/flash_attention.cu`` (forward) and ``csrc/flash_attention_bwd.cu``
-(dQ, then dK/dV); the plain versions repeat the reference's
-``_mirror_fwd`` and ``_mirror_bwd`` in PyTorch.
+bool mask, varlen segments and any head width 1..256. The kernels are two
+families (below), each a forward and a backward (dQ, then dK/dV); the
+plain versions repeat the reference's ``_mirror_fwd`` and ``_mirror_bwd``
+in PyTorch.
 
 Dropout (the reference's ``_drop_mask``): the keep bit of score
 ``(bh, i, j)`` is a pure function of ``(seed, bh, i, j)``
 (:func:`dropout_bits_plain`; in CUDA ``drop_row_key``/``drop_bits`` of
-``csrc/common.cuh``, shared by all three kernels), never of a tile, so
+``csrc/common.cuh``, shared by every flash kernel), never of a tile, so
 the backward kernels regenerate the forward's mask although they tile
 otherwise. The TPU keyed its bits per (q-block, k-block) tile, which only
 holds while every kernel uses the same tiles. As in the reference, ``l``
@@ -58,14 +58,28 @@ attends key j iff ``j <= i + (Sk - Sq)``.
 
 What bounds the kernels on the H100: at long S, the flops (``4 * Sq * Sk
 * D`` per head forward, 2.5 times that backward, about half of each
-causal) against the bf16 tensor-core peak. The forward tiles 64 queries
-by 64 keys through shared memory with the online softmax in f32; the
-backward runs FlashAttention-2's two kernels (dQ per query tile; dK/dV per
-key tile, looping over the query heads of its KV group, so GQA needs no
-atomics). In bf16 the products run on the tensor cores (``mma.sync``,
-f32 accumulation; probabilities and ds are rounded to bf16 as operands,
-as in FlashAttention); in f32 on the CUDA cores. ``wgmma``/TMA tiles are
-the next step toward the bound (PERF.md).
+causal) against the bf16 tensor-core peak. Two kernel families compute the
+same function (:func:`_flash_design` picks one from the inputs alone):
+
+- ``sm90`` (``csrc/flash_attention_sm90.cu``,
+  ``csrc/flash_attention_bwd_sm90.cu``): bf16 at head_dim 64 and 128 with
+  every row and base address 16-byte aligned, the widths of every
+  full-width model path. Hopper's design: a producer warp keeps TMA loads
+  of K and V (Q and dO in the dK/dV kernel) in flight through a ring of
+  shared-memory stages, two consumer warpgroups run ``wgmma`` on them
+  (probabilities and ds as the register operand, V, K, Q and dO read
+  transposed through the descriptor, nothing moved by a thread), softmax
+  in f32 with ``exp2f``. The backward keeps FlashAttention-2's two kernels
+  (dQ; dK/dV looping over the query heads of its KV group), so it adds no
+  atomics. Their tensor maps' geometry is :func:`tma_geometry`.
+- ``mma`` (``csrc/flash_attention.cu``, ``csrc/flash_attention_bwd.cu``):
+  everything else — f32 (CUDA cores), the other head widths and rows that
+  are not 16-byte aligned (``mma.sync`` on tiles the threads load).
+
+Probabilities and ds are rounded to bf16 as product operands, as in
+FlashAttention. Each launch counts under its variant
+(``flash_attention{,_bwd}`` + ``_dropout``/``_mask``/``_varlen``) and its
+design (``flash_attention{,_bwd}_sm90`` or ``_mma``).
 
 Head widths 1..256: each rides zero-padded in the kernels' shared-memory
 tiles to its class, a multiple of 16 up to 128 (the tensor-core product
@@ -93,7 +107,8 @@ __all__ = ["flash_attention_fwd", "flash_attention_plain",
            "flash_attn_varlen_plain", "flash_attn_varlen_cuda",
            "flash_attn_varlen_bwd_plain", "flash_attn_varlen_bwd_cuda",
            "FlashVarlenFunction", "mask_view", "segments_from_cu",
-           "MAX_HEAD_DIM"]
+           "MAX_HEAD_DIM", "SM90_HEAD_DIMS", "tma_geometry", "fwd_geometry",
+           "bwd_geometry", "dkv_key_tile"]
 
 NEG_INF = -1e30
 # bf16(-1e30) in f32: the reference's _canon_mask stores a masked entry so
@@ -408,48 +423,140 @@ def _counter(base, drop, mask, varlen):
                    else "_dropout" if drop else "")
 
 
+SM90_HEAD_DIMS = (64, 128)
+
+
+def _flash_design(dtype, D, chunk):
+    """Which kernel family takes a launch: ``"sm90"`` (the wgmma / TMA
+    kernels, ``csrc/flash_attention{,_bwd}_sm90.cu``) for bf16 at head_dim
+    64 or 128 with every row and base address 16-byte aligned (``chunk``
+    16, which TMA needs), else ``"mma"`` (``csrc/flash_attention{,_bwd}.cu``:
+    f32, other widths, misaligned rows). Each launch also counts under
+    ``flash_attention{,_bwd}_<design>``."""
+    return ("sm90" if dtype == torch.bfloat16 and D in SM90_HEAD_DIMS
+            and chunk == 16 else "mma")
+
+
+def tma_geometry(rows, batches, heads, D, box_rows):
+    """The TMA tensor map of a bf16 ``[batches, rows, heads, D]`` tensor as
+    the sm90 kernels read it (``sm90::encode_map``): dims innermost first
+    ``(D, heads, rows, batches)``, the byte strides of dims 1..3, and the
+    box ``(64, 1, box_rows, 1)``: 64 columns (128 bytes, one 128-byte
+    swizzle atom; a 128-wide head loads as two boxes) of one head over
+    ``box_rows`` rows. Varlen tensors ``[T, heads, D]`` are ``rows = T``,
+    ``batches = 1``. Rows past ``rows`` read as zeros."""
+    return (D, heads, rows, batches,
+            2 * D, 2 * heads * D, 2 * rows * heads * D,
+            64, 1, box_rows, 1)
+
+
+def _geometry(maps):
+    """The C array of ``tma_geometry`` tuples, one after the other."""
+    flat = [x for g in maps for x in g]
+    return (ctypes.c_longlong * len(flat))(*flat)
+
+
+def _rows_batches(t, B, varlen):
+    """(rows, batches) of a kernel tensor: ``[B, S, H, D]``, or
+    ``[T, H, D]`` as one batch of T rows."""
+    return (t.shape[0], 1) if varlen else (t.shape[1], B)
+
+
+def fwd_geometry(q, k, B, varlen):
+    """The forward's tensor maps: q, k, v, each with 128-row boxes."""
+    H, D, Hkv = q.shape[-2], q.shape[-1], k.shape[-2]
+    gq = tma_geometry(*_rows_batches(q, B, varlen), H, D, 128)
+    gk = tma_geometry(*_rows_batches(k, B, varlen), Hkv, D, 128)
+    return (gq, gk, gk)
+
+
+def dkv_key_tile(D):
+    """The dK/dV kernel's key tile (``dkv_bk`` in
+    ``csrc/flash_attention_bwd_sm90.cu``): 128 keys at head_dim 64, whose
+    two consumer warpgroups split them, 64 at 128, where they split dK
+    from dV instead."""
+    return 128 if D == 64 else 64
+
+
+def bwd_geometry(q, k, B, varlen):
+    """The backward's tensor maps: for the dQ kernel q and dO with 128-row
+    boxes, k and v with 64; for the dK/dV kernel k and v with
+    :func:`dkv_key_tile` rows, q and dO with 64."""
+    H, D, Hkv = q.shape[-2], q.shape[-1], k.shape[-2]
+    rq, rk = _rows_batches(q, B, varlen), _rows_batches(k, B, varlen)
+    q128, q64 = (tma_geometry(*rq, H, D, n) for n in (128, 64))
+    k64, kt = (tma_geometry(*rk, Hkv, D, n) for n in (64, dkv_key_tile(D)))
+    return (q128, q128, k64, k64, kt, kt, q64, q64)
+
+
 _FWD_ARGS = [_P] * 5 + [_I] * 6 + [_F, _I, _I, _I, _U, _U, _F] \
     + [_P, _L, _L, _L, _L, _P, _P, _I, _I, _P]
 _BWD_ARGS = [_P] * 9 + [_I] * 6 + [_F, _I, _I, _I, _U, _U, _F] \
     + [_P, _L, _L, _L, _L, _P, _P, _I, _I, _P]
+_SM90_FWD_ARGS = [_P] * 5 + [_I] * 6 + [_F, _I, _I, _U, _U, _F] \
+    + [_P, _L, _L, _L, _L, _P, _P, _I, _P, _P]
+_SM90_BWD_ARGS = [_P] * 9 + [_I] * 6 + [_F, _I, _I, _U, _U, _F] \
+    + [_P, _L, _L, _L, _L, _P, _P, _I, _P, _P]
 
 
 def _launch_fwd(q, k, v, out, lse, B, Sq, Sk, causal, scale, drop, m4,
                 cu=(None, None), Tq=0):
     H, D, Hkv = q.shape[-2], q.shape[-1], k.shape[-2]
-    fn = _build.function("flash_attention", "flash_attention_fwd", _FWD_ARGS)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             lse.data_ptr(), B, H, Hkv, Sq, Sk, D, float(scale),
-             int(bool(causal)), _DTYPES[q.dtype], *drop, *_mask_args(m4),
-             *(None if c is None else c.data_ptr() for c in cu), Tq,
-             _chunk(D, q, k, v, out), stream)
-    _build.check(err, "flash_attention", "flash_attention_fwd launch")
+    chunk = _chunk(D, q, k, v, out)
+    design = _flash_design(q.dtype, D, chunk)
+    common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+              lse.data_ptr(), B, H, Hkv, Sq, Sk, D, float(scale),
+              int(bool(causal)))
+    tail = (*drop, *_mask_args(m4),
+            *(None if c is None else c.data_ptr() for c in cu), Tq)
+    if design == "sm90":
+        lib, name = "flash_attention_sm90", "flash_attention_sm90_fwd"
+        fn = _build.function(lib, name, _SM90_FWD_ARGS)
+        err = fn(*common, *tail,
+                 _geometry(fwd_geometry(q, k, B, cu[0] is not None)), stream)
+    else:
+        lib, name = "flash_attention", "flash_attention_fwd"
+        fn = _build.function(lib, name, _FWD_ARGS)
+        err = fn(*common, _DTYPES[q.dtype], *tail, chunk, stream)
+    _build.check(err, lib, f"{name} launch")
     LAUNCHES[_counter("flash_attention", drop[0], m4 is not None,
                       cu[0] is not None)] += 1
+    LAUNCHES[f"flash_attention_{design}"] += 1
 
 
 def _launch_bwd(q, k, v, g, lse, dg, dq, dk, dv, B, Sq, Sk, causal, scale,
                 drop, m4, cu=(None, None), Tq=0):
     H, D, Hkv = q.shape[-2], q.shape[-1], k.shape[-2]
-    fn = _build.function("flash_attention_bwd", "flash_attention_bwd",
-                         _BWD_ARGS)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
-             lse.data_ptr(), dg.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-             dv.data_ptr(), B, H, Hkv, Sq, Sk, D, float(scale),
-             int(bool(causal)), _DTYPES[q.dtype], *drop, *_mask_args(m4),
-             *(None if c is None else c.data_ptr() for c in cu), Tq,
-             _chunk(D, q, k, v, g, dq, dk, dv), stream)
-    _build.check(err, "flash_attention_bwd", "flash_attention_bwd launch")
+    chunk = _chunk(D, q, k, v, g, dq, dk, dv)
+    design = _flash_design(q.dtype, D, chunk)
+    common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+              lse.data_ptr(), dg.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+              dv.data_ptr(), B, H, Hkv, Sq, Sk, D, float(scale),
+              int(bool(causal)))
+    tail = (*drop, *_mask_args(m4),
+            *(None if c is None else c.data_ptr() for c in cu), Tq)
+    if design == "sm90":
+        lib, name = "flash_attention_bwd_sm90", "flash_attention_sm90_bwd"
+        fn = _build.function(lib, name, _SM90_BWD_ARGS)
+        err = fn(*common, *tail,
+                 _geometry(bwd_geometry(q, k, B, cu[0] is not None)), stream)
+    else:
+        lib, name = "flash_attention_bwd", "flash_attention_bwd"
+        fn = _build.function(lib, name, _BWD_ARGS)
+        err = fn(*common, _DTYPES[q.dtype], *tail, chunk, stream)
+    _build.check(err, lib, f"{name} launch")
     LAUNCHES[_counter("flash_attention_bwd", drop[0], m4 is not None,
                       cu[0] is not None)] += 1
+    LAUNCHES[f"flash_attention_bwd_{design}"] += 1
 
 
 def flash_attention_cuda(q, k, v, causal=False, sm_scale=None,
                          dropout_p=0.0, seed=0, mask=None):
-    """Launch ``csrc/flash_attention.cu``; same contract as
-    :func:`flash_attention_plain`. Raises on what the kernel does not take.
+    """Launch the flash forward kernel of the inputs' design
+    (:func:`_flash_design`); same contract as :func:`flash_attention_plain`.
+    Raises on what the kernel does not take.
     Counts under ``flash_attention_mask`` with a mask, else
     ``flash_attention_dropout`` when ``dropout_p > 0``."""
     refuse_grad("flash_attention_cuda", q, k, v)
@@ -480,8 +587,9 @@ def _check_grads(what, q, g, lse, dg, lse_shape):
 def flash_attention_bwd_cuda(q, k, v, g, lse, dg, causal=False,
                              sm_scale=None, dropout_p=0.0, seed=0,
                              mask=None):
-    """Launch ``csrc/flash_attention_bwd.cu`` (the dQ kernel, then the
-    dK/dV kernel); same contract as :func:`flash_attention_bwd_plain`.
+    """Launch the flash backward kernels of the inputs' design (the dQ
+    kernel, then the dK/dV kernel); same contract as
+    :func:`flash_attention_bwd_plain`.
     Counts under ``flash_attention_bwd_mask`` with a mask, else
     ``flash_attention_bwd_dropout`` when ``dropout_p > 0``."""
     refuse_grad("flash_attention_bwd_cuda", q, k, v, g, lse, dg)
@@ -670,7 +778,7 @@ def _longest(cu):
 
 def flash_attn_varlen_cuda(q, k, v, cu_q, cu_k, causal=False, sm_scale=None,
                            dropout_p=0.0, seed=0, cu_host=None):
-    """Launch ``csrc/flash_attention.cu`` on packed sequences (one thread
+    """Launch the flash forward kernel on packed sequences (one thread
     block per sequence, query tile and head); same contract as
     :func:`flash_attn_varlen_plain`. ``cu_host`` (the lists
     :func:`_check_varlen` returns) spares the copy of ``cu_seqlens`` to the
@@ -696,7 +804,7 @@ def flash_attn_varlen_cuda(q, k, v, cu_q, cu_k, causal=False, sm_scale=None,
 def flash_attn_varlen_bwd_cuda(q, k, v, g, lse, dg, cu_q, cu_k, causal=False,
                                sm_scale=None, dropout_p=0.0, seed=0,
                                cu_host=None):
-    """Launch ``csrc/flash_attention_bwd.cu`` on packed sequences; same
+    """Launch the flash backward kernels on packed sequences; same
     contract as :func:`flash_attn_varlen_bwd_plain`. Counts under
     ``flash_attention_bwd_varlen``."""
     refuse_grad("flash_attn_varlen_bwd_cuda", q, k, v, g, lse, dg)

@@ -174,7 +174,9 @@ def test_wrappers_launch_on_cuda_and_count(gen):
         "flash_attention_bwd_mask": 0, "flash_attention_bwd_varlen": 0,
         "layernorm": 0, "paged_attention": 1, "rmsnorm": 1,
         "rmsnorm_bwd": 0, "softmax_ce": 0, "softmax_ce_bwd": 0,
-        "ctc_alpha": 0, "ctc_beta": 0, "rnnt_alpha": 0, "rnnt_beta_grad": 0}
+        "ctc_alpha": 0, "ctc_beta": 0, "rnnt_alpha": 0, "rnnt_beta_grad": 0,
+        "flash_attention_sm90": 1, "flash_attention_mma": 0,
+        "flash_attention_bwd_sm90": 0, "flash_attention_bwd_mma": 0}
 
 
 def test_wrappers_raise_on_what_the_kernel_does_not_take(gen):
@@ -480,11 +482,15 @@ def test_dropout_bits_equal_the_plain_function(gen):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("d", [64, 128])
-def test_flash_kernels_apply_the_plain_mask(gen, dtype, d):
+@pytest.mark.parametrize("sq", [150, 300])
+def test_flash_kernels_apply_the_plain_mask(gen, dtype, d, sq):
     """Probes with S_k = D: q = k = 0 makes every probability 1 / D, so
     out reads z / (D (1 - p)) with v = I; dQ with k = v = I and dO = 1
-    reads scale * z / (D (1 - p)); dV with dO = I (S_q = D) reads z^T."""
-    B, H, Sq, p, seed = 2, 3, 150, 0.1, 77
+    reads scale * z / (D (1 - p)); dV with dO = I (S_q = D) reads z^T.
+    S_q 300 spans three of the sm90 kernels' 128-row query tiles (bf16
+    takes them at both widths; f32 the mma kernels)."""
+    B, H, Sq, p, seed = 2, 3, sq, 0.1, 77
+    before = K.launch_counts()
     zeros = torch.zeros(B, Sq, H, d, device="cuda", dtype=dtype)
     kzero = torch.zeros(B, d, H, d, device="cuda", dtype=dtype)
     eye = torch.eye(d, device="cuda", dtype=dtype)[None, :, None, :].expand(
@@ -505,6 +511,9 @@ def test_flash_kernels_apply_the_plain_mask(gen, dtype, d):
                                         False, None, p, seed)
     zv = (dv.float() * d * (1 - p)).round().permute(0, 2, 3, 1)
     assert torch.equal(zv, keep[:, :, :d])
+    design = "sm90" if dtype == torch.bfloat16 else "mma"
+    assert _designs(before) == {f"flash_attention_{design}": 1,
+                                f"flash_attention_bwd_{design}": 2}
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -542,6 +551,7 @@ def test_dropout_variants_count_under_their_own_names(gen):
     after = K.launch_counts()
     assert {k: after[k] - before[k] for k in after if after[k] != before[k]} \
         == {"flash_attention_dropout": 1, "flash_attention_bwd_dropout": 1,
+            "flash_attention_sm90": 1, "flash_attention_bwd_sm90": 1,
             "layernorm": 1}
 
 
@@ -558,7 +568,8 @@ def test_bool_mask_on_the_card_runs_the_mask_kernels(gen):
             q, k, v, attn_mask=mask.to(q.device)).float().square().sum(),
         tensors, torch.bfloat16)
     assert {k: v for k, v in launched.items() if v} == {
-        "flash_attention_mask": 1, "flash_attention_bwd_mask": 1}
+        "flash_attention_mask": 1, "flash_attention_bwd_mask": 1,
+        "flash_attention_sm90": 1, "flash_attention_bwd_sm90": 1}
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -812,7 +823,9 @@ def test_conformer_tiny_step_on_the_card_matches_the_cpu(gen):
     (l0, launched, g0, b0), (l1, _, g1, b1) = out
     assert l0 == pytest.approx(l1, rel=1e-4)
     assert launched == {"layernorm": 10, "flash_attention_dropout": 2,
-                        "flash_attention_bwd_dropout": 2, "ctc_alpha": 1,
+                        "flash_attention_bwd_dropout": 2,
+                        "flash_attention_mma": 2,
+                        "flash_attention_bwd_mma": 2, "ctc_alpha": 1,
                         "ctc_beta": 1}
     for n in g1:
         torch.testing.assert_close(g0[n], g1[n], atol=1e-4, rtol=1e-3,
@@ -948,7 +961,9 @@ def test_conformer_rnnt_tiny_step_on_the_card_matches_the_cpu(gen):
     (l0, launched, g0), (l1, _, g1) = out
     assert l0 == pytest.approx(l1, rel=1e-4)
     assert launched == {"layernorm": 10, "flash_attention_dropout": 2,
-                        "flash_attention_bwd_dropout": 2, "rnnt_alpha": 1,
+                        "flash_attention_bwd_dropout": 2,
+                        "flash_attention_mma": 2,
+                        "flash_attention_bwd_mma": 2, "rnnt_alpha": 1,
                         "rnnt_beta_grad": 1}
     for n in g1:
         torch.testing.assert_close(g0[n], g1[n], atol=1e-4, rtol=1e-3,
@@ -1080,7 +1095,8 @@ def test_flash_attn_unpadded_on_the_card_counts_the_varlen_kernels(gen):
             causal=True)[0].float().square().sum(),
         tensors, torch.bfloat16)
     assert {k: v for k, v in launched.items() if v} == {
-        "flash_attention_varlen": 1, "flash_attention_bwd_varlen": 1}
+        "flash_attention_varlen": 1, "flash_attention_bwd_varlen": 1,
+        "flash_attention_mma": 1, "flash_attention_bwd_mma": 1}
 
 
 def test_rms_norm_layer_under_auto_cast_on_the_card(gen):
@@ -1110,3 +1126,189 @@ def test_rms_norm_layer_under_auto_cast_on_the_card(gen):
                                                       xs[1].grad))
     _close(layers[0].weight.grad, layers[1].weight.grad.cuda(),
            **_grad_tol(torch.float32, layers[1].weight.grad))
+
+
+# ---------------------------------------------------------------------------
+# the Hopper flash kernels (wgmma / TMA): bf16 at head_dim 64 and 128
+# ---------------------------------------------------------------------------
+
+def _designs(before):
+    """The flash design counters that moved since the counts ``before``."""
+    return {k: v - before[k] for k, v in K.launch_counts().items()
+            if v != before[k] and k.endswith(("_sm90", "_mma"))}
+
+
+SM90_BOTH = {"flash_attention_sm90": 1, "flash_attention_bwd_sm90": 1}
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("sq,sk", [(200, 333), (1000, 1000), (77, 300),
+                                   (129, 129), (1, 257)])
+def test_flash_sm90_ragged_tiles_match_plain(gen, d, causal, sq, sk):
+    """Sq and Sk off the 128-row tiles, Sk > Sq causal (the bottom-right
+    diagonal), one query row: the TMA boxes read past the ends, the
+    kernels mask and never store there."""
+    before = K.launch_counts()
+    _flash_pair(gen, torch.bfloat16, 2, sq, sk, 4, 2, d, causal)
+    assert _designs(before) == SM90_BOTH
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("p", [0.0, 0.1])
+def test_flash_sm90_gqa_32_8_matches_plain(gen, d, causal, p):
+    before = K.launch_counts()
+    _flash_pair(gen, torch.bfloat16, 1, 300, 300, 32, 8, d, causal, p)
+    assert _designs(before) == SM90_BOTH
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("shape", [(2, 4, 257, 257), (2, 1, 257, 257)])
+def test_flash_sm90_fully_masked_rows_with_causality(gen, d, shape):
+    """Rows whose every visible key is masked average V over the causally
+    hidden keys, which lie in key tiles past the block's diagonal: the
+    forward and dQ warpgroups walk on, the dK/dV producer loads the query
+    tiles above the diagonal that hold such a row."""
+    mask = torch.rand(*shape, device="cuda", generator=gen) > 0.5
+    mask[:, :, 5:40] = False
+    mask[1, :, 200] = False
+    before = K.launch_counts()
+    _flash_pair(gen, torch.bfloat16, 2, 257, 257, 4, 4, d, True, 0.1, mask)
+    assert _designs(before) == SM90_BOTH
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_sm90_key_padding_mask_matches_plain(gen, d):
+    lens = torch.tensor([130, 300], device="cuda")
+    mask = (torch.arange(300, device="cuda")[None, :]
+            < lens[:, None])[:, None, None, :]
+    before = K.launch_counts()
+    _flash_pair(gen, torch.bfloat16, 2, 300, 300, 8, 8, d, False, 0.1, mask)
+    assert _designs(before) == SM90_BOTH
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("lo,hi", [(130, 135), (3, 203), (0, 400),
+                                   (250, 400)])
+def test_flash_sm90_varlen_leaves_the_neighbours_untouched(gen, d, causal,
+                                                           lo, hi):
+    """One packed sequence [lo, hi) of 400 rows (shorter than a tile, or
+    ending mid-tile) through the launch entries with out, dq, dk and dv
+    pre-filled with a sentinel: its rows match the plain version, every
+    other row comes back untouched although the tiles' TMA boxes read
+    them."""
+    from paddle_tpu_torch.kernels.flash_attention import (
+        _drop_args, _launch_bwd, _launch_fwd, flash_attn_varlen_bwd_plain,
+        flash_attn_varlen_plain)
+
+    T, H, Hkv, p, seed = 400, 8, 2, 0.1, 13
+    dt = torch.bfloat16
+    q, g = _rnd(gen, dt, T, H, d), _rnd(gen, dt, T, H, d)
+    k, v = _rnd(gen, dt, T, Hkv, d), _rnd(gen, dt, T, Hkv, d)
+    L, sl = hi - lo, slice(lo, hi)
+    cu = torch.tensor([lo, hi], device="cuda", dtype=torch.int32)
+    # the plain version of the same packed positions (dropout keys on
+    # them): [lo, hi) as the second of the sequences [0, lo), [lo, hi)
+    cu_p = torch.tensor([0, lo, hi], device="cuda", dtype=torch.int32)
+    p_out, p_lse = flash_attn_varlen_plain(q, k, v, cu_p, cu_p, causal,
+                                           None, p, seed)
+    sentinel = 7.0
+    out = torch.full_like(q, sentinel)
+    lse = torch.full((H, T), sentinel, device="cuda")
+    drop, scale = _drop_args(p, seed), 1.0 / math.sqrt(d)
+    before = K.launch_counts()
+    _launch_fwd(q, k, v, out, lse, 1, L, L, causal, scale, drop, None,
+                (cu, cu), T)
+    _close(out[sl], p_out[sl], **_tol(dt))
+    _close(lse[:, sl], p_lse[:, sl], atol=1e-3, rtol=1e-5)
+    assert (out[:lo] == sentinel).all() and (out[hi:] == sentinel).all()
+    assert (lse[:, :lo] == sentinel).all() and (lse[:, hi:] == sentinel).all()
+    dg = delta_minus_glse(p_out, g)
+    dq = torch.full_like(q, sentinel)
+    dk, dv = torch.full_like(k, sentinel), torch.full_like(v, sentinel)
+    _launch_bwd(q, k, v, g, p_lse, dg, dq, dk, dv, 1, L, L, causal, scale,
+                drop, None, (cu, cu), T)
+    want = flash_attn_varlen_bwd_plain(q, k, v, g, p_lse, dg, cu_p, cu_p,
+                                       causal, None, p, seed)
+    for a, b in zip((dq, dk, dv), want):
+        _close(a[sl], b[sl], **_grad_tol(dt, b[sl]))
+        assert (a[:lo] == sentinel).all() and (a[hi:] == sentinel).all()
+    assert _designs(before) == SM90_BOTH
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_sm90_varlen_kernels_match_plain(gen, causal):
+    """The public varlen entries at head_dim 128 with GQA, an empty
+    sequence, one shorter than a tile and tails past cu[-1]."""
+    from paddle_tpu_torch.kernels.flash_attention import (
+        flash_attn_varlen_bwd_cuda, flash_attn_varlen_bwd_plain,
+        flash_attn_varlen_cuda, flash_attn_varlen_plain)
+
+    cu = torch.tensor([0, 5, 5, 133, 300, 301, 700], device="cuda",
+                      dtype=torch.int32)
+    dt = torch.bfloat16
+    q, g = _rnd(gen, dt, 720, 8, 128), _rnd(gen, dt, 720, 8, 128)
+    k, v = _rnd(gen, dt, 720, 2, 128), _rnd(gen, dt, 720, 2, 128)
+    before = K.launch_counts()
+    out, lse = flash_attn_varlen_cuda(q, k, v, cu, cu, causal, None, 0.1, 3)
+    p_out, p_lse = flash_attn_varlen_plain(q, k, v, cu, cu, causal, None,
+                                           0.1, 3)
+    _close(out, p_out, **_tol(dt))
+    _close(lse[:, :700], p_lse[:, :700], atol=1e-3, rtol=1e-5)
+    assert not out[700:].any()
+    dg = delta_minus_glse(p_out, g)
+    got = flash_attn_varlen_bwd_cuda(q, k, v, g, p_lse, dg, cu, cu, causal,
+                                     None, 0.1, 3)
+    want = flash_attn_varlen_bwd_plain(q, k, v, g, p_lse, dg, cu, cu, causal,
+                                       None, 0.1, 3)
+    for a, b in zip(got, want):
+        _close(a, b, **_grad_tol(dt, b))
+    assert _designs(before) == SM90_BOTH
+
+
+@pytest.mark.parametrize("offset", [1, 2, 4])
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_misaligned_view_routes_to_the_mma_kernels(gen, offset, d):
+    """A view 2, 4 or 8 bytes into its storage is no TMA source: the
+    launch takes the mma kernels (narrower chunks) and still matches."""
+    def view(*shape):
+        n = math.prod(shape)
+        return _rnd(gen, torch.bfloat16, n + offset)[offset:].view(*shape)
+    q, k, v, g = (view(1, 150, 4, d) for _ in range(4))
+    before = K.launch_counts()
+    out, lse = flash_attention_cuda(q, k, v, True)
+    p_out, p_lse = flash_attention_plain(q, k, v, True)
+    _close(out, p_out, **_tol(torch.bfloat16))
+    dg = delta_minus_glse(p_out, g)
+    for a, b in zip(flash_attention_bwd_cuda(q, k, v, g, p_lse, dg, True),
+                    flash_attention_bwd_plain(q, k, v, g, p_lse, dg, True)):
+        _close(a, b, **_grad_tol(torch.bfloat16, b))
+    assert _designs(before) == {"flash_attention_mma": 1,
+                                "flash_attention_bwd_mma": 1}
+
+
+@pytest.mark.parametrize("dtype,d,design", [
+    (torch.bfloat16, 64, "sm90"), (torch.bfloat16, 128, "sm90"),
+    (torch.bfloat16, 36, "mma"), (torch.bfloat16, 96, "mma"),
+    (torch.bfloat16, 56, "mma"), (torch.bfloat16, 120, "mma"),
+    (torch.bfloat16, 256, "mma"), (torch.float32, 64, "mma"),
+    (torch.float32, 128, "mma")])
+def test_flash_design_counters_name_the_kernels_that_ran(gen, dtype, d,
+                                                         design):
+    """Through the differentiable entry: bf16 at head_dim 64 / 128 takes
+    the sm90 kernels, head_dim 36 (the Conformer's), other widths and f32
+    the mma ones (56 and 120 ride padded in the mma kernels' 64- and
+    128-wide tiles with 16-byte rows); the variant counters count as
+    before."""
+    q, k, v = (_rnd(gen, dtype, 2, 100, 4, d).requires_grad_()
+               for _ in range(3))
+    before = K.launch_counts()
+    out, lse = flash_attention_fwd(q, k, v, causal=True)
+    out.float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert _designs(before) == {f"flash_attention_{design}": 1,
+                                f"flash_attention_bwd_{design}": 1}
+    launched = {k_: v_ - before[k_] for k_, v_ in K.launch_counts().items()}
+    assert launched["flash_attention"] == launched["flash_attention_bwd"] == 1

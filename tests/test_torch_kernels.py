@@ -354,7 +354,9 @@ def test_launch_counters_reset():
         "flash_attention_bwd_dropout", "flash_attention_bwd_mask",
         "flash_attention_bwd_varlen", "layernorm", "paged_attention",
         "rmsnorm", "rmsnorm_bwd", "softmax_ce", "softmax_ce_bwd",
-        "ctc_alpha", "ctc_beta", "rnnt_alpha", "rnnt_beta_grad"}
+        "ctc_alpha", "ctc_beta", "rnnt_alpha", "rnnt_beta_grad",
+        "flash_attention_sm90", "flash_attention_mma",
+        "flash_attention_bwd_sm90", "flash_attention_bwd_mma"}
 
 
 def test_build_raises_without_nvcc(monkeypatch):
@@ -368,5 +370,6 @@ def test_build_raises_without_nvcc(monkeypatch):
 def test_every_kernel_source_is_present():
     names = {p.stem for p in _build.sources()}
     assert names == {"ctc", "flash_attention", "flash_attention_bwd",
+                     "flash_attention_sm90", "flash_attention_bwd_sm90",
                      "layernorm", "paged_attention", "rmsnorm", "rnnt",
                      "softmax_ce"}
