@@ -26,7 +26,10 @@ CUDA toolkit (``nvcc``). It imports nothing of JAX or of ``paddle_tpu``.
    relative, hence rtol 1e-2 on every bf16 output, with atol 2e-2 on flash
    outputs (the tensor-core flash kernel also rounds the probabilities to
    bf16 before P.V, as FlashAttention does), 2e-3 on paged outputs (f32
-   probabilities, as in the plain version) and 1e-3 on RMSNorm outputs;
+   probabilities, as in the plain version; the paged phase times its
+   GQA shape and a 32-slot batched decode of ~400 MB of K/V as sub-rows,
+   and two calls of each shape must give the same bits) and 1e-3 on
+   RMSNorm outputs;
    the f32 lse and rstd get atol 1e-3. A gradient is a sum over many rows,
    so its rounding error scales with its largest summand: bf16 gradients
    get atol 1e-2 * max|plain| (f32 ones 1e-4 * max|plain|) with the same
@@ -482,44 +485,76 @@ def rmsnorm_phase(torch, g):
     return row
 
 
-def paged_phase(torch, g):
-    from paddle_tpu_torch.kernels.paged_attention import (
-        paged_attention_cuda, paged_attention_plain)
+def paged_bound(q, ctx_list, Hkv, D, bs):
+    """Least time for one paged-attention call (bytes): q and out, the live
+    K/V rows, the live table entries and the context lengths."""
+    live = sum(ctx_list)
+    nbytes = (2 * q.numel() * q.element_size()
+              + live * 2 * Hkv * D * q.element_size()
+              + sum(-(-c // bs) for c in ctx_list) * 4 + len(ctx_list) * 4)
+    return bound_ms(nbytes, 4 * live * q.shape[1] * D)
 
-    print("[kernel] paged_attention  7B layout, bs 16, slots 4, bf16")
-    L, N, bs, D, M = 32, 257, 16, 128, 64
-    row = None
-    worst = 0.0
-    # ctx 999 and 577 end in a partial 64-token step past the 512 mark
-    for Hq, Hkv, ctx_list in ((32, 32, [1, 17, 1000, 513]),
-                              (32, 8, [1, 17, 999, 577])):
-        # a pool as large as the engine's (32 layers): each timed launch
-        # reads another layer, so K/V come from device memory, not L2
+
+def paged_phase(torch, g):
+    """The paged kernel at the engine's layout (bs 16, 128-wide heads, table
+    width 64 = max_model_len 1024), bf16: Llama-2-7B's 4 slots (the main
+    row, whose launches the engine counts), GQA 32 / 8 heads on the same
+    4 slots, and 32 slots of 512-1024 tokens (a batched decode's bytes:
+    ~400 MB a layer). Each checked against the plain version, run twice for
+    bit-identical outputs, and timed over a pool of several layers, so that
+    consecutive launches read other layers' K/V from device memory, not
+    L2."""
+    from paddle_tpu_torch.kernels import paged_attention as P
+
+    print("[kernel] paged_attention  7B layout, bs 16, bf16")
+    N_SLOTS, bs, D, M = 4, 16, 128, 64
+    big = torch.Generator().manual_seed(5)
+    cases = (  # name, slots, Hq, Hkv, contexts, layers of pool
+        ("main", N_SLOTS, 32, 32, [1, 17, 1000, 513], 32),
+        ("gqa", N_SLOTS, 32, 8, [1, 17, 999, 577], 32),
+        ("bandwidth", 32, 32, 32,
+         torch.randint(512, 1025, (32,), generator=big).tolist(), 2))
+    row, worst = None, 0.0
+    for name, S, Hq, Hkv, ctx_list, L in cases:
+        N = S * M + 1          # every slot's own pages; block 0 is scratch
         pool = torch.randn(L, N, 2, Hkv, bs, D, device="cuda",
                            generator=g).bfloat16()
-        q = torch.randn(4, Hq, D, device="cuda", generator=g).bfloat16()
+        q = torch.randn(S, Hq, D, device="cuda", generator=g).bfloat16()
         perm = torch.randperm(N - 1, device="cuda", generator=g) + 1
-        bt = perm[:4 * M].reshape(4, M).to(torch.int32)
+        bt = perm[:S * M].reshape(S, M).to(torch.int32)
         ctx = torch.tensor(ctx_list, device="cuda", dtype=torch.int32)
-        a = paged_attention_cuda(q, pool[0], bt, ctx)
-        b = paged_attention_plain(q, pool[0], bt, ctx)
+        a = P.paged_attention_cuda(q, pool[0], bt, ctx)
+        b = P.paged_attention_plain(q, pool[0], bt, ctx)
         torch.cuda.synchronize()
-        err = check(torch, f"Hq={Hq} Hkv={Hkv} ctx={ctx_list} out", a, b,
-                    PAGED_ATOL, BF16_RTOL)
+        shape = (f"q [{S}, {Hq}, {D}], ctx {ctx_list}" if S <= 4 else
+                 f"q [{S}, {Hq}, {D}], ctx {S} seeded in 512-1024 "
+                 f"(sum {sum(ctx_list)})")
+        err = check(torch, f"{name}: {shape} out", a, b, PAGED_ATOL,
+                    BF16_RTOL)
+        if not torch.equal(a, P.paged_attention_cuda(q, pool[0], bt, ctx)):
+            raise AssertionError(f"paged {name}: two calls differ")
         worst = max(worst, err)
-        if Hq == Hkv:
-            it = iter(range(10 ** 9))
-            ms = time_ms(torch, lambda: paged_attention_cuda(
-                q, pool[next(it) % L], bt, ctx), iters=L)
-            plain = time_ms(torch, lambda: paged_attention_plain(
-                q, pool[next(it) % L], bt, ctx), iters=L)
-            live = sum(ctx_list)
-            nbytes = (2 * q.numel() * 2 + live * 2 * Hkv * D * 2
-                      + sum(-(-c // bs) for c in ctx_list) * 4 + 4 * 4)
-            bound, by = bound_ms(nbytes, 4 * live * Hq * D)
-            row = dict(shape=f"q [4, {Hq}, {D}], ctx {ctx_list}", ms=ms,
-                       plain_ms=plain, library_ms=None, bound_ms=bound,
-                       bound_by=by)
+        it = iter(range(10 ** 9))
+        ms = time_ms(torch, lambda: P.paged_attention_cuda(
+            q, pool[next(it) % L], bt, ctx), iters=max(L, 20))
+        plain = time_ms(torch, lambda: P.paged_attention_plain(
+            q, pool[next(it) % L], bt, ctx), iters=min(L, 5), warmup=1)
+        bound, by = paged_bound(q, ctx_list, Hkv, D, bs)
+        # (tools/paged_attention_bench.py also runs this phase against
+        # checkouts whose kernel predates the launch plan)
+        plan = (P.launch_plan(S, Hq, Hkv, bs, D, M, 2)._asdict()
+                if hasattr(P, "launch_plan") else None)
+        print(f"  {name}: kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
+              f"{bound:.4f} ms ({by}, {100 * bound / ms:.1f} % of it); "
+              f"plan {plan}")
+        sub = dict(shape=shape, ms=ms, plain_ms=plain, library_ms=None,
+                   bound_ms=bound, bound_by=by, max_abs_err=err, plan=plan)
+        if row is None:
+            row = sub
+            row["design"] = ("split over the context, bulk-copy mbarrier "
+                             "ring, last-block merge in split order")
+        else:
+            row[name] = sub
         del pool
     row["max_abs_err"] = worst
     return row

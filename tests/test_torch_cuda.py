@@ -75,7 +75,7 @@ from paddle_tpu_torch.kernels.flash_attention import (
 from paddle_tpu_torch.kernels.layernorm import (
     layer_norm_cuda, layer_norm_plain, layernorm)
 from paddle_tpu_torch.kernels.paged_attention import (
-    paged_attention, paged_attention_cuda, paged_attention_plain)
+    launch_plan, paged_attention, paged_attention_cuda, paged_attention_plain)
 from paddle_tpu_torch.kernels.rmsnorm import (
     rmsnorm, rmsnorm_bwd_cuda, rmsnorm_bwd_plain, rmsnorm_cuda, rmsnorm_plain)
 from paddle_tpu_torch.kernels.softmax_ce import (
@@ -85,6 +85,7 @@ from paddle_tpu_torch.kernels.softmax_ce import (
 pytestmark = pytest.mark.cuda
 
 DTYPES = [torch.float32, torch.bfloat16]
+_ELEM = {torch.float32: 4, torch.bfloat16: 2}
 
 
 @pytest.fixture
@@ -138,6 +139,87 @@ def test_paged_kernel_matches_plain(gen, dtype, hq, hkv):
     _close(paged_attention_cuda(q, pool, bt, ctx, sm_scale=0.05),
            paged_attention_plain(q, pool, bt, ctx, sm_scale=0.05),
            **_tol(dtype))
+
+
+def _paged_inputs(gen, dtype, S, hq, hkv, bs, D, M):
+    N = S * M + 1                        # block 0 is the engine's scratch
+    q, pool = _rnd(gen, dtype, S, hq, D), _rnd(gen, dtype, N, 2, hkv, bs, D)
+    perm = torch.randperm(N - 1, device="cuda", generator=gen) + 1
+    return q, pool, perm[:S * M].reshape(S, M).to(torch.int32)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d", [64, 128, 256, 80])
+@pytest.mark.parametrize("rep", [1, 4, 8])
+@pytest.mark.parametrize("bs", [8, 16, 32])
+def test_paged_split_kernel_matches_plain(gen, dtype, d, rep, bs):
+    """Every split a page (6 slots x 2 kv heads, table width 8) and a run
+    of pages a split (width 64): ctx 1 (every later split past it), at a
+    split boundary and one past it, the whole table, past the table (the
+    table's tokens only) and one page."""
+    for M in (8, 64):
+        plan = launch_plan(6, 2 * rep, 2, bs, d, M, _ELEM[dtype])
+        span = plan.pps * bs
+        ctx = torch.tensor([1, span, span + 1, M * bs, M * bs + 5, bs],
+                           device="cuda", dtype=torch.int32)
+        q, pool, bt = _paged_inputs(gen, dtype, 6, 2 * rep, 2, bs, d, M)
+        out = paged_attention_cuda(q, pool, bt, ctx)
+        _close(out, paged_attention_plain(q, pool, bt, ctx), **_tol(dtype))
+        # the splits merge in a fixed order: the same bits every call
+        assert torch.equal(out, paged_attention_cuda(q, pool, bt, ctx))
+
+
+def test_paged_kernel_at_the_bandwidth_shape(gen):
+    """32 slots of 512-1024 tokens, 32 heads of 128, bf16: one split a
+    (slot, head), 32-64 stage loads a block."""
+    q, pool, bt = _paged_inputs(gen, torch.bfloat16, 32, 32, 32, 16, 128, 64)
+    ctx = torch.randint(512, 1025, (32,), device="cuda", generator=gen,
+                        dtype=torch.int32)
+    _close(paged_attention_cuda(q, pool, bt, ctx),
+           paged_attention_plain(q, pool, bt, ctx), **_tol(torch.bfloat16))
+
+
+def test_paged_kernel_takes_misaligned_q_and_gives_zeros_at_ctx_0(gen):
+    q, pool, bt = _paged_inputs(gen, torch.bfloat16, 3, 8, 2, 16, 64, 4)
+    view = _rnd(gen, torch.bfloat16, 3 * 8 * 64 + 1)[1:].view(3, 8, 64)
+    view.copy_(q)
+    ctx = torch.tensor([0, 40, 64], device="cuda", dtype=torch.int32)
+    out = paged_attention_cuda(view, pool, bt, ctx)
+    _close(out[1:], paged_attention_plain(q, pool, bt, ctx)[1:],
+           **_tol(torch.bfloat16))
+    assert torch.equal(out[0], torch.zeros_like(out[0]))
+
+
+def test_paged_kernel_raises_on_what_it_does_not_take(gen):
+    q, pool, bt = _paged_inputs(gen, torch.float32, 2, 2, 2, 16, 520, 2)
+    ctx = torch.tensor([3, 20], device="cuda", dtype=torch.int32)
+    with pytest.raises(ValueError, match="wider"):   # head_dim past 512 f32
+        paged_attention_cuda(q, pool, bt, ctx)
+    with pytest.raises(TypeError):                   # no fp16 kernel
+        paged_attention_cuda(q.half(), pool.half(), bt, ctx)
+    with pytest.raises(ValueError, match="16 bytes"):   # 12-byte rows
+        paged_attention_cuda(q[..., :6].bfloat16().contiguous(),
+                             pool[..., :6].bfloat16().contiguous(), bt, ctx)
+    with pytest.raises(TypeError):                   # int64 tables
+        paged_attention_cuda(q, pool, bt.long(), ctx)
+
+
+def test_tiny_engine_on_the_card_matches_its_cpu_run(gen):
+    """The same f32 weights served on the card (paged kernel in decode) and
+    on the CPU (plain version): the same greedy tokens."""
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama_tiny
+    from paddle_tpu_torch.serving import LLMEngine, SamplingParams
+
+    cfg = llama_tiny(vocab=101, hidden=256, layers=2, heads=4, kv_heads=2,
+                     inter=512, seq=256)
+    card = LlamaForCausalLM(cfg, generator=gen)
+    cpu = LlamaForCausalLM(cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    prompts = [list(range(3, 90)), list(range(50, 55)), [7] * 200]
+    want = [LLMEngine(m, block_size=16, max_slots=3, max_model_len=256)
+            .generate(prompts, SamplingParams(max_new_tokens=8))
+            for m in (card, cpu)]
+    assert want[0] == want[1]
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
