@@ -134,13 +134,19 @@ CUDA toolkit (``nvcc``). It imports nothing of JAX or of ``paddle_tpu``.
     RNN-T alpha and beta-gradient kernels on blank / emit lattices built
     as ``rnnt_loss`` builds them from seeded joint logits over vocab 128,
     at the slice's ``[16, 400, 49]`` (t_len 300-400, u_len 24-48), a
-    long-label ``[8, 200, 513]`` and the edges (u_len 0, t_len 1, both;
-    U + 1 = 1024): -1e30 cells equal the plain versions', live alphas and
-    betas within CTC_ATOL / CTC_RTOL, the log-likelihood within 1e-4 +
-    1e-5 relative, the posteriors within RNNT_POST_ATOL, ``bhat[0, 0]``
-    against the alphas' log-likelihood; times at the slice's shape with
-    the dependent-step count ``max(t_len + u_len)``; no library column (no
-    PyTorch call computes the RNN-T loss).
+    long-label ``[8, 200, 513]``, ``[5, 37, 65]`` (just past one warp, odd
+    T x (U + 1)) and the edges (u_len 0, t_len 1, both; U + 1 = 1024):
+    -1e30 cells equal the plain versions', live alphas and betas within
+    CTC_ATOL / CTC_RTOL, the log-likelihood within 1e-4 + 1e-5 relative,
+    the posteriors within RNNT_POST_ATOL, ``bhat[0, 0]`` against the
+    alphas' log-likelihood, two calls bit for bit equal, and each case's
+    route (the wrappers' route counts) the launch plan's: "warp" at the
+    slice's U + 1 = 49. Times at the slice's shape (the row) and the
+    long-label shape (a sub-row) with the dependent-step count
+    ``max(t_len + u_len)`` and the chain bound: those steps x the latency
+    of one step, timed by a probe (one warp, 100000 dependent steps in
+    registers; the CTC rows get the probe's CTC step x their steps); no
+    library column (no PyTorch call computes the RNN-T loss).
 13. Whole RNN-T step: ``ConformerForRNNT`` (predictor LSTM 144) under the
     whole Conformer step's settings and limits (phase 10), the per-frame
     loss being each utterance's RNN-T loss over its input length, then the
@@ -1098,16 +1104,24 @@ def ctc_phase(torch, g):
         bound_a, by_a = bound_ms(nb_in + nb_out + B * 4, 12 * T * B * S,
                                  F32_FLOPS)
         bound_b, by_b = bound_ms(nb_in + nb_out, 12 * T * B * S, F32_FLOPS)
+        # the chain bound: max(input length) dependent steps of the
+        # recursion, each as long as the probe's CTC step
+        steps, step3 = int(in_len.max()), chain_step_us(torch, 3)
+        chain = {"dependent_steps": steps, "step_us": step3,
+                 "chain_bound_ms": steps * step3 / 1e3}
         print(f"  {tag}: alpha kernel {a_ms:.4f} ms, plain {a_plain:.4f}, "
               f"F.ctc_loss {lib_f:.4f}, bound {bound_a:.4f} ({by_a}; and "
               f"{T} dependent steps: {1e3 * a_ms / T:.2f} us a step); beta "
               f"kernel {b_ms:.4f} ms, plain {b_plain:.4f}, F.ctc_loss "
-              f"backward {lib_b:.4f}, bound {bound_b:.4f} ({by_b})")
+              f"backward {lib_b:.4f}, bound {bound_b:.4f} ({by_b}); chain "
+              f"bound {chain['chain_bound_ms']:.4f} ms ({steps} steps x "
+              f"{step3:.5f} us, the probe's CTC step: two shuffles, fmaxf, "
+              f"three expf, logf)")
         shape = f"log_probs [{T}, {B}, {C}] f32, L {L}"
         rows = (dict(shape=shape, ms=a_ms, plain_ms=a_plain, library_ms=lib_f,
-                     bound_ms=bound_a, bound_by=by_a),
+                     bound_ms=bound_a, bound_by=by_a, chain=chain),
                 dict(shape=shape, ms=b_ms, plain_ms=b_plain, library_ms=lib_b,
-                     bound_ms=bound_b, bound_by=by_b))
+                     bound_ms=bound_b, bound_by=by_b, chain=chain))
         del xl, lib_loss
     rows[0]["max_abs_err"], rows[1]["max_abs_err"] = worst
     return rows
@@ -1141,36 +1155,86 @@ def rnnt_lattices(torch, B, T, U1, tl_range, ul_range, seed, edges=False,
     return blank, emit, tl, ul
 
 
+CHAIN_PROBE_STEPS = 100000
+
+
+def chain_step_us(torch, terms):
+    """The latency of one dependent step of a lattice recursion on the
+    card, in us: one warp runs CHAIN_PROBE_STEPS steps in registers
+    (``kernels/rnnt.py`` ``chain_probe_cuda``; terms 2: RNN-T's shuffle +
+    lse2 with the reference's two expf, 3: CTC's two shuffles + lse3).
+    None where the checkout has no probe (an older --root of
+    tools/rnnt_bench.py)."""
+    from paddle_tpu_torch.kernels import rnnt as R
+
+    if not hasattr(R, "chain_probe_cuda"):
+        return None
+    # log(1/2) / log(2/5) keep the chain's values bounded
+    w = torch.tensor([math.log(0.5) if terms == 2 else math.log(0.4),
+                      math.log(0.5), math.log(0.5)], device="cuda")
+    out = R.chain_probe_cuda(CHAIN_PROBE_STEPS, terms, w)
+    if not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"chain probe (terms {terms}): non-finite")
+    ms = time_ms(torch, lambda: R.chain_probe_cuda(CHAIN_PROBE_STEPS, terms,
+                                                   w), iters=5, warmup=1)
+    return 1e3 * ms / CHAIN_PROBE_STEPS
+
+
+def rnnt_routes(R):
+    """The RNN-T kernels' launches per route so far ({} where the checkout
+    predates the routes)."""
+    return dict(getattr(R, "ROUTES", {}))
+
+
 def rnnt_phase(torch, g):
     """The RNN-T alpha and beta-gradient kernels against their plain
-    versions on the card at the slice's shape, a long-label shape and the
-    edges; times at the slice's shape."""
+    versions on the card at the slice's shape, a long-label shape, both
+    sides of the warp boundary with odd T x (U + 1) and the edges; times
+    at the slice's shape (the row) and the long-label shape (a sub-row),
+    each with its chain bound (dependent steps x the probe's step
+    latency) beside the byte bound. The route each case took is read
+    from the wrappers' route counts and must be the launch plan's: the
+    slice's U + 1 = 49 takes "warp"."""
     import importlib.util
 
-    from paddle_tpu_torch.kernels.rnnt import (
-        rnnt_alpha_cuda, rnnt_alpha_plain, rnnt_beta_grad_cuda,
-        rnnt_beta_grad_plain)
+    from paddle_tpu_torch.kernels import rnnt as R
 
-    cases = [("slice [16, 400, 49]", (16, 400, 49, (300, 400), (24, 48))),
+    cases = [("slice [16, 400, 49]", (16, 400, 49, (300, 400), (24, 48)),
+              "warp"),
              ("long labels [8, 200, 513]", (8, 200, 513, (150, 200),
-                                            (256, 512))),
-             ("edges [4, 50, 1024]", (4, 50, 1024, (40, 50), (900, 1023))),
-             ("edges [3, 9, 7]", (3, 9, 7, (1, 9), (0, 6)))]
+                                            (256, 512)), "block"),
+             ("boundary [5, 37, 65]", (5, 37, 65, (20, 37), (32, 64)),
+              "block"),
+             ("edges [4, 50, 1024]", (4, 50, 1024, (40, 50), (900, 1023)),
+              "block"),
+             ("edges [3, 9, 7]", (3, 9, 7, (1, 9), (0, 6)), "warp")]
+    timed = ("slice [16, 400, 49]", "long labels [8, 200, 513]")
     print("[rnnt] rnnt_alpha, rnnt_beta_grad  blank/emit [B, T, U + 1] f32 "
           "from joint logits over vocab 128; edges: u_len 0, t_len 1, both, "
           "U + 1 = 1024")
+    step2 = chain_step_us(torch, 2)
+    if step2 is not None:
+        print(f"  chain probe: one RNN-T step (shuffle, adds, fmaxf, two "
+              f"expf, logf) {step2:.5f} us, in {CHAIN_PROBE_STEPS} "
+              f"dependent steps on one warp")
     rows = None
     worst = [0.0, 0.0]
-    for i, (tag, (B, T, U1, tlr, ulr)) in enumerate(cases):
+    for i, (tag, (B, T, U1, tlr, ulr), route) in enumerate(cases):
         args = rnnt_lattices(torch, B, T, U1, tlr, ulr, 5 + i,
                              edges=tag.startswith("edges"))
-        alphas, ll = rnnt_alpha_cuda(*args)
-        p_alphas, p_ll = rnnt_alpha_plain(*args)
-        gb, ge, betas = rnnt_beta_grad_cuda(*args[:2], p_alphas, *args[2:],
-                                            p_ll, with_betas=True)
-        p_gb, p_ge, p_betas = rnnt_beta_grad_plain(
+        before = rnnt_routes(R)
+        alphas, ll = R.rnnt_alpha_cuda(*args)
+        p_alphas, p_ll = R.rnnt_alpha_plain(*args)
+        gb, ge, betas = R.rnnt_beta_grad_cuda(*args[:2], p_alphas, *args[2:],
+                                              p_ll, with_betas=True)
+        p_gb, p_ge, p_betas = R.rnnt_beta_grad_plain(
             *args[:2], p_alphas, *args[2:], p_ll, with_betas=True)
         torch.cuda.synchronize()
+        ran = {k: v - before[k] for k, v in rnnt_routes(R).items()
+               if v != before[k]}
+        if before and ran != {f"rnnt_alpha_{route}": 1,
+                              f"rnnt_beta_grad_{route}": 1}:
+            raise AssertionError(f"{tag}: expected route {route}, ran {ran}")
         worst[0] = max(worst[0], check_lattice(torch, f"{tag} alphas",
                                                alphas, p_alphas),
                        check(torch, f"{tag} loss", -ll, -p_ll, 1e-4,
@@ -1181,17 +1245,25 @@ def rnnt_phase(torch, g):
                        check(torch, f"{tag} ge", ge, p_ge, RNNT_POST_ATOL))
         check(torch, f"{tag} bhat[0, 0] vs ll from the alphas",
               betas[:, 0, 0], ll, 1e-4, CTC_RTOL)
-        if rows is not None:
+        twice = [R.rnnt_beta_grad_cuda(*args[:2], alphas, *args[2:], ll)
+                 for _ in range(2)]
+        if not (torch.equal(R.rnnt_alpha_cuda(*args)[0], alphas)
+                and all(torch.equal(x, y)
+                        for x, y in zip(twice[0][:2], twice[1][:2]))):
+            raise AssertionError(f"{tag}: two calls gave different bits")
+        print(f"  {tag}: route {route if before else 'single'}; two calls "
+              f"give the same bits")
+        if tag not in timed:
             continue
         tl, ul = args[2], args[3]
         steps = int((tl + ul).max())
         live = int((tl * (ul + 1)).sum())
-        a_ms = time_ms(torch, lambda: rnnt_alpha_cuda(*args))
-        b_ms = time_ms(torch, lambda: rnnt_beta_grad_cuda(
+        a_ms = time_ms(torch, lambda: R.rnnt_alpha_cuda(*args))
+        b_ms = time_ms(torch, lambda: R.rnnt_beta_grad_cuda(
             *args[:2], alphas, *args[2:], ll))
-        a_plain = time_ms(torch, lambda: rnnt_alpha_plain(*args), iters=3,
+        a_plain = time_ms(torch, lambda: R.rnnt_alpha_plain(*args), iters=3,
                           warmup=1)
-        b_plain = time_ms(torch, lambda: rnnt_beta_grad_plain(
+        b_plain = time_ms(torch, lambda: R.rnnt_beta_grad_plain(
             *args[:2], alphas, *args[2:], ll), iters=3, warmup=1)
         # the live cells' inputs read once (the dead ones are never read),
         # the whole outputs written once; ~10 f32 operations a live cell
@@ -1203,20 +1275,35 @@ def rnnt_phase(torch, g):
                                  F32_FLOPS)
         bound_b, by_b = bound_ms(3 * live * 4 + 2 * lat + lens, 22 * live,
                                  F32_FLOPS)
+        chain = None if step2 is None else steps * step2 / 1e3
         audio = "" if importlib.util.find_spec("torchaudio") else "not "
+        chain_s = ("" if chain is None else
+                   f"; chain bound {chain:.4f} ms, {steps} x {step2:.5f} us")
         print(f"  {tag}: alpha kernel {a_ms:.4f} ms, plain {a_plain:.4f}, "
               f"bound {bound_a:.4f} ({by_a}; and {steps} dependent steps, "
-              f"max(t_len + u_len): {1e3 * a_ms / steps:.2f} us a step); "
+              f"max(t_len + u_len): {1e3 * a_ms / steps:.3f} us a step); "
               f"beta-gradient kernel {b_ms:.4f} ms, plain {b_plain:.4f}, "
-              f"bound {bound_b:.4f} ({by_b}; {1e3 * b_ms / steps:.2f} us a "
-              f"step); library: none (no PyTorch call computes the RNN-T "
-              f"loss; torchaudio, a separate package with one, is {audio}"
-              f"installed)")
+              f"bound {bound_b:.4f} ({by_b}; {1e3 * b_ms / steps:.3f} us a "
+              f"step){chain_s}; library: none (no PyTorch call computes "
+              f"the RNN-T loss; torchaudio, a separate package with one, is "
+              f"{audio}installed)")
         shape = f"blank/emit [{B}, {T}, {U1}] f32, {steps} dependent steps"
-        rows = (dict(shape=shape, ms=a_ms, plain_ms=a_plain, library_ms=None,
-                     bound_ms=bound_a, bound_by=by_a, dependent_steps=steps),
-                dict(shape=shape, ms=b_ms, plain_ms=b_plain, library_ms=None,
-                     bound_ms=bound_b, bound_by=by_b, dependent_steps=steps))
+        plan = ({"alpha": R.launch_plan(U1)._asdict(),
+                 "beta_grad": R.launch_plan(U1, beta=True)._asdict()}
+                if hasattr(R, "launch_plan") else None)
+        chain_d = {"dependent_steps": steps, "step_us": step2,
+                   "chain_bound_ms": chain}
+        sub = (dict(shape=shape, ms=a_ms, plain_ms=a_plain, library_ms=None,
+                    bound_ms=bound_a, bound_by=by_a, route=route, plan=plan,
+                    chain=chain_d),
+               dict(shape=shape, ms=b_ms, plain_ms=b_plain, library_ms=None,
+                    bound_ms=bound_b, bound_by=by_b, route=route, plan=plan,
+                    chain=chain_d))
+        if rows is None:
+            rows = sub
+        else:
+            for r, m in zip(rows, sub):
+                r["long_labels"] = m
     rows[0]["max_abs_err"], rows[1]["max_abs_err"] = worst
     return rows
 
@@ -2754,6 +2841,9 @@ def conformer_training_phase(torch, K, head="ctc"):
           f"profiler (unprofiled mean {mean * 1e3:.2f} ms), idle "
           f"{100 * (1 - busy / prof_wall):.1f}% of the profiled wall, "
           f"{100 * (1 - busy / (mean * 1e3)):.1f}% of the unprofiled mean")
+    print(f"  {'the host' if busy < 0.5 * mean * 1e3 else 'the device'} sets "
+          f"the step wall: the device is busy {busy:.2f} of its "
+          f"{mean * 1e3:.2f} ms")
     for group, ms in kernel_share(kernels).items():
         print(f"  {ms:9.3f} ms  {group}")
     per_name: dict[str, list] = {}

@@ -10,18 +10,32 @@ lanes and batches of 8, is TPU tiling): ``blank[b, t, u]`` is the log-prob
 of blank at ``(t, u)``, ``emit[b, t, u]`` that of label ``u`` there, with
 emit column ``U`` and the columns ``>= u_len`` at the -1e30 sentinel.
 
-The kernels are ``csrc/rnnt.cu``, an **anti-diagonal wavefront**: one
-thread block per utterance, threads over ``u``; at diagonal ``d = t + u``
-each position combines its own previous value (a register) with its left
-neighbour's (the previous diagonal, double-buffered in shared memory), one
-``__syncthreads`` a diagonal over ``t_len + u_len`` diagonals. The TPU
-kernel's row form (``alpha[t] = E + logcumsumexp(base - E)``, a lane scan
-over ``u``) suits a 128-lane vector unit; on the card the wavefront takes
-one exp/log pair a cell and avoids the cancellation of a large exclusive
-emit sum ``E`` against ``base`` in f32. The beta kernel runs the mirrored
-wavefront from ``(t_len - 1, u_len)`` and writes the blank and emit
-posteriors ``gb``, ``ge`` in the same pass. Dependent steps on B blocks
-bound both kernels by latency, not by bytes or flops.
+The kernels are ``csrc/rnnt.cu``, an **anti-diagonal wavefront** built for
+the H100: one thread block per utterance. Compute warps hold a diagonal,
+lanes over ``u`` with ``C`` adjacent cells a lane (2; 4 and 8 past
+``U + 1`` of 1792 and 3584); at diagonal ``d = t + u`` each cell combines
+its own previous value (a register) with its left neighbour's (alpha) or
+right neighbour's (beta), which comes from the next lane by a warp
+shuffle. At ``U + 1 <= 64`` one compute warp holds a whole diagonal (route
+``"warp"``, no barrier on the chain); wider lattices take ``ceil((U + 1) /
+32C)`` compute warps that pass their edge cells through shared memory, one
+barrier a diagonal (route ``"block"``). Helper warps stage the inputs in
+shared memory two bands of ``G`` diagonals ahead of the wavefront (a band
+crosses each row in a run of ``G`` cells, copied by consecutive threads
+with 4-byte ``cp.async``) and write the results out as row runs with the
+dead cells' fill folded in, so no device-memory access is on the chain;
+one barrier a band hands inputs in and results out. :func:`launch_plan`
+gives the route, cells, compute and helper warps, ``G`` and the ring's
+stages from ``U + 1`` alone (the kernels' ``plan_for`` computes the same),
+so a launch reads no length on the host. The TPU kernel's row form
+(``alpha[t] = E + logcumsumexp(base - E)``, a lane scan over ``u``) suits a
+128-lane vector unit; on the card the wavefront takes one exp/log pair a
+cell and avoids the cancellation of a large exclusive emit sum ``E``
+against ``base`` in f32. The beta kernel runs the mirrored wavefront from
+``(t_len - 1, u_len)`` and writes the blank and emit posteriors ``gb``,
+``ge`` in the same pass. Both are bound by their chain of ``max(t_len +
+u_len)`` dependent steps, not by bytes or flops (``chip_smoke.py`` reports
+steps x the latency of one step, timed by ``rnnt_chain_probe``).
 
 The arithmetic is the reference kernels': -1e30 is the log-space -inf,
 :func:`_lse2` keeps their guard, ``alpha[0, 0] = 0``, the loss is
@@ -42,28 +56,97 @@ as the reference rides jax's VJP of its gather.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from . import LAUNCHES, _build, plain_math, refuse_grad, use_kernel
 
-__all__ = ["NEG", "MAX_STATES", "rnnt_alpha_plain", "rnnt_beta_grad_plain",
-           "rnnt_alpha_cuda", "rnnt_beta_grad_cuda", "RNNTLossFunction",
-           "rnnt_lattice"]
+__all__ = ["NEG", "MAX_STATES", "LaunchPlan", "launch_plan", "ROUTES",
+           "rnnt_alpha_plain", "rnnt_beta_grad_plain", "rnnt_alpha_cuda",
+           "rnnt_beta_grad_cuda", "rnnt_launch_plan_cuda", "chain_probe_cuda",
+           "RNNTLossFunction", "rnnt_lattice"]
 
 NEG = -1e30
-MAX_STATES = 4096          # csrc/rnnt.cu: 1024 threads x 4 positions each
+MAX_STATES = 4096          # csrc/rnnt.cu: 16 warps x 32 lanes x 8 cells
+MAX_BAND = 32              # a band of G diagonals: G at most
+COMPUTE_WARPS_MAX = 28     # + 4 helper warps <= 32 warps a block
+SMEM_LIMIT = 232448        # 227 KB of shared memory a block on the H100
 _P, _I = ctypes.c_void_p, ctypes.c_int
+
+# launches per kernel and route since import (the wrappers add one where
+# they launch, beside LAUNCHES); chip_smoke.py and the card tests read which
+# route a shape took
+ROUTES: dict[str, int] = {f"{k}_{r}": 0 for k in ("rnnt_alpha",
+                                                  "rnnt_beta_grad")
+                          for r in ("warp", "block")}
+
+
+class LaunchPlan(NamedTuple):
+    """How ``csrc/rnnt.cu`` lays out one utterance's block: ``route``
+    ``"warp"`` (one compute warp, neighbours by shuffle alone) or
+    ``"block"`` (``warps`` compute warps passing their edge cells through
+    shared memory), ``cells`` adjacent cells a lane, ``helpers`` warps
+    that stage the inputs and write the results, bands of ``band``
+    diagonals, an input ring of ``stages`` bands, ``smem`` bytes of shared
+    memory."""
+    route: str
+    cells: int
+    warps: int
+    helpers: int
+    band: int
+    stages: int
+    smem: int
+
+
+def _helpers(warps, cells):
+    """Helper warps: 7 beside one compute warp; else as many as the
+    compute warps, at least 4, at most 32 warps a block (20 at eight cells
+    a lane, whose compute warps need more registers)."""
+    if warps == 1:
+        return 7
+    return min(max(4, warps), (20 if cells == 8 else 32) - warps)
+
+
+def launch_plan(U1, beta=False):
+    """The kernels' launch plan at ``U + 1 = U1`` (``beta``: the
+    beta-gradient kernel's, which stages three inputs and bands three
+    outputs; else the alpha kernel's, two and one): a function of the
+    shape alone, as ``plan_for`` in ``csrc/rnnt.cu``. The input ring holds
+    3 bands (2 where 3 do not fit even bands of one diagonal), the output
+    bands 2; ``band`` is the largest power of two up to ``MAX_BAND`` whose
+    ring and bands fit ``SMEM_LIMIT``. Raises outside ``1..MAX_STATES``."""
+    if not 1 <= U1 <= MAX_STATES:
+        raise ValueError(
+            f"rnnt kernels hold at most {MAX_STATES} label positions (U + 1, "
+            f"labels of {MAX_STATES - 1}) on one diagonal; got U + 1 = {U1}")
+    cells = (2 if U1 <= COMPUTE_WARPS_MAX * 64 else
+             4 if U1 <= COMPUTE_WARPS_MAX * 128 else 8)
+    warps = -(-U1 // (32 * cells))
+    nin, nout = (3, 3) if beta else (2, 1)
+    plane = warps * 32 * cells * 4
+    edge = 2 * warps * 4
+    for stages in (3, 2):
+        band = MAX_BAND
+        while band >= 1:
+            smem = (stages * nin + 2 * nout) * plane * band + edge
+            if smem <= SMEM_LIMIT:
+                return LaunchPlan("warp" if warps == 1 else "block", cells,
+                                  warps, _helpers(warps, cells), band,
+                                  stages, smem)
+            band //= 2
+    raise AssertionError(f"no launch plan fits U + 1 = {U1}")
 
 
 def _lse2(a, b):
     """``log(e^a + e^b)``, exactly -1e30 where the larger term is below
-    -5e29 (the reference's ``_lse2``)."""
+    -5e29 (the reference's ``_lse2``), as the kernels compute it: ``m +
+    log(1 + exp(-|a - b|))``. The reference's ``exp(a - m) + exp(b - m)``
+    holds ``exp(0) = 1`` exactly and ``b - a = -(a - b)`` in IEEE
+    arithmetic, so both forms give the same bits."""
     m = torch.maximum(a, b)
-    dead = m <= NEG / 2
-    safe = torch.where(dead, 0.0, m)
-    out = safe + torch.log(torch.exp(a - safe) + torch.exp(b - safe))
-    return torch.where(dead, NEG, out)
+    out = m + torch.log(1 + torch.exp(-torch.abs(a - b)))
+    return torch.where(m <= NEG / 2, NEG, out)
 
 
 def _shift(x, k, fill=NEG):
@@ -165,26 +248,25 @@ def rnnt_beta_grad_plain(blank_lp, emit_lp, alphas, t_len, u_len, ll,
         return _cells(gbs[::-1], T, 0.0), _cells(ges[::-1], T, 0.0), betas
 
 
-def _kernel_inputs(blank_lp, emit_lp, t_len, u_len):
+def _kernel_inputs(blank_lp, emit_lp, t_len, u_len, beta=False):
+    """The contiguous f32 lattices and i32 lengths the kernels take, and
+    their launch plan (which raises past ``MAX_STATES``)."""
     _check(blank_lp, emit_lp, t_len, u_len)
-    if blank_lp.shape[2] > MAX_STATES:
-        raise ValueError(
-            f"rnnt kernels hold at most {MAX_STATES} label positions (U + 1, "
-            f"labels of {MAX_STATES - 1}) on one diagonal; got U + 1 = "
-            f"{blank_lp.shape[2]}")
+    plan = launch_plan(blank_lp.shape[2], beta)
     for x in (blank_lp, emit_lp):
         if x.dtype not in (torch.float32, torch.bfloat16, torch.float16):
             raise TypeError(f"rnnt kernels take float lattices; got "
                             f"{x.dtype}")
     return (blank_lp.float().contiguous(), emit_lp.float().contiguous(),
-            t_len.int().contiguous(), u_len.int().contiguous())
+            t_len.int().contiguous(), u_len.int().contiguous(), plan)
 
 
 def rnnt_alpha_cuda(blank_lp, emit_lp, t_len, u_len):
     """Launch ``rnnt_alpha`` of ``csrc/rnnt.cu``; same contract as
     :func:`rnnt_alpha_plain`."""
     refuse_grad("rnnt_alpha_cuda", blank_lp, emit_lp)
-    blank, emit, tl, ul = _kernel_inputs(blank_lp, emit_lp, t_len, u_len)
+    blank, emit, tl, ul, plan = _kernel_inputs(blank_lp, emit_lp, t_len,
+                                               u_len)
     B, T, U1 = blank.shape
     alphas = torch.empty(B, T, U1, device=blank.device, dtype=torch.float32)
     ll = torch.empty(B, device=blank.device, dtype=torch.float32)
@@ -194,6 +276,7 @@ def rnnt_alpha_cuda(blank_lp, emit_lp, t_len, u_len):
              torch.cuda.current_stream(blank.device).cuda_stream)
     _build.check(err, "rnnt", "rnnt_alpha launch")
     LAUNCHES["rnnt_alpha"] += 1
+    ROUTES[f"rnnt_alpha_{plan.route}"] += 1
     return alphas, ll
 
 
@@ -202,7 +285,8 @@ def rnnt_beta_grad_cuda(blank_lp, emit_lp, alphas, t_len, u_len, ll,
     """Launch ``rnnt_beta_grad`` of ``csrc/rnnt.cu``; same contract as
     :func:`rnnt_beta_grad_plain`."""
     refuse_grad("rnnt_beta_grad_cuda", blank_lp, emit_lp, alphas, ll)
-    blank, emit, tl, ul = _kernel_inputs(blank_lp, emit_lp, t_len, u_len)
+    blank, emit, tl, ul, plan = _kernel_inputs(blank_lp, emit_lp, t_len,
+                                               u_len, beta=True)
     B, T, U1 = blank.shape
     if alphas.shape != blank.shape or ll.shape != (B,):
         raise ValueError(f"rnnt_beta_grad: alphas must be {tuple(blank.shape)} "
@@ -219,7 +303,34 @@ def rnnt_beta_grad_cuda(blank_lp, emit_lp, alphas, t_len, u_len, ll,
              B, T, U1, torch.cuda.current_stream(blank.device).cuda_stream)
     _build.check(err, "rnnt", "rnnt_beta_grad launch")
     LAUNCHES["rnnt_beta_grad"] += 1
+    ROUTES[f"rnnt_beta_grad_{plan.route}"] += 1
     return gb, ge, betas
+
+
+def rnnt_launch_plan_cuda(U1, beta=False):
+    """The plan ``csrc/rnnt.cu`` itself computes at ``U + 1 = U1``, as
+    ``(cells, warps, helpers, band, stages, smem)`` (the card tests hold
+    it against :func:`launch_plan`)."""
+    out = (ctypes.c_int * 6)()
+    fn = _build.function("rnnt", "rnnt_launch_plan", [_I, _I, _P])
+    _build.check(fn(U1, int(beta), ctypes.addressof(out)), "rnnt",
+                 "rnnt_launch_plan")
+    return tuple(out)
+
+
+def chain_probe_cuda(steps, terms, w):
+    """Launch ``rnnt_chain_probe``: one warp runs ``steps`` dependent
+    steps of a lattice recursion in registers (``terms`` 2: RNN-T's
+    shuffle + lse2; 3: CTC's two shuffles + lse3), adding the constants
+    in ``w`` (a CUDA f32 tensor of 3). Returns the warp's 32 results. A
+    timing probe of the chain's step latency, not a kernel of any model
+    path, so it has no launch count."""
+    out = torch.empty(32, device=w.device, dtype=torch.float32)
+    fn = _build.function("rnnt", "rnnt_chain_probe", [_P, _P, _I, _I, _P])
+    err = fn(out.data_ptr(), w.data_ptr(), steps, terms,
+             torch.cuda.current_stream(w.device).cuda_stream)
+    _build.check(err, "rnnt", "rnnt_chain_probe launch")
+    return out
 
 
 class RNNTLossFunction(torch.autograd.Function):

@@ -43,8 +43,11 @@ the log-likelihood rtol 1e-5; the gradient through ``ctc_loss`` against
 the CPU's plain version within the f32 gradient tolerance.
 
 RNN-T slice: the alpha and beta-gradient kernels against their plain
-versions at the smoke's shapes (``[16, 400, 49]``, ``[8, 200, 513]``) and
-edges (``u_len = 0``, ``t_len = 1``, ``U + 1 = 1024``): dead cells equal
+versions at the smoke's shapes (``[16, 400, 49]``, ``[8, 200, 513]``),
+edges (``u_len = 0``, ``t_len = 1``, ``U + 1 = 1024``), both sides of the
+warp boundary (``U + 1`` 64 and 65) and odd ``T x (U + 1)``, on every route
+and cell count (``U + 1`` 2500 and 4096), each case's route and plan the
+launch plan's: dead cells equal
 exactly, live alphas and betas within atol 1e-3 + rtol 1e-5 as CTC's, the
 log-likelihood and ``bhat[0, 0]`` rtol 1e-5 (atol 1e-4), the posteriors
 (probabilities) atol 1e-5; ``rnnt_loss`` gradients against the CPU's plain
@@ -937,22 +940,37 @@ def _rnnt_batch(B, T, U1, seed, edges=False):
     return [t.cuda() for t in (lp[..., 0].contiguous(), emit, tl, ul)]
 
 
-@pytest.mark.parametrize("B,T,U1,edges", [(16, 400, 49, False),
-                                          (8, 200, 513, False),
-                                          (4, 50, 1024, True),
-                                          (3, 9, 7, True)])
-def test_rnnt_kernels_match_plain(gen, B, T, U1, edges):
+@pytest.mark.parametrize("B,T,U1,edges,route", [
+    (16, 400, 49, False, "warp"), (8, 200, 513, False, "block"),
+    (4, 50, 1024, True, "block"), (3, 9, 7, True, "warp"),
+    # both sides of the warp boundary; odd T x (U + 1), so every utterance
+    # but the first starts off a 16-byte boundary
+    (4, 21, 64, True, "warp"), (5, 37, 65, True, "block"),
+    (3, 41, 49, True, "warp"),
+    # four cells a lane; eight, with a ring of two bands of one diagonal
+    (2, 7, 2500, False, "block"), (2, 5, 4096, False, "block")])
+def test_rnnt_kernels_match_plain(gen, B, T, U1, edges, route):
+    from paddle_tpu_torch.kernels import rnnt as R
     from paddle_tpu_torch.kernels.rnnt import (
         rnnt_alpha_cuda, rnnt_alpha_plain, rnnt_beta_grad_cuda,
         rnnt_beta_grad_plain)
 
+    for beta in (False, True):      # the kernels' own plan is the wrapper's
+        p = R.launch_plan(U1, beta)
+        assert p.route == route
+        assert R.rnnt_launch_plan_cuda(U1, beta) == (
+            p.cells, p.warps, p.helpers, p.band, p.stages, p.smem)
     args = _rnnt_batch(B, T, U1, T + U1, edges)
+    before = dict(R.ROUTES)
     alphas, ll = rnnt_alpha_cuda(*args)
     p_alphas, p_ll = rnnt_alpha_plain(*args)
     _lattice_close(alphas, p_alphas)
     _close(ll, p_ll, atol=1e-4, rtol=1e-5)
     gb, ge, betas = rnnt_beta_grad_cuda(*args[:2], p_alphas, *args[2:], p_ll,
                                         with_betas=True)
+    assert {k: v - before[k] for k, v in R.ROUTES.items()
+            if v != before[k]} == {f"rnnt_alpha_{route}": 1,
+                                   f"rnnt_beta_grad_{route}": 1}
     p_gb, p_ge, p_betas = rnnt_beta_grad_plain(*args[:2], p_alphas,
                                                *args[2:], p_ll,
                                                with_betas=True)
@@ -960,6 +978,12 @@ def test_rnnt_kernels_match_plain(gen, B, T, U1, edges):
     _close(gb, p_gb, atol=1e-5, rtol=0)
     _close(ge, p_ge, atol=1e-5, rtol=0)
     _close(betas[:, 0, 0], ll, atol=1e-4, rtol=1e-5)
+    # the same bits again, and without bhat the same posteriors
+    again = rnnt_beta_grad_cuda(*args[:2], p_alphas, *args[2:], p_ll)
+    torch.testing.assert_close(rnnt_alpha_cuda(*args)[0], alphas, atol=0,
+                               rtol=0)
+    torch.testing.assert_close(again[0], gb, atol=0, rtol=0)
+    torch.testing.assert_close(again[1], ge, atol=0, rtol=0)
 
 
 def test_regression_rnnt_loss_on_the_card_launches_the_kernels(gen):
