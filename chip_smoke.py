@@ -101,14 +101,22 @@ CUDA toolkit (``nvcc``). It imports nothing of JAX or of ``paddle_tpu``.
    with the AdamW update.
 9. Conformer slice's kernel phases (run with the other kernel phases):
    the CTC alpha and beta kernels at ``log_probs [400, 16, 128]`` f32 with
-   labels [16, 48] (and L 100, S 201): ragged input lengths 300-400 and
-   label lengths 24-48, repeated adjacent labels, an empty label and an
-   infeasible row; the lattices' -1e30 entries equal the plain versions',
-   the live ones within CTC_ATOL / CTC_RTOL, the loss and the gradient
-   (kernel path vs ``ctc_grad`` of the plain lattices) too, the
-   infeasible row's gradient 0; library column ``F.ctc_loss`` and its
-   backward, timed only (its log_probs gradient assumes a log-softmax
-   input, so it is not the JAX package's). Flash at head_dim 36
+   labels [16, 48] (and L 100, S 201; S 127 and 129 across the one-warp
+   route's edge, 129 with whole rows of an odd C; C 5001; S 8191 with
+   whole rows and with gathered states; T 1): ragged input lengths and
+   label lengths (300-400 and 24-48 at the slice), repeated adjacent
+   labels, an empty label and an infeasible row; the lattices' -1e30
+   entries equal the plain versions', the live ones within CTC_ATOL /
+   CTC_RTOL, the loss and the gradient (kernel path vs ``ctc_grad`` of
+   the plain lattices) too, the infeasible row's gradient 0, two calls
+   bit for bit equal, each case's route (the wrappers' route counts) the
+   launch plan's ("warp" at the slice's S 97); times at the slice (the
+   row) and at L 100 (a sub-row), each with its chain bound (alpha: T
+   dependent steps, beta: max(in_len); times the probe's CTC step, the
+   kernels' own: two shuffles and the two-expf lse3); library column
+   ``F.ctc_loss`` and its backward, timed only (its log_probs gradient
+   assumes a log-softmax input, so it is not the JAX package's). Flash at
+   head_dim 36
    ``[16, 400, 4, 36]`` bf16, p 0.1 and 0, forward and backward against
    the plain versions under the dropout phase's tolerances, the mask read
    back exactly by the probes.
@@ -145,8 +153,8 @@ CUDA toolkit (``nvcc``). It imports nothing of JAX or of ``paddle_tpu``.
     long-label shape (a sub-row) with the dependent-step count
     ``max(t_len + u_len)`` and the chain bound: those steps x the latency
     of one step, timed by a probe (one warp, 100000 dependent steps in
-    registers; the CTC rows get the probe's CTC step x their steps); no
-    library column (no PyTorch call computes the RNN-T loss).
+    registers); no library column (no PyTorch call computes the RNN-T
+    loss).
 13. Whole RNN-T step: ``ConformerForRNNT`` (predictor LSTM 144) under the
     whole Conformer step's settings and limits (phase 10), the per-frame
     loss being each utterance's RNN-T loss over its input length, then the
@@ -1039,54 +1047,92 @@ def check_lattice(torch, name, got, want) -> float:
                  CTC_ATOL, CTC_RTOL)
 
 
+def lattice_routes(M):
+    """A lattice kernel module's launches per route so far ({} where the
+    checkout predates the routes)."""
+    return dict(getattr(M, "ROUTES", {}))
+
+
 def ctc_phase(torch, g):
     """The CTC alpha and beta kernels, the loss and its gradient against
-    the plain versions on the card; times at the Conformer's shape."""
-    from paddle_tpu_torch.kernels.ctc import (ctc_alpha_cuda, ctc_alpha_plain,
-                                              ctc_beta_cuda, ctc_beta_plain,
-                                              ctc_grad, ctc_lattice)
+    the plain versions on the card: the Conformer's shape (L 48, S 97), a
+    long-label S 201, both sides of the warp boundary (S 127 / 129, whole
+    rows of an odd C), a vocabulary of 5001, the widest lattice (S 8191)
+    with whole rows and with gathered states, and T = 1. The route each
+    case took is read from the wrappers' route counts and must be the
+    launch plan's (the Conformer's S 97 takes "warp"); two calls give the
+    same bits. Times at the Conformer's shape (the row) and at S 201 (a
+    sub-row), each with its chain bound (dependent steps x the probe's
+    step) beside the byte bound."""
+    from paddle_tpu_torch.kernels import ctc as M
 
-    T, B, C = 400, 16, 128
-    print(f"[kernel] ctc_alpha, ctc_beta  log_probs [{T}, {B}, {C}] f32, "
-          f"labels [{B}, L]: ragged lengths, repeats, an empty label, an "
-          f"infeasible row")
+    cases = [("slice L 48 (S 97)", (400, 16, 128, 48), "warp"),
+             ("long labels L 100 (S 201)", (400, 16, 128, 100), "block"),
+             ("S 127", (70, 4, 200, 63), "warp"),
+             ("S 129, C 41", (70, 4, 41, 64), "block"),
+             ("C 5001", (60, 4, 5001, 20), "warp"),
+             ("L 4095 (S 8191), C 33", (24, 4, 33, 4095), "block"),
+             ("L 4095 (S 8191), C 9000", (12, 4, 9000, 4095), "block"),
+             ("T 1", (1, 4, 6, 3), "warp")]
+    timed = ("slice L 48 (S 97)", "long labels L 100 (S 201)")
+    print("[kernel] ctc_alpha, ctc_beta  log_probs [T, B, C] f32, labels "
+          "[B, L]: ragged lengths, repeats, an empty label, an infeasible "
+          "row")
+    step = chain_step_us(torch, "ctc")
+    if step is not None:
+        print(f"  chain probe: one CTC step (two shuffles, fmaxf, two expf, "
+              f"logf, adds) {step:.5f} us, in {CHAIN_PROBE_STEPS} dependent "
+              f"steps on one warp")
     rows = None
     worst = [0.0, 0.0]
-    for L in (48, 100):
-        lp, labels, in_len, lbl_len = ctc_batch(torch, T, B, C, L, L, "cuda")
+    for i, (tag, (T, B, C, L), route) in enumerate(cases):
+        lp, labels, in_len, lbl_len = ctc_batch(torch, T, B, C, L, L + i,
+                                                "cuda")
         S = 2 * L + 1
-        alphas, ll = ctc_alpha_cuda(lp, labels, in_len, lbl_len)
-        betas = ctc_beta_cuda(lp, labels, in_len, lbl_len)
-        p_alphas, p_ll = ctc_alpha_plain(lp, labels, in_len, lbl_len)
-        p_betas = ctc_beta_plain(lp, labels, in_len, lbl_len)
+        before = lattice_routes(M)
+        alphas, ll = M.ctc_alpha_cuda(lp, labels, in_len, lbl_len)
+        betas = M.ctc_beta_cuda(lp, labels, in_len, lbl_len)
         torch.cuda.synchronize()
-        tag = f"L {L} (S {S})"
+        ran = {k: v - before[k] for k, v in lattice_routes(M).items()
+               if v != before[k]}
+        if before and ran != {f"ctc_alpha_{route}": 1,
+                              f"ctc_beta_{route}": 1}:
+            raise AssertionError(f"{tag}: expected route {route}, ran {ran}")
+        p_alphas, p_ll = M.ctc_alpha_plain(lp, labels, in_len, lbl_len)
+        p_betas = M.ctc_beta_plain(lp, labels, in_len, lbl_len)
+        torch.cuda.synchronize()
         worst[0] = max(worst[0], check_lattice(torch, f"{tag} alphas",
-                                               alphas, p_alphas))
+                                               alphas, p_alphas),
+                       check(torch, f"{tag} loss", -ll, -p_ll, 1e-4,
+                             CTC_RTOL))
         worst[1] = max(worst[1], check_lattice(torch, f"{tag} betas", betas,
                                                p_betas))
-        worst[0] = max(worst[0], check(torch, f"{tag} loss", -ll, -p_ll,
-                                       1e-4, CTC_RTOL))
         x = lp.clone().requires_grad_()
-        ctc_lattice(x, labels, in_len, lbl_len).sum().backward()
-        want = ctc_grad(p_alphas, p_betas, p_ll, labels,
-                        torch.ones(B, device="cuda"), C)
+        M.ctc_lattice(x, labels, in_len, lbl_len).sum().backward()
+        want = M.ctc_grad(p_alphas, p_betas, p_ll, labels,
+                          torch.ones(B, device="cuda"), C)
         torch.cuda.synchronize()
         worst[1] = max(worst[1], check_grad(torch, f"{tag} d log_probs",
                                             x.grad, want, GRAD_FRAC_F32))
         if x.grad[:, 3].any():
-            raise AssertionError("the infeasible row got a gradient")
-        print(f"  {tag}: the infeasible row's loss {-ll[3].item():.3g} and "
-              f"gradient 0 (as the plain version's)")
-        if rows is not None:
+            raise AssertionError(f"{tag}: the infeasible row got a gradient")
+        again = M.ctc_alpha_cuda(lp, labels, in_len, lbl_len)
+        if not (torch.equal(again[0], alphas) and torch.equal(again[1], ll)
+                and torch.equal(M.ctc_beta_cuda(lp, labels, in_len,
+                                                lbl_len), betas)):
+            raise AssertionError(f"{tag}: two calls gave different bits")
+        print(f"  {tag}: route {route if before else 'single'}; the "
+              f"infeasible row's loss {-ll[3].item():.3g} and gradient 0; "
+              f"two calls give the same bits")
+        if tag not in timed:
             continue
-        a_ms = time_ms(torch, lambda: ctc_alpha_cuda(lp, labels, in_len,
-                                                     lbl_len))
-        b_ms = time_ms(torch, lambda: ctc_beta_cuda(lp, labels, in_len,
-                                                    lbl_len))
-        a_plain = time_ms(torch, lambda: ctc_alpha_plain(
+        a_ms = time_ms(torch, lambda: M.ctc_alpha_cuda(lp, labels, in_len,
+                                                       lbl_len))
+        b_ms = time_ms(torch, lambda: M.ctc_beta_cuda(lp, labels, in_len,
+                                                      lbl_len))
+        a_plain = time_ms(torch, lambda: M.ctc_alpha_plain(
             lp, labels, in_len, lbl_len), iters=3, warmup=1)
-        b_plain = time_ms(torch, lambda: ctc_beta_plain(
+        b_plain = time_ms(torch, lambda: M.ctc_beta_plain(
             lp, labels, in_len, lbl_len), iters=3, warmup=1)
         ctc = torch.nn.functional.ctc_loss
         lib_f = time_ms(torch, lambda: ctc(lp, labels, in_len, lbl_len,
@@ -1096,32 +1142,47 @@ def ctc_phase(torch, g):
                        zero_infinity=True).sum()
         lib_b = time_ms(torch, lambda: torch.autograd.grad(
             lib_loss, xl, retain_graph=True))
+        # the dependent steps: alpha carries every row (T); beta's chain
+        # runs from its terminal row in_len - 1 down (none where in_len is
+        # outside [1, T]), so max(in_len) steps
+        chain_b = torch.where((in_len >= 1) & (in_len <= T), in_len, 0)
+        steps_a, steps_b = T, int(chain_b.max())
         # alpha: read log_probs and labels, write alphas and ll; beta: the
         # same inputs, write betas. ~12 f32 operations a state and step
-        # (three exp, a log, the max and the adds).
+        # (fmaxf, the subtractions, two expf, a logf, the adds, selects)
         nb_in = lp.numel() * 4 + labels.numel() * 8 + 2 * B * 8
         nb_out = T * B * S * 4
         bound_a, by_a = bound_ms(nb_in + nb_out + B * 4, 12 * T * B * S,
                                  F32_FLOPS)
-        bound_b, by_b = bound_ms(nb_in + nb_out, 12 * T * B * S, F32_FLOPS)
-        # the chain bound: max(input length) dependent steps of the
-        # recursion, each as long as the probe's CTC step
-        steps, step3 = int(in_len.max()), chain_step_us(torch, 3)
-        chain = {"dependent_steps": steps, "step_us": step3,
-                 "chain_bound_ms": steps * step3 / 1e3}
+        bound_b, by_b = bound_ms(nb_in + nb_out,
+                                 12 * int(chain_b.sum()) * S, F32_FLOPS)
+        chains = [{"dependent_steps": n, "step_us": step,
+                   "chain_bound_ms": None if step is None
+                   else n * step / 1e3} for n in (steps_a, steps_b)]
+        chain_s = "" if step is None else (
+            f"; chain bounds {chains[0]['chain_bound_ms']:.4f} / "
+            f"{chains[1]['chain_bound_ms']:.4f} ms ({steps_a} / {steps_b} "
+            f"steps x {step:.5f} us)")
         print(f"  {tag}: alpha kernel {a_ms:.4f} ms, plain {a_plain:.4f}, "
-              f"F.ctc_loss {lib_f:.4f}, bound {bound_a:.4f} ({by_a}; and "
-              f"{T} dependent steps: {1e3 * a_ms / T:.2f} us a step); beta "
-              f"kernel {b_ms:.4f} ms, plain {b_plain:.4f}, F.ctc_loss "
-              f"backward {lib_b:.4f}, bound {bound_b:.4f} ({by_b}); chain "
-              f"bound {chain['chain_bound_ms']:.4f} ms ({steps} steps x "
-              f"{step3:.5f} us, the probe's CTC step: two shuffles, fmaxf, "
-              f"three expf, logf)")
+              f"F.ctc_loss {lib_f:.4f}, bound {bound_a:.4f} ({by_a}; "
+              f"{1e3 * a_ms / steps_a:.3f} us a step); beta kernel "
+              f"{b_ms:.4f} ms, plain {b_plain:.4f}, F.ctc_loss backward "
+              f"{lib_b:.4f}, bound {bound_b:.4f} ({by_b}; "
+              f"{1e3 * b_ms / max(steps_b, 1):.3f} us a step){chain_s}")
         shape = f"log_probs [{T}, {B}, {C}] f32, L {L}"
-        rows = (dict(shape=shape, ms=a_ms, plain_ms=a_plain, library_ms=lib_f,
-                     bound_ms=bound_a, bound_by=by_a, chain=chain),
-                dict(shape=shape, ms=b_ms, plain_ms=b_plain, library_ms=lib_b,
-                     bound_ms=bound_b, bound_by=by_b, chain=chain))
+        plan = (M.launch_plan(S, C)._asdict()
+                if hasattr(M, "launch_plan") else None)
+        sub = (dict(shape=shape, ms=a_ms, plain_ms=a_plain, library_ms=lib_f,
+                    bound_ms=bound_a, bound_by=by_a, route=route, plan=plan,
+                    chain=chains[0]),
+               dict(shape=shape, ms=b_ms, plain_ms=b_plain, library_ms=lib_b,
+                    bound_ms=bound_b, bound_by=by_b, route=route, plan=plan,
+                    chain=chains[1]))
+        if rows is None:
+            rows = sub
+        else:
+            for r, m in zip(rows, sub):
+                r["long_labels"] = m
         del xl, lib_loss
     rows[0]["max_abs_err"], rows[1]["max_abs_err"] = worst
     return rows
@@ -1158,32 +1219,31 @@ def rnnt_lattices(torch, B, T, U1, tl_range, ul_range, seed, edges=False,
 CHAIN_PROBE_STEPS = 100000
 
 
-def chain_step_us(torch, terms):
+def chain_step_us(torch, kind):
     """The latency of one dependent step of a lattice recursion on the
-    card, in us: one warp runs CHAIN_PROBE_STEPS steps in registers
-    (``kernels/rnnt.py`` ``chain_probe_cuda``; terms 2: RNN-T's shuffle +
-    lse2 with the reference's two expf, 3: CTC's two shuffles + lse3).
-    None where the checkout has no probe (an older --root of
-    tools/rnnt_bench.py)."""
-    from paddle_tpu_torch.kernels import rnnt as R
-
-    if not hasattr(R, "chain_probe_cuda"):
+    card, in us: one warp runs CHAIN_PROBE_STEPS steps in registers (kind
+    "rnnt": ``kernels/rnnt.py`` ``chain_probe_cuda``, a shuffle + lse2 with
+    the reference's two expf; "ctc": ``kernels/ctc.py``
+    ``chain_probe_cuda``, the CTC kernels' step: two shuffles + lse3 with
+    two expf). None where the checkout has no such probe (an older --root
+    of tools/rnnt_bench.py or tools/ctc_kernel_bench.py)."""
+    if kind == "rnnt":
+        from paddle_tpu_torch.kernels import rnnt as M
+        # log(1/2) keeps the chain's values bounded
+        w = torch.tensor([math.log(0.5)] * 3, device="cuda")
+        run = lambda: M.chain_probe_cuda(CHAIN_PROBE_STEPS, 2, w)
+    else:
+        from paddle_tpu_torch.kernels import ctc as M
+        # log(2/5) with the skip term's log(1/2): bounded values
+        w = torch.tensor([math.log(0.4), math.log(0.5), math.log(0.5)],
+                         device="cuda")
+        run = lambda: M.chain_probe_cuda(CHAIN_PROBE_STEPS, w)
+    if not hasattr(M, "chain_probe_cuda"):
         return None
-    # log(1/2) / log(2/5) keep the chain's values bounded
-    w = torch.tensor([math.log(0.5) if terms == 2 else math.log(0.4),
-                      math.log(0.5), math.log(0.5)], device="cuda")
-    out = R.chain_probe_cuda(CHAIN_PROBE_STEPS, terms, w)
-    if not bool(torch.isfinite(out).all()):
-        raise AssertionError(f"chain probe (terms {terms}): non-finite")
-    ms = time_ms(torch, lambda: R.chain_probe_cuda(CHAIN_PROBE_STEPS, terms,
-                                                   w), iters=5, warmup=1)
+    if not bool(torch.isfinite(run()).all()):
+        raise AssertionError(f"chain probe ({kind}): non-finite")
+    ms = time_ms(torch, run, iters=5, warmup=1)
     return 1e3 * ms / CHAIN_PROBE_STEPS
-
-
-def rnnt_routes(R):
-    """The RNN-T kernels' launches per route so far ({} where the checkout
-    predates the routes)."""
-    return dict(getattr(R, "ROUTES", {}))
 
 
 def rnnt_phase(torch, g):
@@ -1212,7 +1272,7 @@ def rnnt_phase(torch, g):
     print("[rnnt] rnnt_alpha, rnnt_beta_grad  blank/emit [B, T, U + 1] f32 "
           "from joint logits over vocab 128; edges: u_len 0, t_len 1, both, "
           "U + 1 = 1024")
-    step2 = chain_step_us(torch, 2)
+    step2 = chain_step_us(torch, "rnnt")
     if step2 is not None:
         print(f"  chain probe: one RNN-T step (shuffle, adds, fmaxf, two "
               f"expf, logf) {step2:.5f} us, in {CHAIN_PROBE_STEPS} "
@@ -1222,7 +1282,7 @@ def rnnt_phase(torch, g):
     for i, (tag, (B, T, U1, tlr, ulr), route) in enumerate(cases):
         args = rnnt_lattices(torch, B, T, U1, tlr, ulr, 5 + i,
                              edges=tag.startswith("edges"))
-        before = rnnt_routes(R)
+        before = lattice_routes(R)
         alphas, ll = R.rnnt_alpha_cuda(*args)
         p_alphas, p_ll = R.rnnt_alpha_plain(*args)
         gb, ge, betas = R.rnnt_beta_grad_cuda(*args[:2], p_alphas, *args[2:],
@@ -1230,7 +1290,7 @@ def rnnt_phase(torch, g):
         p_gb, p_ge, p_betas = R.rnnt_beta_grad_plain(
             *args[:2], p_alphas, *args[2:], p_ll, with_betas=True)
         torch.cuda.synchronize()
-        ran = {k: v - before[k] for k, v in rnnt_routes(R).items()
+        ran = {k: v - before[k] for k, v in lattice_routes(R).items()
                if v != before[k]}
         if before and ran != {f"rnnt_alpha_{route}": 1,
                               f"rnnt_beta_grad_{route}": 1}:

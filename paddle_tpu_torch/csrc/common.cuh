@@ -95,6 +95,28 @@ __device__ __forceinline__ float block_sum(float v, float* scratch) {
   return scratch[32];
 }
 
+// 4-byte asynchronous copies from device to shared memory (any
+// alignment), committed and waited for in groups
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// this thread's copies of all but its newest `pending` (0 or 1) bands
+// have landed
+__device__ __forceinline__ void cp_async_wait(int pending) {
+  if (pending)
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+  else
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
 // Tensor-core product D = A.B + D, m16n8k16, bf16 in, f32 accumulate.
 // Fragment layouts are PTX's (g = lane / 4, t = lane % 4): A (16 x 16,
 // row-major) a0 = A[g][2t, 2t+1], a1 = A[g+8][2t, 2t+1], a2 = A[g][2t+8,

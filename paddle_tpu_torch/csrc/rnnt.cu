@@ -89,26 +89,6 @@ __device__ __forceinline__ float lse2(float a, float b) {
   return m <= NEG / 2 ? NEG : r;
 }
 
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// this thread's copies of all but its newest `pending` (0 or 1) bands
-// have landed
-__device__ __forceinline__ void cp_async_wait(int pending) {
-  if (pending)
-    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-  else
-    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
 // the compute warps alone, once a diagonal (named barrier 1)
 __device__ __forceinline__ void compute_sync(int threads) {
   asm volatile("bar.sync 1, %0;\n" ::"r"(threads) : "memory");
@@ -560,32 +540,16 @@ __device__ __forceinline__ float lse2_ref(float a, float b) {
   return m + logf(expf(a - m) + expf(b - m));
 }
 
-// log(e^a + e^b + e^c): fmaxf, three expf, logf (the CTC recursion's)
-__device__ __forceinline__ float lse3_ref(float a, float b, float c) {
-  const float m = fmaxf(a, fmaxf(b, c));
-  if (m <= NEG / 2) return NEG;
-  return m + logf(expf(a - m) + expf(b - m) + expf(c - m));
-}
-
-// One warp runs `steps` dependent steps of a lattice recursion in
-// registers: terms 2 is RNN-T's (a shuffle, two adds, lse2), terms 3 CTC's
-// (two shuffles, lse3 of three neighbours, an add). No memory on the chain.
-__global__ void chain_probe_kernel(float* out, const float* w, int steps,
-                                   int terms) {
+// One warp runs `steps` dependent steps of the RNN-T recursion in
+// registers: a shuffle, two adds, lse2. No memory on the chain. (The CTC
+// step's probe is ctc.cu's `ctc_chain_probe`.)
+__global__ void chain_probe_kernel(float* out, const float* w, int steps) {
   const int lane = threadIdx.x;
-  const float w0 = w[0], w1 = w[1], w2 = w[2];
+  const float w0 = w[0], w1 = w[1];
   float x = -0.5f * lane;
-  if (terms == 2) {
-    for (int i = 0; i < steps; ++i) {
-      const float l = __shfl_up_sync(FULL, x, 1);
-      x = lse2_ref(x + w0, l + w1);
-    }
-  } else {
-    for (int i = 0; i < steps; ++i) {
-      const float l1 = __shfl_up_sync(FULL, x, 1);
-      const float l2 = __shfl_up_sync(FULL, x, 2);
-      x = lse3_ref(x, l1, l2 + w2) + w0;
-    }
+  for (int i = 0; i < steps; ++i) {
+    const float l = __shfl_up_sync(FULL, x, 1);
+    x = lse2_ref(x + w0, l + w1);
   }
   out[lane] = x;
 }
@@ -659,12 +623,12 @@ extern "C" int rnnt_beta_grad(const void* blank, const void* emit,
   }
 }
 
-// `steps` dependent lattice steps (terms 2: RNN-T's, 3: CTC's) on one warp;
-// out [32] f32, w [3] f32 (the constants the chain adds).
+// `steps` dependent RNN-T lattice steps on one warp (terms must be 2, the
+// RNN-T step); out [32] f32, w [3] f32 (the constants the chain adds).
 extern "C" int rnnt_chain_probe(void* out, const void* w, int steps,
                                 int terms, void* stream) {
-  if (terms != 2 && terms != 3) return static_cast<int>(cudaErrorInvalidValue);
+  if (terms != 2) return static_cast<int>(cudaErrorInvalidValue);
   chain_probe_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<float*>(out), static_cast<const float*>(w), steps, terms);
+      static_cast<float*>(out), static_cast<const float*>(w), steps);
   return static_cast<int>(cudaGetLastError());
 }

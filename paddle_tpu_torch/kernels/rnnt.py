@@ -320,11 +320,12 @@ def rnnt_launch_plan_cuda(U1, beta=False):
 
 def chain_probe_cuda(steps, terms, w):
     """Launch ``rnnt_chain_probe``: one warp runs ``steps`` dependent
-    steps of a lattice recursion in registers (``terms`` 2: RNN-T's
-    shuffle + lse2; 3: CTC's two shuffles + lse3), adding the constants
-    in ``w`` (a CUDA f32 tensor of 3). Returns the warp's 32 results. A
-    timing probe of the chain's step latency, not a kernel of any model
-    path, so it has no launch count."""
+    steps of the RNN-T recursion in registers (``terms`` must be 2: a
+    shuffle + lse2; the CTC step's probe is ``kernels/ctc.py``
+    ``chain_probe_cuda``), adding the constants in ``w`` (a CUDA f32
+    tensor of 3). Returns the warp's 32 results. A timing probe of the
+    chain's step latency, not a kernel of any model path, so it has no
+    launch count."""
     out = torch.empty(32, device=w.device, dtype=torch.float32)
     fn = _build.function("rnnt", "rnnt_chain_probe", [_P, _P, _I, _I, _P])
     err = fn(out.data_ptr(), w.data_ptr(), steps, terms,

@@ -40,7 +40,12 @@ back exactly. The CTC kernels against their plain versions: the -1e30
 atol 1e-3 + rtol 1e-5 (the same f32 recursion; expf/logf may differ by an
 ulp, and a lattice entry is a sum over up to T steps of magnitude ~5),
 the log-likelihood rtol 1e-5; the gradient through ``ctc_loss`` against
-the CPU's plain version within the f32 gradient tolerance.
+the CPU's plain version within the f32 gradient tolerance. The cases span
+both routes of ``kernels/ctc.py`` ``launch_plan`` (S 127 / 129), both
+stagings (whole rows of an odd C; a vocabulary of 5001 and 9000), the
+widest lattice (S 8191) and T = 1; each case's route and plan are the
+launch plan's, and two calls give the same bits; the kernels' expf and
+logf sequences give CUDA's bits over every argument they take.
 
 RNN-T slice: the alpha and beta-gradient kernels against their plain
 versions at the smoke's shapes (``[16, 400, 49]``, ``[8, 200, 513]``),
@@ -821,18 +826,57 @@ def _lattice_close(got, want):
     torch.testing.assert_close(got[~dead], want[~dead], atol=1e-3, rtol=1e-5)
 
 
-@pytest.mark.parametrize("T,B,C,L", [(400, 16, 128, 48), (400, 5, 128, 100),
-                                     (9, 4, 6, 3), (60, 4, 30, 0)])
-def test_ctc_kernels_match_plain(gen, T, B, C, L):
+@pytest.mark.parametrize("T,B,C,L,route", [
+    (400, 16, 128, 48, "warp"), (400, 5, 128, 100, "block"),
+    (9, 4, 6, 3, "warp"), (60, 4, 30, 0, "warp"),
+    # both sides of the warp boundary (S 127 / 129; 129 with whole rows
+    # of an odd C, so no row starts on a 16-byte boundary)
+    (70, 4, 200, 63, "warp"), (70, 4, 41, 64, "block"),
+    # a vocabulary of thousands, odd; the widest lattice (S 8191) with
+    # whole rows and with gathered states; one time step
+    (60, 4, 5001, 20, "warp"), (24, 4, 33, 4095, "block"),
+    (12, 4, 9000, 4095, "block"), (1, 4, 6, 3, "warp")])
+def test_ctc_kernels_match_plain(gen, T, B, C, L, route):
+    from paddle_tpu_torch.kernels import ctc as CT
     from paddle_tpu_torch.kernels.ctc import (ctc_alpha_cuda, ctc_alpha_plain,
                                               ctc_beta_cuda, ctc_beta_plain)
 
+    S = 2 * L + 1
+    p = CT.launch_plan(S, C)         # the kernels' own plan is the wrapper's
+    assert p.route == route
+    assert CT.ctc_launch_plan_cuda(S, C) == (
+        p.cells, p.warps, p.helpers, int(p.stage == "rows"), p.band,
+        p.stages, p.smem)
     args = _ctc_batch(T, B, C, L, T + L)
+    before = dict(CT.ROUTES)
     alphas, ll = ctc_alpha_cuda(*args)
+    betas = ctc_beta_cuda(*args)
+    assert {k: v - before[k] for k, v in CT.ROUTES.items()
+            if v != before[k]} == {f"ctc_alpha_{route}": 1,
+                                   f"ctc_beta_{route}": 1}
     p_alphas, p_ll = ctc_alpha_plain(*args)
     _lattice_close(alphas, p_alphas)
     _close(ll, p_ll, atol=1e-4, rtol=1e-5)
-    _lattice_close(ctc_beta_cuda(*args), ctc_beta_plain(*args))
+    _lattice_close(betas, ctc_beta_plain(*args))
+    # the same bits again
+    again, ll2 = ctc_alpha_cuda(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(again, alphas) and torch.equal(ll2, ll)
+    assert torch.equal(ctc_beta_cuda(*args), betas)
+
+
+def test_ctc_kernels_expf_logf_are_cudas_bit_for_bit(gen):
+    """The CTC kernels write expf and logf out as CUDA's own instruction
+    sequences (to step four states in lockstep): every argument they take
+    must give CUDA's bits. The exps take x - max <= 0 (every non-NaN
+    negative float, -0 to -inf), the logs a sum 1 + e^x (+ e^y) in
+    [1, 3]."""
+    from paddle_tpu_torch.kernels.ctc import math_check_cuda
+
+    assert math_check_cuda(0x80000000, 0xFF800000 - 0x80000000 + 1,
+                           "exp") == 0
+    assert math_check_cuda(0x3F800000, 0x40400000 - 0x3F800000 + 1,
+                           "log") == 0
 
 
 def test_regression_ctc_loss_on_the_card_launches_the_kernels(gen):

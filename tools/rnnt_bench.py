@@ -10,9 +10,11 @@ probe) once for every root, in the order given, each in a subprocess of
 its own. ``--root`` is a checkout (or a ``git archive`` unpacked) whose
 ``paddle_tpu_torch`` is imported (default: this one; the phase is always
 this checkout's), so two versions of the kernels compare in one call on
-one card, in turns (parent, change, change, parent). Only ``csrc/rnnt.cu`` is built. Prints the card's name
-and power limit, then one JSON line per run: ``{"root": ..., "rows":
-[alpha row, beta-gradient row]}``. Imports nothing of JAX.
+one card, in turns (parent, change, change, parent). Only ``csrc/rnnt.cu``
+is built. Prints the card's name and power limit, then one JSON line per
+run: ``{"root": ..., "rows": [alpha row, beta-gradient row]}``. Imports
+nothing of JAX. ``tools/ctc_kernel_bench.py`` runs the same for the CTC
+kernels (``main("ctc")``).
 """
 from __future__ import annotations
 
@@ -27,7 +29,7 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def _chip_smoke():
     """This checkout's chip_smoke.py (never a --root's: an older root's
-    RNN-T phase times other shapes)."""
+    lattice phases check and time other cases)."""
     import importlib.util
 
     spec = importlib.util.spec_from_file_location(
@@ -37,40 +39,46 @@ def _chip_smoke():
     return mod
 
 
-def one(root):
+def one(root, kind):
+    """``chip_smoke.py``'s ``<kind>_phase`` against ``root``'s kernels
+    ``paddle_tpu_torch/kernels/<kind>.py``, building ``csrc/<kind>.cu``
+    alone."""
+    import importlib
+
     import torch
 
     sys.path.insert(0, os.path.abspath(root))
     from paddle_tpu_torch.kernels import _build
-    from paddle_tpu_torch.kernels import rnnt as R
 
+    mod = importlib.import_module(f"paddle_tpu_torch.kernels.{kind}")
     chip_smoke = _chip_smoke()
 
-    if os.path.dirname(R.__file__) != os.path.join(
+    if os.path.dirname(mod.__file__) != os.path.join(
             os.path.abspath(root), "paddle_tpu_torch", "kernels"):
-        raise RuntimeError(f"imported {R.__file__}, not {root}'s")
-    _build.sources = lambda: [_build.CSRC / "rnnt.cu"]
+        raise RuntimeError(f"imported {mod.__file__}, not {root}'s")
+    _build.sources = lambda: [_build.CSRC / f"{kind}.cu"]
     _build.build_all()
     g = torch.Generator(device="cuda").manual_seed(0)
-    rows = chip_smoke.rnnt_phase(torch, g)
+    rows = getattr(chip_smoke, f"{kind}_phase")(torch, g)
     print(json.dumps({"root": root, "rows": rows}))
 
 
-def main():
+def main(kind="rnnt"):
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", action="append")
     ap.add_argument("--one", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.one:
-        return one(args.one)
+        return one(args.one, kind)
     import torch
 
     if not torch.cuda.is_available():
-        print("rnnt_bench: needs a CUDA device", file=sys.stderr)
+        print(f"{os.path.basename(sys.argv[0])}: needs a CUDA device",
+              file=sys.stderr)
         return 2
     print(_chip_smoke().card_line())
     for root in args.root or [HERE]:
-        rc = subprocess.call([sys.executable, __file__, "--one", root])
+        rc = subprocess.call([sys.executable, sys.argv[0], "--one", root])
         if rc:
             return rc
     return 0
