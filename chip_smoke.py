@@ -207,6 +207,41 @@ CUDA toolkit (``nvcc``). It imports nothing of JAX or of ``paddle_tpu``.
     ENCODER_PER_STEP.
 18. ``ernie_tiny()`` (head_dim 16) attending on the card: one f32 MLM
     forward and backward against the CPU's plain versions.
+19. Whisper slice's kernel shapes (run with the other kernel phases):
+    ``[flash whisper]``, the flash kernels at Whisper-base's encoder
+    self-attention ``[8, 1500, 8, 64]`` bf16 (forward and backward) and a
+    decode step's cross-attention, q ``[8, 1, 8, 64]`` against k / v
+    ``[8, 1500, 8, 64]`` (forward), against the plain versions under the
+    dense tolerances and timed against SDPA (sub-rows ``whisper_encoder``
+    and ``whisper_decode`` of the flash rows); softmax-CE at the training
+    step's ``[16 x 224, 51865]`` bf16 logits and LayerNorm at the
+    encoder's ``[8 x 1500, 512]`` bf16 (sub-rows ``whisper``).
+20. ``[whisper]``: Whisper-base (``WhisperConfig()``: openai/whisper
+    ``base``'s 80 mels, d_model 512, 6 + 6 layers, 8 heads of 64, ffn
+    2048, vocab 51865, 1500 / 448 positions; nothing cut) in bf16 with
+    random weights from a seeded generator, ``generate`` over 8 x 30 s of
+    seeded synthetic log-mel ``[8, 80, 3000]`` for WHISPER_NEW_TOKENS
+    greedy tokens; every generated token (up to its row's end of text)
+    checked by teacher forcing through ``forward`` as ``[serving]``
+    checks (TF_TOL, TF_MIN_EXACT); the launches of ``generate`` must be
+    exactly the structure's (the encoder's 6 flash forwards and 13
+    LayerNorms, then 12 flash forwards and 19 LayerNorms a step, every
+    flash launch on sm90, no other kernel), and those of the
+    teacher-forced forward too (12 flash, 32 LayerNorm); prints the
+    encoder's device time, a decode step's wall and decode tokens/s, one
+    profiled decode step (busy, idle, kernels) and peak memory.
+21. ``[whole step whisper]``: a narrow Whisper (d_model 256, 4 heads of 64,
+    2 + 2 layers, ffn 1024, vocab 51865, batch 2 x 400 mel frames, 64
+    tokens), one O1 teacher-forced step on the card against f32 on the CPU
+    under phase 7's limits (the key projections' biases as there),
+    launches exactly the structure's.
+22. ``[whisper train]``: Whisper-base, f32 parameters under
+    auto_cast(O1, bf16), AdamW lr 1e-4, one repeated batch of 16 x 30 s
+    with 224-token targets: a warm-up step and WHISPER_STEPS timed steps;
+    losses finite and falling; launches per step exactly the structure's
+    (12 + 12 flash on sm90, 32 LayerNorm, 1 + 1 softmax-CE); utterances/s,
+    MFU (``whisper_flops_per_utterance``), step wall, a profiled step's
+    busy and idle share, peak memory.
 
 Flash design: bf16 at head_dim 64 and 128 with 16-byte rows takes the
 wgmma / TMA kernels (``csrc/flash_attention{,_bwd}_sm90.cu``, counted
@@ -218,8 +253,9 @@ ERNIE and encoder steps must launch every flash kernel on ``sm90``.
 
 The ``launches`` of the JSON line sum the main path's runs: the engine,
 the no-cache forward, the 5 Llama training steps, the ERNIE steps, the
-Conformer-CTC and the RNN-T steps, the encoder steps and the
-``F.flash_attn_unpadded`` call (the ``_d36`` rows: the Conformer steps'
+Conformer-CTC and the RNN-T steps, the encoder steps, the
+``F.flash_attn_unpadded`` call, the Whisper ``generate`` and its
+teacher-forced forward, and the Whisper training steps (the ``_d36`` rows: the Conformer steps'
 launches of the dropout flash kernels, all at head_dim 36; the ``_d16``
 rows: the ``ernie_tiny()`` step's). The last two lines are one JSON object
 with every kernel's numbers and one with the device. Any failure raises and exits non-zero; without a CUDA
@@ -332,6 +368,15 @@ ENCODER_PER_STEP = {"flash_attention_mask": 12, "flash_attention_bwd_mask": 12,
                     "flash_attention_sm90": 12,
                     "flash_attention_bwd_sm90": 12,
                     "layernorm": 24, "softmax_ce": 1, "softmax_ce_bwd": 1}
+# Whisper slice: Whisper-base (WhisperConfig(), openai/whisper "base") served
+# over 8 x 30 s of log-mel for 64 greedy tokens, and trained teacher-forced
+# on 16 x 30 s with 224-token targets; its attention [8, 1500, 8, 64]
+WHISPER_SERVE_BATCH = 8
+WHISPER_NEW_TOKENS = 64
+WHISPER_TRAIN_BATCH = 16
+WHISPER_TRAIN_TOKENS = 224
+WHISPER_STEPS = 10
+WHISPER_ATTN = (8, 1500, 8, 64)
 # The flash rows at bf16 head_dim 64 / 128 run the wgmma / TMA kernels
 # (the sm90 design); the head_dim-36 and -16 rows the mma.sync and
 # CUDA-core ones (the mma design)
@@ -750,21 +795,30 @@ def rmsnorm_bwd_phase(torch, g):
 
 def softmax_ce_phases(torch, g):
     """Both softmax-CE kernels at Llama's logits (every 10th row ignored,
-    the row in the kernels line) and at ERNIE's MLM logits (labels made as
-    ernie_batch makes them: about 85 % of rows at ignore_index)."""
+    the row in the kernels line), at ERNIE's MLM logits (labels made as
+    ernie_batch makes them: about 85 % of rows at ignore_index) and at the
+    Whisper training step's [16 x 224, 51865] (a sub-row: the odd
+    vocabulary starts every other bf16 row off 16-byte alignment, so the
+    kernels' scalar head and tail run)."""
     from paddle_tpu_torch.kernels.softmax_ce import (
         softmax_ce_bwd_cuda, softmax_ce_bwd_plain, softmax_ce_cuda,
         softmax_ce_plain)
 
     rows = None
-    for V, what in ((32000, "every 10th row:"), (40000, "ERNIE's MLM labels:")):
-        N = 8192
+    N_W = WHISPER_TRAIN_BATCH * WHISPER_TRAIN_TOKENS
+    for N, V, what in ((8192, 32000, "every 10th row:"),
+                       (8192, 40000, "ERNIE's MLM labels:"),
+                       (N_W, 51865, "Whisper's targets:")):
         x = (2 * torch.randn(N, V, device="cuda", generator=g)).bfloat16()
         if V == 32000:
             lab = torch.randint(0, V, (N,), device="cuda", generator=g)
             lab[::10] = -100
-        else:
+        elif V == 40000:
             lab = ernie_batch(torch, 16, 512, V, 1, "cuda")[1].reshape(-1)
+        else:
+            lab = whisper_targets(torch, WHISPER_TRAIN_BATCH,
+                                  WHISPER_TRAIN_TOKENS, V, 1, 3,
+                                  "cuda")[1].reshape(-1)
         valid = lab != -100
         n_valid = int(valid.sum().item())
         print(f"[kernel] softmax_ce, softmax_ce_bwd  logits [{N}, {V}] bf16, "
@@ -782,7 +836,7 @@ def softmax_ce_phases(torch, g):
                           p_loss[valid], CE_ATOL, CE_RTOL),
                     check(torch, "lse", lse, p_lse, CE_ATOL, CE_RTOL))
         err_b = check_grad(torch, "dx", dx, p_dx, GRAD_FRAC_BF16)
-        if dx[~valid].abs().max().item() != 0:
+        if (~valid).any() and dx[~valid].abs().max().item() != 0:
             raise AssertionError("softmax_ce_bwd: an ignored row got a "
                                  "gradient")
         del p_dx, dx
@@ -817,11 +871,13 @@ def softmax_ce_phases(torch, g):
             rows = pair
         else:
             for name, r in zip(("softmax_ce", "softmax_ce_bwd"), pair):
-                print(f"  {name} at {shape} (ERNIE's MLM loss): kernel "
+                print(f"  {name} at {shape} ({what[:-1]}): kernel "
                       f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
                       f"library {r['library_ms']:.4f} ms, bound "
                       f"{r['bound_ms']:.4f} ms ({r['bound_by']}), max abs "
                       f"err {r['max_abs_err']:.3e}")
+        if V == 51865:
+            _sub_rows(rows, "whisper", pair)
         del x, lab, safe, gl, loss, lse, p_loss, p_lse
     return rows
 
@@ -836,7 +892,8 @@ def layernorm_phase(torch, g):
     for rows, cols, dt in ((8192, 768, torch.float32),
                            (8192, 768, torch.bfloat16),
                            (1024, 4096, torch.bfloat16),
-                           (6400, 144, torch.float32)):   # the Conformer's
+                           (6400, 144, torch.float32),    # the Conformer's
+                           (12000, 512, torch.bfloat16)):  # Whisper-base's
         x = (2 * torch.randn(rows, cols, device="cuda", generator=g)
              + 0.5).to(dt)
         w = (1 + 0.1 * torch.randn(cols, device="cuda", generator=g)).to(dt)
@@ -874,6 +931,9 @@ def layernorm_phase(torch, g):
         if row is None:     # the ERNIE path's shape: f32 under O1
             row = dict(shape=tag, ms=ms, plain_ms=plain, library_ms=lib,
                        bound_ms=bound, bound_by=by)
+        elif cols == 512:   # [whisper]'s encoder, 8 x 1500 frames
+            row["whisper"] = dict(shape=tag, ms=ms, plain_ms=plain,
+                                  library_ms=lib, bound_ms=bound, bound_by=by)
     row["max_abs_err"] = worst
     return row
 
@@ -1570,7 +1630,8 @@ def _sub_rows(rows, key, more):
     ``rows``' (their errors fold into the main rows')."""
     for r, m in zip(rows, more):
         r[key] = {n: m[n] for n in ("shape", "ms", "plain_ms", "library_ms",
-                                    "bound_ms", "bound_by", "design")}
+                                    "bound_ms", "bound_by", "design")
+                  if n in m}
         r["max_abs_err"] = max(r["max_abs_err"], m["max_abs_err"])
 
 
@@ -2930,6 +2991,439 @@ def conformer_training_phase(torch, K, head="ctc"):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Whisper slice: Whisper-base served and trained, the seq2seq decoder
+# ---------------------------------------------------------------------------
+
+def whisper_mel(torch, B, T, n_mels, seed, device):
+    """Seeded synthetic log-mel ``[B, n_mels, T]`` in Whisper's own scaling
+    (log10 of the power, floored 8 below the maximum, then (x + 4) / 4)."""
+    gen = torch.Generator().manual_seed(seed)
+    power = torch.rand(B, n_mels, T, generator=gen) ** 4 + 1e-10
+    log_spec = power.log10()
+    log_spec = torch.maximum(log_spec, log_spec.max() - 8.0)
+    return ((log_spec + 4.0) / 4.0).to(device)
+
+
+def whisper_targets(torch, B, T, vocab, sot, seed, device):
+    """Seeded token sequences of T + 1 tokens starting at ``sot``: the
+    decoder's input ``[B, T]`` and its next-token targets ``[B, T]``."""
+    gen = torch.Generator().manual_seed(seed)
+    seq = torch.randint(3, vocab, (B, T + 1), generator=gen)
+    seq[:, 0] = sot
+    return seq[:, :-1].to(device), seq[:, 1:].to(device)
+
+
+def whisper_loss(F, model, mel, tokens, targets):
+    logits = model(mel, tokens)
+    return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                           targets.reshape(-1))
+
+
+def whisper_per_generate(cfg, steps):
+    """The launches of one ``generate`` that ran ``steps`` decode steps:
+    the encoder's self-attention (one flash forward a layer) and its
+    LayerNorms (two a layer and a final one); each step the decoder's
+    self- and cross-attention (two flash forwards a layer: one query, no
+    mask) and its LayerNorms (three a layer and a final one)."""
+    Le, Ld = cfg.encoder_layers, cfg.decoder_layers
+    flash = Le + 2 * Ld * steps
+    return {"flash_attention": flash, "flash_attention_sm90": flash,
+            "layernorm": 2 * Le + 1 + (3 * Ld + 1) * steps}
+
+
+def whisper_per_step(cfg):
+    """Launches of one teacher-forced training step: a flash forward and
+    backward for each encoder self-attention and each cross-attention (the
+    decoder's self-attention takes the causal float mask: the einsum
+    composition), every LayerNorm, one softmax-CE forward and backward."""
+    Le, Ld = cfg.encoder_layers, cfg.decoder_layers
+    n = Le + Ld
+    return {"flash_attention": n, "flash_attention_sm90": n,
+            "flash_attention_bwd": n, "flash_attention_bwd_sm90": n,
+            "layernorm": 2 * Le + 1 + 3 * Ld + 1, "softmax_ce": 1,
+            "softmax_ce_bwd": 1}
+
+
+def whisper_flops_per_utterance(cfg, T_mel, T_tok):
+    """Training flops an utterance (3x the forward's 2 x multiply-adds):
+    the two convolutions; per encoder layer the four projections, the FFN
+    and the score and P.V products over the T_mel / 2 frames; per decoder
+    layer, per token, the self-attention's four projections, the
+    cross-attention's query and output projections, the FFN, the score
+    and P.V products against the tokens and against the frames, and per
+    frame the cross-attention's key and value projections; the vocabulary
+    projection."""
+    h, f, V = cfg.d_model, cfg.ffn_dim, cfg.vocab_size
+    S = T_mel // 2
+    enc = (T_mel * cfg.n_mels * 3 * h + S * 3 * h * h
+           + cfg.encoder_layers * (S * (4 * h * h + 2 * h * f)
+                                   + 2 * S * S * h))
+    dec = (cfg.decoder_layers * (T_tok * (6 * h * h + 2 * h * f)
+                                 + S * 2 * h * h
+                                 + 2 * T_tok * T_tok * h + 2 * T_tok * S * h)
+           + T_tok * h * V)
+    return 6 * (enc + dec)
+
+
+def profile_step(torch, fn, what):
+    """One profiled call of ``fn``: its wall under the profiler, the device
+    busy time (the union of the kernels' intervals), and the kernels by
+    name; returns the busy ms."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        fn()
+        torch.cuda.synchronize()
+        prof_wall = (time.monotonic() - t0) * 1e3
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        raise AssertionError(f"the profiled {what} traced no kernel")
+    busy = busy_ms(kernels)
+    per_name: dict[str, list] = {}
+    for k in kernels:
+        acc = per_name.setdefault(k.name, [0.0, 0])
+        acc[0] += (k.time_range.end - k.time_range.start) / 1e3
+        acc[1] += 1
+    print(f"[profile] one {what}: device busy {busy:.3f} ms in "
+          f"{len(kernels)} kernels, wall {prof_wall:.2f} ms under the "
+          f"profiler")
+    for group, ms in kernel_share(kernels).items():
+        print(f"  {ms:9.3f} ms  {group}")
+    for name, (ms, n) in sorted(per_name.items(), key=lambda r: -r[1][0])[:8]:
+        print(f"  {ms:9.3f} ms  x{n:<5d} {name[:90]}")
+    return busy
+
+
+def whisper_serving_phase(torch, K):
+    """Whisper-base (``WhisperConfig()``, nothing cut) in bf16 with random
+    weights: greedy ``generate`` over 8 x 30 s of synthetic log-mel,
+    WHISPER_NEW_TOKENS tokens; every token checked by teacher forcing;
+    launches against the structure; the encoder's time, a decode step's
+    time and tokens/s, one profiled decode step, peak memory. Returns the
+    launches of ``generate`` and of the teacher-forced forward."""
+    from paddle_tpu_torch.models import (WhisperConfig,
+                                         WhisperForConditionalGeneration)
+
+    cfg = WhisperConfig()
+    B, T = WHISPER_SERVE_BATCH, 2 * cfg.max_source_positions
+    print(f"[whisper] Whisper-base (n_mels {cfg.n_mels}, d_model "
+          f"{cfg.d_model}, {cfg.encoder_layers} + {cfg.decoder_layers} "
+          f"layers, {cfg.num_heads} heads of {cfg.d_model // cfg.num_heads}, "
+          f"ffn {cfg.ffn_dim}, vocab {cfg.vocab_size}), bf16, random weights "
+          f"from seed 0; {B} x 30 s of synthetic log-mel [{B}, {cfg.n_mels}, "
+          f"{T}], generate(max_new_tokens={WHISPER_NEW_TOKENS})")
+    torch.cuda.reset_peak_memory_stats()
+    model = WhisperForConditionalGeneration(
+        cfg, dtype=torch.bfloat16,
+        generator=torch.Generator(device="cuda").manual_seed(0))
+    model.eval()
+    mel = whisper_mel(torch, B, T, cfg.n_mels, 1, "cuda").bfloat16()
+    print(f"  {model.num_params() / 1e6:.1f} M parameters")
+    with torch.inference_mode():
+        model.generate(mel, max_new_tokens=2)              # warm-up
+        torch.cuda.synchronize()
+        enc_ms = time_ms(torch, lambda: model.encoder(mel), iters=5,
+                         warmup=1)
+        K.reset_launch_counts()
+        t0 = time.monotonic()
+        out = model.generate(mel, max_new_tokens=WHISPER_NEW_TOKENS)
+        torch.cuda.synchronize()
+        wall = (time.monotonic() - t0) * 1e3
+        gen_launches = K.launch_counts()
+    steps = out.shape[1] - 1
+    want = whisper_per_generate(cfg, steps)
+    got = {k: v for k, v in gen_launches.items() if v}
+    print(f"  {steps} decode steps; launches {got} (expected {want})")
+    if got != want:
+        raise AssertionError("generate launched other kernels than the "
+                             "model's structure gives")
+    decode_ms = (wall - enc_ms) / steps
+    print(f"  generate wall {wall:.1f} ms: encoder {enc_ms:.3f} ms (device "
+          f"time, [{B}, {T // 2}, {cfg.d_model}] out), decode "
+          f"{decode_ms:.3f} ms a token step (host clock), "
+          f"{B * steps / ((wall - enc_ms) / 1e3):.1f} decode tokens/s")
+    # teacher forcing: each generated token against the uncached forward
+    eot = cfg.eot_token
+    K.reset_launch_counts()
+    with torch.inference_mode():
+        logits = model(mel, out[:, :-1]).float()
+    torch.cuda.synchronize()
+    tf_launches = K.launch_counts()
+    if not torch.isfinite(logits).all():
+        raise AssertionError("whisper: non-finite teacher-forced logits")
+    served = out[:, 1:]
+    # a row's tokens after its first end-of-text are padding, not argmaxes
+    ended = (served == eot).int().cumsum(1)
+    live = (ended == 0) | ((ended == 1) & (served == eot))
+    chosen = logits.gather(2, served[:, :, None])[:, :, 0]
+    gap = (logits.max(2).values - chosen)[live]
+    exact = int((logits.argmax(2) == served)[live].sum())
+    total = int(live.sum())
+    worst = gap.max().item()
+    print(f"  teacher forcing: worst gap to the row max {worst:.4f} (limit "
+          f"{TF_TOL}); {exact} of {total} generated tokens are the argmax "
+          f"(need {TF_MIN_EXACT:.0%}); logits' row max mean "
+          f"{logits.max(2).values.mean().item():.3f}")
+    if worst > TF_TOL:
+        raise AssertionError(f"whisper: a generated token's logit is {worst} "
+                             f"below its row's max (limit {TF_TOL})")
+    if exact < TF_MIN_EXACT * total:
+        raise AssertionError(f"whisper: only {exact} of {total} generated "
+                             f"tokens are the teacher-forced argmax")
+    tf_want = whisper_per_step(cfg)
+    tf_want = {k: tf_want[k] for k in ("flash_attention",
+                                       "flash_attention_sm90", "layernorm")}
+    tf_got = {k: v for k, v in tf_launches.items() if v}
+    print(f"  launches on the teacher-forced forward: {tf_got}")
+    if tf_got != tf_want:
+        raise AssertionError(f"the teacher-forced forward launched {tf_got}, "
+                             f"expected {tf_want}")
+    # one decode step as generate runs it, unprofiled walls then profiled
+    with torch.inference_mode():
+        memory = model.encoder(mel)
+        cache = model.decoder.layers.gen_cache(memory)
+        cur = out[:, :1]
+        state = {"cache": cache, "cur": cur, "step": 0}
+
+        def decode_step():
+            h, state["cache"] = model.decoder(state["cur"], memory,
+                                              cache=state["cache"],
+                                              pos_offset=state["step"])
+            nxt = model.proj(h[:, -1]).argmax(-1).cpu()
+            state["cur"] = nxt[:, None].to(memory.device)
+            state["step"] += 1
+
+        for _ in range(3):
+            decode_step()
+        torch.cuda.synchronize()
+        walls = []
+        for _ in range(5):
+            t0 = time.monotonic()
+            decode_step()
+            walls.append((time.monotonic() - t0) * 1e3)
+        step_wall = sum(walls) / len(walls)
+        busy = profile_step(torch, decode_step,
+                            f"whisper decode step ({B} rows, context "
+                            f"{state['step'] + 1})")
+    print(f"  decode step wall {step_wall:.3f} ms (mean of 5 unprofiled, "
+          f"min {min(walls):.3f}), device busy {busy:.3f} ms, idle "
+          f"{100 * (1 - busy / step_wall):.1f}% of the unprofiled wall; peak "
+          f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    del model, memory, cache, state, logits
+    return {k: gen_launches[k] + tf_launches[k] for k in gen_launches}
+
+
+def whisper_training_phase(torch, K):
+    """Teacher-forced training of Whisper-base (``WhisperConfig()``), f32
+    parameters under auto_cast(O1, bf16), AdamW lr 1e-4, one repeated batch
+    of 16 x 30 s with 224-token targets: a warm-up step and WHISPER_STEPS
+    timed steps; losses finite and falling; launches per step against the
+    structure; utterances/s, MFU, step wall, a profiled step, peak
+    memory."""
+    from paddle_tpu_torch import amp, framework
+    from paddle_tpu_torch.models import (WhisperConfig,
+                                         WhisperForConditionalGeneration)
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = WhisperConfig()
+    B, T, Tt = WHISPER_TRAIN_BATCH, 2 * cfg.max_source_positions, \
+        WHISPER_TRAIN_TOKENS
+    print(f"[whisper train] Whisper-base, batch {B} x 30 s ([{B}, "
+          f"{cfg.n_mels}, {T}] log-mel), {Tt}-token targets, f32 params "
+          f"under auto_cast(O1, bf16), AdamW lr 1e-4")
+    framework.seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    model = WhisperForConditionalGeneration(cfg, seed=0)
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                weight_decay=0.01)
+    mel = whisper_mel(torch, B, T, cfg.n_mels, 2, "cuda")
+    tokens, targets = whisper_targets(torch, B, Tt, cfg.vocab_size,
+                                      cfg.sot_token, 3, "cuda")
+
+    def step():
+        with amp.auto_cast(level="O1", dtype="bfloat16"):
+            loss = whisper_loss(F, model, mel, tokens, targets)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+
+    t0 = time.monotonic()
+    losses = [step().item()]
+    print(f"  warm-up step {time.monotonic() - t0:.2f}s, loss "
+          f"{losses[0]:.4f}")
+    K.reset_launch_counts()
+    walls = []
+    for _ in range(WHISPER_STEPS):
+        t0 = time.monotonic()
+        losses.append(step().item())
+        torch.cuda.synchronize()
+        walls.append(time.monotonic() - t0)
+    counts = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  losses {[round(v, 4) for v in losses]}")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite Whisper loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the Whisper loss did not fall: {losses}")
+    want = whisper_per_step(cfg)
+    per_step = {k: c / WHISPER_STEPS for k, c in counts.items() if c}
+    print(f"  launches per step: {per_step} (expected {want})")
+    if per_step != {k: float(v) for k, v in want.items()}:
+        raise AssertionError("the Whisper steps launched other kernels than "
+                             "the model's structure gives")
+    all_sm90("the Whisper steps", counts)
+    mean = sum(walls) / len(walls)
+    utt_s = B / mean
+    flops = whisper_flops_per_utterance(cfg, T, Tt)
+    print(f"  step wall {mean * 1e3:.1f} ms (mean of {WHISPER_STEPS}, min "
+          f"{min(walls) * 1e3:.1f}); {utt_s:.1f} utterances/s; MFU "
+          f"{100 * utt_s * flops / BF16_FLOPS:.1f}% ({flops / 1e12:.3f} "
+          f"TFLOP an utterance against {BF16_FLOPS / 1e12:.0f} TFLOP/s); "
+          f"peak memory {peak / 2 ** 30:.2f} GiB")
+    busy = profile_step(torch, step, "Whisper training step")
+    print(f"  idle {100 * (1 - busy / (mean * 1e3)):.1f}% of the unprofiled "
+          f"mean step wall")
+    del model, opt
+    return counts
+
+
+def whole_step_whisper(torch, K):
+    """One teacher-forced step of a narrow Whisper (d_model 256, 4 heads of
+    64, 2 + 2 layers, ffn 1024, vocab 51865, 400 mel frames) under O1 on
+    the card against f32 on the CPU through the plain versions, the same
+    weights: the loss before and after an AdamW step within STEP_LOSS_TOL,
+    every gradient within STEP_GRAD_REL_L2 relative L2 but the key
+    projections' biases (0 in exact arithmetic: below 1e-2 of their
+    weight gradient's norm on each side)."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models import (WhisperConfig,
+                                         WhisperForConditionalGeneration)
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = WhisperConfig(d_model=256, encoder_layers=2, decoder_layers=2,
+                        num_heads=4, ffn_dim=1024)
+    B, T, Tt = 2, 400, 64
+    print(f"[whole step whisper] d_model 256, 4 heads of 64, 2 + 2 layers, "
+          f"ffn 1024, vocab {cfg.vocab_size}, batch {B} x {T} mel frames, "
+          f"{Tt} tokens: O1 bf16 on the card vs f32 on the CPU")
+    card = WhisperForConditionalGeneration(cfg, seed=4)
+    cpu = WhisperForConditionalGeneration(cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    mel = whisper_mel(torch, B, T, cfg.n_mels, 5, "cpu")
+    tokens, targets = whisper_targets(torch, B, Tt, cfg.vocab_size,
+                                      cfg.sot_token, 6, "cpu")
+    losses, grads, launched = [], [], None
+    for model in (card, cpu):
+        dev = model.device
+        opt = AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                    weight_decay=0.01)
+        K.reset_launch_counts()
+        with amp.auto_cast(enable=dev.type == "cuda", level="O1"):
+            loss = whisper_loss(F, model, mel.to(dev), tokens.to(dev),
+                                targets.to(dev))
+        loss.backward()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            launched = K.launch_counts()
+        losses.append(loss.item())
+        grads.append({n: p.grad.float().cpu()
+                      for n, p in model.named_parameters()
+                      if p.grad is not None})
+        opt.step()
+        opt.clear_grad()
+        with amp.auto_cast(enable=dev.type == "cuda", level="O1"), \
+                torch.no_grad():
+            losses.append(whisper_loss(F, model, mel.to(dev), tokens.to(dev),
+                                       targets.to(dev)).item())
+    want = whisper_per_step(cfg)
+    got = {k: v for k, v in launched.items() if v}
+    if got != want:
+        raise AssertionError(f"whole Whisper step launched {got}, expected "
+                             f"{want}")
+    if set(grads[0]) != set(grads[1]):
+        raise AssertionError("the card and the CPU gave gradients to "
+                             "different parameters")
+    # the key projections' biases cancel in the softmax (whole_step_ernie)
+    for n in [n for n in grads[1] if n.endswith("k_proj.bias")]:
+        w = n.replace("bias", "weight")
+        ratio = [g.pop(n).norm().item() / g[w].norm().item() for g in grads]
+        if not max(ratio) <= 1e-2:
+            raise AssertionError(f"whole Whisper step: {n}'s gradient, 0 in "
+                                 f"exact arithmetic, is {ratio} of the key "
+                                 f"weight gradient's norm (card, CPU)")
+    rel = {n: ((grads[0][n] - g).norm() / g.norm()).item()
+           for n, g in grads[1].items()}
+    worst = sorted(rel.items(), key=lambda r: -r[1])[:3]
+    print(f"  loss {losses[0]:.5f} on the card, {losses[2]:.5f} on the CPU "
+          f"(|diff| {abs(losses[0] - losses[2]):.2e}, limit "
+          f"{STEP_LOSS_TOL}); after the AdamW step {losses[1]:.5f} / "
+          f"{losses[3]:.5f}; worst gradient relative L2 errors "
+          + ", ".join(f"{n} {e:.2e}" for n, e in worst)
+          + f" (limit {STEP_GRAD_REL_L2}, {len(rel)} parameters); launches "
+          f"{got}")
+    for a, b in ((losses[0], losses[2]), (losses[1], losses[3])):
+        if not abs(a - b) <= STEP_LOSS_TOL:
+            raise AssertionError(f"whole Whisper step: loss {a} vs {b}")
+    if not worst[0][1] <= STEP_GRAD_REL_L2:
+        raise AssertionError(f"whole Whisper step: gradient of {worst[0][0]} "
+                             f"off by {worst[0][1]} in relative L2")
+
+
+def flash_whisper_phase(torch, g):
+    """The flash kernels at Whisper-base's shapes, against the plain
+    versions and timed against SDPA: the encoder's self-attention [8, 1500,
+    8, 64] bf16, not causal, forward and backward; a decode step's
+    cross-attention, q [8, 1, 8, 64] against k / v [8, 1500, 8, 64],
+    forward only (a decode step has no backward). Returns the forward and
+    backward rows' sub-rows."""
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.kernels import flash_attention as F
+
+    B, S, H, D = WHISPER_ATTN
+    print(f"[flash whisper] flash_attention, flash_attention_bwd  encoder "
+          f"[{B}, {S}, {H}, {D}] bf16 not causal; decode q [{B}, 1, {H}, {D}] "
+          f"against k / v [{B}, {S}, {H}, {D}]")
+    q, k, v, do = (torch.randn(B, S, H, D, device="cuda", generator=g)
+                   .bfloat16() for _ in range(4))
+    ef, eb, lse, dg = _check_pair(torch, F, "encoder", q, k, v, do)
+    times, bounds = _flash_timed(torch, F, f"[{B}, {S}, {H}, {D}]", q, k, v,
+                                 do, lse, dg)
+    enc = _rows(f"[{B}, {S}, {H}, {D}] bf16 (the Whisper-base encoder's)",
+                times, bounds, (ef, eb))
+    del do, lse, dg
+    q1 = torch.randn(B, 1, H, D, device="cuda", generator=g).bfloat16()
+    out, lse1 = F.flash_attention_cuda(q1, k, v)
+    p_out, p_lse = F.flash_attention_plain(q1, k, v)
+    torch.cuda.synchronize()
+    e1 = check(torch, "decode out", out, p_out, ATTN_ATOL, BF16_RTOL)
+    check(torch, "decode lse", lse1, p_lse, F32_ATOL)
+    before = K.launch_counts()
+    ms = time_ms(torch, lambda: F.flash_attention_cuda(q1, k, v))
+    design = ran_design(K, before)
+    plain = time_ms(torch, lambda: F.flash_attention_plain(q1, k, v),
+                    iters=5)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q1, k, v))
+    lib = time_ms(torch, lambda: torch.nn.functional
+                  .scaled_dot_product_attention(qt, kt, vt))
+    # read q, k, v; write out and lse; 4 flops a (query, key) pair and dim
+    nbytes = (2 * q1.numel() + 2 * k.numel()) * 2 + B * H * 4
+    bound, by = bound_ms(nbytes, 4 * B * S * H * D)
+    print(f"  decode: kernel {ms:.4f} ms, plain {plain:.4f}, SDPA {lib:.4f}, "
+          f"bound {bound:.4f} ({by})")
+    dec = dict(shape=f"q [{B}, 1, {H}, {D}], k / v [{B}, {S}, {H}, {D}] bf16 "
+               f"(a Whisper-base decode step's cross-attention)", ms=ms,
+               plain_ms=plain, library_ms=lib, bound_ms=bound, bound_by=by,
+               design=design, max_abs_err=e1)
+    return enc, dec
+
+
 def main() -> int:
     import torch
 
@@ -2979,6 +3473,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     (rows["flash_attention_d16"],
      rows["flash_attention_bwd_d16"]) = flash_head_dim_phase(torch, g)
+    torch.cuda.empty_cache()
+    enc, dec = flash_whisper_phase(torch, g)
+    fwd_bwd = (rows["flash_attention"], rows["flash_attention_bwd"])
+    _sub_rows(fwd_bwd, "whisper_encoder", enc)
+    _sub_rows(fwd_bwd[:1], "whisper_decode", (dec,))
     # bf16 at head_dim 64 / 128: the wgmma / TMA kernels; head_dim 36, the
     # f32 kernel and the other widths: the mma.sync / CUDA-core ones
     for name, r in rows.items():
@@ -3036,8 +3535,19 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     d16 = head_dim16_model_step(torch, K)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    whisper = whisper_serving_phase(torch, K)
+    gc.collect()
+    torch.cuda.empty_cache()
+    whole_step_whisper(torch, K)
+    gc.collect()
+    torch.cuda.empty_cache()
+    whisper_train = whisper_training_phase(torch, K)
     launches = {k: launches[k] + conformer[k] + rnnt[k] + encoder[k]
-                + varlen[k] for k in conformer}
+                + varlen[k] + whisper[k] + whisper_train[k]
+                for k in conformer}
     # the head_dim-36 rows: the Conformer steps' launches of those kernels;
     # the head_dim-16 rows: the tiny ERNIE step's
     for name in ("flash_attention_dropout", "flash_attention_bwd_dropout"):

@@ -4,8 +4,9 @@ The only way the tests give both packages the same weights: the reference
 model's ``functional_state(model)[0]`` / ``state_dict()`` exported as numpy
 goes through :func:`state_from_jax` (Llama) or :func:`ernie_state_from_jax`
 (ERNIE) or :func:`conformer_state_from_jax` (Conformer-CTC and -RNN-T, with
-the batch-norm buffers) and into ``load_state_dict``; the reference trainer's parameter
-dict (``LlamaPipelineTrainer._state[0]``) goes through
+the batch-norm buffers) or :func:`whisper_state_from_jax` (Whisper) and
+into ``load_state_dict``; the reference trainer's parameter dict
+(``LlamaPipelineTrainer._state[0]``) goes through
 :func:`trainer_state_from_jax` into the port trainer's ``model``.
 """
 from __future__ import annotations
@@ -15,7 +16,7 @@ import torch
 from torch import nn
 
 __all__ = ["state_from_jax", "trainer_state_from_jax", "ernie_state_from_jax",
-           "conformer_state_from_jax"]
+           "conformer_state_from_jax", "whisper_state_from_jax"]
 
 # paddle Linear stores [in, out]; nn.Linear stores [out, in]
 _LINEAR_SUFFIXES = ("qkv_proj.weight", "o_proj.weight", "gate_up_proj.weight",
@@ -107,3 +108,21 @@ def conformer_state_from_jax(arrays: dict[str, np.ndarray], model: nn.Module
     in both packages), norms, buffers, the LSTM's ``[4H, in]`` /
     ``[4H, H]`` weights and the label embedding copy as they are."""
     return ernie_state_from_jax(arrays, model)
+
+
+def whisper_state_from_jax(params: dict[str, np.ndarray], model: nn.Module
+                           ) -> dict[str, torch.Tensor]:
+    """Map a Whisper reference model's parameters onto the port ``model``
+    (``WhisperForConditionalGeneration``, the same attribute names) by the
+    module lookup of :func:`ernie_state_from_jax`: exactly the ``nn.Linear``
+    weights (the attentions' projections, the FFNs, the bias-free ``proj``)
+    are transposed; convolutions (``[out, in, k]`` in both packages), the
+    embeddings and the norms copy as they are. Raises ``KeyError`` on a
+    name that is not a parameter or buffer of ``model`` (the sinusoid
+    table is not persistable in either package)."""
+    known = set(model.state_dict())
+    unknown = sorted(set(params) - known)
+    if unknown:
+        raise KeyError(f"the port model has no parameter {unknown[0]!r} "
+                       f"(and {len(unknown) - 1} more unknown names)")
+    return ernie_state_from_jax(params, model)

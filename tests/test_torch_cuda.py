@@ -25,6 +25,13 @@ The regression tests hold ``loss.backward()`` through the public
 functionals on the card against the same calls on CPU copies (the plain
 versions), for every input that requires grad.
 
+Whisper slice: the sm90 flash kernels at a decode step's one query row
+against one key and against 1500, and at the training step's 224 queries
+against 1500 keys; softmax-CE at Whisper's odd vocabulary 51865 (every
+other bf16 row off 16-byte alignment); a small f32 Whisper on the card:
+``generate`` gives its own uncached greedy rollout and the CPU's tokens
+(cuDNN's TF32 off), with exactly its structure's launches.
+
 ERNIE slice: the LayerNorm kernel matches its plain version at f32 atol
 1e-5 (rtol 1e-5) and in bf16 to one bf16 step of the output's scale
 (atol 2^-7 * max|plain| rounded down to a power of two, as the output
@@ -358,7 +365,8 @@ def test_rmsnorm_bwd_kernel_matches_plain(gen, dtype, rows, cols):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("n,vocab", [(7, 1001), (33, 32000), (4, 5)])
+@pytest.mark.parametrize("n,vocab", [(7, 1001), (33, 32000), (4, 5),
+                                     (48, 51865)])
 @pytest.mark.parametrize("label_dtype", [torch.int32, torch.int64])
 def test_softmax_ce_kernels_match_plain(gen, dtype, n, vocab, label_dtype):
     x = (3 * torch.randn(n, vocab, device="cuda", generator=gen)).to(dtype)
@@ -1294,11 +1302,14 @@ SM90_BOTH = {"flash_attention_sm90": 1, "flash_attention_bwd_sm90": 1}
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("sq,sk", [(200, 333), (1000, 1000), (77, 300),
-                                   (129, 129), (1, 257)])
+                                   (129, 129), (1, 257), (1, 1), (1, 1500),
+                                   (224, 1500)])
 def test_flash_sm90_ragged_tiles_match_plain(gen, d, causal, sq, sk):
     """Sq and Sk off the 128-row tiles, Sk > Sq causal (the bottom-right
     diagonal), one query row: the TMA boxes read past the ends, the
-    kernels mask and never store there."""
+    kernels mask and never store there. (1, 1) is a Whisper decode step's
+    first self-attention, (1, 1500) its cross-attention, (224, 1500) the
+    training step's."""
     before = K.launch_counts()
     _flash_pair(gen, torch.bfloat16, 2, sq, sk, 4, 2, d, causal)
     assert _designs(before) == SM90_BOTH
@@ -1462,3 +1473,52 @@ def test_flash_design_counters_name_the_kernels_that_ran(gen, dtype, d,
                                 f"flash_attention_bwd_{design}": 1}
     launched = {k_: v_ - before[k_] for k_, v_ in K.launch_counts().items()}
     assert launched["flash_attention"] == launched["flash_attention_bwd"] == 1
+
+
+# ---------------------------------------------------------------------------
+# Whisper slice: the seq2seq decoder with incremental caches
+# ---------------------------------------------------------------------------
+
+def test_whisper_generate_on_the_card_matches_the_cpu_and_its_rollout(gen):
+    """A small f32 Whisper (d_model 128, 2 heads of 64, 2 + 2 layers):
+    ``generate`` over the caches gives the card's own uncached greedy
+    rollout and the CPU's tokens, and launches exactly the structure's
+    kernels: the encoder's self-attention and LayerNorms once, then per
+    step two flash forwards and three LayerNorms a decoder layer and the
+    final LayerNorm."""
+    from paddle_tpu_torch.models import (WhisperConfig,
+                                         WhisperForConditionalGeneration)
+
+    cfg = WhisperConfig(n_mels=16, vocab_size=97, d_model=128,
+                        encoder_layers=2, decoder_layers=2, num_heads=2,
+                        ffn_dim=256, max_source_positions=100,
+                        max_target_positions=32)
+    card = WhisperForConditionalGeneration(cfg, generator=gen).eval()
+    cpu = WhisperForConditionalGeneration(cfg, device="cpu").eval()
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    mel = torch.randn(3, 16, 200, generator=torch.Generator().manual_seed(1))
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        before = K.launch_counts()
+        got = card.generate(mel.cuda(), max_new_tokens=10)
+        torch.cuda.synchronize()
+        launched = {k: v - before[k] for k, v in K.launch_counts().items()
+                    if v != before[k]}
+        toks, done = got[:, :1], torch.zeros(3, dtype=torch.bool,
+                                             device="cuda")
+        with torch.no_grad():       # generate's end-of-text rule
+            for _ in range(got.shape[1] - 1):
+                nxt = card(mel.cuda(), toks)[:, -1].argmax(-1)
+                nxt = torch.where(done, cfg.eot_token, nxt)
+                done |= nxt == cfg.eot_token
+                toks = torch.cat([toks, nxt[:, None]], dim=1)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    want = cpu.generate(mel, max_new_tokens=10)
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(toks, got)
+    steps = got.shape[1] - 1
+    flash = 2 + 2 * 2 * steps
+    assert launched == {"flash_attention": flash, "flash_attention_mma": flash,
+                        "layernorm": 5 + 7 * steps}

@@ -9,7 +9,9 @@ import torch
 from paddle_tpu_torch import nn as tnn
 from paddle_tpu_torch.models import (ConformerForCTC, ConformerForRNNT,
                                      ErnieForMaskedLM, LlamaForCausalLM,
-                                     conformer_tiny, ernie_tiny, llama_tiny)
+                                     WhisperForConditionalGeneration,
+                                     conformer_tiny, ernie_tiny, llama_tiny,
+                                     whisper_tiny)
 from paddle_tpu_torch.serving import PagedKVCache
 
 ENTRY_POINTS = {
@@ -21,6 +23,9 @@ ENTRY_POINTS = {
     "MultiHeadAttention": lambda **kw: tnn.MultiHeadAttention(8, 2, **kw),
     "TransformerEncoderLayer": lambda **kw: tnn.TransformerEncoderLayer(
         8, 2, 16, **kw),
+    "TransformerDecoderLayer": lambda **kw: tnn.TransformerDecoderLayer(
+        8, 2, 16, **kw),
+    "Transformer": lambda **kw: tnn.Transformer(8, 2, 1, 1, 16, **kw),
     "LSTMCell": lambda **kw: tnn.LSTMCell(4, 8, **kw),
     "LSTM": lambda **kw: tnn.LSTM(4, 8, num_layers=2, direction="bidirect",
                                   **kw),
@@ -31,6 +36,8 @@ ENTRY_POINTS = {
     "ConformerForCTC": lambda **kw: ConformerForCTC(conformer_tiny(), **kw),
     "ConformerForRNNT": lambda **kw: ConformerForRNNT(conformer_tiny(),
                                                       **kw),
+    "WhisperForConditionalGeneration": lambda **kw:
+        WhisperForConditionalGeneration(whisper_tiny(), **kw),
 }
 
 
