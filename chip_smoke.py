@@ -242,6 +242,34 @@ CUDA toolkit (``nvcc``). It imports nothing of JAX or of ``paddle_tpu``.
     (12 + 12 flash on sm90, 32 LayerNorm, 1 + 1 softmax-CE); utterances/s,
     MFU (``whisper_flops_per_utterance``), step wall, a profiled step's
     busy and idle share, peak memory.
+23. Vision slice's kernel shape (run with the other kernel phases):
+    softmax-CE at ResNet-50's head, ``[64, 1000]`` bf16 (sub-row
+    ``resnet``).
+24. ``[resnet]``: ResNet-50 at its published widths (25.56 M parameters,
+    1000 classes) at the PaddleClas recipe (``ResNet50.yaml``: 64 images
+    of 224 x 224 a card, Momentum 0.9, L2 1e-4, piecewise lr 0.1 / 0.01 /
+    0.001 / 0.0001, the boundaries put at steps 1 / 12 / 23 so that the
+    warm-up step runs at 0.1 and the timed ones at 0.01), f32 parameters
+    under auto_cast(O1, bf16), one repeated seeded batch: a warm-up step
+    and RESNET_STEPS timed steps; losses finite and falling, one lr
+    boundary crossed, launches exactly one softmax-CE forward and backward
+    a step; step wall (median), images/s, MFU (``resnet_flops_per_image``:
+    4.09 G multiply-adds an image forward, training 3x), peak memory, a
+    step split into forward, backward and the Momentum update, and a
+    profiled step's busy and idle share with its kernels by group
+    (``vision_share``) and by name.
+25. ``[resnet infer]``: the trained model in eval under O1 at batch 64 and
+    1 (ms a batch, images/s), and its O1 logits against its f32 forward
+    (TF32 off) under ``o1_eval_check``'s calibrated limit. ``[whole step
+    resnet]``: one ResNet-50 step (8 x 224, Momentum at lr 0.1) from the
+    same weights on the card and on the CPU, in f32 and under O1: the f32
+    pair held to phase 7's limits (every gradient, every parameter after
+    the update, the batch-norm buffers); the O1 pairs printed (see
+    ``whole_step_resnet``: bf16 does not determine this step's gradients
+    at initialisation).
+26. ``[vision zoo]``: LeNet, AlexNet, VGG-16 and MobileNetV1 / V2 /
+    V3-Large at their published widths, batch 8: one O1 step each (finite
+    loss, one softmax-CE forward and backward), then ``o1_eval_check``.
 
 Flash design: bf16 at head_dim 64 and 128 with 16-byte rows takes the
 wgmma / TMA kernels (``csrc/flash_attention{,_bwd}_sm90.cu``, counted
@@ -255,7 +283,8 @@ The ``launches`` of the JSON line sum the main path's runs: the engine,
 the no-cache forward, the 5 Llama training steps, the ERNIE steps, the
 Conformer-CTC and the RNN-T steps, the encoder steps, the
 ``F.flash_attn_unpadded`` call, the Whisper ``generate`` and its
-teacher-forced forward, and the Whisper training steps (the ``_d36`` rows: the Conformer steps'
+teacher-forced forward, the Whisper training steps, the ResNet-50
+training steps and the zoo's steps (the ``_d36`` rows: the Conformer steps'
 launches of the dropout flash kernels, all at head_dim 36; the ``_d16``
 rows: the ``ernie_tiny()`` step's). The last two lines are one JSON object
 with every kernel's numbers and one with the device. Any failure raises and exits non-zero; without a CUDA
@@ -264,6 +293,7 @@ prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -377,6 +407,30 @@ WHISPER_TRAIN_BATCH = 16
 WHISPER_TRAIN_TOKENS = 224
 WHISPER_STEPS = 10
 WHISPER_ATTN = (8, 1500, 8, 64)
+# Vision slice: ResNet-50 at the PaddleClas recipe (ppcls/configs/ImageNet/
+# ResNet/ResNet50.yaml: 224 x 224 crops, 1000 classes, 64 images a card,
+# Momentum 0.9, L2 1e-4, piecewise lr 0.1 / 0.01 / 0.001 / 0.0001 at epochs
+# 30 / 60 / 90). The smoke's boundaries put the warm-up step at 0.1 and the
+# timed steps at 0.01 (one boundary crossed; the later two lie past the
+# run's end).
+RESNET_BATCH = 64
+RESNET_STEPS = 10
+RESNET_LRS = [0.1, 0.01, 0.001, 0.0001]
+RESNET_BOUNDARIES = [1, 1 + RESNET_STEPS + 1, 1 + 2 * (RESNET_STEPS + 1)]
+RESNET_WHOLE_BATCH = 8
+ZOO_BATCH = 8
+# O1 (bf16) eval logits against the f32 forward of the same weights (cuDNN
+# and cuBLAS TF32 off). A random-weight network amplifies the 2^-9 rounding
+# of each convolution's operands through depth by an amount that depends
+# on the model and its state (from 0.3 % to 15 % in relative L2 across the
+# zoo), so the limit is calibrated on the model itself: the O1 error may
+# be at most VISION_O1_ROUNDING_RATIO times the error that rounding only
+# the weights and the input to bf16 gives in f32 (O1 also rounds each
+# convolution's input; ``o1_eval_check`` prints the ratio, 0.9-2.1 on an
+# H100), and below VISION_O1_REL_L2_MAX (a wiring fault gives O(1):
+# uncorrelated logits are ~1.4 apart)
+VISION_O1_ROUNDING_RATIO = 3.0
+VISION_O1_REL_L2_MAX = 0.5
 # The flash rows at bf16 head_dim 64 / 128 run the wgmma / TMA kernels
 # (the sm90 design); the head_dim-36 and -16 rows the mma.sync and
 # CUDA-core ones (the mma design)
@@ -796,10 +850,11 @@ def rmsnorm_bwd_phase(torch, g):
 def softmax_ce_phases(torch, g):
     """Both softmax-CE kernels at Llama's logits (every 10th row ignored,
     the row in the kernels line), at ERNIE's MLM logits (labels made as
-    ernie_batch makes them: about 85 % of rows at ignore_index) and at the
+    ernie_batch makes them: about 85 % of rows at ignore_index), at the
     Whisper training step's [16 x 224, 51865] (a sub-row: the odd
     vocabulary starts every other bf16 row off 16-byte alignment, so the
-    kernels' scalar head and tail run)."""
+    kernels' scalar head and tail run) and at ResNet-50's head, [64,
+    1000] in the bf16 its O1 step hands the kernels (a sub-row)."""
     from paddle_tpu_torch.kernels.softmax_ce import (
         softmax_ce_bwd_cuda, softmax_ce_bwd_plain, softmax_ce_cuda,
         softmax_ce_plain)
@@ -808,9 +863,12 @@ def softmax_ce_phases(torch, g):
     N_W = WHISPER_TRAIN_BATCH * WHISPER_TRAIN_TOKENS
     for N, V, what in ((8192, 32000, "every 10th row:"),
                        (8192, 40000, "ERNIE's MLM labels:"),
-                       (N_W, 51865, "Whisper's targets:")):
+                       (N_W, 51865, "Whisper's targets:"),
+                       (RESNET_BATCH, 1000, "ResNet-50's head:")):
         x = (2 * torch.randn(N, V, device="cuda", generator=g)).bfloat16()
-        if V == 32000:
+        if V == 1000:
+            lab = resnet_batch(torch, N, 8, V, 1, "cuda")[1].reshape(-1)
+        elif V == 32000:
             lab = torch.randint(0, V, (N,), device="cuda", generator=g)
             lab[::10] = -100
         elif V == 40000:
@@ -878,6 +936,8 @@ def softmax_ce_phases(torch, g):
                       f"err {r['max_abs_err']:.3e}")
         if V == 51865:
             _sub_rows(rows, "whisper", pair)
+        if V == 1000:
+            _sub_rows(rows, "resnet", pair)
         del x, lab, safe, gl, loss, lse, p_loss, p_lse
     return rows
 
@@ -3066,10 +3126,11 @@ def whisper_flops_per_utterance(cfg, T_mel, T_tok):
     return 6 * (enc + dec)
 
 
-def profile_step(torch, fn, what):
+def profile_step(torch, fn, what, share=None, top=8):
     """One profiled call of ``fn``: its wall under the profiler, the device
-    busy time (the union of the kernels' intervals), and the kernels by
-    name; returns the busy ms."""
+    busy time (the union of the kernels' intervals), the kernels' device ms
+    by group (``share``, default ``kernel_share``) and the ``top`` kernels
+    by name; returns the busy ms."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -3091,9 +3152,10 @@ def profile_step(torch, fn, what):
     print(f"[profile] one {what}: device busy {busy:.3f} ms in "
           f"{len(kernels)} kernels, wall {prof_wall:.2f} ms under the "
           f"profiler")
-    for group, ms in kernel_share(kernels).items():
+    for group, ms in (share or kernel_share)(kernels).items():
         print(f"  {ms:9.3f} ms  {group}")
-    for name, (ms, n) in sorted(per_name.items(), key=lambda r: -r[1][0])[:8]:
+    for name, (ms, n) in sorted(per_name.items(),
+                                key=lambda r: -r[1][0])[:top]:
         print(f"  {ms:9.3f} ms  x{n:<5d} {name[:90]}")
     return busy
 
@@ -3424,6 +3486,351 @@ def flash_whisper_phase(torch, g):
     return enc, dec
 
 
+def resnet_batch(torch, B, size, classes, seed, device):
+    """Seeded images ``[B, 3, size, size]`` (unit normal, what a normalised
+    ImageNet crop looks like in distribution) and labels ``[B, 1]`` from
+    ``[0, classes)``, Paddle's classification label layout."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(B, 3, size, size, generator=g)
+    y = torch.randint(0, classes, (B, 1), generator=g)
+    return x.to(device), y.to(device)
+
+
+def vision_share(kernels):
+    """Device ms by group of a vision step's profiled kernels."""
+    groups = (("port kernels (softmax-CE)", ("softmax_ce",)),
+              ("batch norm", ("bn_", "batch_norm", "batchnorm", "welford")),
+              ("convolutions and GEMMs", ("conv", "fprop", "dgrad", "wgrad",
+                                          "implicit", "xmma", "cutlass",
+                                          "gemm", "nvjet", "sm90_", "cudnn")),
+              ("pooling", ("pool",)))
+    share = {name: 0.0 for name, _ in groups}
+    share["elementwise (casts, ReLU, adds, Momentum)"] = 0.0
+    for k in kernels:
+        ms = (k.time_range.end - k.time_range.start) / 1e3
+        name = k.name.lower()
+        key = next((g for g, keys in groups if any(o in name for o in keys)),
+                   "elementwise (casts, ReLU, adds, Momentum)")
+        share[key] += ms
+    return share
+
+
+@contextlib.contextmanager
+def tf32_off(torch):
+    """cuDNN's and cuBLAS's TF32 off inside the block."""
+    prev = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = prev
+
+
+def rel_l2(a, b):
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+def o1_eval_check(torch, what, model, x):
+    """``model``'s eval logits on ``x`` under O1 against its f32 forward
+    (TF32 off), held to VISION_O1_ROUNDING_RATIO x the error of an f32
+    forward with the weights and the input rounded to bf16, and to
+    VISION_O1_REL_L2_MAX; returns both errors."""
+    from paddle_tpu_torch import amp
+
+    model.eval()
+    with tf32_off(torch), torch.no_grad():
+        with amp.auto_cast(level="O1"):
+            low = model(x)
+        want = model(x)
+        saved = [p.detach().clone() for p in model.parameters()]
+        for p in model.parameters():
+            p.copy_(p.bfloat16())
+        rounded = model(x.bfloat16().float())
+        for p, keep in zip(model.parameters(), saved):
+            p.copy_(keep)
+    err, ref = rel_l2(low, want), rel_l2(rounded, want)
+    print(f"  {what}: eval logits O1 vs f32 relative L2 {err:.3e}; f32 with "
+          f"bf16-rounded weights and input {ref:.3e} (ratio "
+          f"{err / ref:.2f}, limit {VISION_O1_ROUNDING_RATIO}); logits max "
+          f"|{want.abs().max().item():.3f}|")
+    if not (torch.isfinite(low).all()
+            and err <= VISION_O1_ROUNDING_RATIO * ref
+            and err <= VISION_O1_REL_L2_MAX):
+        raise AssertionError(f"{what}: O1 eval logits off by {err} (bf16 "
+                             f"rounding of the weights alone: {ref})")
+    return err, ref
+
+
+def resnet_training_phase(torch, K):
+    """ResNet-50 at its published widths trained at the PaddleClas recipe:
+    f32 parameters under auto_cast(O1, bf16), Momentum 0.9 with L2 1e-4
+    over PiecewiseDecay, one repeated seeded batch of 64 x 224 x 224 with
+    labels in [0, 1000): a warm-up step, then RESNET_STEPS timed steps;
+    losses finite and falling; exactly one softmax-CE forward and backward
+    launch a step; step wall (median), images/s, MFU
+    (``resnet_flops_per_image``, training 3x the forward), peak memory, a
+    step split into forward, backward and the update, and a profiled step.
+    Returns the launches and the trained model."""
+    from paddle_tpu_torch import amp, framework
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.optimizer import Momentum, PiecewiseDecay
+    from paddle_tpu_torch.vision.models import (resnet50,
+                                                resnet_flops_per_image)
+
+    B = RESNET_BATCH
+    print(f"[resnet] ResNet-50 (PaddleClas ResNet50.yaml widths), batch {B} "
+          f"x 3 x 224 x 224, f32 params under auto_cast(O1, bf16), Momentum "
+          f"0.9, L2 1e-4, PiecewiseDecay({RESNET_BOUNDARIES}, {RESNET_LRS})")
+    framework.seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    model = resnet50(seed=0)
+    n_params = sum(p.numel() for p in model.parameters())
+    flops = 3 * resnet_flops_per_image(model)
+    sched = PiecewiseDecay(RESNET_BOUNDARIES, RESNET_LRS)
+    opt = Momentum(learning_rate=sched, momentum=0.9,
+                   parameters=model.parameters(), weight_decay=1e-4)
+    x, y = resnet_batch(torch, B, 224, 1000, 2, "cuda")
+    lrs = []
+
+    def step():
+        lrs.append(opt.get_lr())
+        with amp.auto_cast(level="O1", dtype="bfloat16"):
+            loss = F.cross_entropy(model(x), y)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        sched.step()
+        return loss
+
+    t0 = time.monotonic()
+    losses = [step().item()]
+    print(f"  {n_params / 1e6:.2f} M parameters; warm-up step "
+          f"{time.monotonic() - t0:.2f}s, loss {losses[0]:.4f}")
+    K.reset_launch_counts()
+    walls = []
+    for _ in range(RESNET_STEPS):
+        t0 = time.monotonic()
+        losses.append(step().item())
+        torch.cuda.synchronize()
+        walls.append(time.monotonic() - t0)
+    counts = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  losses {[round(v, 4) for v in losses]}; lr {lrs}")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite ResNet-50 loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the ResNet-50 loss did not fall: {losses}")
+    if len(set(lrs)) != 2:
+        raise AssertionError(f"the run crossed no lr boundary: {lrs}")
+    per_step = {k: c / RESNET_STEPS for k, c in counts.items() if c}
+    print(f"  launches per step: {per_step}")
+    if per_step != {"softmax_ce": 1.0, "softmax_ce_bwd": 1.0}:
+        raise AssertionError("the ResNet-50 steps launched other kernels "
+                             "than one softmax-CE forward and backward each")
+    med = sorted(walls)[len(walls) // 2]
+    img_s = B / med
+    print(f"  step wall {med * 1e3:.2f} ms (median of {RESNET_STEPS}, min "
+          f"{min(walls) * 1e3:.2f}, max {max(walls) * 1e3:.2f}); "
+          f"{img_s:.1f} images/s; MFU {100 * img_s * flops / BF16_FLOPS:.2f}% "
+          f"({flops / 1e9:.2f} GFLOP an image, 3x the forward's "
+          f"{flops / 6e9:.3f} G multiply-adds, against "
+          f"{BF16_FLOPS / 1e12:.0f} TFLOP/s); peak memory "
+          f"{peak / 2 ** 30:.2f} GiB")
+    # one step split by synchronising: forward, backward, the update
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    with amp.auto_cast(level="O1", dtype="bfloat16"):
+        loss = F.cross_entropy(model(x), y)
+    torch.cuda.synchronize()
+    t1 = time.monotonic()
+    loss.backward()
+    torch.cuda.synchronize()
+    t2 = time.monotonic()
+    opt.step()
+    opt.clear_grad()
+    torch.cuda.synchronize()
+    t3 = time.monotonic()
+    print(f"  one step split: forward {(t1 - t0) * 1e3:.2f} ms, backward "
+          f"{(t2 - t1) * 1e3:.2f} ms, Momentum over "
+          f"{len(list(model.parameters()))} tensors {(t3 - t2) * 1e3:.2f} ms")
+    busy = profile_step(torch, step, "ResNet-50 training step",
+                        share=vision_share, top=12)
+    print(f"  idle {100 * (1 - busy / (med * 1e3)):.1f}% of the unprofiled "
+          f"median step wall")
+    return counts, model
+
+
+def resnet_infer_phase(torch, model):
+    """The trained ResNet-50 in eval mode under O1: ms a batch and images/s
+    at batch 64 and at batch 1 (host clock around synchronised runs), then
+    its O1 logits at batch 64 against its f32 forward (``o1_eval_check``)."""
+    from paddle_tpu_torch import amp
+
+    model.eval()
+    print("[resnet infer] ResNet-50 eval under auto_cast(O1, bf16)")
+    for B, iters in ((RESNET_BATCH, 20), (1, 50)):
+        x = resnet_batch(torch, B, 224, 1000, 7, "cuda")[0]
+        with torch.no_grad(), amp.auto_cast(level="O1"):
+            for _ in range(3):
+                model(x)
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            for _ in range(iters):
+                model(x)
+            torch.cuda.synchronize()
+        ms = (time.monotonic() - t0) * 1e3 / iters
+        print(f"  batch {B}: {ms:.3f} ms a batch, {B * 1e3 / ms:.1f} "
+              f"images/s (mean of {iters})")
+    x = resnet_batch(torch, RESNET_BATCH, 224, 1000, 8, "cuda")[0]
+    o1_eval_check(torch, f"batch {RESNET_BATCH}", model, x)
+
+
+def _vision_step(torch, model, x, y, o1, lr=0.1):
+    """One forward, cross-entropy, backward and Momentum step (0.9, L2 1e-4)
+    of ``model`` on (x, y), under O1 or not: the loss, the gradients, and
+    the batch-norm buffers and parameters after the step, on the CPU."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.optimizer import Momentum
+
+    opt = Momentum(learning_rate=lr, momentum=0.9,
+                   parameters=model.parameters(), weight_decay=1e-4)
+    with amp.auto_cast(enable=o1, level="O1"):
+        loss = F.cross_entropy(model(x), y)
+    loss.backward()
+    def copy(t):
+        return t.detach().to("cpu", torch.float32, copy=True)
+
+    grads = {n: copy(p.grad) for n, p in model.named_parameters()}
+    opt.step()
+    opt.clear_grad()
+    return (loss.item(), grads,
+            {n: copy(b) for n, b in model.named_buffers()},
+            {n: copy(p) for n, p in model.named_parameters()})
+
+
+def _step_errors(a, b):
+    """Loss difference and the worst relative L2 errors of gradients,
+    buffers and updated parameters of step ``a`` against step ``b``."""
+    out = {"loss": abs(a[0] - b[0])}
+    for i, key in ((1, "gradient"), (2, "buffer"), (3, "parameter")):
+        rel = {n: rel_l2(a[i][n], t) for n, t in b[i].items()}
+        out[key] = max(rel.items(), key=lambda r: r[1])
+    return out
+
+
+def whole_step_resnet(torch, K):
+    """ResNet-50, batch 8 x 224: one step (forward, cross-entropy, backward,
+    Momentum 0.9 / L2 1e-4 at lr 0.1) from the same weights on the card
+    and on the CPU through the plain versions, each in f32 (TF32 off) and
+    under O1 (bf16). The f32 pair is held to the whole-step limits: the
+    loss within STEP_LOSS_TOL, every gradient and every parameter after
+    the update within STEP_GRAD_REL_L2, the batch-norm buffers within
+    BN_REL_L2. The O1 step must launch exactly one softmax-CE forward and
+    backward and give a finite loss; its numbers against both CPU steps are
+    printed, not held, beside the CPU's f32 step against its f64 one: at
+    initialisation this step amplifies rounding so much (53 training-mode
+    batch norms) that f32 gradients are a few per cent off f64, and bf16
+    leaves them undetermined (on the CPU's own bf16 autocast too)."""
+    from paddle_tpu_torch.vision.models import resnet50
+
+    B = RESNET_WHOLE_BATCH
+    print(f"[whole step resnet] ResNet-50, batch {B} x 3 x 224 x 224: one "
+          f"Momentum step on the card and on the CPU, in f32 (TF32 off) "
+          f"and under O1")
+    card = resnet50(seed=4)
+    state = {k: v.clone() for k, v in card.state_dict().items()}
+    cpu = resnet50(device="cpu")
+    x, y = resnet_batch(torch, B, 224, 1000, 5, "cpu")
+    runs = {}
+    for name, model, o1 in (("card f32", card, False), ("card O1", card, True),
+                            ("CPU f32", cpu, False), ("CPU O1", cpu, True)):
+        model.load_state_dict(state)
+        dev = model.conv1.weight.device
+        K.reset_launch_counts()
+        with tf32_off(torch):
+            runs[name] = _vision_step(torch, model, x.to(dev), y.to(dev), o1)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            launched = {k: v for k, v in K.launch_counts().items() if v}
+            if launched != {"softmax_ce": 1, "softmax_ce_bwd": 1}:
+                raise AssertionError(f"the card's {name} ResNet-50 step "
+                                     f"launched {launched}")
+    cpu.load_state_dict(state)          # how far f32 itself resolves it
+    cpu.double()
+    runs["CPU f64"] = _vision_step(torch, cpu, x.double(), y, False)
+    print("  losses: " + ", ".join(f"{n} {r[0]:.5f}" for n, r in runs.items())
+          + "; each card step launched one softmax-CE forward and backward")
+    errs = {}
+    for a, b in (("card f32", "CPU f32"), ("CPU f32", "CPU f64"),
+                 ("card O1", "CPU O1"), ("card O1", "CPU f32"),
+                 ("CPU O1", "CPU f32")):
+        e = errs[a, b] = _step_errors(runs[a], runs[b])
+        print(f"  {a} vs {b}{' (held)' if a == 'card f32' else ''}: loss "
+              f"|diff| {e['loss']:.2e}; worst relative L2: gradient "
+              f"{e['gradient'][1]:.2e} ({e['gradient'][0]}), buffer "
+              f"{e['buffer'][1]:.2e} ({e['buffer'][0]}), parameter after "
+              f"the step {e['parameter'][1]:.2e} ({e['parameter'][0]})")
+    e = errs["card f32", "CPU f32"]
+    if not (e["loss"] <= STEP_LOSS_TOL
+            and e["gradient"][1] <= STEP_GRAD_REL_L2
+            and e["parameter"][1] <= STEP_GRAD_REL_L2
+            and e["buffer"][1] <= BN_REL_L2):
+        raise AssertionError(f"whole ResNet-50 step (f32, card vs CPU): {e}")
+    if not math.isfinite(runs["card O1"][0]):
+        raise AssertionError(f"the card's O1 ResNet-50 loss is "
+                             f"{runs['card O1'][0]}")
+    return errs
+
+
+# (name, constructor in vision.models, input channels, image size)
+ZOO = (("LeNet", "LeNet", 1, 28), ("AlexNet", "alexnet", 3, 224),
+       ("VGG-16", "vgg16", 3, 224), ("MobileNetV1", "mobilenet_v1", 3, 224),
+       ("MobileNetV2", "mobilenet_v2", 3, 224),
+       ("MobileNetV3-Large", "mobilenet_v3_large", 3, 224))
+
+
+def vision_zoo_phase(torch, K):
+    """LeNet (10 classes, 1 x 28 x 28), AlexNet, VGG-16 and MobileNetV1 /
+    V2 / V3-Large (1000 classes, 3 x 224 x 224) at their published widths,
+    batch ZOO_BATCH: one O1 training step each (Momentum 0.9, L2 1e-4, lr
+    0.01) with a finite loss and one softmax-CE forward and backward
+    launch; then its eval logits under O1 against its f32 forward
+    (``o1_eval_check``). Returns the steps' launches."""
+    from paddle_tpu_torch.vision import models
+
+    print(f"[vision zoo] batch {ZOO_BATCH}: one O1 step each, then eval "
+          f"logits O1 vs f32")
+    total = {}
+    for what, make, ch, size in ZOO:
+        classes = 10 if what == "LeNet" else 1000
+        model = getattr(models, make)(seed=6)
+        n_params = sum(p.numel() for p in model.parameters())
+        x, y = resnet_batch(torch, ZOO_BATCH, size, classes, 9, "cuda")
+        x = x[:, :ch].contiguous()
+        K.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        loss = _vision_step(torch, model, x, y, True, lr=0.01)[0]
+        torch.cuda.synchronize()
+        wall = (time.monotonic() - t0) * 1e3
+        counts = K.launch_counts()
+        launched = {k: v for k, v in counts.items() if v}
+        total = {k: total.get(k, 0) + v for k, v in counts.items()}
+        print(f"  {what}: {n_params / 1e6:.2f} M parameters, O1 step loss "
+              f"{loss:.4f} ({wall:.1f} ms, first call), launches {launched}")
+        if not math.isfinite(loss):
+            raise AssertionError(f"{what}: non-finite loss {loss}")
+        if launched != {"softmax_ce": 1, "softmax_ce_bwd": 1}:
+            raise AssertionError(f"{what}: the step launched {launched}")
+        o1_eval_check(torch, what, model, x)
+        del model
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -3545,9 +3952,21 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     whisper_train = whisper_training_phase(torch, K)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    resnet, model = resnet_training_phase(torch, K)
+    resnet_infer_phase(torch, model)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    whole_step_resnet(torch, K)
+    gc.collect()
+    torch.cuda.empty_cache()
+    zoo = vision_zoo_phase(torch, K)
     launches = {k: launches[k] + conformer[k] + rnnt[k] + encoder[k]
-                + varlen[k] + whisper[k] + whisper_train[k]
-                for k in conformer}
+                + varlen[k] + whisper[k] + whisper_train[k] + resnet[k]
+                + zoo[k] for k in conformer}
     # the head_dim-36 rows: the Conformer steps' launches of those kernels;
     # the head_dim-16 rows: the tiny ERNIE step's
     for name in ("flash_attention_dropout", "flash_attention_bwd_dropout"):

@@ -10,12 +10,15 @@ with lr schedulers and gradient clipping. Hand-written Hopper kernels
 (``kernels/``, sources in ``csrc/``) carry them: flash attention forward
 and backward (with in-kernel dropout), ragged paged attention, RMSNorm
 forward and backward, LayerNorm forward, softmax cross-entropy forward
-and backward. Entry points run on ``cuda`` unless the caller passes
-``device="cpu"``.
+and backward. Later slices add Conformer-CTC / RNN-T, Whisper and the
+vision zoo (``vision.models.resnet50`` trained with
+``optimizer.Momentum`` over ``PiecewiseDecay``). Entry points run on
+``cuda`` unless the caller passes ``device="cpu"``.
 """
-from . import amp, core, framework, kernels, models, nn, optimizer, serving
+from . import (amp, core, framework, kernels, models, nn, optimizer, serving,
+               vision)
 from .core import resolve_device
 from .framework import seed
 
 __all__ = ["amp", "core", "framework", "kernels", "models", "nn",
-           "optimizer", "serving", "resolve_device", "seed"]
+           "optimizer", "serving", "vision", "resolve_device", "seed"]

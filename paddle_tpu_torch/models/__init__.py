@@ -2,7 +2,7 @@ from .conformer import (ConformerConfig, ConformerEncoder, ConformerForCTC,
                         ConformerForRNNT, conformer_tiny)
 from .convert import (conformer_state_from_jax, ernie_state_from_jax,
                       state_from_jax, trainer_state_from_jax,
-                      whisper_state_from_jax)
+                      vision_state_from_jax, whisper_state_from_jax)
 from .ernie import (ErnieConfig, ErnieEmbeddings, ErnieForMaskedLM,
                     ErnieForSequenceClassification, ErnieModel, ernie_base,
                     ernie_tiny)
@@ -19,4 +19,5 @@ __all__ = ["LlamaConfig", "LlamaForCausalLM", "LlamaPipelineTrainer",
            "ConformerConfig", "conformer_tiny", "ConformerEncoder",
            "ConformerForCTC", "ConformerForRNNT", "conformer_state_from_jax",
            "WhisperConfig", "whisper_tiny", "WhisperEncoder", "WhisperDecoder",
-           "WhisperForConditionalGeneration", "whisper_state_from_jax"]
+           "WhisperForConditionalGeneration", "whisper_state_from_jax",
+           "vision_state_from_jax"]

@@ -4,8 +4,9 @@ The only way the tests give both packages the same weights: the reference
 model's ``functional_state(model)[0]`` / ``state_dict()`` exported as numpy
 goes through :func:`state_from_jax` (Llama) or :func:`ernie_state_from_jax`
 (ERNIE) or :func:`conformer_state_from_jax` (Conformer-CTC and -RNN-T, with
-the batch-norm buffers) or :func:`whisper_state_from_jax` (Whisper) and
-into ``load_state_dict``; the reference trainer's parameter dict
+the batch-norm buffers) or :func:`whisper_state_from_jax` (Whisper) or
+:func:`vision_state_from_jax` (the vision zoo, with the batch-norm buffers)
+and into ``load_state_dict``; the reference trainer's parameter dict
 (``LlamaPipelineTrainer._state[0]``) goes through
 :func:`trainer_state_from_jax` into the port trainer's ``model``.
 """
@@ -16,7 +17,8 @@ import torch
 from torch import nn
 
 __all__ = ["state_from_jax", "trainer_state_from_jax", "ernie_state_from_jax",
-           "conformer_state_from_jax", "whisper_state_from_jax"]
+           "conformer_state_from_jax", "whisper_state_from_jax",
+           "vision_state_from_jax"]
 
 # paddle Linear stores [in, out]; nn.Linear stores [out, in]
 _LINEAR_SUFFIXES = ("qkv_proj.weight", "o_proj.weight", "gate_up_proj.weight",
@@ -110,6 +112,15 @@ def conformer_state_from_jax(arrays: dict[str, np.ndarray], model: nn.Module
     return ernie_state_from_jax(arrays, model)
 
 
+def _check_names(arrays, model):
+    """Raise ``KeyError`` on a name that is not a parameter or buffer of
+    ``model``."""
+    unknown = sorted(set(arrays) - set(model.state_dict()))
+    if unknown:
+        raise KeyError(f"the port model has no parameter {unknown[0]!r} "
+                       f"(and {len(unknown) - 1} more unknown names)")
+
+
 def whisper_state_from_jax(params: dict[str, np.ndarray], model: nn.Module
                            ) -> dict[str, torch.Tensor]:
     """Map a Whisper reference model's parameters onto the port ``model``
@@ -120,9 +131,20 @@ def whisper_state_from_jax(params: dict[str, np.ndarray], model: nn.Module
     embeddings and the norms copy as they are. Raises ``KeyError`` on a
     name that is not a parameter or buffer of ``model`` (the sinusoid
     table is not persistable in either package)."""
-    known = set(model.state_dict())
-    unknown = sorted(set(params) - known)
-    if unknown:
-        raise KeyError(f"the port model has no parameter {unknown[0]!r} "
-                       f"(and {len(unknown) - 1} more unknown names)")
+    _check_names(params, model)
     return ernie_state_from_jax(params, model)
+
+
+def vision_state_from_jax(arrays: dict[str, np.ndarray], model: nn.Module
+                          ) -> dict[str, torch.Tensor]:
+    """Map a vision model's parameters AND buffers (the batch norms'
+    ``_mean`` and ``_variance``, from ``named_buffers()``) onto the port
+    ``model`` of the same family (``vision.models``), by the module lookup
+    of :func:`ernie_state_from_jax`: exactly the weights of the linear
+    layers (``nn.Linear`` ``Linear``, ``[out, in]`` where Paddle's are
+    ``[in, out]``) are transposed; convolutions (``[out, in / groups, kh,
+    kw]`` in both packages), norms and buffers copy as they are. Raises
+    ``KeyError`` on a name that is not a parameter or buffer of
+    ``model``."""
+    _check_names(arrays, model)
+    return ernie_state_from_jax(arrays, model)

@@ -1,6 +1,6 @@
 """Normalisation functionals (counterpart of
 ``paddle_tpu/nn/functional/norm.py``; ports ``rms_norm``, ``layer_norm``,
-``batch_norm`` and ``batch_norm_stats``)."""
+and ``batch_norm``)."""
 from __future__ import annotations
 
 import torch
@@ -9,7 +9,7 @@ from ...amp import cast_for
 from ...kernels.layernorm import layernorm
 from ...kernels.rmsnorm import rmsnorm
 
-__all__ = ["layer_norm", "rms_norm", "batch_norm", "batch_norm_stats"]
+__all__ = ["layer_norm", "rms_norm", "batch_norm"]
 
 
 def rms_norm(x, weight=None, epsilon=1e-6, axis=-1, name=None):
@@ -69,35 +69,25 @@ def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5,
     return out
 
 
-def batch_norm_stats(x, ch_axis):
-    """Batch mean and biased variance per channel (``jnp.var``'s), the
-    statistics the BN layer normalises with in training; both
-    differentiable."""
-    axes = tuple(i for i in range(x.ndim) if i != ch_axis)
-    mean = x.mean(axes)
-    return mean, x.var(axes, correction=0)
-
-
 def batch_norm(x, running_mean, running_var, weight=None, bias=None,
                training=False, momentum=0.9, epsilon=1e-5,
                data_format="NCHW", use_global_stats=None, name=None):
     """Paddle's functional batch norm: ``(x - mean) / sqrt(var + eps)``,
     then the affine, over the channel axis (1 for ``"NC..."`` formats, else
     the last). In training (and without ``use_global_stats``) the batch
-    statistics are used and the running ones are left as they are: the
-    layer updates its buffers. On amp's black list: under ``auto_cast``
-    bf16/f16 inputs are cast to f32 first."""
+    statistics (mean and biased variance) are used and the running ones are
+    left as they are: the layer updates its buffers. On amp's black list:
+    under ``auto_cast`` bf16/f16 inputs are cast to f32 first.
+
+    The reference composes it from jnp ops; the port calls PyTorch's fused
+    batch norm (cuDNN on the card) with the same arithmetic and its own
+    backward, which is the gradient of that composition."""
     x, weight, bias = cast_for("batch_norm", x, weight, bias)
-    ch_axis = 1 if data_format.startswith("NC") else x.ndim - 1
+    channels_last = not data_format.startswith("NC")
+    xc = x.movedim(-1, 1) if channels_last else x
     if training and not use_global_stats:
-        mean, var = batch_norm_stats(x, ch_axis)
-    else:
-        mean, var = running_mean, running_var
-    shape = [1] * x.ndim
-    shape[ch_axis] = x.shape[ch_axis]
-    out = (x - mean.reshape(shape)) / torch.sqrt(var.reshape(shape) + epsilon)
-    if weight is not None:
-        out = out * weight.reshape(shape)
-    if bias is not None:
-        out = out + bias.reshape(shape)
-    return out
+        running_mean = running_var = None
+    out = torch.batch_norm(xc, weight, bias, running_mean, running_var,
+                           running_mean is None, 0.0, epsilon,
+                           torch.backends.cudnn.enabled)
+    return out.movedim(1, -1) if channels_last else out

@@ -1,8 +1,9 @@
 from . import lr
 from .lr import (CosineAnnealingDecay, LinearWarmup, LRScheduler,
-                 PolynomialDecay)
+                 PiecewiseDecay, PolynomialDecay)
 from .optimizer import Optimizer
-from .optimizers import Adam, AdamW
+from .optimizers import SGD, Adam, AdamW, Momentum
 
-__all__ = ["Optimizer", "Adam", "AdamW", "lr", "LRScheduler", "LinearWarmup",
-           "PolynomialDecay", "CosineAnnealingDecay"]
+__all__ = ["Optimizer", "SGD", "Momentum", "Adam", "AdamW", "lr",
+           "LRScheduler", "LinearWarmup", "PiecewiseDecay", "PolynomialDecay",
+           "CosineAnnealingDecay"]

@@ -1,6 +1,7 @@
 """Learning-rate schedulers (counterpart of ``paddle_tpu/optimizer/lr.py``;
-this slice ports ``LRScheduler``, ``LinearWarmup``, ``PolynomialDecay`` and
-``CosineAnnealingDecay``, the rest is in ROADMAP Queue 1). Pure Python
+ports ``LRScheduler``, ``LinearWarmup``, ``PiecewiseDecay``,
+``PolynomialDecay`` and ``CosineAnnealingDecay``, the rest is in ROADMAP
+Queue 1). Pure Python
 arithmetic, the reference's formulas. An optimizer given a scheduler as
 ``learning_rate`` reads ``scheduler()`` at each step; the caller advances
 it with ``scheduler.step()``, as in Paddle."""
@@ -8,8 +9,8 @@ from __future__ import annotations
 
 import math
 
-__all__ = ["LRScheduler", "LinearWarmup", "PolynomialDecay",
-           "CosineAnnealingDecay"]
+__all__ = ["LRScheduler", "LinearWarmup", "PiecewiseDecay",
+           "PolynomialDecay", "CosineAnnealingDecay"]
 
 
 class LRScheduler:
@@ -39,6 +40,22 @@ class LRScheduler:
 
     set_dict = set_state_dict
     state_keys = state_dict
+
+
+class PiecewiseDecay(LRScheduler):
+    """``values[i]`` while ``last_epoch < boundaries[i]``, then the last
+    value (``len(values) == len(boundaries) + 1``)."""
+
+    def __init__(self, boundaries, values, last_epoch=-1, verbose=False):
+        self.boundaries = list(boundaries)
+        self.values = list(values)
+        super().__init__(values[0], last_epoch, verbose)
+
+    def get_lr(self):
+        for b, v in zip(self.boundaries, self.values):
+            if self.last_epoch < b:
+                return v
+        return self.values[len(self.boundaries)]
 
 
 class PolynomialDecay(LRScheduler):

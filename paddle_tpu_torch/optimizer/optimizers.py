@@ -1,5 +1,9 @@
-"""Adam and AdamW (counterpart of ``paddle_tpu/optimizer/optimizers.py``),
-with the reference's arithmetic, not ``torch.optim``'s: AdamW decays
+"""SGD, Momentum, Adam and AdamW (counterpart of
+``paddle_tpu/optimizer/optimizers.py``), with the reference's arithmetic,
+not ``torch.optim``'s. SGD steps ``p -= lr * g``; Momentum keeps a
+``velocity`` ``v = momentum * v + g`` and steps ``p -= lr * v`` (Nesterov:
+``p -= lr * (g + momentum * v)``); L2 decay is folded into ``g`` by
+``Optimizer.step`` before either. AdamW decays
 ``p *= 1 - lr * wd`` first; then Adam advances ``beta1_pow`` and
 ``beta2_pow``, the moments, and ``p -= lr * mhat / (sqrt(vhat) + eps)``
 with ``mhat = m / (1 - beta1_pow)`` and ``vhat = v / (1 - beta2_pow)``. The
@@ -11,7 +15,37 @@ import torch
 
 from .optimizer import Optimizer
 
-__all__ = ["Adam", "AdamW"]
+__all__ = ["SGD", "Momentum", "Adam", "AdamW"]
+
+
+class SGD(Optimizer):
+    def __init__(self, learning_rate=0.001, parameters=None,
+                 weight_decay=None, grad_clip=None, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name)
+
+    def update(self, param, grad, state, lr):
+        param.sub_(lr * grad)
+
+
+class Momentum(Optimizer):
+    def __init__(self, learning_rate=0.001, momentum=0.9, parameters=None,
+                 use_nesterov=False, weight_decay=None, grad_clip=None,
+                 name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name)
+        self._momentum = momentum
+        self._nesterov = use_nesterov
+
+    def init_state(self, param):
+        return {"velocity": torch.zeros_like(param)}
+
+    def update(self, param, grad, state, lr):
+        v = state["velocity"].mul_(self._momentum).add_(grad)
+        if self._nesterov:
+            param.sub_(lr * (grad + self._momentum * v))
+        else:
+            param.sub_(lr * v)
 
 
 class Adam(Optimizer):

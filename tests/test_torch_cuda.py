@@ -75,6 +75,13 @@ empty sequence, tails past cu[-1], cu_q != cu_k, GQA, dropout); the
 public entries count their own variants (``_mask``, ``_varlen``); head
 widths past 256 raise; ``nn.RMSNorm`` with an f32 weight runs under
 ``amp.auto_cast`` on a bf16 input (F2).
+
+Vision slice: softmax-CE at ResNet-50's head, ``[64, 1000]`` in the bf16
+its O1 step hands it (and f32), under the tolerances above; a ResNet-18
+step on the card against the same weights' f32 step on the CPU (in f32,
+TF32 off: loss and every gradient; under O1: the launches, finite
+gradients, the loss, and a second step that lowers it), and the pooling
+and batch-norm functionals on the card against the CPU in f32.
 """
 import math
 
@@ -1522,3 +1529,119 @@ def test_whisper_generate_on_the_card_matches_the_cpu_and_its_rollout(gen):
     flash = 2 + 2 * 2 * steps
     assert launched == {"flash_attention": flash, "flash_attention_mma": flash,
                         "layernorm": 5 + 7 * steps}
+
+
+# ---------------------------------------------------------------------------
+# Vision slice: softmax-CE at ResNet-50's head, a ResNet-18 O1 step
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_softmax_ce_kernels_at_resnet_head(gen, dtype):
+    """The classifier head's [64, 1000] logits (bf16 under O1)."""
+    x = (3 * torch.randn(64, 1000, device="cuda", generator=gen)).to(dtype)
+    lab = torch.randint(0, 1000, (64,), device="cuda", generator=gen)
+    g = torch.full((64,), 1 / 64, device="cuda")
+    loss, lse = softmax_ce_cuda(x, lab)
+    p_loss, p_lse = softmax_ce_plain(x, lab)
+    _close(loss, p_loss, atol=1e-4, rtol=1e-5)
+    _close(lse, p_lse, atol=1e-4, rtol=1e-5)
+    dx = softmax_ce_bwd_cuda(x, lab, lse, g)
+    p_dx = softmax_ce_bwd_plain(x, lab, p_lse, g)
+    _close(dx, p_dx, **_grad_tol(dtype, p_dx))
+
+
+def test_resnet18_step_on_the_card(gen):
+    """A ResNet-18 step (8 x 64 x 64) on the card against the CPU's plain
+    path from the same weights. In f32 (TF32 off): the loss within 1e-4
+    and every gradient within 5e-2 relative L2 (training-mode batch norm
+    makes this step badly conditioned at initialisation: the CPU's own f32
+    gradients are ~1 % off f64 here). Under O1: exactly one softmax-CE
+    forward and backward launch, finite gradients, the loss within 2e-2 of
+    the f32 one (bf16 moves the gradients themselves by tens of per cent
+    at this point, on the CPU's bf16 autocast too, so they are not held),
+    and a second step (Momentum over PiecewiseDecay, lr 0.01) that lowers
+    it."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.nn.functional import cross_entropy
+    from paddle_tpu_torch.optimizer import Momentum, PiecewiseDecay
+    from paddle_tpu_torch.vision.models import resnet18
+
+    card = resnet18(num_classes=10, generator=gen)
+    cpu = resnet18(num_classes=10, device="cpu")
+    state = {k: v.cpu() for k, v in card.state_dict().items()}
+    cpu.load_state_dict(state)
+    rng = torch.Generator().manual_seed(4)
+    x = torch.randn(8, 3, 64, 64, generator=rng)
+    y = torch.randint(0, 10, (8, 1), generator=rng)
+    cpu_loss = cross_entropy(cpu(x), y)
+    cpu_loss.backward()
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        loss = cross_entropy(card(x.cuda()), y.cuda())
+        loss.backward()
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    assert loss.item() == pytest.approx(cpu_loss.item(), rel=1e-4)
+    for n, p in card.named_parameters():
+        want = cpu.get_parameter(n).grad
+        err = ((p.grad.cpu() - want).norm() / want.norm()).item()
+        assert err < 5e-2, (n, err)
+    card.zero_grad(set_to_none=True)
+    card.load_state_dict(state)
+    # lr 0.01: at 0.1 one step on 8 images can overshoot (the loss of a
+    # second step rises for some seeds on the CPU too)
+    sched = PiecewiseDecay([1], [0.01, 0.001])
+    opt = Momentum(learning_rate=sched, momentum=0.9,
+                   parameters=card.parameters(), weight_decay=1e-4)
+    losses = []
+    for _ in range(2):
+        before = K.launch_counts()
+        with amp.auto_cast(level="O1"):
+            loss = cross_entropy(card(x.cuda()), y.cuda())
+        loss.backward()
+        torch.cuda.synchronize()
+        launched = {k: v - before[k] for k, v in K.launch_counts().items()
+                    if v != before[k]}
+        assert launched == {"softmax_ce": 1, "softmax_ce_bwd": 1}
+        assert all(torch.isfinite(p.grad).all() for p in card.parameters())
+        losses.append(loss.item())
+        opt.step()
+        opt.clear_grad()
+        sched.step()
+    assert abs(losses[0] - cpu_loss.item()) < 2e-2
+    assert math.isfinite(losses[1]) and losses[1] < losses[0]
+
+
+def test_pooling_and_batch_norm_on_the_card_match_the_cpu(gen):
+    """The reference's pooling semantics (explicit padding, ceil-mode
+    windows in the padding, exclusive counts, return_mask indices) and the
+    batch-norm layer's training step through cuDNN, f32 against the CPU."""
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.nn import functional as F
+
+    x = torch.randn(4, 8, 13, 11, device="cuda", generator=gen)
+    cases = [(F.max_pool2d, dict(kernel_size=3, stride=2, padding=1,
+                                 ceil_mode=True)),
+             (F.avg_pool2d, dict(kernel_size=3, stride=2, padding=1,
+                                 ceil_mode=True)),
+             (F.avg_pool2d, dict(kernel_size=2, padding="SAME")),
+             (F.adaptive_avg_pool2d, dict(output_size=(3, 4))),
+             (F.adaptive_max_pool2d, dict(output_size=(2, 5)))]
+    for fn, kw in cases:
+        _close(fn(x, **kw).cpu(), fn(x.cpu(), **kw), atol=1e-5, rtol=1e-5)
+    out, idx = F.max_pool2d(x, 3, 2, 1, return_mask=True)
+    want, widx = F.max_pool2d(x.cpu(), 3, 2, 1, return_mask=True)
+    _close(out.cpu(), want, atol=0, rtol=0)
+    assert torch.equal(idx.cpu(), widx)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        layers = [nn.BatchNorm2D(8), nn.BatchNorm2D(8, device="cpu")]
+        outs = [bn(x.to(bn._mean.device)) for bn in layers]
+        _close(outs[0].cpu(), outs[1], atol=1e-5, rtol=1e-5)
+        for n in ("_mean", "_variance"):
+            _close(layers[0].get_buffer(n).cpu(), layers[1].get_buffer(n),
+                   atol=1e-6, rtol=1e-5)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32

@@ -13,11 +13,19 @@ from paddle_tpu_torch.models import (ConformerForCTC, ConformerForRNNT,
                                      conformer_tiny, ernie_tiny, llama_tiny,
                                      whisper_tiny)
 from paddle_tpu_torch.serving import PagedKVCache
+from paddle_tpu_torch.vision import models as vm
+from paddle_tpu_torch.vision.ops import ConvNormActivation
 
 ENTRY_POINTS = {
     "LayerNorm": lambda **kw: tnn.LayerNorm(8, **kw),
     "RMSNorm": lambda **kw: tnn.RMSNorm(8, **kw),
     "BatchNorm1D": lambda **kw: tnn.BatchNorm1D(8, **kw),
+    "BatchNorm": lambda **kw: tnn.BatchNorm(8, **kw),
+    "BatchNorm2D": lambda **kw: tnn.BatchNorm2D(8, **kw),
+    "BatchNorm3D": lambda **kw: tnn.BatchNorm3D(8, **kw),
+    "Linear": lambda **kw: tnn.Linear(4, 8, **kw),
+    "PReLU": lambda **kw: tnn.PReLU(4, **kw),
+    "ConvNormActivation": lambda **kw: ConvNormActivation(3, 8, **kw),
     "Conv1D": lambda **kw: tnn.Conv1D(4, 4, 3, **kw),
     "Conv2D": lambda **kw: tnn.Conv2D(1, 4, 3, **kw),
     "MultiHeadAttention": lambda **kw: tnn.MultiHeadAttention(8, 2, **kw),
@@ -38,6 +46,15 @@ ENTRY_POINTS = {
                                                       **kw),
     "WhisperForConditionalGeneration": lambda **kw:
         WhisperForConditionalGeneration(whisper_tiny(), **kw),
+    "resnet18": lambda **kw: vm.resnet18(num_classes=10, **kw),
+    "resnet50": lambda **kw: vm.resnet50(**kw),
+    "LeNet": lambda **kw: vm.LeNet(**kw),
+    "alexnet": lambda **kw: vm.alexnet(num_classes=10, **kw),
+    "vgg11": lambda **kw: vm.vgg11(num_classes=10, with_pool=False, **kw),
+    "mobilenet_v1": lambda **kw: vm.mobilenet_v1(scale=0.25, **kw),
+    "mobilenet_v2": lambda **kw: vm.mobilenet_v2(scale=0.35, **kw),
+    "mobilenet_v3_small": lambda **kw: vm.mobilenet_v3_small(**kw),
+    "mobilenet_v3_large": lambda **kw: vm.mobilenet_v3_large(**kw),
 }
 
 
