@@ -270,6 +270,37 @@ CUDA toolkit (``nvcc``). It imports nothing of JAX or of ``paddle_tpu``.
 26. ``[vision zoo]``: LeNet, AlexNet, VGG-16 and MobileNetV1 / V2 /
     V3-Large at their published widths, batch 8: one O1 step each (finite
     loss, one softmax-CE forward and backward), then ``o1_eval_check``.
+27. High-level API slice's kernel shapes (run with the other kernel
+    phases): softmax-CE at the f32 logits ``Model.fit`` hands it, LeNet's
+    ``[256, 10]`` and ResNet-50's ``[64, 1000]`` (sub-rows ``hapi_lenet``
+    and ``hapi_resnet``; f32 gradients within GRAD_FRAC_F32).
+28. ``[hapi lenet]``: BASELINE #1 as the verify recipe runs it
+    (``paddle_tpu_torch.seed(7)``, ``Model(LeNet())`` on the card, Adam
+    1e-3, ``CrossEntropyLoss``, ``Accuracy``, ``fit(MNIST(mode="train"),
+    batch_size=256, epochs=3)``, TF32 off, then
+    ``evaluate(MNIST(mode="test"))``): accuracy rising epoch over epoch,
+    eval accuracy >= LENET_MIN_EVAL_ACC, every batch served by the native
+    batcher, exactly one softmax-CE forward and backward a step and one
+    forward an eval batch, and the first epoch's losses within
+    LENET_LOSS_ATOL of the port's CPU ``fit`` from the same weights and
+    order.
+29. ``[hapi resnet]``: ResNet-50 at its published widths through
+    ``Model.fit`` in f32 (hapi's O1 cannot train a conv net in either
+    package, ROADMAP R9), Momentum 0.9 / L2 1e-4 over PiecewiseDecay,
+    ``Accuracy(topk=(1, 5))``, one epoch over 768 seeded uint8 256 x 256
+    images with class templates through ToTensor / RandomCrop(224) /
+    RandomHorizontalFlip / Normalize in 4 worker processes, batch 64:
+    losses finite and falling, one softmax-CE forward and backward a step;
+    ``evaluate`` on 4 batches (one forward each) and ``predict`` on one;
+    the step wall and the loader wait (a timing callback), images/s
+    through fit, host-to-device ms (the loader's batches arrive pinned;
+    pageable and pinning for comparison), the metric's
+    host cost, a bare f32 loop's step on a batch already on the card and
+    the share hapi and the loader add, peak memory, a profiled
+    ``train_batch``'s busy and idle share. ``[hapi workers]``: the
+    loader's worker processes forked with CUDA live here give the inline
+    loader's order and content, pass a worker's exception up, and
+    initialise CUDA in no worker.
 
 Flash design: bf16 at head_dim 64 and 128 with 16-byte rows takes the
 wgmma / TMA kernels (``csrc/flash_attention{,_bwd}_sm90.cu``, counted
@@ -284,7 +315,8 @@ the no-cache forward, the 5 Llama training steps, the ERNIE steps, the
 Conformer-CTC and the RNN-T steps, the encoder steps, the
 ``F.flash_attn_unpadded`` call, the Whisper ``generate`` and its
 teacher-forced forward, the Whisper training steps, the ResNet-50
-training steps and the zoo's steps (the ``_d36`` rows: the Conformer steps'
+training steps, the zoo's steps and the two ``Model.fit`` phases (fits and
+evaluations; the ``_d36`` rows: the Conformer steps'
 launches of the dropout flash kernels, all at head_dim 36; the ``_d16``
 rows: the ``ernie_tiny()`` step's). The last two lines are one JSON object
 with every kernel's numbers and one with the device. Any failure raises and exits non-zero; without a CUDA
@@ -419,6 +451,21 @@ RESNET_LRS = [0.1, 0.01, 0.001, 0.0001]
 RESNET_BOUNDARIES = [1, 1 + RESNET_STEPS + 1, 1 + 2 * (RESNET_STEPS + 1)]
 RESNET_WHOLE_BATCH = 8
 ZOO_BATCH = 8
+# High-level API slice: BASELINE #1 (LeNet on MNIST through Model.fit, as
+# the verify recipe runs it) and ResNet-50 through Model.fit in f32 (hapi's
+# O1 cannot train a conv net: ROADMAP R9) on a seeded ImageNet-shaped set
+LENET_BATCH = 256
+LENET_EPOCHS = 3
+LENET_MIN_EVAL_ACC = 0.9
+# the card's LeNet losses (TF32 off) against the CPU's over the first epoch
+# from the same weights and order: f32 summation order only, carried
+# through 8 Adam steps (the CPU port matches the JAX package at 2.4e-6)
+LENET_LOSS_ATOL = 1e-4
+HAPI_RESNET_IMAGES = 768
+HAPI_RESNET_WORKERS = 4
+HAPI_EVAL_BATCHES = 4
+IMAGENET_MEAN = [0.485, 0.456, 0.406]
+IMAGENET_STD = [0.229, 0.224, 0.225]
 # O1 (bf16) eval logits against the f32 forward of the same weights (cuDNN
 # and cuBLAS TF32 off). A random-weight network amplifies the 2^-9 rounding
 # of each convolution's operands through depth by an amount that depends
@@ -853,20 +900,29 @@ def softmax_ce_phases(torch, g):
     ernie_batch makes them: about 85 % of rows at ignore_index), at the
     Whisper training step's [16 x 224, 51865] (a sub-row: the odd
     vocabulary starts every other bf16 row off 16-byte alignment, so the
-    kernels' scalar head and tail run) and at ResNet-50's head, [64,
-    1000] in the bf16 its O1 step hands the kernels (a sub-row)."""
+    kernels' scalar head and tail run), at ResNet-50's head, [64,
+    1000] in the bf16 its O1 step hands the kernels (a sub-row), and at
+    the f32 logits of the ``Model.fit`` phases: LeNet's [256, 10] and
+    ResNet-50's [64, 1000] (sub-rows ``hapi_lenet`` and ``hapi_resnet``;
+    f32 gradients within GRAD_FRAC_F32)."""
     from paddle_tpu_torch.kernels.softmax_ce import (
         softmax_ce_bwd_cuda, softmax_ce_bwd_plain, softmax_ce_cuda,
         softmax_ce_plain)
 
     rows = None
     N_W = WHISPER_TRAIN_BATCH * WHISPER_TRAIN_TOKENS
-    for N, V, what in ((8192, 32000, "every 10th row:"),
-                       (8192, 40000, "ERNIE's MLM labels:"),
-                       (N_W, 51865, "Whisper's targets:"),
-                       (RESNET_BATCH, 1000, "ResNet-50's head:")):
-        x = (2 * torch.randn(N, V, device="cuda", generator=g)).bfloat16()
-        if V == 1000:
+    bf16, f32 = torch.bfloat16, torch.float32
+    for N, V, what, dt, sub in (
+            (8192, 32000, "every 10th row:", bf16, None),
+            (8192, 40000, "ERNIE's MLM labels:", bf16, None),
+            (N_W, 51865, "Whisper's targets:", bf16, "whisper"),
+            (RESNET_BATCH, 1000, "ResNet-50's head:", bf16, "resnet"),
+            (LENET_BATCH, 10, "LeNet's head through Model.fit:", f32,
+             "hapi_lenet"),
+            (RESNET_BATCH, 1000, "ResNet-50's head through Model.fit:", f32,
+             "hapi_resnet")):
+        x = (2 * torch.randn(N, V, device="cuda", generator=g)).to(dt)
+        if V in (10, 1000):
             lab = resnet_batch(torch, N, 8, V, 1, "cuda")[1].reshape(-1)
         elif V == 32000:
             lab = torch.randint(0, V, (N,), device="cuda", generator=g)
@@ -879,8 +935,9 @@ def softmax_ce_phases(torch, g):
                                   "cuda")[1].reshape(-1)
         valid = lab != -100
         n_valid = int(valid.sum().item())
-        print(f"[kernel] softmax_ce, softmax_ce_bwd  logits [{N}, {V}] bf16, "
-              f"{what} {N - n_valid} of {N} rows at ignore_index")
+        name = "bf16" if dt == bf16 else "f32"
+        print(f"[kernel] softmax_ce, softmax_ce_bwd  logits [{N}, {V}] "
+              f"{name}, {what} {N - n_valid} of {N} rows at ignore_index")
         # what cross_entropy hands the kernels: label 0 on ignored rows, and
         # the mean's gradient 1 / (valid rows) on the others
         safe = torch.where(valid, lab, 0)
@@ -893,7 +950,8 @@ def softmax_ce_phases(torch, g):
         err_f = max(check(torch, "loss (valid rows)", loss[valid],
                           p_loss[valid], CE_ATOL, CE_RTOL),
                     check(torch, "lse", lse, p_lse, CE_ATOL, CE_RTOL))
-        err_b = check_grad(torch, "dx", dx, p_dx, GRAD_FRAC_BF16)
+        err_b = check_grad(torch, "dx", dx, p_dx,
+                           GRAD_FRAC_BF16 if dt == bf16 else GRAD_FRAC_F32)
         if (~valid).any() and dx[~valid].abs().max().item() != 0:
             raise AssertionError("softmax_ce_bwd: an ignored row got a "
                                  "gradient")
@@ -910,14 +968,15 @@ def softmax_ce_phases(torch, g):
         bwd_lib = time_ms(torch, lambda: torch.autograd.grad(
             lt, xt, gl, retain_graph=True))
         del lt, xt
-        shape = f"[{N}, {V}] bf16"
+        shape = f"[{N}, {V}] {name}"
         # forward: read the logits and labels, write loss and lse; about five
         # f32 operations per logit (max, subtract, exp, add, compare)
-        bound_f, by_f = bound_ms(x.numel() * 2 + N * 8 + N * 8, 5 * x.numel(),
-                                 F32_FLOPS)
+        nb = x.element_size()
+        bound_f, by_f = bound_ms(x.numel() * nb + N * 8 + N * 8,
+                                 5 * x.numel(), F32_FLOPS)
         # backward: read the logits, labels, lse and g, write dx (every row,
         # the ignored ones as zeros)
-        bound_b, by_b = bound_ms(2 * x.numel() * 2 + N * 16, 5 * x.numel(),
+        bound_b, by_b = bound_ms(2 * x.numel() * nb + N * 16, 5 * x.numel(),
                                  F32_FLOPS)
         pair = (dict(shape=shape, ms=fwd_ms, plain_ms=fwd_plain,
                      library_ms=fwd_lib, bound_ms=bound_f, bound_by=by_f,
@@ -934,10 +993,8 @@ def softmax_ce_phases(torch, g):
                       f"library {r['library_ms']:.4f} ms, bound "
                       f"{r['bound_ms']:.4f} ms ({r['bound_by']}), max abs "
                       f"err {r['max_abs_err']:.3e}")
-        if V == 51865:
-            _sub_rows(rows, "whisper", pair)
-        if V == 1000:
-            _sub_rows(rows, "resnet", pair)
+        if sub is not None:
+            _sub_rows(rows, sub, pair)
         del x, lab, safe, gl, loss, lse, p_loss, p_lse
     return rows
 
@@ -3831,6 +3888,382 @@ def vision_zoo_phase(torch, K):
     return total
 
 
+def _loss_recorder(cbks):
+    """A hapi callback that keeps each batch's loss and host-clock times:
+    the step (train_batch: moving the batch, the step, the loss's host
+    sync, the metric) and the wait for the loader before it."""
+    class Record(cbks.Callback):
+        def __init__(self):
+            super().__init__()
+            self.losses, self.steps, self.waits = [], [], []
+            self._end = None
+
+        def on_train_batch_begin(self, step, logs=None):
+            self._begin = time.monotonic()
+            if self._end is not None and step > 0:
+                self.waits.append(self._begin - self._end)
+
+        def on_train_batch_end(self, step, logs=None):
+            self._end = time.monotonic()
+            self.steps.append(self._end - self._begin)
+            self.losses.append(float(logs["loss"][0]))
+
+        def on_epoch_begin(self, epoch, logs=None):
+            self._end = None
+
+    return Record()
+
+
+def _launched(K):
+    return {k: v for k, v in K.launch_counts().items() if v}
+
+
+def hapi_lenet_phase(torch, K):
+    """BASELINE #1 as the verify recipe runs it: ``paddle_tpu_torch.seed(7)``,
+    ``LeNet()`` on the card, Adam 1e-3, ``CrossEntropyLoss``,
+    ``Accuracy``, ``Model.fit(MNIST(mode="train"), batch_size=256,
+    epochs=3)`` (2048 synthetic images through the native batcher), then
+    ``evaluate(MNIST(mode="test"))``. Holds: the accuracy rises epoch over
+    epoch, the eval accuracy is at least LENET_MIN_EVAL_ACC, the native
+    batcher served every batch, exactly one softmax-CE forward and backward
+    a step and one forward an eval batch, and the first epoch's losses
+    within LENET_LOSS_ATOL of the port's CPU ``fit`` from the same weights
+    and order (TF32 off on the card). Returns the launches."""
+    import numpy as np
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.hapi import callbacks as cbks
+    from paddle_tpu_torch.io import native_batcher
+    from paddle_tpu_torch.vision.datasets import MNIST
+    from paddle_tpu_torch.vision.models import LeNet
+
+    print(f"[hapi lenet] BASELINE #1: Model(LeNet()).fit(MNIST(mode="
+          f"'train'), batch_size={LENET_BATCH}, epochs={LENET_EPOCHS}), Adam "
+          f"1e-3, CrossEntropyLoss, Accuracy; evaluate(MNIST(mode='test'))")
+
+    def run(device, epochs, init=None):
+        paddle.seed(7)
+        net = LeNet(device=device)
+        if init is not None:
+            net.load_state_dict(init)
+        init = {k: v.detach().cpu().clone()
+                for k, v in net.state_dict().items()}
+        model = paddle.Model(net)
+        model.prepare(paddle.optimizer.Adam(parameters=net.parameters(),
+                                            learning_rate=1e-3),
+                      paddle.nn.CrossEntropyLoss(), paddle.metric.Accuracy())
+        rec = _loss_recorder(cbks)
+        np.random.seed(0)
+        t0 = time.monotonic()
+        hist = model.fit(MNIST(mode="train"), batch_size=LENET_BATCH,
+                         epochs=epochs, verbose=0, callbacks=[rec])
+        if device is None:
+            torch.cuda.synchronize()
+        return model, hist, rec, time.monotonic() - t0, init
+
+    K.reset_launch_counts()
+    native_batcher.reset_batch_count()
+    with tf32_off(torch):
+        model, hist, rec, wall, init = run(None, LENET_EPOCHS)
+    fit_counts = K.launch_counts()
+    served = native_batcher.batch_count()
+    steps = len(rec.losses)
+    accs = [float(a) for a in hist.history["acc"]]
+    print(f"  fit: {wall:.2f}s for {steps} steps, median step "
+          f"{1e3 * sorted(rec.steps)[steps // 2]:.2f} ms; epoch accuracy "
+          f"{[round(a, 4) for a in accs]}; losses "
+          f"{[round(float(v[0]), 4) for v in hist.history['loss']]}; native "
+          f"batcher served {served} of {steps} batches; launches "
+          f"{ {k: v for k, v in fit_counts.items() if v} }")
+    if not all(b > a for a, b in zip(accs, accs[1:])):
+        raise AssertionError(f"LeNet's accuracy did not rise: {accs}")
+    if served != steps or steps != LENET_EPOCHS * 2048 // LENET_BATCH:
+        raise AssertionError(f"the native batcher served {served} of "
+                             f"{steps} batches")
+    want = {"softmax_ce": steps, "softmax_ce_bwd": steps}
+    if {k: v for k, v in fit_counts.items() if v} != want:
+        raise AssertionError(f"the LeNet fit launched "
+                             f"{_launched(K)}, not {want}")
+    K.reset_launch_counts()
+    logs = model.evaluate(MNIST(mode="test"), batch_size=LENET_BATCH,
+                          verbose=0)
+    eval_counts = K.launch_counts()
+    acc = float(logs["acc"])
+    print(f"  eval: accuracy {acc:.4f}, loss {float(logs['loss'][0]):.4f}; "
+          f"launches {_launched(K)}")
+    if not acc >= LENET_MIN_EVAL_ACC:
+        raise AssertionError(f"LeNet's eval accuracy {acc} < "
+                             f"{LENET_MIN_EVAL_ACC}")
+    if _launched(K) != {"softmax_ce": 512 // LENET_BATCH}:
+        raise AssertionError(f"the LeNet eval launched {_launched(K)}")
+    # the first epoch again on the CPU from the same initial weights
+    _, _, cpu_rec, cpu_wall, _ = run("cpu", 1, init)
+    card = rec.losses[:len(cpu_rec.losses)]
+    err = max(abs(a - b) for a, b in zip(card, cpu_rec.losses))
+    print(f"  card vs CPU, first epoch ({len(card)} losses): max |diff| "
+          f"{err:.2e} (limit {LENET_LOSS_ATOL}); CPU epoch {cpu_wall:.2f}s")
+    if not err <= LENET_LOSS_ATOL:
+        raise AssertionError(f"LeNet card losses {card} vs CPU "
+                             f"{cpu_rec.losses}")
+    return {k: fit_counts[k] + eval_counts[k] for k in fit_counts}
+
+
+def imagenet_like(n, size, classes, seed):
+    """``n`` seeded uint8 HWC images ``[size, size, 3]`` and labels in
+    ``[0, classes)``: each image is its class's template (8 x 8 colour
+    blocks, upsampled) plus uniform noise, so that the classes can be
+    told apart."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    labels = rng.randint(0, classes, n).astype(np.int64)
+    cells = size // 8
+    templates = rng.randint(0, 160, (classes, cells, cells, 3)).astype(
+        np.uint8)
+    images = np.empty((n, size, size, 3), np.uint8)
+    for i in range(n):
+        t = templates[labels[i]].repeat(8, 0).repeat(8, 1)
+        images[i] = t + rng.randint(0, 96, (size, size, 3), dtype=np.uint8)
+    return images, labels
+
+
+def hapi_resnet_phase(torch, K):
+    """ResNet-50 at its published widths (1000 classes) through
+    ``Model.fit`` in f32 (hapi's O1 cannot train a conv net, ROADMAP R9;
+    cuDNN's default TF32 convolutions), Momentum 0.9 with L2 1e-4 over
+    PiecewiseDecay as ``[resnet]`` (stepped by fit's LRScheduler callback),
+    ``CrossEntropyLoss``, ``Accuracy(topk=(1, 5))``, on an ``io.Dataset`` of
+    HAPI_RESNET_IMAGES seeded uint8 HWC 256 x 256 images with class
+    templates through the PaddleClas train transforms (ToTensor,
+    RandomCrop(224), RandomHorizontalFlip, Normalize), batch 64, shuffle,
+    drop_last, HAPI_RESNET_WORKERS worker processes: one epoch, then
+    ``evaluate`` on HAPI_EVAL_BATCHES batches and ``predict`` on one.
+    Prints the step wall, images/s, the loader wait, host-to-device ms,
+    the step of a bare f32 loop on a batch already on the card and the
+    share that hapi and the loader add, the metric's host cost, peak
+    memory, the launches and a profiled fit step. Returns the launches."""
+    import numpy as np
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import io
+    from paddle_tpu_torch.hapi import callbacks as cbks
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.optimizer import Momentum, PiecewiseDecay
+    from paddle_tpu_torch.vision import transforms as T
+    from paddle_tpu_torch.vision.models import resnet50
+
+    B, n = RESNET_BATCH, HAPI_RESNET_IMAGES
+    t0 = time.monotonic()
+    images, labels = imagenet_like(n, 256, 1000, 11)
+    print(f"[hapi resnet] ResNet-50 through Model.fit, f32: {n} uint8 images "
+          f"256 x 256 x 3 ({images.nbytes / 1e6:.0f} MB, made in "
+          f"{time.monotonic() - t0:.1f}s), batch {B}, {HAPI_RESNET_WORKERS} "
+          f"workers, ToTensor / RandomCrop(224) / RandomHorizontalFlip / "
+          f"Normalize, Momentum 0.9, L2 1e-4, PiecewiseDecay("
+          f"{RESNET_BOUNDARIES}, {RESNET_LRS})")
+
+    class Images(io.Dataset):
+        def __init__(self, transform, count):
+            self.transform, self.count = transform, count
+
+        def __len__(self):
+            return self.count
+
+        def __getitem__(self, i):
+            return self.transform(images[i]), labels[i]
+
+    train_tf = T.Compose([T.ToTensor(), T.RandomCrop(224),
+                          T.RandomHorizontalFlip(),
+                          T.Normalize(IMAGENET_MEAN, IMAGENET_STD)])
+    eval_tf = T.Compose([T.ToTensor(), T.CenterCrop(224),
+                         T.Normalize(IMAGENET_MEAN, IMAGENET_STD)])
+    paddle.seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    net = resnet50(seed=0)
+    model = paddle.Model(net)
+    sched = PiecewiseDecay(RESNET_BOUNDARIES, RESNET_LRS)
+    opt = Momentum(learning_rate=sched, momentum=0.9,
+                   parameters=net.parameters(), weight_decay=1e-4)
+    model.prepare(opt, paddle.nn.CrossEntropyLoss(),
+                  paddle.metric.Accuracy(topk=(1, 5)))
+    rec = _loss_recorder(cbks)
+    np.random.seed(0)
+    K.reset_launch_counts()
+    t0 = time.monotonic()
+    hist = model.fit(Images(train_tf, n), batch_size=B, epochs=1,
+                     shuffle=True, drop_last=True,
+                     num_workers=HAPI_RESNET_WORKERS, verbose=0,
+                     callbacks=[rec])
+    torch.cuda.synchronize()
+    fit_wall = time.monotonic() - t0
+    fit_counts = K.launch_counts()
+    steps = len(rec.losses)
+    losses = rec.losses
+    steady = slice(2, None)         # the first steps tune cuDNN
+    med = sorted(rec.steps[steady])[len(rec.steps[steady]) // 2]
+    wait = sorted(rec.waits[1:])[len(rec.waits[1:]) // 2]
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  fit: {steps} steps in {fit_wall:.2f}s ({n - n % B} images, "
+          f"{(n - n % B) / fit_wall:.1f} images/s with the workers' start "
+          f"and cuDNN's tuning); losses {[round(v, 4) for v in losses]}; "
+          f"history {hist.history}")
+    print(f"  steady steps: step wall {med * 1e3:.2f} ms (median of steps "
+          f"3-{steps}; min {min(rec.steps[steady]) * 1e3:.2f}, max "
+          f"{max(rec.steps[steady]) * 1e3:.2f}), loader wait "
+          f"{wait * 1e3:.2f} ms a step (median; max "
+          f"{max(rec.waits[1:]) * 1e3:.2f}), {B / (med + wait):.1f} "
+          f"images/s through fit; peak memory {peak / 2 ** 30:.2f} GiB")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite hapi ResNet-50 loss: {losses}")
+    if not sum(losses[-4:]) < sum(losses[:4]):
+        raise AssertionError(f"the hapi ResNet-50 loss did not fall: "
+                             f"{losses}")
+    want = {"softmax_ce": steps, "softmax_ce_bwd": steps}
+    if {k: v for k, v in fit_counts.items() if v} != want:
+        raise AssertionError(f"the hapi ResNet-50 fit launched "
+                             f"{_launched(K)}, not {want}")
+    K.reset_launch_counts()
+    logs = model.evaluate(io.Subset(Images(eval_tf, n),
+                                    range(HAPI_EVAL_BATCHES * B)),
+                          batch_size=B, num_workers=HAPI_RESNET_WORKERS,
+                          verbose=0)
+    eval_counts = K.launch_counts()
+    out = model.predict(io.Subset(Images(eval_tf, n), range(B)),
+                        batch_size=B, stack_outputs=True)
+    print(f"  evaluate ({HAPI_EVAL_BATCHES} batches): {logs}; predict: "
+          f"{[o.shape for o in out]}; eval launches "
+          f"{ {k: v for k, v in eval_counts.items() if v} }")
+    if eval_counts["softmax_ce"] != HAPI_EVAL_BATCHES or \
+            sum(eval_counts.values()) != HAPI_EVAL_BATCHES:
+        raise AssertionError(f"the hapi ResNet-50 eval launched "
+                             f"{eval_counts}")
+    if out[0].shape != (B, 1000) or not np.isfinite(out[0]).all():
+        raise AssertionError("predict gave no finite [64, 1000] logits")
+
+    # one batch off the loader, as fit gets it; then the costs around it
+    loader = io.DataLoader(Images(train_tf, n), batch_size=B, shuffle=True,
+                           drop_last=True, num_workers=HAPI_RESNET_WORKERS)
+    x, y = next(iter(loader))
+
+    def timed(fn, reps=5):
+        out = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t = time.monotonic()
+            fn()
+            torch.cuda.synchronize()
+            out.append((time.monotonic() - t) * 1e3)
+        return sorted(out)[reps // 2]
+
+    # the workers' batches arrive pinned here (this process uses CUDA); a
+    # pageable copy shows what a plain copy and pinning it would cost
+    arrived_pinned = x.is_pinned()
+    plain = x.clone()
+    h2d = timed(lambda: plain.to("cuda"))
+    pin = timed(lambda: plain.pin_memory())
+    h2d_pinned = timed(lambda: x.to("cuda", non_blocking=True))
+    xc, yc = x.cuda(), y.cuda()
+    metric = paddle.metric.Accuracy(topk=(1, 5))
+    with torch.no_grad():
+        logits = net(xc)
+    acc_ms = timed(lambda: metric.update(metric.compute(logits.cpu(),
+                                                        yc.cpu())))
+    print(f"  host to device of one batch ({x.numel() * 4 / 1e6:.1f} MB f32, "
+          f"median of 5): the loader's batch arrives pinned "
+          f"({arrived_pinned}) and copies in {h2d_pinned:.2f} ms; from "
+          f"pageable memory {h2d:.2f} ms, or {pin:.2f} ms to pin it first; "
+          f"Accuracy(top-1/5) on the host (the logits' copy, argsort of "
+          f"[{B}, 1000]) {acc_ms:.2f} ms a step")
+    if not arrived_pinned:
+        raise AssertionError("the loader's batch did not arrive pinned")
+
+    def bare():
+        loss = F.cross_entropy(net(xc), yc)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+
+    net.train()
+    for _ in range(2):
+        bare()
+    bare_ms = timed(bare)
+    print(f"  bare f32 loop (batch on the card, forward, loss, backward, "
+          f"Momentum): {bare_ms:.2f} ms a step; hapi and the loader add "
+          f"{100 * (1 - bare_ms / ((med + wait) * 1e3)):.1f}% "
+          f"({(med + wait) * 1e3 - bare_ms:.2f} ms a step)")
+    busy = profile_step(torch, lambda: model.train_batch([x], [y]),
+                        "Model.train_batch (ResNet-50, f32, batch from the "
+                        "host)", share=vision_share, top=8)
+    print(f"  idle {100 * (1 - busy / (med * 1e3)):.1f}% of the median "
+          f"fit step wall ({100 * (1 - busy / ((med + wait) * 1e3)):.1f}% "
+          f"with the loader wait)")
+    return {k: fit_counts[k] + eval_counts[k] for k in fit_counts}
+
+
+class _CudaFlags:
+    """Samples that record whether their worker process has CUDA
+    initialised, and its pid."""
+
+    def __init__(self, torch, fail_at=None):
+        self.torch, self.fail_at = torch, fail_at
+
+    def __len__(self):
+        return 24
+
+    def __getitem__(self, i):
+        import numpy as np
+
+        if i == self.fail_at:
+            raise ValueError(f"poisoned sample {i}")
+        return (np.arange(6, dtype=np.float32) * i, np.int64(i),
+                np.int64(self.torch.cuda.is_initialized()),
+                np.int64(os.getpid()))
+
+
+def hapi_workers_phase(torch):
+    """The multi-process loader forked from this process, whose CUDA
+    context is live: order and content equal ``num_workers=0``'s, a
+    worker's exception reaches the parent, and no worker has CUDA
+    initialised (a worker that touched it would raise: CUDA cannot start
+    in a forked child)."""
+    import numpy as np
+
+    from paddle_tpu_torch import io
+
+    if not torch.cuda.is_initialized():
+        raise AssertionError("[hapi workers] needs a live CUDA context")
+    print("[hapi workers] DataLoader worker processes forked with CUDA live "
+          "in the parent")
+    ds = type("Flags", (_CudaFlags, io.Dataset), {})(torch)
+    np.random.seed(1)
+    want = list(io.DataLoader(ds, batch_size=5, shuffle=True))
+    np.random.seed(1)
+    got = list(io.DataLoader(ds, batch_size=5, shuffle=True, num_workers=3))
+    if len(got) != len(want):
+        raise AssertionError(f"{len(got)} batches from the workers, "
+                             f"{len(want)} inline")
+    for w, g in zip(want, got):
+        for a, b in zip(w[:2], g[:2]):
+            if not torch.equal(a, b):
+                raise AssertionError("worker batches differ from inline")
+    pids = {int(p) for b in got for p in b[3]}
+    flags = {int(f) for b in got for f in b[2]}
+    if os.getpid() in pids or len(pids) != 3 or flags != {0}:
+        raise AssertionError(f"workers: pids {pids}, CUDA flags {flags}")
+    bad = type("Bad", (_CudaFlags, io.Dataset), {})(torch, fail_at=13)
+    try:
+        list(io.DataLoader(bad, batch_size=5, num_workers=2))
+    except RuntimeError as e:
+        if "poisoned sample 13" not in str(e):
+            raise
+        print("  a worker's ValueError reached the parent as RuntimeError")
+    else:
+        raise AssertionError("a worker's exception did not reach the parent")
+    print(f"  {len(got)} batches from 3 worker processes equal the inline "
+          f"ones; CUDA initialised in no worker")
+
+
 def main() -> int:
     import torch
 
@@ -3964,9 +4397,17 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     zoo = vision_zoo_phase(torch, K)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    lenet = hapi_lenet_phase(torch, K)
+    hapi_resnet = hapi_resnet_phase(torch, K)
+    gc.collect()
+    torch.cuda.empty_cache()
+    hapi_workers_phase(torch)
     launches = {k: launches[k] + conformer[k] + rnnt[k] + encoder[k]
                 + varlen[k] + whisper[k] + whisper_train[k] + resnet[k]
-                + zoo[k] for k in conformer}
+                + zoo[k] + lenet[k] + hapi_resnet[k] for k in conformer}
     # the head_dim-36 rows: the Conformer steps' launches of those kernels;
     # the head_dim-16 rows: the tiny ERNIE step's
     for name in ("flash_attention_dropout", "flash_attention_bwd_dropout"):

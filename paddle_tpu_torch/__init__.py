@@ -12,13 +12,17 @@ and backward (with in-kernel dropout), ragged paged attention, RMSNorm
 forward and backward, LayerNorm forward, softmax cross-entropy forward
 and backward. Later slices add Conformer-CTC / RNN-T, Whisper and the
 vision zoo (``vision.models.resnet50`` trained with
-``optimizer.Momentum`` over ``PiecewiseDecay``). Entry points run on
-``cuda`` unless the caller passes ``device="cpu"``.
+``optimizer.Momentum`` over ``PiecewiseDecay``), and the high-level API:
+``Model`` (``hapi``) with ``io.DataLoader``, ``metric``, the callbacks,
+``save`` / ``load`` and ``vision.datasets`` / ``vision.transforms``.
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
-from . import (amp, core, framework, kernels, models, nn, optimizer, serving,
-               vision)
+from . import (amp, core, framework, hapi, io, kernels, metric, models, nn,
+               optimizer, serving, utils, vision)
 from .core import resolve_device
-from .framework import seed
+from .framework import load, save, seed
+from .hapi import Model, summary
 
-__all__ = ["amp", "core", "framework", "kernels", "models", "nn",
-           "optimizer", "serving", "vision", "resolve_device", "seed"]
+__all__ = ["amp", "core", "framework", "hapi", "io", "kernels", "metric",
+           "models", "nn", "optimizer", "serving", "utils", "vision",
+           "resolve_device", "seed", "save", "load", "Model", "summary"]

@@ -7,6 +7,10 @@ learning rate is a number or an ``lr.LRScheduler`` (read at each step; the
 caller steps the scheduler); ``grad_clip`` is one of ``nn.clip``'s clips.
 :meth:`step` follows the reference's order: clip all gradients, then fold
 in L2 decay (or, for AdamW, decay inside the update), then update.
+:meth:`state_dict` / :meth:`set_state_dict` keep the reference's layout:
+``_step_count``, ``<key>.<state name>`` per parameter (``key`` its
+``name`` or ``param<i>`` by position) and the scheduler's state under
+``LR_Scheduler``.
 """
 from __future__ import annotations
 
@@ -32,6 +36,7 @@ class Optimizer:
         self._weight_decay = weight_decay
         self._grad_clip = grad_clip
         self._accumulators: dict[int, dict[str, torch.Tensor]] = {}
+        self._step_count = 0
 
     def get_lr(self) -> float:
         if self._lr_scheduler is not None:
@@ -58,8 +63,15 @@ class Optimizer:
             st = self._accumulators[id(param)] = self.init_state(param)
         return st
 
-    @torch.no_grad()
     def step(self) -> None:
+        self._apply()
+        self._step_count += 1
+
+    @torch.no_grad()
+    def _apply(self) -> None:
+        """One update from the parameters' ``.grad``, without counting it
+        (``hapi.Model`` counts its ``train_batch`` calls instead, as the
+        reference does)."""
         if self._parameter_list is None:
             raise ValueError("Optimizer constructed without parameters")
         lr = self.get_lr()
@@ -79,3 +91,50 @@ class Optimizer:
         of zeroing: the next backward writes a fresh one)."""
         for p in self._parameter_list or ():
             p.grad = None
+
+    def _param_keys(self) -> list[str]:
+        """The parameters' state keys: a parameter's ``name`` where it has
+        one, else ``param<i>`` by position; a repeated name gets
+        ``__<n>``."""
+        keys, seen = [], {}
+        for i, p in enumerate(self._parameter_list or ()):
+            key = getattr(p, "name", None) or f"param{i}"
+            n = seen.get(key, 0)
+            seen[key] = n + 1
+            keys.append(key if n == 0 else f"{key}__{n}")
+        return keys
+
+    def state_dict(self) -> dict:
+        out = {"_step_count": self._step_count}
+        for p, key in zip(self._parameter_list or (), self._param_keys()):
+            for k, v in (self._accumulators.get(id(p)) or {}).items():
+                out[f"{key}.{k}"] = v
+        if self._lr_scheduler is not None:
+            out["LR_Scheduler"] = self._lr_scheduler.state_dict()
+        return out
+
+    def set_state_dict(self, state: dict) -> None:
+        """Take a :meth:`state_dict` (tensors or numpy arrays, on any
+        device): each state tensor is copied onto its parameter's device,
+        floating ones in the parameter's dtype. A state tensor of neither
+        the parameter's shape nor a scalar raises ``ValueError`` (a
+        reference ``Linear``'s moments are ``[in, out]``: transpose them
+        first, as ``models.vision_state_from_jax`` does the weights)."""
+        self._step_count = int(state.get("_step_count", 0))
+        for p, key in zip(self._parameter_list or (), self._param_keys()):
+            prefix = f"{key}."
+            st = {}
+            for k, v in state.items():
+                if isinstance(k, str) and k.startswith(prefix):
+                    t = torch.as_tensor(v).detach()
+                    if t.dim() and t.shape != p.shape:
+                        raise ValueError(
+                            f"optimizer state {k}: shape {tuple(t.shape)} "
+                            f"does not match its parameter's "
+                            f"{tuple(p.shape)}")
+                    dtype = p.dtype if t.is_floating_point() else t.dtype
+                    st[k[len(prefix):]] = t.to(p.device, dtype, copy=True)
+            if st:
+                self._accumulators[id(p)] = st
+        if self._lr_scheduler is not None and "LR_Scheduler" in state:
+            self._lr_scheduler.set_state_dict(state["LR_Scheduler"])

@@ -1,5 +1,6 @@
 """``paddle.vision`` (counterpart of ``paddle_tpu/vision/``): the image
-classification models of ``models`` and ``ops.ConvNormActivation``."""
-from . import models, ops
+classification models of ``models``, ``ops.ConvNormActivation``, the
+``datasets`` and the numpy ``transforms``."""
+from . import datasets, models, ops, transforms
 
-__all__ = ["models", "ops"]
+__all__ = ["datasets", "models", "ops", "transforms"]

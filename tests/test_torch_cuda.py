@@ -82,6 +82,14 @@ step on the card against the same weights' f32 step on the CPU (in f32,
 TF32 off: loss and every gradient; under O1: the launches, finite
 gradients, the loss, and a second step that lowers it), and the pooling
 and batch-norm functionals on the card against the CPU in f32.
+
+High-level API slice: a small conv net's ``Model.fit`` on the card against
+the same weights' ``fit`` on the CPU (f32, TF32 off: per-batch losses and
+final parameters within 1e-4, summation order through Adam steps; one
+softmax-CE forward and backward a step), the ``DataLoader``'s worker
+processes forked after CUDA is initialised (order and content equal the
+inline loader's; CUDA initialised in no worker), and the native batcher
+built into ``paddle_tpu_torch/csrc/build/`` and serving a card ``fit``.
 """
 import math
 
@@ -1645,3 +1653,112 @@ def test_pooling_and_batch_norm_on_the_card_match_the_cpu(gen):
                    atol=1e-6, rtol=1e-5)
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
+
+
+def _small_conv_net(device):
+    from paddle_tpu_torch import nn
+
+    return nn.Sequential(nn.Conv2D(1, 4, 3, padding=1, device=device),
+                         nn.ReLU(), nn.MaxPool2D(2, 2), nn.Flatten(),
+                         nn.Linear(4 * 14 * 14, 10, device=device))
+
+
+def test_model_fit_on_the_card_matches_the_cpu(gen):
+    import numpy as np
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.hapi import callbacks as cbks
+    from paddle_tpu_torch.io import Subset
+    from paddle_tpu_torch.vision.datasets import MNIST
+
+    class Losses(cbks.Callback):
+        def __init__(self):
+            super().__init__()
+            self.values = []
+
+        def on_train_batch_end(self, step, logs=None):
+            self.values.append(logs["loss"][0])
+
+    card = _small_conv_net(None)
+    cpu = _small_conv_net("cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    runs = []
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for net in (card, cpu):
+            model = paddle.Model(net)
+            assert model.device == next(net.parameters()).device
+            model.prepare(paddle.optimizer.Adam(parameters=net.parameters(),
+                                                learning_rate=1e-3),
+                          paddle.nn.CrossEntropyLoss(),
+                          paddle.metric.Accuracy())
+            rec = Losses()
+            K.reset_launch_counts()
+            np.random.seed(0)
+            model.fit(Subset(MNIST(mode="train"), range(512)), batch_size=64,
+                      epochs=1, verbose=0, callbacks=[rec])
+            runs.append((rec.values, {k: v for k, v in
+                                      K.launch_counts().items() if v}))
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    assert runs[0][1] == {"softmax_ce": 8, "softmax_ce_bwd": 8}
+    assert runs[1][1] == {}
+    np.testing.assert_allclose(runs[0][0], runs[1][0], atol=1e-4, rtol=0)
+    for a, b in zip(card.parameters(), cpu.parameters()):
+        _close(a.detach().cpu(), b.detach(), atol=1e-4, rtol=1e-4)
+
+
+class _Flags:
+    def __len__(self):
+        return 12
+
+    def __getitem__(self, i):
+        import os
+
+        import numpy as np
+
+        return (np.full(3, i, np.float32), np.int64(i),
+                np.int64(torch.cuda.is_initialized()), np.int64(os.getpid()))
+
+
+def test_loader_workers_fork_after_cuda_is_initialised(gen):
+    import os
+
+    import numpy as np
+
+    from paddle_tpu_torch import io
+
+    torch.ones(1, device="cuda").sum().item()     # CUDA live in the parent
+    assert torch.cuda.is_initialized()
+    ds = type("Flags", (_Flags, io.Dataset), {})()
+    np.random.seed(2)
+    want = list(io.DataLoader(ds, batch_size=4, shuffle=True))
+    np.random.seed(2)
+    got = list(io.DataLoader(ds, batch_size=4, shuffle=True, num_workers=2))
+    assert len(got) == len(want) == 3
+    for w, g in zip(want, got):
+        assert torch.equal(w[0], g[0]) and torch.equal(w[1], g[1])
+    assert {int(f) for b in got for f in b[2]} == {0}
+    pids = {int(p) for b in got for p in b[3]}
+    assert os.getpid() not in pids and len(pids) == 2
+
+
+def test_native_batcher_builds_and_serves_a_card_fit(gen):
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.io import native_batcher
+    from paddle_tpu_torch.vision.datasets import MNIST
+
+    assert native_batcher.supported()
+    path = native_batcher._lib_path()
+    assert path.exists()
+    assert path.parent.parts[-3:] == ("paddle_tpu_torch", "csrc", "build")
+    net = _small_conv_net(None)
+    model = paddle.Model(net)
+    model.prepare(paddle.optimizer.SGD(parameters=net.parameters(),
+                                       learning_rate=0.05),
+                  paddle.nn.CrossEntropyLoss())
+    native_batcher.reset_batch_count()
+    hist = model.fit(MNIST(mode="test"), batch_size=128, epochs=1, verbose=0)
+    assert native_batcher.batch_count() == 4
+    assert math.isfinite(hist.history["loss"][0][0])

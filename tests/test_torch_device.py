@@ -72,3 +72,28 @@ def test_entry_point_builds_on_the_cpu_when_asked(name):
     tensors = [obj.pool] if isinstance(obj, PagedKVCache) else \
         list(obj.parameters())
     assert tensors and all(t.device.type == "cpu" for t in tensors)
+
+
+def test_model_follows_its_networks_device():
+    """``hapi.Model`` runs where its network's parameters (or buffers)
+    lie; a network built with no device and no card raises where it is
+    built, and a network with neither parameters nor buffers asks for the
+    card."""
+    import paddle_tpu_torch as paddle
+
+    net = vm.LeNet(device="cpu")
+    model = paddle.Model(net)
+    assert model.device == torch.device("cpu")
+    model.prepare(paddle.optimizer.SGD(parameters=net.parameters()),
+                  paddle.nn.CrossEntropyLoss())
+    loss, _ = model.train_batch([torch.zeros(2, 1, 28, 28)],
+                                [torch.zeros(2, 1, dtype=torch.int64)])
+    assert isinstance(loss[0], float)
+    assert paddle.Model(tnn.BatchNorm2D(3, device="cpu")).device.type == \
+        "cpu"
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is to use it")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        paddle.Model(vm.LeNet())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        paddle.Model(tnn.ReLU()).device
