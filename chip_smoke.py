@@ -301,6 +301,29 @@ CUDA toolkit (``nvcc``). It imports nothing of JAX or of ``paddle_tpu``.
     loader's worker processes forked with CUDA live here give the inline
     loader's order and content, pass a worker's exception up, and
     initialise CUDA in no worker.
+30. ``[densenet]``: DenseNet-121 at its published widths (7.98 M
+    parameters, growth 32, blocks 6 / 12 / 24 / 16) at PaddleClas's
+    recipe for it (``DenseNet121.yaml``: 64 images a card at 224, Momentum
+    0.9, L2 1e-4, piecewise lr; the boundaries as ``[resnet]``'s), f32
+    parameters under ``auto_cast(O1, bf16)``, one repeated seeded batch,
+    written only through the port's eager API as a Paddle user writes a
+    dygraph loop (``paddle.to_tensor``, ``loss.backward()``,
+    ``opt.step()``): a warm-up step and DENSENET_STEPS timed ones (losses
+    finite and falling, one softmax-CE forward and backward launch a
+    step, the logits and the loss the port's ``Tensor``), step wall,
+    images/s, MFU (``densenet_flops_per_image``), peak memory, the Tensor
+    shell's cost (the same step fed plain tensors, in turns), a profiled
+    step, a step with ``model.features`` frozen by ``stop_gradient``, an
+    eval under ``paddle.no_grad()`` with ``paddle.metric.accuracy``.
+31. ``[whole step densenet]``: the card's f64 DenseNet-121 step (batch 8)
+    held against the CPU's f64 step from the same weights at the
+    whole-step limits; the card's f32 step (TF32 off) against the CPU's
+    f32 and f64 ones printed (ROADMAP C3).
+32. ``[eager ops]``: every op of the port's op library on the card
+    against the CPU (``eager_ops_phase``), then ``op_coverage()``.
+33. ``[eager autograd]``: double and triple backward, the gradient
+    penalty, hooks, ``PyLayer`` and ``no_grad_vars`` on the card against
+    the CPU.
 
 Flash design: bf16 at head_dim 64 and 128 with 16-byte rows takes the
 wgmma / TMA kernels (``csrc/flash_attention{,_bwd}_sm90.cu``, counted
@@ -315,8 +338,8 @@ the no-cache forward, the 5 Llama training steps, the ERNIE steps, the
 Conformer-CTC and the RNN-T steps, the encoder steps, the
 ``F.flash_attn_unpadded`` call, the Whisper ``generate`` and its
 teacher-forced forward, the Whisper training steps, the ResNet-50
-training steps, the zoo's steps and the two ``Model.fit`` phases (fits and
-evaluations; the ``_d36`` rows: the Conformer steps'
+training steps, the zoo's steps, the two ``Model.fit`` phases (fits and
+evaluations) and the DenseNet-121 steps (the ``_d36`` rows: the Conformer steps'
 launches of the dropout flash kernels, all at head_dim 36; the ``_d16``
 rows: the ``ernie_tiny()`` step's). The last two lines are one JSON object
 with every kernel's numbers and one with the device. Any failure raises and exits non-zero; without a CUDA
@@ -466,6 +489,22 @@ HAPI_RESNET_WORKERS = 4
 HAPI_EVAL_BATCHES = 4
 IMAGENET_MEAN = [0.485, 0.456, 0.406]
 IMAGENET_STD = [0.229, 0.224, 0.225]
+# Eager API slice: DenseNet-121 at PaddleClas's recipe for it (ppcls/
+# configs/ImageNet/DenseNet/DenseNet121.yaml: 224 x 224 crops, 1000
+# classes, 64 images a card, Momentum 0.9, L2 1e-4, piecewise lr 0.1 over
+# epochs 30 / 60 / 90; the smoke's boundaries as ResNet-50's) in the
+# dygraph idiom; the shell's cost in SHELL_TURNS rounds of plain / Tensor /
+# Tensor / plain, SHELL_STEPS steps each
+DENSENET_BATCH = 64
+DENSENET_STEPS = 10
+DENSENET_WHOLE_BATCH = 8
+SHELL_TURNS = 2
+SHELL_STEPS = 3
+# [eager ops] / [eager autograd]: the card's f32 against the CPU's f32
+# (TF32 off): the same arithmetic in another order (rtol 1e-4, atol 1e-5;
+# the decompositions' and special functions' library routines 1e-3, 1e-4)
+EAGER_F32 = dict(rtol=1e-4, atol=1e-5)
+EAGER_F32_LOOSE = dict(rtol=1e-3, atol=1e-4)
 # O1 (bf16) eval logits against the f32 forward of the same weights (cuDNN
 # and cuBLAS TF32 off). A random-weight network amplifies the 2^-9 rounding
 # of each convolution's operands through depth by an amount that depends
@@ -3587,7 +3626,7 @@ def tf32_off(torch):
 
 
 def rel_l2(a, b):
-    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+    return ((a.double() - b.double()).norm() / b.double().norm()).item()
 
 
 def o1_eval_check(torch, what, model, x):
@@ -3745,10 +3784,11 @@ def resnet_infer_phase(torch, model):
     o1_eval_check(torch, f"batch {RESNET_BATCH}", model, x)
 
 
-def _vision_step(torch, model, x, y, o1, lr=0.1):
-    """One forward, cross-entropy, backward and Momentum step (0.9, L2 1e-4)
-    of ``model`` on (x, y), under O1 or not: the loss, the gradients, and
-    the batch-norm buffers and parameters after the step, on the CPU."""
+def _vision_step(torch, model, x, y, o1, lr=0.1, loss_fn=None):
+    """One forward, cross-entropy (the port's, or ``loss_fn``), backward
+    and Momentum step (0.9, L2 1e-4) of ``model`` on (x, y), under O1 or
+    not: the loss, the gradients, and the batch-norm buffers and
+    parameters after the step, on the CPU (f64 kept, else f32)."""
     from paddle_tpu_torch import amp
     from paddle_tpu_torch.nn import functional as F
     from paddle_tpu_torch.optimizer import Momentum
@@ -3756,10 +3796,12 @@ def _vision_step(torch, model, x, y, o1, lr=0.1):
     opt = Momentum(learning_rate=lr, momentum=0.9,
                    parameters=model.parameters(), weight_decay=1e-4)
     with amp.auto_cast(enable=o1, level="O1"):
-        loss = F.cross_entropy(model(x), y)
+        loss = (loss_fn or F.cross_entropy)(model(x), y)
     loss.backward()
+
     def copy(t):
-        return t.detach().to("cpu", torch.float32, copy=True)
+        keep = torch.float64 if t.dtype == torch.float64 else torch.float32
+        return t.detach().to("cpu", keep, copy=True)
 
     grads = {n: copy(p.grad) for n, p in model.named_parameters()}
     opt.step()
@@ -4142,7 +4184,8 @@ def hapi_resnet_phase(torch, K):
 
     # one batch off the loader, as fit gets it; then the costs around it
     loader = io.DataLoader(Images(train_tf, n), batch_size=B, shuffle=True,
-                           drop_last=True, num_workers=HAPI_RESNET_WORKERS)
+                           drop_last=True, num_workers=HAPI_RESNET_WORKERS,
+                           places="cpu")    # the host's batch, as it arrives
     x, y = next(iter(loader))
 
     def timed(fn, reps=5):
@@ -4262,6 +4305,510 @@ def hapi_workers_phase(torch):
         raise AssertionError("a worker's exception did not reach the parent")
     print(f"  {len(got)} batches from 3 worker processes equal the inline "
           f"ones; CUDA initialised in no worker")
+
+
+def densenet_phase(torch, K):
+    """DenseNet-121 at its published widths trained at PaddleClas's recipe
+    for it, written only through the port's public eager API, as a Paddle
+    user writes a dygraph loop: ``paddle.to_tensor`` batches,
+    ``paddle.amp.auto_cast(O1, bf16)``, ``loss.backward()``,
+    ``opt.step()``, ``opt.clear_grad()``. A warm-up step, then
+    DENSENET_STEPS timed steps: losses finite and falling, exactly one
+    softmax-CE forward and backward launch a step, the loss and the logits
+    the port's Tensor; step wall (median), images/s, MFU
+    (``densenet_flops_per_image``, training 3x the forward), peak memory;
+    what the Tensor shell costs (the same step fed plain ``torch.Tensor``s,
+    in turns: step wall and the host's time to queue it); a profiled step;
+    a step with ``model.features`` frozen by ``stop_gradient`` (those
+    parameters get no gradient and do not move, the classifier does); an
+    eval under ``paddle.no_grad()`` with ``paddle.metric.accuracy``.
+    Returns the timed steps' launches."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.vision.models import densenet_flops_per_image
+
+    B = DENSENET_BATCH
+    print(f"[densenet] DenseNet-121 (PaddleClas DenseNet121.yaml widths: "
+          f"growth 32, blocks 6/12/24/16), batch {B} x 3 x 224 x 224, f32 "
+          f"params under auto_cast(O1, bf16), Momentum 0.9, L2 1e-4, "
+          f"PiecewiseDecay({RESNET_BOUNDARIES}, {RESNET_LRS}); the "
+          f"dygraph idiom through paddle_tpu_torch's eager API")
+    paddle.seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    model = paddle.vision.models.densenet121()
+    n_params = sum(int(p.numel()) for p in model.parameters())
+    flops = 3 * densenet_flops_per_image(model)
+    sched = paddle.optimizer.PiecewiseDecay(RESNET_BOUNDARIES, RESNET_LRS)
+    opt = paddle.optimizer.Momentum(learning_rate=sched, momentum=0.9,
+                                    parameters=model.parameters(),
+                                    weight_decay=1e-4)
+    images, labels = resnet_batch(torch, B, 224, 1000, 3, "cuda")
+    feeds = {"Tensor": (paddle.to_tensor(images), paddle.to_tensor(labels)),
+             "plain": (images, labels)}
+    x, y = feeds["Tensor"]
+    lrs, kinds = [], []
+
+    def step(xx, yy):
+        lrs.append(opt.get_lr())
+        with paddle.amp.auto_cast(level="O1", dtype="bfloat16"):
+            logits = model(xx)
+            loss = paddle.nn.functional.cross_entropy(logits, yy)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        sched.step()
+        kinds.append((type(logits), type(loss)))
+        return loss
+
+    t0 = time.monotonic()
+    losses = [step(x, y).item()]
+    print(f"  {n_params / 1e6:.2f} M parameters; warm-up step "
+          f"{time.monotonic() - t0:.2f}s, loss {losses[0]:.4f}; "
+          f"type(model(x)) {kinds[0][0].__name__}, type(loss) "
+          f"{kinds[0][1].__name__} ({kinds[0][1].__module__})")
+    if kinds[0] != (paddle.Tensor, paddle.Tensor):
+        raise AssertionError(f"the dygraph step's logits and loss are "
+                             f"{kinds[0]}, not the port's Tensor")
+    K.reset_launch_counts()
+    walls = []
+    for _ in range(DENSENET_STEPS):
+        t0 = time.monotonic()
+        losses.append(step(x, y).item())
+        torch.cuda.synchronize()
+        walls.append(time.monotonic() - t0)
+    counts = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  losses {[round(v, 4) for v in losses]}; lr {sorted(set(lrs))}")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite DenseNet-121 loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the DenseNet-121 loss did not fall: {losses}")
+    per_step = {k: c / DENSENET_STEPS for k, c in counts.items() if c}
+    print(f"  launches per step: {per_step}")
+    if per_step != {"softmax_ce": 1.0, "softmax_ce_bwd": 1.0}:
+        raise AssertionError("the DenseNet-121 steps launched other kernels "
+                             "than one softmax-CE forward and backward each")
+    med = sorted(walls)[len(walls) // 2]
+    img_s = B / med
+    print(f"  step wall {med * 1e3:.2f} ms (median of {DENSENET_STEPS}, min "
+          f"{min(walls) * 1e3:.2f}, max {max(walls) * 1e3:.2f}); "
+          f"{img_s:.1f} images/s; MFU {100 * img_s * flops / BF16_FLOPS:.2f}% "
+          f"({flops / 1e9:.2f} GFLOP an image, 3x the forward's "
+          f"{flops / 6e9:.3f} G multiply-adds, against "
+          f"{BF16_FLOPS / 1e12:.0f} TFLOP/s); peak memory "
+          f"{peak / 2 ** 30:.2f} GiB")
+
+    # what the Tensor shell costs: the same step fed plain tensors, in
+    # turns; the host's time to queue a step (it returns before the card
+    # is done) and the step's wall (synchronised)
+    queued = {"plain": [], "Tensor": []}
+    wall = {"plain": [], "Tensor": []}
+    for kind in ("plain", "Tensor", "Tensor", "plain") * SHELL_TURNS:
+        for _ in range(SHELL_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            step(*feeds[kind])
+            t1 = time.monotonic()
+            torch.cuda.synchronize()
+            queued[kind].append((t1 - t0) * 1e3)
+            wall[kind].append((time.monotonic() - t0) * 1e3)
+    if kinds[-SHELL_STEPS:][-1] != (torch.Tensor, torch.Tensor):
+        raise AssertionError(f"plain tensors in gave {kinds[-1]} out")
+
+    def med_of(v):
+        return sorted(v)[len(v) // 2]
+
+    dq = med_of(queued["Tensor"]) - med_of(queued["plain"])
+    dw = med_of(wall["Tensor"]) - med_of(wall["plain"])
+    print(f"  the Tensor shell's cost a step ({len(wall['Tensor'])} steps "
+          f"each, in turns plain / Tensor / Tensor / plain): host time to "
+          f"queue {med_of(queued['Tensor']):.2f} ms with Tensors vs "
+          f"{med_of(queued['plain']):.2f} ms with plain tensors "
+          f"({dq:+.2f} ms); step wall {med_of(wall['Tensor']):.2f} vs "
+          f"{med_of(wall['plain']):.2f} ms ({dw:+.2f} ms)")
+    busy = profile_step(torch, lambda: step(x, y),
+                        "DenseNet-121 training step", share=vision_share,
+                        top=12)
+    print(f"  idle {100 * (1 - busy / (med * 1e3)):.1f}% of the unprofiled "
+          f"median step wall")
+
+    # freeze the features as a Paddle user does; the classifier trains
+    feats = model.features.parameters()
+    for p in feats:
+        p.stop_gradient = True
+    before = [p.detach().clone() for p in feats]
+    head = model.classifier.weight.detach().clone()
+    with paddle.amp.auto_cast(level="O1", dtype="bfloat16"):
+        loss = paddle.nn.functional.cross_entropy(model(x), y)
+    loss.backward()
+    no_grads = sum(p.grad is None for p in feats)
+    has_head = model.classifier.weight.grad is not None
+    opt.step()
+    opt.clear_grad()
+    moved = sum(not torch.equal(a, p) for a, p in zip(before, feats))
+    print(f"  frozen features ({len(feats)} parameters, stop_gradient=True): "
+          f"{no_grads} got no gradient, {moved} moved; the classifier "
+          f"{'moved' if not torch.equal(head, model.classifier.weight) else 'did not move'}")
+    if no_grads != len(feats) or moved or not has_head or torch.equal(
+            head, model.classifier.weight):
+        raise AssertionError("stop_gradient did not freeze model.features")
+    for p in feats:
+        p.stop_gradient = False
+
+    model.eval()
+    ex, ey = resnet_batch(torch, B, 224, 1000, 4, "cuda")
+    with paddle.no_grad(), paddle.amp.auto_cast(level="O1",
+                                                dtype="bfloat16"):
+        logits = model(paddle.to_tensor(ex))
+        acc = paddle.metric.accuracy(logits, paddle.to_tensor(ey), k=5)
+    print(f"  eval under paddle.no_grad(): logits {type(logits).__name__} "
+          f"{list(logits.shape)}, stop_gradient {logits.stop_gradient}, "
+          f"top-5 accuracy on seeded labels {float(acc):.4f}")
+    if not (logits.stop_gradient and torch.isfinite(logits).all()):
+        raise AssertionError("the eval logits are not finite or carry a "
+                             "graph")
+    return counts
+
+
+def whole_step_densenet(torch, K):
+    """DenseNet-121, batch DENSENET_WHOLE_BATCH x 224: one step (forward,
+    cross-entropy, backward, Momentum 0.9 / L2 1e-4 at lr 0.1) from the
+    same weights (the card's Paddle state dict into the CPU model) on the
+    card and on the CPU through the plain versions. Held: the card's f64
+    step against the CPU's f64 step (cuDNN's f64 convolutions and batch
+    norm; torch's cross-entropy on both, as the softmax-CE kernel takes f32
+    and bf16), to ``[whole step resnet]``'s limits: the loss within
+    STEP_LOSS_TOL, the batch-norm buffers within BN_REL_L2, every gradient
+    and every parameter after the update within STEP_GRAD_REL_L2. The card's
+    f32 step (TF32 off, through the softmax-CE kernels) against the CPU's
+    f32 and f64 steps is printed, not held: DenseNet's stem batch norm
+    feeds every layer of the first block through the concatenations, and
+    its weight's gradient sums tens of thousands of cancelling terms a
+    channel, so f32 gets it to 3-16 % on either device (ROADMAP C3). The
+    card's f32 and O1 steps each launch one softmax-CE forward and backward;
+    the O1 loss is finite (its distance from the CPU's f32 step printed,
+    ROADMAP C2)."""
+    from paddle_tpu_torch.vision.models import densenet121
+
+    B = DENSENET_WHOLE_BATCH
+    print(f"[whole step densenet] DenseNet-121, batch {B} x 3 x 224 x 224: "
+          f"one Momentum step on the card and on the CPU in f64 (held) and "
+          f"f32 (TF32 off), and on the card under O1")
+    card = densenet121(seed=4)
+    state = {k: v.clone() for k, v in card.state_dict().items()}
+    cpu = densenet121(device="cpu")
+    x, y = resnet_batch(torch, B, 224, 1000, 5, "cpu")
+
+    def torch_ce(logits, labels):
+        return torch.nn.functional.cross_entropy(logits, labels.reshape(-1))
+
+    runs = {}
+    for name, model, o1 in (("card f32", card, False), ("card O1", card, True),
+                            ("CPU f32", cpu, False)):
+        model.set_state_dict(state)
+        dev = model.features[0].weight.device
+        K.reset_launch_counts()
+        with tf32_off(torch):
+            runs[name] = _vision_step(torch, model, x.to(dev), y.to(dev), o1)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            launched = {k: v for k, v in K.launch_counts().items() if v}
+            if launched != {"softmax_ce": 1, "softmax_ce_bwd": 1}:
+                raise AssertionError(f"the card's {name} DenseNet-121 step "
+                                     f"launched {launched}")
+    for name, model in (("card f64", card), ("CPU f64", cpu)):
+        model.set_state_dict(state)
+        model.double()
+        dev = model.features[0].weight.device
+        runs[name] = _vision_step(torch, model, x.double().to(dev),
+                                  y.to(dev), False, loss_fn=torch_ce)
+    print("  losses: " + ", ".join(f"{n} {r[0]:.7f}" for n, r in runs.items())
+          + "; the card's f32 and O1 steps each launched one softmax-CE "
+          "forward and backward")
+    errs = {}
+    for a, b in (("card f64", "CPU f64"), ("card f32", "CPU f32"),
+                 ("card f32", "CPU f64"), ("CPU f32", "CPU f64"),
+                 ("card O1", "CPU f32")):
+        e = errs[a, b] = _step_errors(runs[a], runs[b])
+        print(f"  {a} vs {b}{' (held)' if a == 'card f64' else ''}: loss "
+              f"|diff| {e['loss']:.2e}; worst relative L2: gradient "
+              f"{e['gradient'][1]:.2e} ({e['gradient'][0]}), buffer "
+              f"{e['buffer'][1]:.2e} ({e['buffer'][0]}), parameter after "
+              f"the step {e['parameter'][1]:.2e} ({e['parameter'][0]})")
+    held = errs["card f64", "CPU f64"]
+    if not (held["loss"] <= STEP_LOSS_TOL
+            and held["gradient"][1] <= STEP_GRAD_REL_L2
+            and held["parameter"][1] <= STEP_GRAD_REL_L2
+            and held["buffer"][1] <= BN_REL_L2):
+        raise AssertionError(f"whole DenseNet-121 step (f64, card vs CPU): "
+                             f"{held}")
+    if not math.isfinite(runs["card O1"][0]):
+        raise AssertionError(f"the card's O1 DenseNet-121 loss is "
+                             f"{runs['card O1'][0]}")
+    return held
+
+
+def _sign_free(name, arrs):
+    """The factors of a decomposition whose columns are defined up to a
+    sign, as quantities that are not: svd the singular values and U S V^T,
+    qr Q R, eigh the eigenvalues and V W V^T; eig's eigenvalues sorted."""
+    import numpy as np
+
+    if name == "svd":
+        u, s, v = arrs
+        return [s, (u * s[..., None, :]) @ np.swapaxes(v, -1, -2)]
+    if name == "qr":
+        return [arrs[0] @ arrs[1]]
+    if name == "eigh":
+        w, v = arrs
+        return [w, (v * w[..., None, :]) @ np.swapaxes(v, -1, -2)]
+    if name in ("eig", "eigvals"):
+        return [np.sort_complex(arrs[0])]
+    return arrs
+
+
+def eager_ops_phase(torch):
+    """Every op of the port's op library (creation, math, manipulation,
+    linalg, logic, search, stat, fused: the JAX package's 224 registered
+    names and the module functions it leaves out of its registry) on CUDA
+    tensors against the same op on CPU tensors, f32 inputs from the seeded
+    cases of ``tools/eager_op_cases.py`` (``tests/test_torch_ops.py``'s,
+    cast from f64): integer and bool results equal, floating ones within
+    EAGER_F32 (EAGER_F32_LOOSE for the decompositions and special
+    functions, ``tools.eager_op_cases.LOOSE``; sign-free quantities for
+    svd, qr and eigh), TF32 off. The random ops run on the card for their
+    shapes, dtypes and finiteness only (they agree in distribution, which
+    ``tests/test_torch_ops.py`` holds). Prints the count, the ops left out
+    with the reason, and ``op_coverage()``."""
+    import numpy as np
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.core import device as pdevice
+    from tools.eager_op_cases import LOOSE, cases
+
+    modules = ("creation", "math", "manipulation", "linalg", "logic",
+               "search", "stat", "fused")
+    random = set(ops.random.__all__) | {"log_normal"}
+    left_out = {"to_tensor": "a constructor: every phase's inputs",
+                "create_parameter": "a constructor: nn.Layer makes them",
+                "is_tensor": "a type check, no tensor out"}
+    names = sorted(set().union(*(getattr(ops, m).__all__ for m in modules))
+                   - random - set(left_out))
+    print(f"[eager ops] {len(names)} ops on the card against the CPU, f32 "
+          f"(TF32 off); {len(random)} random ops for shape and dtype")
+
+    def convert(args, dev):
+        def one(a):
+            if not isinstance(a, np.ndarray):
+                return a
+            if a.dtype == np.float64:
+                a = a.astype(np.float32)
+            elif a.dtype == np.complex128:
+                a = a.astype(np.complex64)
+            return paddle.to_tensor(a, place=dev)
+
+        return [type(a)(one(e) for e in a) if isinstance(a, (list, tuple))
+                and any(isinstance(e, np.ndarray) for e in a) else one(a)
+                for a in args]
+
+    def run(fn, args, kwargs, dev):
+        paddle.set_device(dev)
+        out = fn(*convert(args, dev), **kwargs)
+        outs = out if isinstance(out, (list, tuple)) else [out]
+        return [o.numpy() for o in outs if hasattr(o, "numpy")]
+
+    ran, worst = 0, (0.0, None)
+    try:
+        with tf32_off(torch):
+            for name in names:
+                fn = getattr(ops, name)
+
+                def probe(args, kwargs, fn=fn):
+                    try:
+                        return bool(run(fn, args, kwargs, "cpu"))
+                    except Exception:
+                        return False
+
+                tol = EAGER_F32_LOOSE if name in LOOSE else EAGER_F32
+                for args, kwargs in cases(name, probe):
+                    want = _sign_free(name, run(fn, args, kwargs, "cpu"))
+                    got = _sign_free(name, run(fn, args, kwargs, "gpu"))
+                    if len(got) != len(want):
+                        raise AssertionError(f"[eager ops] {name}: "
+                                             f"{len(got)} outputs on the "
+                                             f"card, {len(want)} on the CPU")
+                    for a, b in zip(got, want):
+                        if a.shape != b.shape:
+                            raise AssertionError(f"{name}: shape {a.shape} "
+                                                 f"on the card, {b.shape}")
+                        if b.dtype == bool or np.issubdtype(b.dtype,
+                                                            np.integer):
+                            np.testing.assert_array_equal(a, b, err_msg=name)
+                            continue
+                        np.testing.assert_allclose(a, b, err_msg=name, **tol)
+                        if b.size:
+                            err = float(np.abs(a - b).max())
+                            if err > worst[0]:
+                                worst = (err, name)
+                ran += 1
+            paddle.set_device("gpu")
+            paddle.seed(1)
+            x = paddle.full([64, 8], 0.5)
+            draws = {"rand": ([64, 8],), "randn": ([64, 8],),
+                     "standard_normal": ([64, 8],),
+                     "normal": (0.0, 1.0, [64, 8]),
+                     "log_normal": (0.0, 0.5, [64, 8]),
+                     "uniform": ([64, 8],), "randint": (0, 10, [64, 8]),
+                     "randint_like": (x, 0, 10), "randperm": (64,),
+                     "multinomial": (x, 4), "rand_like": (x,),
+                     "randn_like": (x,), "bernoulli": (x,),
+                     "poisson": (x,), "gumbel_softmax": (x,),
+                     "exponential_": (x.clone(),),
+                     "uniform_": (x.clone(),), "normal_": (x.clone(),)}
+            if set(draws) != random:
+                raise AssertionError(f"[eager ops] random ops: "
+                                     f"{sorted(random ^ set(draws))}")
+            for name, args in draws.items():
+                out = getattr(ops, name)(*args)
+                if out.device.type != "cuda" or \
+                        not torch.isfinite(out.float()).all():
+                    raise AssertionError(f"[eager ops] random {name}: "
+                                         f"{out.device}, not finite")
+    finally:
+        pdevice._state["device"] = None
+    cov = paddle.op_coverage()
+    print(f"  {ran} ops matched the CPU (largest |card - CPU| {worst[0]:.2e} "
+          f"in {worst[1]}); {len(random)} random ops drew on the card; left "
+          f"out: " + "; ".join(f"{k} ({v})" for k, v in left_out.items()))
+    print(f"  op_coverage(): {cov['covered']} of {cov['total']} reference "
+          f"ops ({100 * cov['pct']:.1f}%), {cov['registered']} registered")
+    return ran
+
+
+def _autograd_cases(paddle, dev):
+    """The autograd cases of ``tests/test_torch_autograd.py`` on ``dev``:
+    each returns the arrays it computed."""
+    import numpy as np
+
+    def t(v, grad=True):
+        return paddle.to_tensor(np.asarray(v, np.float32), place=dev,
+                                stop_gradient=not grad)
+
+    def double():
+        x = t([0.7, -1.3, 2.1])
+        y = (paddle.sin(x) * x * x + paddle.exp(0.3 * x)).sum()
+        (g,) = paddle.grad(y, x, create_graph=True)
+        (g2,) = paddle.grad(g.sum(), x)
+        return [g.numpy(), g2.numpy()]
+
+    def penalty():
+        w = t([[1.2, 0.1], [-0.4, 0.9]])
+        x = t([[0.5, -1.0], [2.0, 0.3]])
+        (gx,) = paddle.grad(paddle.tanh(x @ w).sum(), x, create_graph=True)
+        (gw,) = paddle.grad(((gx * gx).sum() - 1.0) ** 2, w)
+        return [gx.numpy(), gw.numpy()]
+
+    def triple():
+        x = t([1.5])
+        (g1,) = paddle.grad((x ** 4).sum(), x, create_graph=True)
+        (g2,) = paddle.grad(g1.sum(), x, create_graph=True)
+        (g3,) = paddle.grad(g2.sum(), x)
+        return [g1.numpy(), g2.numpy(), g3.numpy()]
+
+    def hooks():
+        x = t([1.0, 2.0])
+        h = x.register_hook(lambda g: g * 2)
+        (x * 3).sum().backward()
+        first = x.grad.numpy()
+        h.remove()
+        x.clear_grad()
+        y = x * 2
+        y.retain_grads()
+        (y * 3).sum().backward()
+        return [first, x.grad.numpy(), y.grad.numpy()]
+
+    def pylayer():
+        class Cube(paddle.autograd.PyLayer):
+            @staticmethod
+            def forward(ctx, x):
+                ctx.save_for_backward(x)
+                return x * x * x
+
+            @staticmethod
+            def backward(ctx, grad):
+                (x,) = ctx.saved_tensor()
+                return grad * 3 * x * x
+
+        x = t([1.0, -2.0])
+        y = Cube.apply(x)
+        y.sum().backward()
+        try:
+            paddle.grad(Cube.apply(x).sum(), x, create_graph=True)
+        except NotImplementedError:
+            raised = 1.0
+        else:
+            raised = 0.0
+        return [y.numpy(), x.grad.numpy(), np.asarray(raised)]
+
+    def cut():
+        x = t([2.0])
+        y = x * 3
+        (gx,) = paddle.grad(y * x, x, no_grad_vars=[y])
+        z = x * 5
+        before = z * z
+        z.stop_gradient = True
+        (before + z * 7).sum().backward()
+        return [gx.numpy(), x.grad.numpy()]
+
+    def cut_uses():
+        x = t([2.0, 3.0])
+        z = x * 5
+        total = (z * z).sum()
+        z.stop_gradient = True
+        uses = [z[0] * 7, z[1:].sum() * 2, z.reshape([2, 1]).sum() * 3,
+                z.astype("float64").astype("float32").sum(),
+                z.to("float32").sum() * 4, z.clone().sum() * 5,
+                z.transpose([0]).sum(), paddle.concat([z, z]).sum()]
+        for u in uses:
+            total = total + u
+        total.backward()
+        moved = [z.cpu(), z.cuda() if dev == "gpu" else z.cpu()]
+        return [x.grad.numpy(), np.asarray(
+            [u.stop_gradient for u in uses + moved], np.float32)]
+
+    return {"double backward": double, "gradient penalty": penalty,
+            "triple backward": triple, "hooks and retain_grads": hooks,
+            "PyLayer (and create_graph through it raising)": pylayer,
+            "no_grad_vars and a non-leaf's stop_gradient": cut,
+            "a cut non-leaf indexed, reshaped, cast, cloned and moved":
+            cut_uses}
+
+
+def eager_autograd_phase(torch):
+    """The autograd cases of ``tests/test_torch_autograd.py`` on the card
+    against the CPU, f32 within EAGER_F32: double and triple backward, the
+    gradient penalty through a matmul, hooks, ``retain_grads``, a
+    ``PyLayer`` (its ``create_graph`` pass raising
+    ``NotImplementedError``), ``no_grad_vars`` and ``stop_gradient`` set
+    on a non-leaf (every later use: operators, indexing, reshaping, casts,
+    ``clone``, ``to`` / ``cpu`` / ``cuda``, ops)."""
+    import numpy as np
+
+    import paddle_tpu_torch as paddle
+
+    print("[eager autograd] paddle.grad / backward / hooks / PyLayer on the "
+          "card against the CPU")
+    card = _autograd_cases(paddle, "gpu")
+    cpu = _autograd_cases(paddle, "cpu")
+    with tf32_off(torch):
+        for name, fn in card.items():
+            got, want = fn(), cpu[name]()
+            for a, b in zip(got, want):
+                np.testing.assert_allclose(a, b, err_msg=name, **EAGER_F32)
+            print(f"  {name}: card equals CPU ({len(got)} results)")
+        if not card["PyLayer (and create_graph through it raising)"]()[2]:
+            raise AssertionError("create_graph through a PyLayer did not "
+                                 "raise NotImplementedError")
 
 
 def main() -> int:
@@ -4405,9 +4952,21 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     hapi_workers_phase(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    densenet = densenet_phase(torch, K)
+    gc.collect()
+    torch.cuda.empty_cache()
+    whole_step_densenet(torch, K)
+    gc.collect()
+    torch.cuda.empty_cache()
+    eager_ops_phase(torch)
+    eager_autograd_phase(torch)
     launches = {k: launches[k] + conformer[k] + rnnt[k] + encoder[k]
                 + varlen[k] + whisper[k] + whisper_train[k] + resnet[k]
-                + zoo[k] + lenet[k] + hapi_resnet[k] for k in conformer}
+                + zoo[k] + lenet[k] + hapi_resnet[k] + densenet[k]
+                for k in conformer}
     # the head_dim-36 rows: the Conformer steps' launches of those kernels;
     # the head_dim-16 rows: the tiny ERNIE step's
     for name in ("flash_attention_dropout", "flash_attention_bwd_dropout"):

@@ -29,6 +29,8 @@ import threading
 
 import torch
 
+from ..core.tensor import raw_grad
+
 __all__ = ["auto_cast", "amp_guard", "decorate", "GradScaler", "amp_state",
            "cast_for", "op_cast_plan", "WHITE_LIST", "BLACK_LIST"]
 
@@ -168,8 +170,8 @@ class GradScaler:
         whether any is not finite."""
         if not self._enable or self._unscaled:
             return
-        grads = [p.grad for p in optimizer._parameter_list or ()
-                 if p.grad is not None]
+        grads = [g for p in optimizer._parameter_list or ()
+                 if (g := raw_grad(p)) is not None]
         for g in grads:
             g.mul_(1.0 / self._scale)
         self._found_inf = bool(grads) and not all(

@@ -2,13 +2,16 @@
 ``paddle_tpu/framework/io.py``), in the JAX package's wire format: the
 ``PDTPU1\\n`` magic, then a pickle of nested dicts, lists and tuples whose
 tensor leaves are ``_TensorLeaf``s (a numpy array and ``stop_gradient``).
-A file either package wrote loads in the other.
+A file either package wrote loads in the other: the leaves are written
+under the JAX package's class name (``paddle_tpu.framework.io._TensorLeaf``,
+the same two slots), which a plain unpickler of that package resolves to
+its own class, and nothing of it is imported here.
 
 :func:`load` unpickles with a restricted ``find_class``: the leaf class
 under either package's module name maps to this module's ``_TensorLeaf``
 (nothing is imported), numpy's array and scalar constructors pass, any
 other global raises ``pickle.UnpicklingError``. It
-gives CPU tensors (``return_numpy=True``: the arrays); the caller moves
+gives CPU Tensors (``return_numpy=True``: the arrays); the caller moves
 them. A bf16 tensor is saved as float32 (numpy has no bf16), which widens
 it exactly.
 """
@@ -19,6 +22,8 @@ import pickle
 
 import numpy as np
 import torch
+
+from ..core.tensor import wrap
 
 __all__ = ["save", "load"]
 
@@ -53,7 +58,7 @@ def _from_numpy_tree(obj, return_numpy=False):
         t = torch.from_numpy(np.array(obj.array))   # a copy it owns
         if t.is_floating_point() and not obj.stop_gradient:
             t.requires_grad_(True)
-        return t
+        return wrap(t)
     if isinstance(obj, dict):
         return {k: _from_numpy_tree(v, return_numpy) for k, v in obj.items()}
     if isinstance(obj, (list, tuple)):
@@ -81,13 +86,33 @@ class _Unpickler(pickle.Unpickler):
             f"paddle_tpu_torch.load: refusing to unpickle {module}.{name}")
 
 
+_LEAF_NAME = ("paddle_tpu.framework.io", "_TensorLeaf")
+
+
+class _Pickler(pickle._Pickler):
+    """Writes ``_TensorLeaf`` under the JAX package's name, unchecked (the
+    default pickler would import that module to verify it)."""
+
+    def save_global(self, obj, name=None):
+        if obj is not _TensorLeaf:
+            return super().save_global(obj, name)
+        module, qualname = _LEAF_NAME
+        if self.proto >= 4:
+            self.save(module)
+            self.save(qualname)
+            self.write(pickle.STACK_GLOBAL)
+        else:
+            self.write(pickle.GLOBAL + f"{module}\n{qualname}\n".encode())
+        self.memoize(obj)
+
+
 def save(obj, path, protocol=4, **configs):
     d = os.path.dirname(path)
     if d:
         os.makedirs(d, exist_ok=True)
     with open(path, "wb") as f:
         f.write(_MAGIC)
-        pickle.dump(_to_numpy_tree(obj), f, protocol=protocol)
+        _Pickler(f, protocol=protocol).dump(_to_numpy_tree(obj))
 
 
 def load(path, return_numpy=False, **configs):

@@ -3,9 +3,12 @@
 
 The reference jits one functional step over (params, buffers, optimizer
 state). Here the step is PyTorch's eager one on the device of the
-network's parameters: batches come off the loader as CPU tensors and move
-there (pinned first, then copied without blocking the host), then forward, the loss, ``backward()``, ``Optimizer.step``'s update
-and ``clear_grad()``. The observable semantics are the reference's:
+network's parameters: the loaders ``Model`` makes hand out batches as
+Tensors already there (``io.DataLoader(places=...)``); a batch from
+elsewhere moves there (a CPU one pinned first, then copied without
+blocking the host). Then forward, the loss, ``backward()``,
+``Optimizer.step``'s update and ``clear_grad()``. The observable
+semantics are the reference's:
 
 - the loss is the sum of a list of losses;
 - ``train_batch(update=False)`` leaves the gradients summed in ``.grad``
@@ -41,6 +44,7 @@ import torch
 
 from ..core import resolve_device
 from ..framework import io as fio
+from ..nn.layer import paddle_state_dict, set_paddle_state_dict
 from ..nn.layers.conv import _ConvNd
 from . import callbacks as cbks
 
@@ -250,12 +254,14 @@ class Model:
         if isinstance(train_data, Dataset):
             train_loader = DataLoader(train_data, batch_size=batch_size,
                                       shuffle=shuffle, drop_last=drop_last,
-                                      num_workers=num_workers)
+                                      num_workers=num_workers,
+                                      places=self.device)
         else:
             train_loader = train_data
         if eval_data is not None and isinstance(eval_data, Dataset):
             eval_loader = DataLoader(eval_data, batch_size=batch_size,
-                                     num_workers=num_workers)
+                                     num_workers=num_workers,
+                                     places=self.device)
         else:
             eval_loader = eval_data
 
@@ -331,7 +337,8 @@ class Model:
 
         if isinstance(eval_data, Dataset):
             eval_loader = DataLoader(eval_data, batch_size=batch_size,
-                                     num_workers=num_workers)
+                                     num_workers=num_workers,
+                                     places=self.device)
         else:
             eval_loader = eval_data
         logs = self._run_eval(eval_loader)
@@ -345,7 +352,7 @@ class Model:
 
         if isinstance(test_data, Dataset):
             loader = DataLoader(test_data, batch_size=batch_size,
-                                num_workers=num_workers)
+                                num_workers=num_workers, places=self.device)
         else:
             loader = test_data
         outputs = []
@@ -396,15 +403,23 @@ class Model:
 
     # -- persistence ----------------------------------------------------------
     def save(self, path, training=True):
-        """``path.pdparams`` (the network's ``state_dict``) and, with
-        ``training``, ``path.pdopt`` (the optimizer's), in
-        ``framework.io``'s format."""
-        fio.save(self.network.state_dict(), path + ".pdparams")
+        """``path.pdparams`` (the network's Paddle state dict: the
+        reference's names and layouts, ``nn.layer.paddle_state_dict``) and,
+        with ``training``, ``path.pdopt`` (the optimizer's), in
+        ``framework.io``'s format: either package loads them."""
+        fio.save(paddle_state_dict(self.network), path + ".pdparams")
         if training and self._optimizer is not None:
             fio.save(self._optimizer.state_dict(), path + ".pdopt")
 
     def load(self, path, skip_mismatch=False, reset_optimizer=False):
-        self.network.load_state_dict(fio.load(path + ".pdparams"))
+        """Load ``path.pdparams`` (and ``path.pdopt`` where it exists) of
+        either package; a missing or unexpected name raises unless
+        ``skip_mismatch``."""
+        missing, unexpected = set_paddle_state_dict(
+            self.network, fio.load(path + ".pdparams"))
+        if (missing or unexpected) and not skip_mismatch:
+            raise ValueError(f"Model.load: missing {missing}, unexpected "
+                             f"{unexpected}")
         if (not reset_optimizer and self._optimizer is not None
                 and os.path.exists(path + ".pdopt")):
             self._optimizer.set_state_dict(fio.load(path + ".pdopt"))

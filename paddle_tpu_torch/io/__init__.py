@@ -1,8 +1,11 @@
 """``paddle.io`` (counterpart of ``paddle_tpu/io/__init__.py``): datasets,
 samplers and the ``DataLoader``.
 
-Batches are CPU ``torch.Tensor``s; ``hapi.Model`` moves them to its
-network's device. The samplers draw from numpy's global ``np.random``, as
+The loader hands out batches as the port's ``Tensor``, on the device that
+``places`` names, else the one ``set_device`` names (default the card;
+with no card and no ``set_device("cpu")`` iterating raises): each paths'
+CPU batch is copied there as it is handed out, pinned first and copied
+without blocking the host when it goes to the card. The samplers draw from numpy's global ``np.random``, as
 the reference's do, so one ``np.random.seed`` gives both packages the same
 order. The loader takes one of four paths, as the reference's does:
 
@@ -25,6 +28,9 @@ import threading
 
 import numpy as np
 import torch
+
+from ..core.device import resolve_device
+from ..core.tensor import wrap
 
 __all__ = [
     "Dataset", "IterableDataset", "TensorDataset", "ComposeDataset",
@@ -295,6 +301,30 @@ def default_collate_fn(batch):
     return batch
 
 
+def _first_place(places):
+    if isinstance(places, (list, tuple)):
+        return places[0] if places else None
+    return places
+
+
+def _deliver(batch, device):
+    """A collated CPU batch as Tensors on ``device`` (pinned, then copied
+    without blocking the host, when that is the card)."""
+    if isinstance(batch, torch.Tensor):
+        if device.type == "cuda" and batch.device.type == "cpu":
+            if not batch.is_pinned():
+                batch = batch.pin_memory()
+            batch = batch.to(device, non_blocking=True)
+        elif batch.device != device:
+            batch = batch.to(device)
+        return wrap(batch)
+    if isinstance(batch, (list, tuple)):
+        return type(batch)(_deliver(b, device) for b in batch)
+    if isinstance(batch, dict):
+        return {k: _deliver(v, device) for k, v in batch.items()}
+    return batch
+
+
 class DataLoader:
     """Batched loader over a map-style or iterable dataset (see the module
     docstring for its paths)."""
@@ -306,6 +336,7 @@ class DataLoader:
                  use_shared_memory=True, timeout=0, worker_init_fn=None,
                  persistent_workers=False):
         self.dataset = dataset
+        self.places = places
         self.collate_fn = collate_fn or default_collate_fn
         self.num_workers = num_workers
         self.prefetch_factor = prefetch_factor
@@ -383,6 +414,11 @@ class DataLoader:
                 yield self.collate_fn([self.dataset[i] for i in idx_batch])
 
     def __iter__(self):
+        dev = resolve_device(_first_place(self.places))
+        for batch in self._cpu_iter():
+            yield _deliver(batch, dev)
+
+    def _cpu_iter(self):
         if self.num_workers > 0:
             arrays = self._native_arrays()
             if arrays is not None:

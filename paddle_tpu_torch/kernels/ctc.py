@@ -61,6 +61,7 @@ from typing import NamedTuple
 import torch
 
 from . import LAUNCHES, _build, plain_math, refuse_grad, use_kernel
+from ..core.tensor import bound_public
 
 __all__ = ["NEG", "MAX_STATES", "LaunchPlan", "launch_plan", "ROUTES",
            "extended_labels", "ctc_alpha_plain", "ctc_beta_plain",
@@ -408,3 +409,7 @@ def ctc_lattice(log_probs, labels, input_lengths, label_lengths, blank=0):
     the reference's ``ctc_loss_pallas``); differentiable in log_probs."""
     return CTCLossFunction.apply(log_probs, labels, input_lengths,
                                  label_lengths, int(blank))
+
+
+# public entry points hand back Tensors when a Tensor came in
+bound_public(globals())

@@ -98,6 +98,7 @@ import torch
 
 from ..framework.random import next_seed
 from . import LAUNCHES, _build, plain_math, refuse_grad, use_kernel
+from ..core.tensor import bound_public
 
 __all__ = ["flash_attention_fwd", "flash_attention_plain",
            "flash_attention_cuda", "flash_attention_bwd_plain",
@@ -867,3 +868,7 @@ def flash_attn_varlen(q, k, v, cu_q, cu_k, causal=False, sm_scale=None,
     dropout_p = float(dropout_p)
     return FlashVarlenFunction.apply(q, k, v, cu_q, cu_k, causal, sm_scale,
                                      dropout_p, _seed(dropout_p, seed))
+
+
+# public entry points hand back Tensors when a Tensor came in
+bound_public(globals())

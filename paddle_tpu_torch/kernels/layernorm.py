@@ -26,6 +26,7 @@ import ctypes
 import torch
 
 from . import LAUNCHES, _build, refuse_grad, use_kernel
+from ..core.tensor import bound_public
 
 __all__ = ["layer_norm_plain", "layer_norm_cuda", "layer_norm_bwd",
            "LayerNormFunction", "layernorm"]
@@ -131,3 +132,7 @@ def layernorm(x, weight, bias, eps=1e-5):
     out = LayerNormFunction.apply(x.reshape(-1, shape[-1]), weight, bias,
                                   eps)
     return out.reshape(shape)
+
+
+# public entry points hand back Tensors when a Tensor came in
+bound_public(globals())

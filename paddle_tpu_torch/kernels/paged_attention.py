@@ -41,6 +41,7 @@ from typing import NamedTuple
 import torch
 
 from . import LAUNCHES, _build, use_kernel
+from ..core.tensor import bound_public
 
 __all__ = ["paged_attention", "paged_attention_plain", "paged_attention_cuda",
            "split_plan", "launch_plan", "LaunchPlan"]
@@ -232,3 +233,7 @@ def paged_attention(q, kv_pool, block_tables, context_lens, *, sm_scale=None):
             if use_kernel(q, kv_pool, block_tables, context_lens)
             else paged_attention_plain)
     return impl(q, kv_pool, block_tables, context_lens, sm_scale=sm_scale)
+
+
+# public entry points hand back Tensors when a Tensor came in
+bound_public(globals())

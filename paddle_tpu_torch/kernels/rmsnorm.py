@@ -27,6 +27,7 @@ import ctypes
 import torch
 
 from . import LAUNCHES, _build, refuse_grad, use_kernel
+from ..core.tensor import bound_public
 
 __all__ = ["rmsnorm", "rmsnorm_residual", "rmsnorm_plain", "rmsnorm_cuda",
            "rmsnorm_bwd_plain", "rmsnorm_bwd_cuda", "RMSNormFunction"]
@@ -192,3 +193,7 @@ def rmsnorm_residual(x, residual, weight, eps=1e-6):
     """RMSNorm of ``x + residual``; returns ``(normed, x + residual)``,
     differentiable in x, residual and weight."""
     return _fwd(x, weight, eps, residual)
+
+
+# public entry points hand back Tensors when a Tensor came in
+bound_public(globals())

@@ -61,6 +61,7 @@ from typing import NamedTuple
 import torch
 
 from . import LAUNCHES, _build, plain_math, refuse_grad, use_kernel
+from ..core.tensor import bound_public
 
 __all__ = ["NEG", "MAX_STATES", "LaunchPlan", "launch_plan", "ROUTES",
            "rnnt_alpha_plain", "rnnt_beta_grad_plain", "rnnt_alpha_cuda",
@@ -365,3 +366,7 @@ def rnnt_lattice(blank_lp, emit_lp, t_len, u_len):
     the reference's ``rnnt_core_pallas``); differentiable in both
     lattices."""
     return RNNTLossFunction.apply(blank_lp, emit_lp, t_len, u_len)
+
+
+# public entry points hand back Tensors when a Tensor came in
+bound_public(globals())

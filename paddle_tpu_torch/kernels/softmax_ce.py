@@ -27,6 +27,7 @@ import ctypes
 import torch
 
 from . import LAUNCHES, _build, refuse_grad, use_kernel
+from ..core.tensor import bound_public
 
 __all__ = ["softmax_ce", "softmax_ce_plain", "softmax_ce_cuda",
            "softmax_ce_bwd_plain", "softmax_ce_bwd_cuda", "SoftmaxCEFunction"]
@@ -138,3 +139,7 @@ def softmax_ce(logits, labels):
     lead = logits.shape[:-1]
     loss = SoftmaxCEFunction.apply(logits.reshape(-1, V), labels.reshape(-1))
     return loss.reshape(lead)
+
+
+# public entry points hand back Tensors when a Tensor came in
+bound_public(globals())

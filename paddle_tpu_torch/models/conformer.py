@@ -40,6 +40,7 @@ from ..nn import functional as F
 from ..nn.layers import (LSTM, BatchNorm1D, Conv1D, Conv2D, Dropout,
                          LayerList, LayerNorm, LSTMCell, MultiHeadAttention)
 from ..nn.layers.conv import _ConvNd
+from ..nn.layer import Layer
 
 __all__ = ["ConformerConfig", "conformer_tiny", "ConvSubsampling",
            "FeedForwardModule", "ConvModule", "ConformerBlock",
@@ -65,7 +66,7 @@ def conformer_tiny(vocab=32, hidden=32, layers=2, heads=2):
                            dropout=0.0)
 
 
-class ConvSubsampling(nn.Module):
+class ConvSubsampling(Layer):
     """Two stride-2 Conv2D blocks: 4x time reduction (the standard front
     end), then a projection of the flattened channels and frequencies."""
 
@@ -83,7 +84,7 @@ class ConvSubsampling(nn.Module):
         return self.proj(h.transpose(1, 2).reshape(b2, t2, c * f2))
 
 
-class FeedForwardModule(nn.Module):
+class FeedForwardModule(Layer):
     def __init__(self, cfg: ConformerConfig, **kw):
         super().__init__()
         self.norm = LayerNorm(cfg.hidden, **kw)
@@ -96,7 +97,7 @@ class FeedForwardModule(nn.Module):
         return self.dropout(self.fc2(h))
 
 
-class ConvModule(nn.Module):
+class ConvModule(Layer):
     """pointwise -> GLU -> depthwise -> BN -> swish -> pointwise
     (Conformer fig. 2), over ``[B, C, T]``."""
 
@@ -118,7 +119,7 @@ class ConvModule(nn.Module):
         return self.dropout(self.pw2(h).transpose(1, 2))
 
 
-class ConformerBlock(nn.Module):
+class ConformerBlock(Layer):
     def __init__(self, cfg: ConformerConfig, **kw):
         super().__init__()
         self.ff1 = FeedForwardModule(cfg, **kw)
@@ -139,7 +140,7 @@ class ConformerBlock(nn.Module):
         return self.norm_out(x)
 
 
-class ConformerEncoder(nn.Module):
+class ConformerEncoder(Layer):
     def __init__(self, cfg: ConformerConfig, **kw):
         super().__init__()
         self.cfg = cfg
@@ -170,7 +171,7 @@ def _init(model, generator):
             m.weight.normal_(0.0, 1.0, generator=generator)
 
 
-class ConformerForCTC(nn.Module):
+class ConformerForCTC(Layer):
     """Encoder + linear CTC head: ``feats`` ``[B, T, input_dim]`` to
     ``[T', B, vocab]`` log-probs (f32 under ``auto_cast``, as log_softmax is
     on its black list), ready for ``ctc_loss`` with blank 0."""
@@ -197,7 +198,7 @@ class ConformerForCTC(nn.Module):
         return sum(p.numel() for p in self.parameters())
 
 
-class ConformerForRNNT(nn.Module):
+class ConformerForRNNT(Layer):
     """Encoder + LSTM predictor + additive joint network: ``feats`` ``[B, T,
     input_dim]`` and ``labels`` ``[B, U]`` to RNN-T logits ``[B, T', U + 1,
     vocab]`` for ``rnnt_loss`` (blank 0). The predictor reads ``[0; embed

@@ -26,6 +26,7 @@ from ..framework.random import weights_generator
 from ..nn import functional as F
 from ..nn.layers import Dropout, LayerNorm, TransformerEncoder
 from ..nn.layers import TransformerEncoderLayer
+from ..nn.layer import Layer
 
 __all__ = ["ErnieConfig", "ernie_base", "ernie_tiny", "ErnieEmbeddings",
            "ErnieModel", "ErnieForMaskedLM", "ErnieForSequenceClassification"]
@@ -70,7 +71,7 @@ def _init(modules, generator):
                 m.weight.normal_(0.0, 1.0, generator=generator)
 
 
-class ErnieEmbeddings(nn.Module):
+class ErnieEmbeddings(Layer):
     def __init__(self, cfg: ErnieConfig, device=None, dtype=None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
@@ -95,7 +96,7 @@ class ErnieEmbeddings(nn.Module):
         return self.dropout(self.layer_norm(h))
 
 
-class ErnieModel(nn.Module):
+class ErnieModel(Layer):
     """Returns ``(sequence [B, T, hidden], pooled [B, hidden])``."""
 
     def __init__(self, cfg: ErnieConfig, device=None, dtype=torch.float32,
@@ -129,7 +130,7 @@ class ErnieModel(nn.Module):
         return seq, pooled
 
 
-class ErnieForMaskedLM(nn.Module):
+class ErnieForMaskedLM(Layer):
     """Returns the MLM logits ``[B, T, vocab]``."""
 
     def __init__(self, cfg: ErnieConfig, device=None, dtype=torch.float32,
@@ -153,7 +154,7 @@ class ErnieForMaskedLM(nn.Module):
         return sum(p.numel() for p in self.parameters())
 
 
-class ErnieForSequenceClassification(nn.Module):
+class ErnieForSequenceClassification(Layer):
     """Returns the class logits ``[B, num_classes]`` from the pooled
     output."""
 

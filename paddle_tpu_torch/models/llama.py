@@ -25,6 +25,7 @@ from torch import nn
 from ..core.device import resolve_device
 from ..nn import functional as F
 from ..nn.layers import RMSNorm
+from ..nn.layer import Layer
 
 __all__ = ["LlamaConfig", "LlamaForCausalLM", "LlamaDecoderLayer",
            "LlamaAttention", "LlamaMLP", "llama_tiny", "llama_7b",
@@ -91,7 +92,7 @@ def apply_rope_at(x, cos, sin, positions):
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], -1).to(x.dtype)
 
 
-class LlamaAttention(nn.Module):
+class LlamaAttention(Layer):
     def __init__(self, config: LlamaConfig, device=None, dtype=None):
         super().__init__()
         c = config
@@ -129,7 +130,7 @@ class LlamaAttention(nn.Module):
         return self.o_proj(out.reshape(B, S, q_sz))
 
 
-class LlamaMLP(nn.Module):
+class LlamaMLP(Layer):
     def __init__(self, config: LlamaConfig, device=None, dtype=None):
         super().__init__()
         c = config
@@ -143,7 +144,7 @@ class LlamaMLP(nn.Module):
         return self.down_proj(torch.nn.functional.silu(gate) * up)
 
 
-class LlamaDecoderLayer(nn.Module):
+class LlamaDecoderLayer(Layer):
     def __init__(self, config: LlamaConfig, device=None, dtype=None):
         super().__init__()
         eps = config.rms_norm_eps
@@ -160,7 +161,7 @@ class LlamaDecoderLayer(nn.Module):
         return h + self.mlp(self.post_attention_layernorm(h))
 
 
-class LlamaForCausalLM(nn.Module):
+class LlamaForCausalLM(Layer):
     """Causal LM.
 
     device:    ``None`` runs on ``cuda`` (raises without a GPU); pass

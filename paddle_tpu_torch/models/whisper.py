@@ -38,6 +38,7 @@ from ..nn.layers import (Conv1D, LayerNorm, Transformer, TransformerDecoder,
                          TransformerDecoderLayer, TransformerEncoder,
                          TransformerEncoderLayer)
 from .conformer import _init
+from ..nn.layer import Layer
 
 __all__ = ["WhisperConfig", "whisper_tiny", "WhisperEncoder",
            "WhisperDecoder", "WhisperForConditionalGeneration"]
@@ -79,7 +80,7 @@ def _sinusoids(length, channels):
                           axis=1).astype(np.float32)
 
 
-class WhisperEncoder(nn.Module):
+class WhisperEncoder(Layer):
     def __init__(self, cfg: WhisperConfig, *, device=None, dtype=None):
         super().__init__()
         kw = dict(device=resolve_device(device), dtype=dtype)
@@ -109,7 +110,7 @@ class WhisperEncoder(nn.Module):
         return self.layers(h)
 
 
-class WhisperDecoder(nn.Module):
+class WhisperDecoder(Layer):
     def __init__(self, cfg: WhisperConfig, *, device=None, dtype=None):
         super().__init__()
         kw = dict(device=resolve_device(device), dtype=dtype)
@@ -138,7 +139,7 @@ class WhisperDecoder(nn.Module):
         return self.layers(h, memory, tgt_mask, None, cache)
 
 
-class WhisperForConditionalGeneration(nn.Module):
+class WhisperForConditionalGeneration(Layer):
     def __init__(self, cfg: WhisperConfig, device=None, dtype=torch.float32,
                  generator=None, seed=None):
         super().__init__()

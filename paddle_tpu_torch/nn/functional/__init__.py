@@ -1,3 +1,4 @@
+from ...core.tensor import bound_public
 from .activation import (celu, elu, gelu, glu, gumbel_softmax, hardshrink,
                          hardsigmoid, hardswish, hardtanh, leaky_relu,
                          log_sigmoid, log_softmax, maxout, mish, one_hot,
@@ -31,3 +32,6 @@ __all__ = ["scaled_dot_product_attention", "sdpa_ref", "flash_attention",
            "adaptive_max_pool2d", "adaptive_max_pool3d",
            "adaptive_avg_pool1d", "adaptive_avg_pool2d",
            "adaptive_avg_pool3d"]
+
+# the public functionals hand back Tensors when a Tensor came in
+bound_public(globals())

@@ -119,10 +119,10 @@ def prelu(x, weight, data_format="NCHW", name=None):
     """``x`` where ``x >= 0``, else ``weight * x``: one weight, or one per
     channel (axis 1 for ``"NC..."`` formats, else the last)."""
     if weight.numel() == 1:
-        return torch.where(x >= 0, x, weight.reshape(()) * x)
+        return torch.where(x >= 0, x, torch.reshape(weight, ()) * x)
     shape = [1] * x.ndim
     shape[1 if data_format[1] == "C" else x.ndim - 1] = weight.numel()
-    return torch.where(x >= 0, x, weight.reshape(shape) * x)
+    return torch.where(x >= 0, x, torch.reshape(weight, shape) * x)
 
 
 def rrelu(x, lower=1.0 / 8.0, upper=1.0 / 3.0, training=True, name=None):

@@ -9,6 +9,7 @@ from torch import nn
 
 from ...core import resolve_device
 from .. import functional as F
+from ..layer import Layer
 
 __all__ = [
     "ReLU", "ReLU6", "ELU", "SELU", "CELU", "GELU", "Sigmoid", "LogSigmoid",
@@ -24,7 +25,7 @@ def _simple(name, fn_name, **defaults):
     updated by the constructor's keyword arguments (``name`` dropped)."""
 
     def __init__(self, **kwargs):
-        nn.Module.__init__(self)
+        Layer.__init__(self)
         kwargs.pop("name", None)
         self._kwargs = {**defaults, **kwargs}
 
@@ -34,7 +35,7 @@ def _simple(name, fn_name, **defaults):
     def extra_repr(self):
         return ", ".join(f"{k}={v}" for k, v in self._kwargs.items())
 
-    return type(name, (nn.Module,), {"__init__": __init__,
+    return type(name, (Layer,), {"__init__": __init__,
                                      "forward": forward,
                                      "extra_repr": extra_repr,
                                      "__module__": __name__})
@@ -68,7 +69,7 @@ Softplus = _simple("Softplus", "softplus", beta=1.0, threshold=20.0)
 GLU = _simple("GLU", "glu", axis=-1)
 
 
-class Maxout(nn.Module):
+class Maxout(Layer):
     def __init__(self, groups, axis=1, name=None):
         super().__init__()
         self.groups, self.axis = groups, axis
@@ -77,7 +78,7 @@ class Maxout(nn.Module):
         return F.maxout(x, self.groups, self.axis)
 
 
-class PReLU(nn.Module):
+class PReLU(Layer):
     """``prelu`` with a learned weight of ``num_parameters`` slopes (one, or
     one per channel), initialised to ``init``."""
 
@@ -94,7 +95,7 @@ class PReLU(nn.Module):
         return F.prelu(x, self.weight, self._data_format)
 
 
-class RReLU(nn.Module):
+class RReLU(Layer):
     def __init__(self, lower=1.0 / 8.0, upper=1.0 / 3.0, name=None):
         super().__init__()
         self.lower, self.upper = lower, upper

@@ -16,11 +16,12 @@ from torch import nn
 from ...core import resolve_device
 from ...framework.random import get_generator
 from ..functional.conv import conv1d, conv2d
+from ..layer import Layer
 
 __all__ = ["Conv1D", "Conv2D"]
 
 
-class _ConvNd(nn.Module):
+class _ConvNd(Layer):
     def __init__(self, in_channels, out_channels, kernel_size, n, stride=1,
                  padding=0, dilation=1, groups=1, bias_attr=None,
                  data_format="NCHW", *, device=None, dtype=torch.float32,

@@ -2,14 +2,14 @@
 ``CrossEntropyLoss`` and ``CTCLoss``)."""
 from __future__ import annotations
 
-from torch import nn
 
 from ..functional.loss import cross_entropy, ctc_loss
+from ..layer import Layer
 
 __all__ = ["CrossEntropyLoss", "CTCLoss"]
 
 
-class CrossEntropyLoss(nn.Module):
+class CrossEntropyLoss(Layer):
     """``cross_entropy`` with its options fixed: hard labels over the last
     axis with the softmax (the classifier's case) run the softmax-CE
     kernels."""
@@ -32,7 +32,7 @@ class CrossEntropyLoss(nn.Module):
                              self.use_softmax, self.label_smoothing)
 
 
-class CTCLoss(nn.Module):
+class CTCLoss(Layer):
     """``ctc_loss`` with its ``blank`` and ``reduction`` fixed."""
 
     def __init__(self, blank=0, reduction="mean"):

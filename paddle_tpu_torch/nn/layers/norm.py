@@ -11,12 +11,13 @@ from torch import nn
 from ...amp import cast_for
 from ...core import resolve_device
 from ..functional.norm import batch_norm, layer_norm, rms_norm
+from ..layer import Layer
 
 __all__ = ["LayerNorm", "RMSNorm", "BatchNorm", "BatchNorm1D", "BatchNorm2D",
            "BatchNorm3D"]
 
 
-class LayerNorm(nn.Module):
+class LayerNorm(Layer):
     """LayerNorm over the trailing ``normalized_shape`` dims, with a weight
     (initialised to 1) and a bias (0) unless ``weight_attr`` /
     ``bias_attr`` is False."""
@@ -43,7 +44,7 @@ class LayerNorm(nn.Module):
         return f"{self._normalized_shape}, epsilon={self._epsilon}"
 
 
-class RMSNorm(nn.Module):
+class RMSNorm(Layer):
     """RMSNorm over the last dim with a learned scale (initialised to 1)."""
 
     def __init__(self, hidden_size, epsilon=1e-6, *, device=None,
@@ -57,7 +58,7 @@ class RMSNorm(nn.Module):
         return rms_norm(x, self.weight, self.epsilon)
 
 
-class _BatchNormBase(nn.Module):
+class _BatchNormBase(Layer):
     """Paddle's batch norm over the channel axis (1 for ``"NC..."`` formats,
     else the last), with Paddle's conventions, not ``torch.nn``'s:
 

@@ -4,9 +4,9 @@ of its classes). Each holds its arguments and calls the functional of
 device."""
 from __future__ import annotations
 
-from torch import nn
 
 from ..functional import pooling as F
+from ..layer import Layer
 
 __all__ = [
     "MaxPool1D", "MaxPool2D", "MaxPool3D", "AvgPool1D", "AvgPool2D",
@@ -16,7 +16,7 @@ __all__ = [
 ]
 
 
-class _PoolNd(nn.Module):
+class _PoolNd(Layer):
     def __init__(self, kernel_size, stride=None, padding=0, ceil_mode=False,
                  return_mask=False, exclusive=True, data_format=None,
                  name=None):
@@ -74,7 +74,7 @@ class AvgPool3D(_PoolNd):
                             self.data_format or "NCDHW")
 
 
-class _AdaptivePoolNd(nn.Module):
+class _AdaptivePoolNd(Layer):
     def __init__(self, output_size, return_mask=False, data_format=None,
                  name=None):
         super().__init__()

@@ -30,6 +30,7 @@ from ...core import resolve_device
 from ...framework.random import get_generator
 from ..functional.common import dropout
 from .common import LayerList
+from ..layer import Layer
 
 __all__ = ["LSTMCell", "RNN", "BiRNN", "LSTM"]
 
@@ -55,7 +56,7 @@ def _lstm_steps(xw, h, c, w_hh, order, seq_lens):
     return torch.stack(outs), h, c
 
 
-class LSTMCell(nn.Module):
+class LSTMCell(Layer):
     def __init__(self, input_size, hidden_size, weight_ih_attr=None,
                  weight_hh_attr=None, bias_ih_attr=None, bias_hh_attr=None,
                  name=None, *, device=None, dtype=torch.float32,
@@ -97,7 +98,7 @@ class LSTMCell(nn.Module):
         return f"{self.input_size}, {self.hidden_size}"
 
 
-class RNN(nn.Module):
+class RNN(Layer):
     """Runs ``cell`` over time (``[B, T, in]``, or ``[T, B, in]`` when
     ``time_major``); returns ``(outputs, final_states)``. An ``LSTMCell``
     takes the loop with the input GEMM hoisted; any other cell is called
@@ -143,7 +144,7 @@ def _tree_where(valid, new, old):
     return torch.where(valid, new, old)
 
 
-class BiRNN(nn.Module):
+class BiRNN(Layer):
     """A forward and a reversed ``RNN``; outputs concatenated on the last
     axis, states ``(fw, bw)``."""
 
@@ -161,7 +162,7 @@ class BiRNN(nn.Module):
         return torch.cat([out_fw, out_bw], dim=-1), (st_fw, st_bw)
 
 
-class _RNNBase(nn.Module):
+class _RNNBase(Layer):
     """Stacked, optionally bidirectional layers of LSTM cells (``SimpleRNN``
     and ``GRU`` are not ported yet), with dropout between layers."""
 

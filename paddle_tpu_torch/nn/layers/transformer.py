@@ -28,13 +28,14 @@ from ...core import resolve_device
 from .. import functional as F
 from .common import Dropout
 from .norm import LayerNorm
+from ..layer import Layer
 
 __all__ = ["MultiHeadAttention", "TransformerEncoderLayer",
            "TransformerEncoder", "TransformerDecoderLayer",
            "TransformerDecoder", "Transformer"]
 
 
-class MultiHeadAttention(nn.Module):
+class MultiHeadAttention(Layer):
     """Multi-head attention in the ``[batch, seq, embed]`` layout.
 
     ``cache``: a :attr:`Cache` (the running keys and values of a decode,
@@ -117,7 +118,7 @@ class MultiHeadAttention(nn.Module):
         return outs[0] if len(outs) == 1 else outs
 
 
-class TransformerEncoderLayer(nn.Module):
+class TransformerEncoderLayer(Layer):
     def __init__(self, d_model, nhead, dim_feedforward, dropout=0.1,
                  activation="relu", attn_dropout=None, act_dropout=None,
                  normalize_before=False, weight_attr=None, bias_attr=None,
@@ -172,7 +173,7 @@ def _clones(layer, num_layers):
                                     for _ in range(num_layers - 1)])
 
 
-class TransformerEncoder(nn.Module):
+class TransformerEncoder(Layer):
     """``num_layers`` copies of ``encoder_layer``, then ``norm`` if given."""
 
     def __init__(self, encoder_layer, num_layers, norm=None):
@@ -199,7 +200,7 @@ class TransformerEncoder(nn.Module):
         return [layer.gen_cache(src) for layer in self.layers]
 
 
-class TransformerDecoderLayer(nn.Module):
+class TransformerDecoderLayer(Layer):
     """Self-attention, cross-attention over ``memory`` and the FFN, each
     with its LayerNorm (before the block with ``normalize_before``, else
     after the residual). ``cache`` is ``(Cache, StaticCache)``, as
@@ -271,7 +272,7 @@ class TransformerDecoderLayer(nn.Module):
                     memory, memory, type=MultiHeadAttention.StaticCache))
 
 
-class TransformerDecoder(nn.Module):
+class TransformerDecoder(Layer):
     """``num_layers`` copies of ``decoder_layer``, then ``norm`` if given."""
 
     def __init__(self, decoder_layer, num_layers, norm=None):
@@ -302,7 +303,7 @@ class TransformerDecoder(nn.Module):
         return list(zip(*cache)) if do_zip else cache
 
 
-class Transformer(nn.Module):
+class Transformer(Layer):
     """Encoder-decoder: ``forward(src, tgt)`` runs the encoder over ``src``
     and the decoder over ``tgt`` against its output. With
     ``normalize_before`` both stacks end in a LayerNorm."""

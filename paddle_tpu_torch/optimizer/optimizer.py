@@ -10,12 +10,15 @@ in L2 decay (or, for AdamW, decay inside the update), then update.
 :meth:`state_dict` / :meth:`set_state_dict` keep the reference's layout:
 ``_step_count``, ``<key>.<state name>`` per parameter (``key`` its
 ``name`` or ``param<i>`` by position) and the scheduler's state under
-``LR_Scheduler``.
+``LR_Scheduler``; the moments of a plain ``torch.nn.Linear``'s weight
+(``[out, in]`` here) are written and read in Paddle's ``[in, out]``, as
+``Layer.state_dict`` writes the weight (ROADMAP F4).
 """
 from __future__ import annotations
 
 import torch
 
+from ..core.tensor import raw_grad
 from .lr import LRScheduler
 
 __all__ = ["Optimizer"]
@@ -76,14 +79,14 @@ class Optimizer:
             raise ValueError("Optimizer constructed without parameters")
         lr = self.get_lr()
         wd = self._weight_decay
-        pairs = [(p, p.grad) for p in self._parameter_list
-                 if p.grad is not None and p.requires_grad]
+        pairs = [(p, g) for p in self._parameter_list
+                 if (g := raw_grad(p)) is not None and p.requires_grad]
         if self._grad_clip is not None:
             pairs = self._grad_clip(pairs)
         for p, g in pairs:
             g = g.to(p.dtype)
             if wd and not self._decoupled_wd:    # L2 decay folded into g
-                g = g + float(wd) * p
+                g = g + torch.mul(p, float(wd))   # torch's op: no wrapping
             self.update(p, g, self.state_for(p), lr)
 
     def clear_grad(self) -> None:
@@ -108,7 +111,7 @@ class Optimizer:
         out = {"_step_count": self._step_count}
         for p, key in zip(self._parameter_list or (), self._param_keys()):
             for k, v in (self._accumulators.get(id(p)) or {}).items():
-                out[f"{key}.{k}"] = v
+                out[f"{key}.{k}"] = v.t() if _paddle_t(p, v) else v
         if self._lr_scheduler is not None:
             out["LR_Scheduler"] = self._lr_scheduler.state_dict()
         return out
@@ -117,16 +120,18 @@ class Optimizer:
         """Take a :meth:`state_dict` (tensors or numpy arrays, on any
         device): each state tensor is copied onto its parameter's device,
         floating ones in the parameter's dtype. A state tensor of neither
-        the parameter's shape nor a scalar raises ``ValueError`` (a
-        reference ``Linear``'s moments are ``[in, out]``: transpose them
-        first, as ``models.vision_state_from_jax`` does the weights)."""
+        the parameter's shape nor a scalar raises ``ValueError``; the
+        ``[in, out]`` moments of a plain ``torch.nn.Linear``'s weight are
+        taken transposed."""
         self._step_count = int(state.get("_step_count", 0))
         for p, key in zip(self._parameter_list or (), self._param_keys()):
             prefix = f"{key}."
             st = {}
             for k, v in state.items():
                 if isinstance(k, str) and k.startswith(prefix):
-                    t = torch.as_tensor(v).detach()
+                    t = torch.Tensor.detach(torch.as_tensor(v))  # plain
+                    if _paddle_t(p, t):
+                        t = t.t()
                     if t.dim() and t.shape != p.shape:
                         raise ValueError(
                             f"optimizer state {k}: shape {tuple(t.shape)} "
@@ -138,3 +143,9 @@ class Optimizer:
                 self._accumulators[id(p)] = st
         if self._lr_scheduler is not None and "LR_Scheduler" in state:
             self._lr_scheduler.set_state_dict(state["LR_Scheduler"])
+
+
+def _paddle_t(p, v) -> bool:
+    """True for a state tensor of a parameter whose Paddle layout is its
+    transpose (a plain ``torch.nn.Linear``'s weight)."""
+    return getattr(p, "_paddle_t", False) and v.dim() == 2

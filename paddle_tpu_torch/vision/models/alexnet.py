@@ -14,7 +14,7 @@ from .resnet import _no_pretrained
 __all__ = ["AlexNet", "alexnet"]
 
 
-class AlexNet(torch.nn.Module):
+class AlexNet(nn.Layer):
     def __init__(self, num_classes=1000, dropout=0.5, *, device=None,
                  dtype=torch.float32, generator=None, seed=None):
         super().__init__()

@@ -12,7 +12,7 @@ from ._init import init_weights, layer_kw
 __all__ = ["LeNet"]
 
 
-class LeNet(torch.nn.Module):
+class LeNet(nn.Layer):
     def __init__(self, num_classes=10, *, device=None, dtype=torch.float32,
                  generator=None, seed=None):
         super().__init__()

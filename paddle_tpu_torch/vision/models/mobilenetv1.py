@@ -21,7 +21,7 @@ class ConvBNReLU(ConvNormActivation):
                          **kw)
 
 
-class DepthwiseSeparable(torch.nn.Module):
+class DepthwiseSeparable(nn.Layer):
     def __init__(self, c_in, c_out, stride, **kw):
         super().__init__()
         self.dw = ConvBNReLU(c_in, c_in, 3, stride=stride, groups=c_in, **kw)
@@ -31,7 +31,7 @@ class DepthwiseSeparable(torch.nn.Module):
         return self.pw(self.dw(x))
 
 
-class MobileNetV1(torch.nn.Module):
+class MobileNetV1(nn.Layer):
     def __init__(self, scale=1.0, num_classes=1000, with_pool=True, *,
                  device=None, dtype=torch.float32, generator=None,
                  seed=None):

@@ -32,7 +32,7 @@ class ConvBNReLU(ConvNormActivation):
                          activation_layer=nn.ReLU6, **kw)
 
 
-class InvertedResidual(torch.nn.Module):
+class InvertedResidual(nn.Layer):
     def __init__(self, c_in, c_out, stride, expand_ratio, **kw):
         super().__init__()
         hidden = int(round(c_in * expand_ratio))
@@ -52,7 +52,7 @@ class InvertedResidual(torch.nn.Module):
         return x + out if self.use_res else out
 
 
-class MobileNetV2(torch.nn.Module):
+class MobileNetV2(nn.Layer):
     def __init__(self, scale=1.0, num_classes=1000, with_pool=True, *,
                  device=None, dtype=torch.float32, generator=None,
                  seed=None):

@@ -27,7 +27,7 @@ class ConvBNAct(ConvNormActivation):
                               None: None}[act], **kw)
 
 
-class SqueezeExcitation(torch.nn.Module):
+class SqueezeExcitation(nn.Layer):
     def __init__(self, channels, squeeze_ratio=4, **kw):
         super().__init__()
         squeeze = _make_divisible(channels // squeeze_ratio)
@@ -42,7 +42,7 @@ class SqueezeExcitation(torch.nn.Module):
         return x * s
 
 
-class Bneck(torch.nn.Module):
+class Bneck(nn.Layer):
     """Inverted residual with optional SE, per (k, exp, out, se, act, s)."""
 
     def __init__(self, c_in, kernel, exp, c_out, use_se, act, stride, **kw):
@@ -63,7 +63,7 @@ class Bneck(torch.nn.Module):
         return x + out if self.use_res else out
 
 
-class MobileNetV3(torch.nn.Module):
+class MobileNetV3(nn.Layer):
     def __init__(self, cfg, last_exp, hidden, scale=1.0, num_classes=1000,
                  with_pool=True, *, device=None, dtype=torch.float32,
                  generator=None, seed=None):

@@ -29,7 +29,7 @@ __all__ = ["BasicBlock", "BottleneckBlock", "ResNet", "resnet18", "resnet34",
            "resnet50", "resnet101", "resnet152", "resnet_flops_per_image"]
 
 
-class BasicBlock(torch.nn.Module):
+class BasicBlock(nn.Layer):
     expansion = 1
 
     def __init__(self, inplanes, planes, stride=1, downsample=None,
@@ -55,7 +55,7 @@ class BasicBlock(torch.nn.Module):
         return self.relu(out + identity)
 
 
-class BottleneckBlock(torch.nn.Module):
+class BottleneckBlock(nn.Layer):
     expansion = 4
 
     def __init__(self, inplanes, planes, stride=1, downsample=None,
@@ -83,7 +83,7 @@ class BottleneckBlock(torch.nn.Module):
         return self.relu(out + identity)
 
 
-class ResNet(torch.nn.Module):
+class ResNet(nn.Layer):
     """``[N, 3, H, W]`` images to ``[N, num_classes]`` logits (the pooled
     ``[N, C, 1, 1]`` features with ``num_classes <= 0``). ``width`` is
     accepted and unused, as in the reference."""
@@ -182,12 +182,14 @@ def resnet_flops_per_image(model, image_size=224, in_channels=3):
 
     def hook(m, inp, out):
         w = m.weight
-        per_out = w[0].numel()          # in / groups x kh x kw, or in
-        macs.append(out[0].numel() * per_out if w.ndim > 2
-                    else out.shape[-1] * per_out)
+        if w.ndim > 2:                  # [out, in / groups, kh, kw]
+            macs.append(out[0].numel() * w[0].numel())
+        else:                           # [in, out] (torch's: [out, in])
+            n_in = w.shape[0] if isinstance(m, nn.Linear) else w.shape[1]
+            macs.append(out.shape[-1] * n_in)
 
     hooks = [m.register_forward_hook(hook) for m in model.modules()
-             if isinstance(m, (nn.Conv2D, torch.nn.Linear))]
+             if isinstance(m, (nn.Conv2D, nn.Linear, torch.nn.Linear))]
     was_training = model.training
     try:
         model.eval()

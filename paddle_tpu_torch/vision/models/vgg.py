@@ -39,7 +39,7 @@ def _make_features(cfg, batch_norm, kw):
     return nn.Sequential(*layers)
 
 
-class VGG(torch.nn.Module):
+class VGG(nn.Layer):
     """``features`` (a ``Sequential``, on the model's device), then the
     pool and the classifier."""
 

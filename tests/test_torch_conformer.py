@@ -452,10 +452,15 @@ def test_converter_covers_every_parameter_and_buffer():
     assert {n.rpartition(".")[2] for n in buffers} == {"_mean", "_variance"}
     linears = {n for n, m in tm.named_modules()
                if isinstance(m, torch.nn.Linear)}
+    # the converter keeps the reference's layouts (F4); loading transposes
+    # exactly the plain torch Linears' weights into torch's layout
+    tm.load_state_dict(st)
+    raw = torch.nn.Module.state_dict(tm)
     for name, a in {**arrays, **buffers}.items():
         owner = name.rpartition(".")[0]
         want = a.T if owner in linears and name.endswith("weight") else a
-        np.testing.assert_array_equal(st[name].numpy(), want, err_msg=name)
+        np.testing.assert_array_equal(st[name].numpy(), a, err_msg=name)
+        np.testing.assert_array_equal(raw[name].numpy(), want, err_msg=name)
     assert st["encoder.blocks.0.conv.dw.weight"].shape == (32, 1, 7)
     with pytest.raises(KeyError):
         conformer_state_from_jax({"nope.weight": arrays["head.bias"]}, tm)

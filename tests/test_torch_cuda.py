@@ -90,6 +90,14 @@ softmax-CE forward and backward a step), the ``DataLoader``'s worker
 processes forked after CUDA is initialised (order and content equal the
 inline loader's; CUDA initialised in no worker), and the native batcher
 built into ``paddle_tpu_torch/csrc/build/`` and serving a card ``fit``.
+
+Eager API slice: every kernel family's entry point handed the port's
+``Tensor`` launches its kernels (the counters move, backward ones through
+``backward()``) and hands back a ``Tensor``; ``to_tensor`` with no card
+and no ``set_device("cpu")`` raises; a DenseNet-121 step in the dygraph
+idiom on the card against the CPU (f32, TF32 off: the loss within 1e-4,
+each gradient within 5e-2 relative L2 or 3x the CPU's own f32 error
+against f64 where that is larger, ROADMAP C3).
 """
 import math
 
@@ -1762,3 +1770,131 @@ def test_native_batcher_builds_and_serves_a_card_fit(gen):
     hist = model.fit(MNIST(mode="test"), batch_size=128, epochs=1, verbose=0)
     assert native_batcher.batch_count() == 4
     assert math.isfinite(hist.history["loss"][0][0])
+
+
+# -- the eager API slice: the port's Tensor through every kernel family ------
+
+
+def _paddle(*tensors, grad=False):
+    """The port's Tensors over ``tensors`` (floating ones requiring grad
+    with ``grad``)."""
+    import paddle_tpu_torch as T
+
+    return [T.to_tensor(t, stop_gradient=not (grad and t.is_floating_point()))
+            for t in tensors]
+
+
+def test_a_port_tensor_launches_every_kernel_family_and_comes_back_one(gen):
+    """Each family's entry point, handed the port's ``Tensor``: the kernel
+    launches (its counter moves) and the result is a ``Tensor``; the
+    backward kernels launch through ``backward()`` on it."""
+    import paddle_tpu_torch as T
+    from paddle_tpu_torch.kernels.ctc import ctc_lattice
+    from paddle_tpu_torch.kernels.rnnt import rnnt_lattice
+
+    bf = torch.bfloat16
+    q, k, v = _paddle(*[_rnd(gen, bf, 1, 128, 4, 64) for _ in range(3)],
+                      grad=True)
+    pq, pool = _paddle(_rnd(gen, bf, 2, 8, 128), _rnd(gen, bf, 9, 2, 8, 16,
+                                                       128))
+    bt = torch.arange(1, 9, device="cuda", dtype=torch.int32).reshape(2, 4)
+    ctx = torch.tensor([17, 64], device="cuda", dtype=torch.int32)
+    lp, labels, in_len, lbl_len = _ctc_batch(9, 4, 6, 3, 1)
+    blank, emit, tl, ul = _rnnt_batch(3, 9, 7, 2)
+    x, w = _paddle(_rnd(gen, bf, 8, 256), _rnd(gen, bf, 256), grad=True)
+    ln_x, ln_w, ln_b = _paddle(_rnd(gen, torch.float32, 8, 768),
+                               _rnd(gen, torch.float32, 768),
+                               _rnd(gen, torch.float32, 768), grad=True)
+    logits, y = _paddle(_rnd(gen, bf, 8, 1000),
+                        torch.randint(0, 1000, (8,), device="cuda",
+                                      generator=gen), grad=True)
+    cases = {
+        ("flash_attention", "flash_attention_bwd"):
+            lambda: flash_attention_fwd(q, k, v, causal=True)[0],
+        ("paged_attention",): lambda: paged_attention(
+            pq, pool, T.to_tensor(bt), T.to_tensor(ctx)),
+        ("rmsnorm", "rmsnorm_bwd"): lambda: rmsnorm(x, w),
+        ("layernorm",): lambda: layernorm(ln_x, ln_w, ln_b),
+        ("softmax_ce", "softmax_ce_bwd"): lambda: softmax_ce(logits, y),
+        ("ctc_alpha", "ctc_beta"): lambda: ctc_lattice(
+            *_paddle(lp, grad=True), *_paddle(labels, in_len, lbl_len)),
+        ("rnnt_alpha", "rnnt_beta_grad"): lambda: rnnt_lattice(
+            *_paddle(blank, emit, grad=True), *_paddle(tl, ul)),
+    }
+    for names, call in cases.items():
+        K.reset_launch_counts()
+        out = call()
+        assert type(out) is T.Tensor, names
+        if len(names) > 1:
+            out.float().sum().backward()
+        torch.cuda.synchronize()
+        counts = K.launch_counts()
+        for n in names:
+            assert counts[n] >= 1, (n, counts)
+
+
+def test_to_tensor_with_no_card_and_no_set_device_raises(gen, monkeypatch):
+    import paddle_tpu_torch as T
+    from paddle_tpu_torch.core import device as D
+
+    monkeypatch.setitem(D._state, "device", None)
+    assert T.to_tensor([1.0]).device.type == "cuda"     # the default: here
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        T.to_tensor([1.0])
+    T.set_device("cpu")
+    assert T.to_tensor([1.0]).device.type == "cpu"
+
+
+def test_densenet_dygraph_step_on_the_card_matches_the_cpu(gen):
+    """A DenseNet-121 step in the dygraph idiom (Tensors in, ``backward``)
+    on the card against the same weights on the CPU, f32 with TF32 off:
+    loss within 1e-4, every gradient within 5e-2 relative L2 (the
+    whole-step limit) or, where f32 itself resolves it worse, within 3x
+    the CPU's f32 error against its f64 step (ROADMAP C3: the stem batch
+    norm's weight); one softmax-CE forward and backward launch; the loss
+    and logits are the port's Tensor."""
+    import paddle_tpu_torch as T
+    from paddle_tpu_torch.vision.models import densenet121
+
+    prev = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        card = densenet121(num_classes=10, seed=0)
+        cpu = densenet121(num_classes=10, device="cpu")
+        cpu.set_state_dict(card.state_dict())
+        cpu64 = densenet121(num_classes=10, device="cpu")
+        cpu64.set_state_dict(card.state_dict())
+        cpu64 = cpu64.double()
+        g = torch.Generator().manual_seed(1)
+        x = torch.randn(4, 3, 64, 64, generator=g)
+        y = torch.randint(0, 10, (4, 1), generator=g)
+        out = {}
+        for name, m in (("card", card), ("cpu", cpu), ("cpu64", cpu64)):
+            dev = "cuda" if name == "card" else "cpu"
+            K.reset_launch_counts()
+            xt = T.to_tensor(x.double() if name == "cpu64" else x, place=dev)
+            yt = T.to_tensor(y, place=dev)
+            logits = m(xt)
+            loss = T.nn.functional.cross_entropy(logits, yt)
+            loss.backward()
+            torch.cuda.synchronize()
+            if name == "card":
+                assert type(loss) is T.Tensor and type(logits) is T.Tensor
+                launched = {k: c for k, c in K.launch_counts().items() if c}
+                assert launched == {"softmax_ce": 1, "softmax_ce_bwd": 1}
+            out[name] = (loss.item(), {n: p.grad.detach().cpu()
+                                       for n, p in m.named_parameters()})
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = prev
+    assert abs(out["card"][0] - out["cpu"][0]) <= 1e-4
+
+    def rel(a, b):
+        return ((a.double() - b.double()).norm() / b.double().norm()).item()
+
+    for n, want in out["cpu"][1].items():
+        limit = max(5e-2, 3 * rel(want, out["cpu64"][1][n]))
+        assert rel(out["card"][1][n], want) <= limit, n

@@ -101,10 +101,15 @@ def test_converter_transposes_exactly_the_linear_weights():
     assert set(st) == set(tm.state_dict())
     linears = {n for n, m in tm.named_modules()
                if isinstance(m, torch.nn.Linear)}
+    # the converter keeps the reference's layouts (F4); loading transposes
+    # exactly the plain torch Linears' weights into torch's layout
+    tm.load_state_dict(st)
+    raw = torch.nn.Module.state_dict(tm)
     for name, a in params.items():
         owner = name.rpartition(".")[0]
         want = a.T if owner in linears and name.endswith("weight") else a
-        np.testing.assert_array_equal(st[name].numpy(), want)
+        np.testing.assert_array_equal(st[name].numpy(), a)
+        np.testing.assert_array_equal(raw[name].numpy(), want)
     assert "encoder.layers.1.self_attn.q_proj" in {
         o[len("ernie."):] for o in linears}
     with pytest.raises(KeyError):

@@ -36,6 +36,7 @@ from paddle_tpu.vision.datasets import MNIST as JMNIST
 from paddle_tpu.vision.models import LeNet as JLeNet
 
 import paddle_tpu_torch as T
+from paddle_tpu_torch.core import device as tdevice
 from paddle_tpu_torch.hapi import callbacks as tcb
 from paddle_tpu_torch.io import native_batcher
 from paddle_tpu_torch.models import vision_state_from_jax
@@ -43,6 +44,16 @@ from paddle_tpu_torch.vision.datasets import MNIST
 from paddle_tpu_torch.vision.models import LeNet
 
 torch.set_num_threads(2)
+
+
+@pytest.fixture(autouse=True)
+def loaders_on_the_cpu():
+    """The port's loaders hand out batches on the device ``set_device``
+    names (default the card): the CPU here, restored after each test."""
+    prev = tdevice._state["device"]
+    tdevice._state["device"] = torch.device("cpu")
+    yield
+    tdevice._state["device"] = prev
 TOL = dict(atol=1e-5, rtol=0)
 REPO = Path(__file__).resolve().parent.parent
 
@@ -59,12 +70,9 @@ def _port_of(jnet, tnet):
 
 def _check_params(jnet, tnet, tol=TOL):
     jp = dict(jnet.named_parameters())
-    for n, p in tnet.named_parameters():
-        got = p.detach().numpy()
-        owner = tnet.get_submodule(n.rpartition(".")[0])
-        if isinstance(owner, torch.nn.Linear) and n.endswith("weight"):
-            got = got.T
-        np.testing.assert_allclose(got, jp[n].numpy(), err_msg=n, **tol)
+    for n, p in tnet.named_parameters():    # Paddle's layouts (F4)
+        np.testing.assert_allclose(p.detach().numpy(), jp[n].numpy(),
+                                   err_msg=n, **tol)
 
 
 def _check_logs(want, got):
@@ -239,10 +247,9 @@ def test_model_checkpoint_writes_the_reference_files(tmp_path):
         jp = J.load(str(tmp_path / "j" / f"{stem}.pdparams"))
         tp = T.load(str(tmp_path / "t" / f"{stem}.pdparams"))
         assert jp.keys() == tp.keys()
-        for k in jp:
-            got = tp[k].detach().numpy()
-            got = got.T if got.ndim == 2 else got
-            np.testing.assert_allclose(got, jp[k].numpy(), err_msg=k, **TOL)
+        for k in jp:                    # the same layouts (F4)
+            np.testing.assert_allclose(tp[k].detach().numpy(),
+                                       jp[k].numpy(), err_msg=k, **TOL)
         # R11: the reference's jitted step keeps the optimizer's moments in
         # Model._opt_state, which Optimizer.state_dict does not see, so its
         # .pdopt holds the step count alone; the port's holds the moments
@@ -366,11 +373,7 @@ def test_reference_files_load_into_the_port_and_back(tmp_path):
     to = T.optimizer.Adam(parameters=tnet.parameters(), learning_rate=1e-3)
     tm = T.Model(tnet)
     tm.prepare(to, T.nn.CrossEntropyLoss())
-    linear = {i for i, (n, _) in enumerate(tnet.named_parameters())
-              if n.startswith("fc.") and n.endswith("weight")}
-    opt = {k: (v.T if k.split(".")[0] in {f"param{i}" for i in linear}
-               and v.ndim == 2 else v) for k, v in opt.items()}
-    to.set_state_dict(opt)
+    to.set_state_dict(opt)              # the same layouts (F4)
     tnet.load_state_dict(vision_state_from_jax(arrays, tnet))
     assert to._step_count == 1
     tl = tm.train_batch([x], [y])[0][0]

@@ -23,6 +23,17 @@ import paddle_tpu.io as jio
 
 from paddle_tpu_torch import io as tio
 from paddle_tpu_torch.io import native_batcher
+from paddle_tpu_torch.core import device as tdevice
+
+
+@pytest.fixture(autouse=True)
+def loaders_on_the_cpu():
+    """The port's loaders hand out batches on the device ``set_device``
+    names (default the card): the CPU here, restored after each test."""
+    prev = tdevice._state["device"]
+    tdevice._state["device"] = torch.device("cpu")
+    yield
+    tdevice._state["device"] = prev
 
 
 def _np(x):

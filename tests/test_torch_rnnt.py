@@ -421,10 +421,16 @@ def test_converter_covers_every_rnnt_parameter_and_buffer():
     for name in ("embed.weight", "predictor.layers.0.cell.weight_ih",
                  "predictor.layers.0.cell.weight_hh"):
         np.testing.assert_array_equal(st[name].numpy(), arrays[name])
+    # the converter keeps the reference's layouts (F4); loading transposes
+    # the plain torch Linears' weights into torch's layout
+    tm.load_state_dict(st)
+    raw = torch.nn.Module.state_dict(tm)
     for name in ("enc_proj.weight", "joint.weight"):
-        np.testing.assert_array_equal(st[name].numpy(), arrays[name].T)
+        np.testing.assert_array_equal(st[name].numpy(), arrays[name])
+        np.testing.assert_array_equal(raw[name].numpy(), arrays[name].T)
     assert st["predictor.layers.0.cell.weight_ih"].shape == (96, 24)
-    assert st["enc_proj.weight"].shape == (24, 32)
+    assert st["enc_proj.weight"].shape == (32, 24)
+    assert raw["enc_proj.weight"].shape == (24, 32)
 
 
 def test_conformer_rnnt_init_is_the_references():

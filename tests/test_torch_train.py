@@ -463,8 +463,9 @@ def test_trainer_three_steps_match_reference():
     np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-5)
     final = trainer_state_from_jax(final)
     diffs = []
-    for n, p in tr.model.named_parameters():
-        d = np.abs(p.detach().numpy() - final[n].numpy())
+    got = tr.model.state_dict()         # the reference's layouts (F4)
+    for n, _ in tr.model.named_parameters():
+        d = np.abs(got[n].numpy() - final[n].numpy())
         assert d.max() <= 6 * LR, n
         diffs.append(d.ravel())
     assert np.quantile(np.concatenate(diffs), 0.999) <= LR / 1000
@@ -507,12 +508,13 @@ def test_trainer_state_from_jax_unstacks_and_transposes():
               "embed.weight": rng.randn(9, 4), "norm.weight": rng.randn(4),
               "head.weight": rng.randn(4, 9)}
     st = trainer_state_from_jax(params)
+    # the reference's layouts (F4): loading transposes the linear weights
     np.testing.assert_array_equal(st["layers.1.self_attn.qkv_proj.weight"],
-                                  params["blocks.self_attn.qkv_proj.weight"][1, 0].T)
+                                  params["blocks.self_attn.qkv_proj.weight"][1, 0])
     np.testing.assert_array_equal(st["layers.0.input_layernorm.weight"],
                                   params["blocks.input_layernorm.weight"][0, 0])
     np.testing.assert_array_equal(st["embed_tokens.weight"], params["embed.weight"])
-    np.testing.assert_array_equal(st["lm_head.weight"], params["head.weight"].T)
+    np.testing.assert_array_equal(st["lm_head.weight"], params["head.weight"])
     with pytest.raises(KeyError):
         trainer_state_from_jax({"blocks_extra.w": np.zeros(1)})
 

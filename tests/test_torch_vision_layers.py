@@ -445,10 +445,11 @@ def test_linear_matches_reference_and_keeps_paddle_init():
     jl = jnn.Linear(6, 4)
     tl = tnn.Linear(6, 4, device="cpu")
     arrays = {n: _np(p) for n, p in jl.named_parameters()}
-    assert tl.weight.shape == (4, 6) and arrays["weight"].shape == (6, 4)
+    # Paddle's [in, out] in both (ROADMAP F4)
+    assert tl.weight.shape == (6, 4) and arrays["weight"].shape == (6, 4)
     tl.load_state_dict(vision_state_from_jax(arrays, tl))
     _assert_same(_both(jl, tl, _x((3, 5, 6), 1)))
-    np.testing.assert_allclose(tl.weight.grad.numpy().T, _np(jl.weight.grad),
+    np.testing.assert_allclose(tl.weight.grad.numpy(), _np(jl.weight.grad),
                                **GRAD)
     fresh = tnn.Linear(300, 200, device="cpu",
                        generator=torch.Generator().manual_seed(0))
@@ -588,7 +589,7 @@ def test_optimizer_three_steps_match_reference(name):
         topt.step()
         jopt.clear_grad()
         topt.clear_grad()
-        np.testing.assert_allclose(tm.weight.detach().numpy().T,
+        np.testing.assert_allclose(tm.weight.detach().numpy(),
                                    _np(jm.weight), err_msg=f"step {step}",
                                    **GRAD)
         np.testing.assert_allclose(tm.bias.detach().numpy(), _np(jm.bias),
@@ -596,7 +597,7 @@ def test_optimizer_three_steps_match_reference(name):
     if name.startswith(("momentum", "nesterov")):
         jv = jopt._accumulators[id(jm.weight)]["velocity"]
         tv = topt.state_for(tm.weight)["velocity"]
-        np.testing.assert_allclose(tv.numpy().T, np.asarray(jv), **GRAD)
+        np.testing.assert_allclose(tv.numpy(), np.asarray(jv), **GRAD)
 
 
 def test_piecewise_decay_sequence_matches_reference():

@@ -86,10 +86,15 @@ def test_converter_transposes_exactly_the_linear_weights(pair):
                if isinstance(m, torch.nn.Linear)}
     assert {"proj", "decoder.layers.layers.1.cross_attn.v_proj",
             "encoder.layers.layers.0.linear2"} <= linears
+    # the converter keeps the reference's layouts (F4); loading transposes
+    # exactly the plain torch Linears' weights into torch's layout
+    tm.load_state_dict(st)
+    raw = torch.nn.Module.state_dict(tm)
     for name, a in params.items():
         owner = name.rpartition(".")[0]
         want = a.T if owner in linears and name.endswith("weight") else a
-        np.testing.assert_array_equal(st[name].numpy(), want)
+        np.testing.assert_array_equal(st[name].numpy(), a)
+        np.testing.assert_array_equal(raw[name].numpy(), want)
     # the sinusoid table is not persistable; the projection has no bias
     assert "encoder._pos" not in st and "proj.bias" not in params
     for bad in ("proj.bias", "nope.weight"):
