@@ -324,6 +324,28 @@ CUDA toolkit (``nvcc``). It imports nothing of JAX or of ``paddle_tpu``.
 33. ``[eager autograd]``: double and triple backward, the gradient
     penalty, hooks, ``PyLayer`` and ``no_grad_vars`` on the card against
     the CPU.
+34. The static-graph and deployment path (``static_deploy_phases``):
+    ERNIE-3.0-Base sequence classification (2 classes, eval, seeded
+    weights) in f32 (TF32 off) and bf16, unmasked token ids ``[32, 128]``,
+    ``[1, 128]`` and ``[8, 64]``. ``[to_static ernie]``: ``jit.to_static``
+    compiled with inductor (compile seconds printed); ``[jit ernie]``:
+    ``jit.save`` with a ``[None, None]`` int64 spec, ``jit.load`` serving
+    all three shapes, and the bf16 artifact in a fresh ``python -c``
+    child that imports only ``paddle_tpu_torch``; ``[predictor ernie]``:
+    the handle workflow (``share_external_data`` without a copy,
+    ``copy_from_cpu`` / ``copy_to_cpu``) and a ``clone()`` on a second
+    stream; ``[static ernie]``: the model on ``static.data("input_ids",
+    [None, 128])`` through ``Executor.run`` (one compile), then
+    ``save_inference_model`` and a predictor over it. Each run is held in
+    f32 to STATIC_F32_REL_L2 of the eager f32 forward, in bf16 to
+    STATIC_BF16_RATIO x the eager bf16 forward's own error, and to
+    exactly 12 flash launches (sm90 in bf16, mma in f32) and 25 LayerNorm
+    launches a forward. ``[static timing]`` prints, unheld, ms a batch at
+    batch 1 and sequences/s at batch 32 for eager, ``to_static`` and the
+    predictor, with device busy against host wall. ``[static nn]``:
+    ``static.nn``'s builders, ``cond``, ``while_loop`` and ``gradients`` on
+    the card against the same program on the CPU. The compilers' caches
+    and the artifacts stay under ``paddle_tpu_torch/csrc/build/``.
 
 Flash design: bf16 at head_dim 64 and 128 with 16-byte rows takes the
 wgmma / TMA kernels (``csrc/flash_attention{,_bwd}_sm90.cu``, counted
@@ -339,7 +361,8 @@ Conformer-CTC and the RNN-T steps, the encoder steps, the
 ``F.flash_attn_unpadded`` call, the Whisper ``generate`` and its
 teacher-forced forward, the Whisper training steps, the ResNet-50
 training steps, the zoo's steps, the two ``Model.fit`` phases (fits and
-evaluations) and the DenseNet-121 steps (the ``_d36`` rows: the Conformer steps'
+evaluations), the DenseNet-121 steps and the static-graph path's held
+forwards (the ``_d36`` rows: the Conformer steps'
 launches of the dropout flash kernels, all at head_dim 36; the ``_d16``
 rows: the ``ernie_tiny()`` step's). The last two lines are one JSON object
 with every kernel's numbers and one with the device. Any failure raises and exits non-zero; without a CUDA
@@ -517,6 +540,21 @@ EAGER_F32_LOOSE = dict(rtol=1e-3, atol=1e-4)
 # uncorrelated logits are ~1.4 apart)
 VISION_O1_ROUNDING_RATIO = 3.0
 VISION_O1_REL_L2_MAX = 0.5
+# Static-graph and deployment slice: ERNIE-3.0-Base sequence classification
+# (2 classes, eval, seeded random weights) served unmasked (a padding mask
+# becomes a float bias, which routes attention to sdpa_ref, not the kernel)
+# through to_static, jit.save / jit.load, the predictor and a static
+# Program. f32 outputs (TF32 off) within STATIC_F32_REL_L2 of the eager f32
+# forward (the same kernels; the compiler's matmuls and fusions sum in
+# another order); bf16 ones within STATIC_BF16_RATIO x the eager bf16
+# forward's own error against f32 (o1_eval_check's calibration)
+STATIC_BATCHES = ((32, 128), (1, 128))
+STATIC_EXTRA = (8, 64)
+STATIC_F32_REL_L2 = 1e-4
+STATIC_BF16_RATIO = 3.0
+STATIC_PER_FORWARD = {"flash_attention": 12, "layernorm": 25}
+STATIC_TIMED = {1: 50, 32: 20}     # calls per median, by batch
+STATIC_NN_F32 = dict(rtol=1e-4, atol=1e-5)
 # The flash rows at bf16 head_dim 64 / 128 run the wgmma / TMA kernels
 # (the sm90 design); the head_dim-36 and -16 rows the mma.sync and
 # CUDA-core ones (the mma design)
@@ -4811,6 +4849,338 @@ def eager_autograd_phase(torch):
                                  "raise NotImplementedError")
 
 
+def _static_held(torch, K, what, fn, x, want, ref16, dtype, totals):
+    """``fn(x)`` once with the launch counters zeroed: its output against
+    the eager f32 forward ``want`` (f32: STATIC_F32_REL_L2; bf16:
+    STATIC_BF16_RATIO x ``ref16``, the eager bf16 forward's error), and
+    exactly STATIC_PER_FORWARD launches, every flash one of the design of
+    ``dtype`` (bf16: sm90, f32: mma). Adds the counts to ``totals``;
+    returns the output and the call's wall seconds (a first call compiles)."""
+    design = "sm90" if dtype == torch.bfloat16 else "mma"
+    K.reset_launch_counts()
+    t0 = time.monotonic()
+    with torch.no_grad(), tf32_off(torch):
+        out = fn(x)
+        torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    counts = K.launch_counts()
+    for k, v in counts.items():
+        totals[k] += v
+    err = rel_l2(out.float(), want)
+    limit = (STATIC_F32_REL_L2 if dtype == torch.float32
+             else STATIC_BF16_RATIO * ref16)
+    launched = {k: counts[k] for k in STATIC_PER_FORWARD}
+    print(f"  {what} {tuple(x.shape)}: relative L2 {err:.3e} vs eager f32 "
+          f"(limit {limit:.3e}), launches {launched}, "
+          f"flash_attention_{design} {counts[f'flash_attention_{design}']}, "
+          f"{wall:.2f} s")
+    if not (torch.isfinite(out).all() and out.shape == (x.shape[0], 2)
+            and err <= limit):
+        raise AssertionError(f"{what}: output off by {err} (limit {limit})")
+    if launched != STATIC_PER_FORWARD or \
+            counts[f"flash_attention_{design}"] != 12:
+        raise AssertionError(f"{what}: launches {counts}, want "
+                             f"{STATIC_PER_FORWARD} of the {design} design")
+    return out, wall
+
+
+def _serve_timing(torch, what, fn, xs):
+    """ms per batch at batch 1 (median of STATIC_TIMED[1]), sequences/s at
+    batch 32 (median of STATIC_TIMED[32]), and device busy against host
+    wall over 5 profiled batch-1 calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    row = {}
+    with torch.no_grad():
+        for b, n in STATIC_TIMED.items():
+            x = xs[b]
+            fn(x)
+            torch.cuda.synchronize()
+            ts = []
+            for _ in range(n):
+                t0 = time.perf_counter()
+                fn(x)
+                torch.cuda.synchronize()
+                ts.append((time.perf_counter() - t0) * 1e3)
+            row[b] = sorted(ts)[n // 2]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(5):
+                fn(xs[1])
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / 5
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = busy_ms(kernels) / 5
+    print(f"  {what}: batch 1 {row[1]:.3f} ms (median of {STATIC_TIMED[1]}),"
+          f" batch 32 {32e3 / row[32]:.1f} sequences/s ({row[32]:.3f} ms, "
+          f"median of {STATIC_TIMED[32]}); batch 1 under the profiler: "
+          f"device busy {busy:.3f} ms of {wall:.3f} ms host wall "
+          f"({100 * busy / wall:.1f} %)")
+    return row
+
+
+def static_deploy_phases(torch, K):
+    """The static-graph and deployment path: ERNIE-3.0-Base sequence
+    classification (``ernie_base()``, 2 classes, eval, seeded random
+    weights) in f32 and bf16 through ``jit.to_static`` ([to_static
+    ernie]), ``jit.save`` / ``jit.load`` with a ``[None, None]`` int64 spec
+    serving three shapes from one artifact, also in a fresh child process
+    ([jit ernie]), the predictor's handle workflow and a clone on a second
+    stream ([predictor ernie]), and a ``static`` Program over
+    ``static.data("input_ids", [None, 128])`` through ``Executor.run``,
+    ``save_inference_model`` and a predictor over it ([static ernie]);
+    then ``static.nn``'s builders, ``cond``, ``while_loop`` and
+    ``gradients`` on the card against the same program on the CPU ([static
+    nn]). Returns the launches of the held runs."""
+    import shutil
+
+    from paddle_tpu_torch import inference, jit, static
+    from paddle_tpu_torch.models import (ErnieForSequenceClassification,
+                                         ernie_base)
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    art = os.path.join(here, "paddle_tpu_torch", "csrc", "build",
+                       "artifacts")
+    shutil.rmtree(art, ignore_errors=True)
+    os.makedirs(art)
+    cfg = ernie_base()
+    f32, bf16 = torch.float32, torch.bfloat16
+    models = {f32: ErnieForSequenceClassification(cfg, device="cuda",
+                                                  seed=0).eval()}
+    models[bf16] = ErnieForSequenceClassification(
+        cfg, device="cuda", dtype=bf16, seed=0).eval()
+    models[bf16].set_state_dict(models[f32].state_dict())
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    shapes = (*STATIC_BATCHES, STATIC_EXTRA)
+    ids = {s: torch.randint(5, cfg.vocab_size, s, device="cuda",
+                            generator=gen) for s in shapes}
+    with torch.no_grad(), tf32_off(torch):
+        want = {s: models[f32](x).float() for s, x in ids.items()}
+        ref16 = {s: rel_l2(models[bf16](x).float(), want[s])
+                 for s, x in ids.items()}
+    print(f"[to_static ernie] ERNIE-3.0-Base classification, "
+          f"{sum(p.numel() for p in models[f32].parameters()) / 1e6:.1f} M "
+          f"parameters, unmasked batches {list(shapes)}; eager bf16 vs f32 "
+          f"relative L2 "
+          + ", ".join(f"{s}: {e:.3e}" for s, e in ref16.items())
+          + f"; {card_line()}")
+    totals = {k: 0 for k in K.LAUNCHES}
+
+    def held(what, fn, s, dt):
+        return _static_held(torch, K, what, fn, ids[s], want[s], ref16[s],
+                            dt, totals)
+
+    big, one = STATIC_BATCHES
+    xs = {1: ids[one], 32: ids[big]}
+    sfs = {dt: jit.StaticFunction(m) for dt, m in models.items()}
+    held("to_static f32", sfs[f32], big, f32)
+    for s in STATIC_BATCHES:
+        _, wall = held("to_static bf16", sfs[bf16], s, bf16)
+        print(f"  compile + first call of to_static bf16 {s}: {wall:.1f} s")
+    timing = {"eager": _serve_timing(torch, "eager bf16", models[bf16], xs),
+              "to_static": _serve_timing(torch, "to_static bf16", sfs[bf16],
+                                         xs)}
+
+    print(f"[jit ernie] jit.save, input spec [None, None] int64; "
+          f"{card_line()}")
+    prefix = {dt: os.path.join(art, f"ernie_{str(dt)[6:]}")
+              for dt in models}
+    for dt, m in models.items():
+        t0 = time.monotonic()
+        jit.save(m, prefix[dt], input_spec=[([None, None], "int64")])
+        print(f"  jit.save {dt}: {time.monotonic() - t0:.1f} s, .pdmodel "
+              f"{os.path.getsize(prefix[dt] + '.pdmodel') / 1e6:.2f} MB, "
+              f".pdiparams "
+              f"{os.path.getsize(prefix[dt] + '.pdiparams') / 1e6:.1f} MB")
+    loaded = {dt: jit.load(prefix[dt]) for dt in models}
+    held("jit.load f32", loaded[f32], big, f32)
+    for s in shapes:
+        held("jit.load bf16", loaded[bf16], s, bf16)
+    ids_path = os.path.join(art, "ids.npy")
+    out_path = os.path.join(art, "out.npy")
+    import numpy as np
+    np.save(ids_path, ids[STATIC_EXTRA].cpu().numpy())
+    child = (
+        "import sys, numpy as np, torch\n"
+        "import paddle_tpu_torch as paddle\n"
+        f"layer = paddle.jit.load({prefix[bf16]!r})\n"
+        f"x = torch.as_tensor(np.load({ids_path!r})).cuda()\n"
+        "out = layer(x).float().cpu().numpy()\n"
+        f"np.save({out_path!r}, out)\n"
+        "assert not any(m == 'jax' or m.startswith(('jax.', 'paddle_tpu.'))"
+        " or m == 'paddle_tpu' for m in sys.modules)\n")
+    t0 = time.monotonic()
+    subprocess.run([sys.executable, "-c", child], check=True, timeout=600,
+                   cwd=here)
+    got = torch.as_tensor(np.load(out_path), device="cuda")
+    err = rel_l2(got, want[STATIC_EXTRA])
+    limit = STATIC_BF16_RATIO * ref16[STATIC_EXTRA]
+    print(f"  fresh process (imports paddle_tpu_torch only) "
+          f"{STATIC_EXTRA}: relative L2 {err:.3e} vs eager f32 (limit "
+          f"{limit:.3e}), {time.monotonic() - t0:.1f} s")
+    if not err <= limit:
+        raise AssertionError(f"fresh-process load off by {err}")
+
+    print(f"[predictor ernie] create_predictor over the jit.save artifact "
+          f"(IR optimisation: torch.compile, {jit.DEFAULT_BACKEND}); "
+          f"{card_line()}")
+    preds = {}
+    for dt in models:
+        config = inference.Config(prefix[dt] + ".pdmodel",
+                                  prefix[dt] + ".pdiparams")
+        # f32: the exported graph as it is (the compiled serving path is
+        # held in bf16; a third f32 compile would cost ~40 s)
+        config.switch_ir_optim(dt == bf16)
+        preds[dt] = inference.create_predictor(config)
+
+    def handles(p):
+        def run(x):
+            h = p.get_input_handle("input_0")
+            h.share_external_data(x)
+            if h._value.data_ptr() != x.data_ptr():
+                raise AssertionError("share_external_data copied")
+            p.run()
+            return p.get_output_handle("output_0")._value
+        return run
+
+    held("predictor f32", handles(preds[f32]), big, f32)
+    for s in STATIC_BATCHES:
+        _, wall = held("predictor bf16", handles(preds[bf16]), s, bf16)
+        print(f"  compile + first call of predictor bf16 {s}: {wall:.1f} s")
+    p0 = preds[bf16]
+    p0.get_input_handle("input_0").copy_from_cpu(ids[big].cpu().numpy())
+    p0.run()
+    host = p0.get_output_handle("output_0").copy_to_cpu()
+    err = rel_l2(torch.as_tensor(host, device="cuda"), want[big])
+    clone, side = p0.clone(), torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        held("predictor clone bf16 (second stream)", handles(clone), one,
+             bf16)
+    print(f"  copy_from_cpu / copy_to_cpu {big}: relative L2 {err:.3e}; "
+          f"the clone shares the program: {clone._served is p0._served}")
+    if not (err <= STATIC_BF16_RATIO * ref16[big]
+            and clone._served is p0._served):
+        raise AssertionError("predictor handle workflow disagrees")
+    timing["predictor"] = _serve_timing(torch, "predictor bf16",
+                                        handles(p0), xs)
+
+    print(f"[static ernie] static.data('input_ids', [None, 128]), "
+          f"Executor.run (compiled, bf16), save_inference_model and a "
+          f"predictor over it (the exported graph, f32 and bf16); "
+          f"{card_line()}")
+    for dt, m in models.items():
+        main_prog = static.Program()
+        with static.program_guard(main_prog):
+            x = static.data("input_ids", [None, 128], "int64")
+            logits = m(x)
+        exe = static.Executor()
+        name = str(dt)[6:]
+        if dt == bf16:
+            # the compiled route is held once, in bf16 (to_static holds the
+            # compiled f32 forward); each compile of ERNIE-Base costs ~25 s
+            def run(v, exe=exe, prog=main_prog, logits=logits):
+                return exe.run(prog, feed={"input_ids": v},
+                               fetch_list=[logits], return_numpy=False)[0]
+
+            held(f"Executor.run {name}", run, big, dt)
+            if exe._trace_count != 1:
+                raise AssertionError(f"Executor compiled "
+                                     f"{exe._trace_count} times for one "
+                                     f"signature")
+        sprefix = os.path.join(art, f"static_{name}")
+        static.save_inference_model(sprefix, [x], [logits], exe,
+                                    program=main_prog)
+        config = inference.Config(sprefix + ".pdmodel",
+                                  sprefix + ".pdiparams")
+        config.switch_ir_optim(False)
+        sp = inference.create_predictor(config)
+        held(f"predictor over save_inference_model {name}", handles(sp),
+             big, dt)
+    static_nn_phase(torch)
+    shutil.rmtree(art, ignore_errors=True)
+    print("[static timing] " + json.dumps(
+        {k: {"batch1_ms": v[1], "batch32_seq_per_s": 32e3 / v[32]}
+         for k, v in timing.items()}) + f"; {card_line()}")
+    return totals
+
+
+def static_nn_phase(torch):
+    """``static.nn``'s builders, ``cond``, ``while_loop`` and ``gradients``
+    in one program on the card against the same program (the card's
+    parameter values) on the CPU, f32 with TF32 off."""
+    import numpy as np
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import jit, static
+    from paddle_tpu_torch.core import device as tdevice
+
+    def build():
+        x = static.data("x", [None, 6], "float32")
+        ids = static.data("ids", [None, 5], "int64")
+        img = static.data("img", [None, 3, 8, 8], "float32")
+        h = static.nn.fc(x, 8, activation="relu", name="fc1")
+        out = static.nn.fc(h, 2, name="fc2")
+        loss = paddle.mean(out * out)
+        main = static.default_main_program()
+        (gw,) = static.gradients([loss], [main._params["fc1.w"]])
+        emb = static.nn.embedding(ids, (30, 8), name="emb")
+        c = static.nn.conv2d(img, 4, 3, padding=1, act="relu", name="c")
+        flag = static.nn.cond(paddle.sum(x) > 0, lambda: out * 2,
+                              lambda: out - 1)
+        _, halved = static.nn.while_loop(
+            lambda i, v: paddle.max(paddle.abs(v)) > 1.0,
+            lambda i, v: [i + 1, v / 2], [paddle.zeros([]), x * 8])
+        return [loss, gw, emb, c, static.nn.batch_norm(c, name="bn"),
+                static.nn.layer_norm(emb, begin_norm_axis=2),
+                static.nn.group_norm(c, groups=2, name="gn"),
+                static.nn.instance_norm(c, name="in"),
+                static.nn.prelu(c, mode="channel", name="pr"), flag, halved]
+
+    rng = np.random.RandomState(0)
+    feed = {"x": rng.rand(4, 6).astype(np.float32) - 0.3,
+            "ids": rng.randint(0, 30, (4, 5)),
+            "img": rng.rand(4, 3, 8, 8).astype(np.float32)}
+    runs = {}
+    prev = tdevice._state["device"]
+    for dev in ("cuda", "cpu"):
+        paddle.set_device(dev)
+        scope = static.Scope()
+        with static.scope_guard(scope):
+            main = static.Program()
+            with static.program_guard(main):
+                fetches = build()
+            if dev == "cpu":
+                # the card's values, parameter by parameter in creation
+                # order (default names count on)
+                for name, value in zip(main._params,
+                                       runs["cuda"][1].values()):
+                    scope.var(name).set(value)
+            exe = static.Executor()
+            # the card's program compiles with inductor; the CPU reference
+            # with aot_eager (inductor's CPU code needs a C++ toolchain)
+            backend = jit.DEFAULT_BACKEND
+            jit.DEFAULT_BACKEND = backend if dev == "cuda" else "aot_eager"
+            try:
+                with tf32_off(torch):
+                    outs = exe.run(main, feed=feed, fetch_list=fetches)
+            finally:
+                jit.DEFAULT_BACKEND = backend
+            runs[dev] = (outs, {n: scope.find_var(n).get_tensor().cpu()
+                                for n in main._params}, exe)
+    tdevice._state["device"] = prev
+    worst = 0.0
+    for got, want in zip(runs["cuda"][0], runs["cpu"][0]):
+        np.testing.assert_allclose(got, want, **STATIC_NN_F32)
+        worst = max(worst, float(np.abs(got - want).max()))
+    print(f"[static nn] fc / embedding / conv2d / batch_norm / layer_norm / "
+          f"group_norm / instance_norm / prelu, cond, while_loop, gradients: "
+          f"card vs CPU max |diff| {worst:.3e} (rtol "
+          f"{STATIC_NN_F32['rtol']:g}, atol {STATIC_NN_F32['atol']:g}); "
+          f"compiles {runs['cuda'][2]._trace_count}")
+
+
 def main() -> int:
     import torch
 
@@ -4824,13 +5194,18 @@ def main() -> int:
               "it from the root of a checkout", file=sys.stderr)
         return 2
     sys.path.insert(0, here)
+    # the compilers' caches stay in the checkout's git-ignored build dir
+    build = os.path.join(here, "paddle_tpu_torch", "csrc", "build")
+    os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR",
+                          os.path.join(build, "inductor"))
+    os.environ.setdefault("TRITON_CACHE_DIR", os.path.join(build, "triton"))
     from paddle_tpu_torch import kernels as K
     from paddle_tpu_torch.kernels import _build
 
     print(card_line())     # name and power limit, as nvidia-smi gives them
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
-    t0 = time.monotonic()
+    t_start = t0 = time.monotonic()
     libs = _build.build_all()
     print(f"kernels built in {time.monotonic() - t0:.1f}s: "
           f"{sorted(libs)}")
@@ -4963,10 +5338,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     eager_ops_phase(torch)
     eager_autograd_phase(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_deploy = time.monotonic()
+    deploy = static_deploy_phases(torch, K)
+    print(f"[static phases] {time.monotonic() - t_deploy:.1f} s "
+          f"(to_static, jit, predictor, static ernie, static nn)")
     launches = {k: launches[k] + conformer[k] + rnnt[k] + encoder[k]
                 + varlen[k] + whisper[k] + whisper_train[k] + resnet[k]
                 + zoo[k] + lenet[k] + hapi_resnet[k] + densenet[k]
-                for k in conformer}
+                + deploy[k] for k in conformer}
     # the head_dim-36 rows: the Conformer steps' launches of those kernels;
     # the head_dim-16 rows: the tiny ERNIE step's
     for name in ("flash_attention_dropout", "flash_attention_bwd_dropout"):
@@ -4989,6 +5370,7 @@ def main() -> int:
         for key in ("ms", "plain_ms", "bound_ms", "max_abs_err"):
             if not math.isfinite(k[key]):
                 raise AssertionError(f"{k['name']}: {key} is {k[key]}")
+    print(f"chip_smoke: {time.monotonic() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

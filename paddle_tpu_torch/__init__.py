@@ -17,7 +17,10 @@ over ``PiecewiseDecay``), the high-level API (``Model`` with
 ``vision.datasets`` / ``vision.transforms``), and Paddle's eager API:
 ``Tensor`` / ``Parameter`` / ``to_tensor``, autograd (``grad``,
 ``no_grad``, ``autograd.PyLayer``), the op library (``paddle.concat``,
-``paddle.matmul``, ...), ``nn.Layer`` and ``nn.initializer``.
+``paddle.matmul``, ...), ``nn.Layer`` and ``nn.initializer``; and the
+static-graph and deployment path: ``jit.to_static`` / ``jit.save`` /
+``jit.load``, ``static`` Program / Executor / ``save_inference_model``,
+``inference.create_predictor``, ``set_flags`` / ``get_flags``.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
 or calls ``set_device("cpu")``::
@@ -27,8 +30,9 @@ or calls ``set_device("cpu")``::
     x = paddle.to_tensor([[1.0, 2.0]], stop_gradient=False)
     (paddle.matmul(x, x.t()) * 2).sum().backward()
 """
-from . import (amp, autograd, core, framework, hapi, io, kernels, metric,
-               models, nn, ops, optimizer, serving, utils, vision)
+from . import (amp, autograd, core, framework, hapi, inference, io, jit,
+               kernels, metric, models, nn, ops, optimizer, serving, static,
+               utils, vision)
 from .core import (CPUPlace, CUDAPlace, Place, device_count, get_device,
                    resolve_device, set_device)
 from .core.autograd import (enable_grad, grad, is_grad_enabled, no_grad,
@@ -38,6 +42,7 @@ from .core.dtype import (bfloat16, bool_, complex64, complex128, float16,
                          int32, int64, set_default_dtype, uint8)
 from .core.tensor import Parameter, Tensor, to_tensor
 from .framework import load, save, seed
+from .framework.flags import get_flags, set_flags
 from .hapi import Model, summary
 from .ops import *  # noqa: F401,F403
 from .ops import __all__ as _ops_all
@@ -45,9 +50,10 @@ from .ops import op_coverage
 
 bool = bool_  # paddle.bool
 
-__all__ = ["amp", "autograd", "core", "framework", "hapi", "io", "kernels",
-           "metric", "models", "nn", "ops", "optimizer", "serving", "utils",
-           "vision", "resolve_device", "seed", "save", "load", "Model",
+__all__ = ["amp", "autograd", "core", "framework", "hapi", "inference", "io",
+           "jit", "kernels", "metric", "models", "nn", "ops", "optimizer",
+           "serving", "static", "utils", "vision", "resolve_device", "seed",
+           "save", "load", "set_flags", "get_flags", "Model",
            "summary", "Tensor", "Parameter", "to_tensor", "no_grad",
            "enable_grad", "set_grad_enabled", "is_grad_enabled", "grad",
            "set_device", "get_device", "device_count", "Place", "CPUPlace",

@@ -7,13 +7,15 @@ dropped, the op's body is handed plain tensors over the same data and
 graph (so it calls torch's forms of every method), results come back as
 :class:`Tensor` when a Tensor went in (an input an op writes in place and
 returns comes back as itself), and a failing op's exception carries the
-op's name and its tensor arguments' shapes and dtypes.
+op's name and its tensor arguments' shapes and dtypes. An op applied to a
+value of a static Program being built is one replay node
+(``core.capture.record_call``).
 """
 from __future__ import annotations
 
 import torch
 
-from .tensor import Tensor, is_tensor_arg, plain_args, wrap
+from .tensor import Tensor, is_tensor_arg, plain_args, static_in, wrap
 
 __all__ = ["apply", "enrich_error"]
 
@@ -23,6 +25,11 @@ def apply(fn, *args, op_name="op", **kwargs):
     kwargs.pop("name", None)
     if not _tensor_in(args, kwargs):
         return _call(fn, args, kwargs, op_name)
+    if static_in(args, kwargs):
+        from .capture import record_call
+
+        return record_call(fn, args, kwargs,
+                           run=lambda a, k: _call(fn, a, k, op_name))
     inner, inner_kw = plain_args(args, kwargs)
     out = _call(fn, inner, inner_kw, op_name)
     if isinstance(out, torch.Tensor):

@@ -20,7 +20,9 @@ torch's code never meets Paddle's forms of a method. The operators and
 torch's own methods on a Parameter alone give plain tensors (the port's
 arithmetic on its parameters stays plain); with a user's Tensor they give
 Tensors. Wrapping a fresh result sets its class in place (:func:`wrap`);
-nothing is copied.
+nothing is copied. :class:`StaticTensor`, the values of a static Program
+being built, is the one subclass whose ``__torch_function__`` is on
+(``core.capture``).
 
 Where Paddle's method and torch's share a name they are told apart by
 their arguments alone (``transpose(perm)`` against ``transpose(d0, d1)``,
@@ -48,7 +50,8 @@ from .device import Place, _torch_device, resolve_device
 
 __all__ = ["Tensor", "Parameter", "to_tensor", "wrap", "is_tensor_arg",
            "Shape", "raw_grad", "boundary", "bound_public", "uncut",
-           "uncut_args", "plain", "plain_args", "has_user_tensor"]
+           "uncut_args", "plain", "plain_args", "has_user_tensor",
+           "StaticTensor", "static_in"]
 
 _TorchTensor = torch.Tensor
 _GRAD = getattr(torch._C, "TensorBase", None) or torch._C._TensorBase
@@ -118,7 +121,9 @@ def wrap(o):
     """``o`` (a fresh result) as a :class:`Tensor`, its class set in place;
     tuples and lists of results element by element."""
     if type(o) is _TorchTensor:
-        o.__class__ = Tensor
+        # a traced program (to_static, jit.save) sees plain tensors only
+        if not torch.compiler.is_compiling():
+            o.__class__ = Tensor
     elif isinstance(o, (tuple, list)):
         for e in o:
             wrap(e)
@@ -144,7 +149,19 @@ def has_user_tensor(args, kwargs) -> bool:
 
 def _user_in(seq) -> bool:
     for e in seq:
-        if type(e) is Tensor:
+        t = type(e)
+        if t is Tensor or t is StaticTensor:
+            return True
+    return False
+
+
+def static_in(args, kwargs=None) -> bool:
+    """True when an argument (or an element of a list / tuple argument) is
+    a :class:`StaticTensor`: a value of a static Program being built."""
+    for a in (*args, *kwargs.values()) if kwargs else args:
+        t = type(a)
+        if t is StaticTensor or ((t is list or t is tuple) and any(
+                type(e) is StaticTensor for e in a)):
             return True
     return False
 
@@ -208,16 +225,23 @@ def plain_args(args, kwargs):
 def boundary(fn):
     """``fn`` handing back Tensors when a user's Tensor came in (a public
     entry point of ``nn.functional`` or of a kernel; see
-    :func:`has_user_tensor`), and handed plain tensors (:func:`plain`)."""
+    :func:`has_user_tensor`), and handed plain tensors (:func:`plain`). A
+    call on a value of a static Program is one replay node
+    (``core.capture.record_call``)."""
     @functools.wraps(fn)
     def entry(*args, **kwargs):
         # has_user_tensor, inline: the hot path
         for a in (*args, *kwargs.values()) if kwargs else args:
             t = type(a)
-            if t is Tensor or ((t is list or t is tuple) and _user_in(a)):
+            if t is Tensor or t is StaticTensor or (
+                    (t is list or t is tuple) and _user_in(a)):
                 break
         else:
             return fn(*args, **kwargs)
+        if static_in(args, kwargs):
+            from .capture import record_call
+
+            return record_call(fn, args, kwargs)
         args, kwargs = plain_args(args, kwargs)
         return wrap(fn(*args, **kwargs))
 
@@ -458,6 +482,36 @@ class Tensor(_TorchTensor):
                 f"dtype={dtype_mod.dtype_name(self.dtype)}, "
                 f"place={self.place}, stop_gradient={self.stop_gradient},"
                 f"\n       {data})")
+
+
+class StaticTensor(Tensor):
+    """A value of a static Program being built: a ``static.data``
+    placeholder, a ``static.create_parameter`` parameter, or anything
+    computed from one. It holds its build-time value; ``_static`` says how
+    the value is computed again from fed ones (``core.capture``). Unlike
+    :class:`Tensor`'s, its ``__torch_function__`` is on: every torch call
+    on it records a replay node and gives StaticTensors, so no value
+    derived from a placeholder leaves the graph."""
+
+    _static = None
+
+    @classmethod
+    def __torch_function__(cls, func, types, args=(), kwargs=None):
+        from .capture import torch_function
+
+        return torch_function(func, args, kwargs or {})
+
+    # host reads: torch's, which the capture refuses
+    def numpy(self):
+        return _TorchTensor.numpy(self)
+
+    def __array__(self, dtype=None, copy=None):
+        return _TorchTensor.__array__(self, dtype)
+
+    def __repr__(self):
+        return (f"StaticTensor(name={self.name}, shape={list(self.shape)}, "
+                f"dtype={dtype_mod.dtype_name(self.dtype)}, "
+                f"place={self.place})")
 
 
 class Parameter(Tensor):

@@ -10,13 +10,18 @@ its own class, and nothing of it is imported here.
 :func:`load` unpickles with a restricted ``find_class``: the leaf class
 under either package's module name maps to this module's ``_TensorLeaf``
 (nothing is imported), numpy's array and scalar constructors pass, any
-other global raises ``pickle.UnpicklingError``. It
+other global raises ``pickle.UnpicklingError``. :func:`load_pickle`
+reads the ``.pdparams`` / ``.pdiparams`` pickles of ``static`` and ``jit``
+the same way, also passing torch's tensor rebuild for their bf16 leaves
+(whose storage is read with ``torch.load(weights_only=True)``). It
 gives CPU Tensors (``return_numpy=True``: the arrays); the caller moves
 them. A bf16 tensor is saved as float32 (numpy has no bf16), which widens
 it exactly.
 """
 from __future__ import annotations
 
+import collections
+import io
 import os
 import pickle
 
@@ -25,7 +30,7 @@ import torch
 
 from ..core.tensor import wrap
 
-__all__ = ["save", "load"]
+__all__ = ["save", "load", "load_pickle"]
 
 _MAGIC = b"PDTPU1\n"
 
@@ -76,14 +81,41 @@ _NUMPY = {("numpy", "ndarray"), ("numpy", "dtype"),
           ("numpy._core.numeric", "_frombuffer")}
 
 
+def _storage_from_bytes(b):
+    # torch.storage._load_from_bytes, without its weights_only=False
+    return torch.load(io.BytesIO(b), weights_only=True)
+
+
+# a CPU tensor's pickle (bf16 leaves of the jit / static files)
+_TORCH = {
+    ("torch._utils", "_rebuild_tensor_v2"): torch._utils._rebuild_tensor_v2,
+    ("torch.storage", "_load_from_bytes"): _storage_from_bytes,
+    ("collections", "OrderedDict"): collections.OrderedDict}
+
+
 class _Unpickler(pickle.Unpickler):
+    allowed: dict = {}
+
     def find_class(self, module, name):
         if module in _LEAF_MODULES and name == "_TensorLeaf":
             return _TensorLeaf
         if (module, name) in _NUMPY:
             return super().find_class(module, name)
+        if (module, name) in self.allowed:
+            return self.allowed[(module, name)]
         raise pickle.UnpicklingError(
-            f"paddle_tpu_torch.load: refusing to unpickle {module}.{name}")
+            f"paddle_tpu_torch: refusing to unpickle {module}.{name}")
+
+
+class _ParamsUnpickler(_Unpickler):
+    allowed = _TORCH
+
+
+def load_pickle(f):
+    """The object pickled in the open file ``f`` (a ``.pdparams`` /
+    ``.pdiparams`` file: dicts, lists, numpy arrays, CPU tensors); any
+    other global raises ``pickle.UnpicklingError``."""
+    return _ParamsUnpickler(f).load()
 
 
 _LEAF_NAME = ("paddle_tpu.framework.io", "_TensorLeaf")

@@ -14,7 +14,11 @@ through the kernels. A gradient goes through a ``torch.autograd.Function``
 whose backward is a kernel too; a raw ``*_cuda`` wrapper, which returns
 buffers a ctypes launch filled, raises when it is handed a tensor that
 requires grad while grad mode is on (:func:`refuse_grad`), so no output is
-ever cut from the autograd graph in silence. The kernels so far (the
+ever cut from the autograd graph in silence. Inside a compiled or exported
+program the LayerNorm and flash forwards run as registered ops
+(``library.py``); every other launch raises :class:`NotCompilable` there
+(:func:`refuse_compile`), never running eagerly in silence. The kernels so
+far (the
 flash kernels count their dropout, bool-mask and varlen variants under
 their own names, so a run can show which variant its path took, and each
 launch once more under the design that ran it:
@@ -60,7 +64,8 @@ import contextlib
 import torch
 
 __all__ = ["LAUNCHES", "use_kernel", "refuse_grad", "plain_math",
-           "launch_counts", "reset_launch_counts"]
+           "launch_counts", "reset_launch_counts", "NotCompilable",
+           "refuse_compile"]
 
 # launches per kernel since the last reset (plain ints)
 LAUNCHES: dict[str, int] = {
@@ -118,6 +123,25 @@ def refuse_grad(name: str, *tensors) -> None:
             f"torch.no_grad()")
 
 
+class NotCompilable(RuntimeError):
+    """A kernel launch met while ``torch.compile`` or ``torch.export``
+    traces, where the launch is not registered as an op."""
+
+
+def refuse_compile(name: str) -> None:
+    """Raise :class:`NotCompilable` naming kernel ``name`` while
+    ``torch.compile`` / ``torch.export`` traces: its ctypes launch cannot
+    be traced, and it is not one of the registered ops of
+    ``kernels/library.py`` (flash attention's forward and LayerNorm's),
+    so a compiled or exported program never runs it eagerly in silence."""
+    if torch.compiler.is_compiling():
+        raise NotCompilable(
+            f"the {name} kernel is not registered as an op: it cannot run "
+            f"inside a compiled or exported program (to_static, jit.save, "
+            f"static.Executor); only flash attention's forward and "
+            f"LayerNorm's forward can so far (ROADMAP)")
+
+
 def plain_math(device: torch.device):
     """A context that turns autocast off on ``device``'s type: a plain
     version computes in the dtypes it states (f32 products), also inside
@@ -135,3 +159,6 @@ def launch_counts() -> dict[str, int]:
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+from . import library  # noqa: E402,F401  (registers the ops)

@@ -60,7 +60,8 @@ from typing import NamedTuple
 
 import torch
 
-from . import LAUNCHES, _build, plain_math, refuse_grad, use_kernel
+from . import (LAUNCHES, _build, plain_math, refuse_compile, refuse_grad,
+               use_kernel)
 from ..core.tensor import bound_public
 
 __all__ = ["NEG", "MAX_STATES", "LaunchPlan", "launch_plan", "ROUTES",
@@ -384,6 +385,7 @@ class CTCLossFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, log_probs, labels, input_lengths, label_lengths, blank):
+        refuse_compile("ctc")
         cuda = use_kernel(log_probs, labels, input_lengths, label_lengths)
         alpha = ctc_alpha_cuda if cuda else ctc_alpha_plain
         alphas, ll = alpha(log_probs, labels, input_lengths, label_lengths,

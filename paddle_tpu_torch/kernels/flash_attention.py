@@ -97,7 +97,8 @@ import math
 import torch
 
 from ..framework.random import next_seed
-from . import LAUNCHES, _build, plain_math, refuse_grad, use_kernel
+from . import (LAUNCHES, NotCompilable, _build, plain_math, refuse_compile,
+               refuse_grad, use_kernel)
 from ..core.tensor import bound_public
 
 __all__ = ["flash_attention_fwd", "flash_attention_plain",
@@ -619,9 +620,16 @@ class FlashAttentionFunction(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, sm_scale, dropout_p, seed, mask):
         cuda = use_kernel(q, k, v)
-        out, lse = (flash_attention_cuda if cuda else flash_attention_plain)(
-            q, k, v, causal=causal, sm_scale=sm_scale, dropout_p=dropout_p,
-            seed=seed, mask=mask)
+        if torch.compiler.is_compiling():
+            # a traced program calls the launch as one registered op
+            # (kernels/library.py); eager calls it directly
+            out, lse = torch.ops.paddle_tpu_torch.flash_attention_fwd(
+                q, k, v, mask, causal, sm_scale, dropout_p, seed)
+        else:
+            out, lse = (flash_attention_cuda if cuda
+                        else flash_attention_plain)(
+                q, k, v, causal=causal, sm_scale=sm_scale,
+                dropout_p=dropout_p, seed=seed, mask=mask)
         ctx.cuda, ctx.causal, ctx.sm_scale = cuda, causal, sm_scale
         ctx.dropout_p, ctx.seed, ctx.mask = dropout_p, seed, mask
         ctx.save_for_backward(q, k, v, out, lse)
@@ -629,6 +637,7 @@ class FlashAttentionFunction(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g, g_lse):
+        refuse_compile("flash_attention_bwd")
         q, k, v, out, lse = ctx.saved_tensors
         dg = delta_minus_glse(out, g, g_lse)
         bwd = (flash_attention_bwd_cuda if ctx.cuda
@@ -654,6 +663,14 @@ def flash_attention_fwd(q, k, v, causal=False, sm_scale=None, dropout_p=0.0,
     ``framework.random``'s CPU generator (no wait for the card). ``mask``:
     a bool attention mask (True = attend, see :func:`mask_view`)."""
     dropout_p = float(dropout_p)
+    if dropout_p and torch.compiler.is_compiling():
+        # a seed drawn on the host would be a constant of the graph: every
+        # call of the program would drop the same probabilities
+        raise NotCompilable(
+            "flash attention with dropout_p > 0 cannot run inside a "
+            "compiled or exported program: its dropout seed is drawn on the "
+            "host and would be baked into the graph as a constant, so every "
+            "call would drop the same mask; call the layer in eval mode")
     _check_shapes(q, k, v, causal)
     B, Sq, H, _ = q.shape
     m4 = mask_view(mask, B, H, Sq, k.shape[1], device=q.device)
@@ -837,6 +854,7 @@ class FlashVarlenFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, cu_q, cu_k, causal, sm_scale, dropout_p, seed):
+        refuse_compile("flash_attention_varlen")
         cuda = use_kernel(q, k, v)
         cu_host = _check_varlen(q, k, v, cu_q, cu_k, causal)
         fwd = flash_attn_varlen_cuda if cuda else flash_attn_varlen_plain

@@ -112,9 +112,15 @@ class LayerNormFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, weight, bias, eps):
-        fwd = layer_norm_cuda if use_kernel(x, weight, bias) \
-            else layer_norm_plain
-        out, mean, rstd = fwd(x, weight, bias, eps)
+        cuda = use_kernel(x, weight, bias)
+        if torch.compiler.is_compiling():
+            # a traced program calls the launch as one registered op
+            # (kernels/library.py); eager calls it directly
+            out, mean, rstd = torch.ops.paddle_tpu_torch.layernorm_fwd(
+                x, weight, bias, eps)
+        else:
+            fwd = layer_norm_cuda if cuda else layer_norm_plain
+            out, mean, rstd = fwd(x, weight, bias, eps)
         ctx.save_for_backward(x, weight, bias, mean, rstd)
         return out
 

@@ -26,7 +26,7 @@ import ctypes
 
 import torch
 
-from . import LAUNCHES, _build, refuse_grad, use_kernel
+from . import LAUNCHES, _build, refuse_compile, refuse_grad, use_kernel
 from ..core.tensor import bound_public
 
 __all__ = ["rmsnorm", "rmsnorm_residual", "rmsnorm_plain", "rmsnorm_cuda",
@@ -158,6 +158,7 @@ class RMSNormFunction(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, weight, residual, eps):
         tensors = (x, weight) if residual is None else (x, weight, residual)
+        refuse_compile("rmsnorm")
         cuda = use_kernel(*tensors)
         out, h, rstd = (rmsnorm_cuda if cuda else rmsnorm_plain)(
             x, weight, eps, residual)

@@ -60,7 +60,8 @@ from typing import NamedTuple
 
 import torch
 
-from . import LAUNCHES, _build, plain_math, refuse_grad, use_kernel
+from . import (LAUNCHES, _build, plain_math, refuse_compile, refuse_grad,
+               use_kernel)
 from ..core.tensor import bound_public
 
 __all__ = ["NEG", "MAX_STATES", "LaunchPlan", "launch_plan", "ROUTES",
@@ -344,6 +345,7 @@ class RNNTLossFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, blank_lp, emit_lp, t_len, u_len):
+        refuse_compile("rnnt")
         cuda = use_kernel(blank_lp, emit_lp, t_len, u_len)
         alpha = rnnt_alpha_cuda if cuda else rnnt_alpha_plain
         alphas, ll = alpha(blank_lp, emit_lp, t_len, u_len)

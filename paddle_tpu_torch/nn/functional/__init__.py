@@ -7,10 +7,11 @@ from .activation import (celu, elu, gelu, glu, gumbel_softmax, hardshrink,
                          tanh, tanhshrink, thresholded_relu)
 from .attention import (flash_attention, flash_attn_unpadded,
                         scaled_dot_product_attention, sdpa_ref)
-from .common import dropout
-from .conv import conv1d, conv2d
+from .common import dropout, embedding
+from .conv import conv1d, conv2d, conv3d
 from .loss import cross_entropy, ctc_loss, rnnt_loss
-from .norm import batch_norm, layer_norm, rms_norm
+from .norm import (batch_norm, group_norm, instance_norm, layer_norm,
+                   rms_norm)
 from .pooling import (adaptive_avg_pool1d, adaptive_avg_pool2d,
                       adaptive_avg_pool3d, adaptive_max_pool1d,
                       adaptive_max_pool2d, adaptive_max_pool3d, avg_pool1d,
@@ -19,8 +20,9 @@ from .pooling import (adaptive_avg_pool1d, adaptive_avg_pool2d,
 
 __all__ = ["scaled_dot_product_attention", "sdpa_ref", "flash_attention",
            "flash_attn_unpadded", "rms_norm",
-           "layer_norm", "batch_norm", "cross_entropy",
-           "ctc_loss", "rnnt_loss", "dropout", "conv1d", "conv2d",
+           "layer_norm", "batch_norm", "group_norm", "instance_norm",
+           "cross_entropy", "ctc_loss", "rnnt_loss", "dropout", "embedding",
+           "conv1d", "conv2d", "conv3d",
            "relu", "relu6", "relu_", "elu", "selu", "celu", "gelu", "sigmoid",
            "log_sigmoid", "tanh", "softmax", "log_softmax", "leaky_relu",
            "prelu", "rrelu", "silu", "swish", "mish", "hardswish",

@@ -1,12 +1,13 @@
 """Common functionals (counterpart of
-``paddle_tpu/nn/functional/common.py``; this slice ports ``dropout``)."""
+``paddle_tpu/nn/functional/common.py``; ports ``dropout`` and
+``embedding``)."""
 from __future__ import annotations
 
 import torch
 
 from ...framework.random import get_generator
 
-__all__ = ["dropout"]
+__all__ = ["dropout", "embedding"]
 
 
 def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
@@ -34,3 +35,14 @@ def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
     if mode == "upscale_in_train":
         return torch.where(keep, x / (1.0 - p), 0.0).to(x.dtype)
     return torch.where(keep, x, 0.0).to(x.dtype)
+
+
+def embedding(x, weight, padding_idx=None, sparse=False, name=None):
+    """Rows of ``weight`` ``[vocab, dim]`` at the integer ids ``x``; ids
+    equal to ``padding_idx`` give zero rows (the reference's)."""
+    out = torch.nn.functional.embedding(x.long(), weight)
+    if padding_idx is not None:
+        out = torch.where((x == padding_idx)[..., None],
+                          torch.zeros((), dtype=out.dtype,
+                                      device=out.device), out)
+    return out

@@ -1,5 +1,6 @@
 """Convolution functionals (counterpart of
-``paddle_tpu/nn/functional/conv.py``; ports ``conv1d`` and ``conv2d``).
+``paddle_tpu/nn/functional/conv.py``; ports ``conv1d``, ``conv2d`` and
+``conv3d``).
 
 The reference computes convolutions with XLA's ``conv_general_dilated``,
 in no Pallas kernel of its own, so the port's counterpart is PyTorch's
@@ -17,9 +18,9 @@ import torch.nn.functional as TF
 
 from ...amp import cast_for
 
-__all__ = ["conv1d", "conv2d"]
+__all__ = ["conv1d", "conv2d", "conv3d"]
 
-_CHANNELS_LAST = ("NLC", "NWC", "NHWC")
+_CHANNELS_LAST = ("NLC", "NWC", "NHWC", "NDHWC")
 
 
 def _tuple(v, n):
@@ -74,7 +75,7 @@ def _conv(x, weight, bias, stride, padding, dilation, groups, n,
     else:   # asymmetric: pad explicitly (F.pad takes the last dim first)
         x = TF.pad(x, [p for pair in reversed(pairs) for p in pair])
         pad = 0
-    conv = TF.conv1d if n == 1 else TF.conv2d
+    conv = (TF.conv1d, TF.conv2d, TF.conv3d)[n - 1]
     out = conv(x, weight, bias, st, pad, dl, groups)
     return out.movedim(1, -1) if channels_last else out
 
@@ -92,4 +93,12 @@ def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
     """2-D convolution of ``x`` ``[N, C, H, W]`` (or ``[N, H, W, C]``) with
     ``weight`` ``[out, C / groups, kh, kw]``."""
     return _conv(x, weight, bias, stride, padding, dilation, groups, 2,
+                 data_format)
+
+
+def conv3d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
+           data_format="NCDHW", name=None):
+    """3-D convolution of ``x`` ``[N, C, D, H, W]`` (or ``[N, D, H, W,
+    C]``) with ``weight`` ``[out, C / groups, kd, kh, kw]``."""
+    return _conv(x, weight, bias, stride, padding, dilation, groups, 3,
                  data_format)

@@ -1,6 +1,6 @@
 """Normalisation functionals (counterpart of
 ``paddle_tpu/nn/functional/norm.py``; ports ``rms_norm``, ``layer_norm``,
-and ``batch_norm``)."""
+``batch_norm``, ``group_norm`` and ``instance_norm``)."""
 from __future__ import annotations
 
 import torch
@@ -9,7 +9,8 @@ from ...amp import cast_for
 from ...kernels.layernorm import layernorm
 from ...kernels.rmsnorm import rmsnorm
 
-__all__ = ["layer_norm", "rms_norm", "batch_norm"]
+__all__ = ["layer_norm", "rms_norm", "batch_norm", "group_norm",
+           "instance_norm"]
 
 
 def rms_norm(x, weight=None, epsilon=1e-6, axis=-1, name=None):
@@ -91,3 +92,39 @@ def batch_norm(x, running_mean, running_var, weight=None, bias=None,
                            running_mean is None, 0.0, epsilon,
                            torch.backends.cudnn.enabled)
     return out.movedim(1, -1) if channels_last else out
+
+
+def _affine(out, weight, bias):
+    """``out * weight + bias`` with the per-channel parameters along dim 1."""
+    shape = [1, -1] + [1] * (out.ndim - 2)
+    if weight is not None:
+        out = out * weight.reshape(shape)
+    if bias is not None:
+        out = out + bias.reshape(shape)
+    return out
+
+
+def instance_norm(x, running_mean=None, running_var=None, weight=None,
+                  bias=None, use_input_stats=True, momentum=0.9, eps=1e-5,
+                  data_format="NCHW", name=None):
+    """Each sample's channels normalised over their spatial dims (the
+    biased variance), then the per-channel affine: the reference's
+    composition."""
+    axes = tuple(range(2, x.ndim))
+    mean = x.mean(axes, keepdim=True)
+    var = (x - mean).square().mean(axes, keepdim=True)
+    return _affine((x - mean) / torch.sqrt(var + eps), weight, bias)
+
+
+def group_norm(x, num_groups, epsilon=1e-5, weight=None, bias=None,
+               data_format="NCHW", name=None):
+    """Channels split into ``num_groups`` groups, each sample's group
+    normalised over its channels and spatial dims, then the per-channel
+    affine: the reference's composition (``data_format`` NC...)."""
+    n, c = x.shape[0], x.shape[1]
+    xg = x.reshape(n, int(num_groups), c // int(num_groups), *x.shape[2:])
+    axes = tuple(range(2, xg.ndim))
+    mean = xg.mean(axes, keepdim=True)
+    var = (xg - mean).square().mean(axes, keepdim=True)
+    out = ((xg - mean) / torch.sqrt(var + epsilon)).reshape(x.shape)
+    return _affine(out, weight, bias)

@@ -35,14 +35,17 @@ from collections import OrderedDict
 import numpy as np
 import torch
 from torch import nn
+from torch.nn.utils.stateless import _reparametrize_module
 
 from ..core.device import resolve_device
 from ..core.dtype import convert_dtype
-from ..core.tensor import (Parameter, Tensor, _user_in, plain, plain_args,
-                           uncut, wrap)
+from ..core.capture import record_call
+from ..core.tensor import (Parameter, StaticTensor, Tensor, _user_in, plain,
+                           plain_args, static_in, uncut, wrap)
 
 __all__ = ["Layer", "ParameterList", "paddle_state_dict",
-           "set_paddle_state_dict", "adopt_parameters"]
+           "set_paddle_state_dict", "adopt_parameters", "functional_state",
+           "functional_call"]
 
 _NNParameter = nn.Parameter
 
@@ -299,16 +302,25 @@ class Layer(nn.Module):
         # paths call this ~200 times a forward)
         call = self._compiled_call_impl or self._call_impl
         if not self._plain_inward:
+            if torch.compiler.is_compiling():
+                # a traced program (to_static, jit.save) sees plain tensors
+                return call(*args, **kwargs)
             args = tuple(_as_tensor(a) for a in args)
             kwargs = {k: _as_tensor(v) for k, v in kwargs.items()}
             return wrap(call(*args, **kwargs))
         # has_user_tensor, inline: the hot path
         for a in (*args, *kwargs.values()) if kwargs else args:
             t = type(a)
-            if t is Tensor or ((t is list or t is tuple) and _user_in(a)):
+            if t is Tensor or t is StaticTensor or (
+                    (t is list or t is tuple) and _user_in(a)):
                 break
         else:
             return call(*args, **kwargs)
+        if static_in(args, kwargs):
+            # one replay node: the layer runs again at the fed shapes, its
+            # state handed in (core.capture)
+            return record_call(self, args, kwargs, layer=self,
+                               run=lambda a, k: call(*a, **k))
         args, kwargs = plain_args(args, kwargs)
         return wrap(call(*args, **kwargs))
 
@@ -341,3 +353,41 @@ class ParameterList(Layer):
     def __iter__(self):
         return iter(self._parameters.values())
 
+
+# ---------------------------------------------------------------------------
+# functional bridge: a Layer as a pure function of its state
+# ---------------------------------------------------------------------------
+
+def functional_state(layer: nn.Module):
+    """``(params, buffers)``: flat name -> tensor dicts by torch's names,
+    each a plain detached ``torch.Tensor`` over the layer's storage (no
+    Parameter, no Tensor class: what a compiled region is handed)."""
+    params = {n: torch.Tensor.detach(p)
+              for n, p in nn.Module.named_parameters(layer)}
+    buffers = {n: torch.Tensor.detach(b)
+               for n, b in nn.Module.named_buffers(layer)}
+    return params, buffers
+
+
+def functional_call(layer: nn.Module, params, buffers, *args, training=None,
+                    forward=None, **kwargs):
+    """Run ``layer`` with ``params`` and ``buffers`` (name -> tensor) in
+    place of its own (``torch.func.functional_call``'s mechanism), in
+    ``training`` mode when given (the layer's own modes are restored
+    after); ``forward`` (default: calling the layer) is what runs, e.g. an
+    unpatched or rewritten forward. Returns ``(outputs, buffers)``: a
+    buffer the call updates in place (BatchNorm's running statistics) is
+    updated in the dict's tensor."""
+    modes = None
+    if training is not None:
+        modes = [(m, m.training) for m in layer.modules()]
+        for m, _ in modes:
+            m.training = training
+    try:
+        with _reparametrize_module(layer, {**params, **buffers}):
+            out = (layer if forward is None else forward)(*args, **kwargs)
+    finally:
+        if modes is not None:
+            for m, mode in modes:
+                m.training = mode
+    return out, buffers

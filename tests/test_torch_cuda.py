@@ -98,6 +98,13 @@ and no ``set_device("cpu")`` raises; a DenseNet-121 step in the dygraph
 idiom on the card against the CPU (f32, TF32 off: the loss within 1e-4,
 each gradient within 5e-2 relative L2 or 3x the CPU's own f32 error
 against f64 where that is larger, ROADMAP C3).
+
+Static-graph slice: the registered LayerNorm and flash forward ops inside
+a ``torch.compile`` (inductor) program and after ``torch.export``, f32 and
+bf16: the counters move inside the ops, the design is bf16's sm90 and
+f32's mma, outputs at the kernels' tolerances above; a small ERNIE
+through ``jit.StaticFunction`` launches what its eager forward does, its
+f32 logits (TF32 off) within 1e-4 relative L2.
 """
 import math
 
@@ -1898,3 +1905,92 @@ def test_densenet_dygraph_step_on_the_card_matches_the_cpu(gen):
     for n, want in out["cpu"][1].items():
         limit = max(5e-2, 3 * rel(want, out["cpu64"][1][n]))
         assert rel(out["card"][1][n], want) <= limit, n
+
+
+# -- static-graph slice: the registered ops inside compiled / exported
+#    programs --------------------------------------------------------------
+
+def _compiled_kernels():
+    """LayerNorm and flash attention through their autograd Functions, as a
+    compiled program runs them (the registered ops)."""
+    from paddle_tpu_torch.kernels.flash_attention import (
+        FlashAttentionFunction)
+    from paddle_tpu_torch.kernels.layernorm import LayerNormFunction
+
+    def f(x, w, b, q, k, v):
+        h = LayerNormFunction.apply(x, w, b, 1e-5)
+        out, lse = FlashAttentionFunction.apply(q, k, v, False, None, 0.0, 0,
+                                                None)
+        return h, out, lse
+    return f
+
+
+def _compiled_inputs(gen, dtype):
+    x = torch.randn(256, 768, device="cuda", generator=gen).to(dtype)
+    w = (1 + 0.1 * torch.randn(768, device="cuda", generator=gen)).to(dtype)
+    b = (0.1 * torch.randn(768, device="cuda", generator=gen)).to(dtype)
+    q, k, v = (torch.randn(2, 128, 12, 64, device="cuda", generator=gen
+                           ).to(dtype) for _ in range(3))
+    return x, w, b, q, k, v
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("route", ["compile", "export"])
+def test_registered_ops_launch_the_kernels_in_programs(gen, dtype, route):
+    """Under torch.compile (inductor) and after torch.export the kernels
+    launch (the counters move inside the ops) and match the plain versions
+    (LayerNorm within one bf16 step of its scale, flash at the dense
+    tolerances)."""
+    args = _compiled_inputs(gen, dtype)
+    f = _compiled_kernels()
+    if route == "compile":
+        prog = torch.compile(f, fullgraph=True, dynamic=False)
+    else:
+        class M(torch.nn.Module):
+            def forward(self, *a):
+                return f(*a)
+
+        prog = torch.export.export(M(), args, strict=False).module()
+    with torch.no_grad():
+        K.reset_launch_counts()
+        h, out, lse = prog(*args)
+        torch.cuda.synchronize()
+    counts = K.launch_counts()
+    design = "sm90" if dtype == torch.bfloat16 else "mma"
+    assert counts["layernorm"] == 1 and counts["flash_attention"] == 1
+    assert counts[f"flash_attention_{design}"] == 1
+    x, w, b, q, k, v = args
+    p_h, _, _ = layer_norm_plain(x, w, b, 1e-5)
+    _close(h, p_h, **_ln_tol(h, p_h))
+    p_out, p_lse = flash_attention_plain(q, k, v)
+    _close(out, p_out, **_tol(dtype))
+    _close(lse, p_lse, atol=1e-3, rtol=1e-4)
+
+
+def test_to_static_ernie_launches_in_its_program(gen):
+    """A small ERNIE through jit.to_static (inductor) on the card: the
+    compiled forward's launches are the eager forward's, its f32 logits
+    (TF32 off) the eager ones within 1e-4 relative L2."""
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.models import (ErnieForSequenceClassification,
+                                         ernie_tiny)
+
+    m = ErnieForSequenceClassification(
+        ernie_tiny(vocab=97, hidden=128, layers=2, heads=2, inter=256,
+                   seq=64), device="cuda", seed=0).eval()
+    ids = torch.randint(0, 97, (4, 64), device="cuda", generator=gen)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            want = m(ids)
+            sf = jit.StaticFunction(m)
+            sf(ids)
+            K.reset_launch_counts()
+            got = sf(ids)
+            torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    counts = K.launch_counts()
+    assert counts["layernorm"] == 5 and counts["flash_attention"] == 2
+    assert ((got - want).norm() / want.norm()).item() <= 1e-4

@@ -3,6 +3,7 @@
 card: a checkout against another, in turns.
 
     python tools/eager_shell_bench.py --root A --root B [--root B --root A]
+        [--decode-only]
 
 For every root, in the order given, a subprocess of its own imports that
 root's ``paddle_tpu_torch`` and times, on plain ``torch.Tensor`` inputs as
@@ -22,7 +23,8 @@ paths are
 the ones the smoke runs, so parent, change, change, parent in one call
 shows what wrapping parameters and results costs where no user Tensor is
 involved. Prints the card's name and power limit, then one JSON line a
-run. Imports nothing of JAX.
+run. ``--decode-only`` times the decode step alone (more pairs in one
+call). Imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -38,10 +40,22 @@ EVALS = 100
 DECODES = 20
 
 
-def worker(root):
+def worker(root, decode_only=False):
     sys.path.insert(0, os.path.abspath(root))
     import torch
 
+    res = {"root": root} if decode_only else resnet_times(torch)
+    res.update(root=root, llama7b_decode_step_ms=decode_time(torch),
+               decodes=DECODES)
+    print(json.dumps(res))
+
+
+def _med(v):
+    return sorted(v)[len(v) // 2]
+
+
+def resnet_times(torch):
+    """The ResNet-50 O1 step's and batch-1 eval's times."""
     from paddle_tpu_torch import amp, framework
     from paddle_tpu_torch.nn import functional as F
     from paddle_tpu_torch.optimizer import Momentum, PiecewiseDecay
@@ -92,7 +106,16 @@ def worker(root):
 
     del model, opt, x, y, x1
     torch.cuda.empty_cache()
+    return {"resnet50_step_wall_ms": _med(walls),
+            "resnet50_step_queued_ms": _med(queued),
+            "resnet50_step_queue_cpu_ms": step_cpu / STEPS * 1e3,
+            "resnet50_eval_b1_ms": _med(evals),
+            "resnet50_eval_b1_queue_cpu_ms": eval_cpu / EVALS * 1e3,
+            "steps": STEPS, "evals": EVALS}
 
+
+def decode_time(torch):
+    """Llama-2-7B's decode step, ms (median of DECODES)."""
     from paddle_tpu_torch.models import LlamaForCausalLM, llama_7b
     from paddle_tpu_torch.serving import LLMEngine, SamplingParams
 
@@ -111,35 +134,27 @@ def worker(root):
         eng.step()
         torch.cuda.synchronize()
         decodes.append((time.monotonic() - t0) * 1e3)
-
-    def med(v):
-        return sorted(v)[len(v) // 2]
-
-    print(json.dumps({"root": root, "resnet50_step_wall_ms": med(walls),
-                      "resnet50_step_queued_ms": med(queued),
-                      "resnet50_step_queue_cpu_ms": step_cpu / STEPS * 1e3,
-                      "resnet50_eval_b1_ms": med(evals),
-                      "resnet50_eval_b1_queue_cpu_ms": eval_cpu / EVALS * 1e3,
-                      "llama7b_decode_step_ms": med(decodes),
-                      "steps": STEPS, "evals": EVALS, "decodes": DECODES}))
+    return _med(decodes)
 
 
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", action="append")
     ap.add_argument("--worker", action="store_true")
+    ap.add_argument("--decode-only", action="store_true")
     args = ap.parse_args()
     roots = args.root or [os.path.dirname(os.path.dirname(
         os.path.abspath(__file__)))]
     if args.worker:
-        return worker(roots[0])
+        return worker(roots[0], args.decode_only)
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout
     print(out.strip().splitlines()[0])
     for root in roots:
         res = subprocess.run([sys.executable, os.path.abspath(__file__),
-                              "--worker", "--root", root],
+                              "--worker", "--root", root]
+                             + ["--decode-only"] * args.decode_only,
                              capture_output=True, text=True, timeout=900)
         if res.returncode:
             print(res.stderr[-4000:], file=sys.stderr)
