@@ -347,13 +347,22 @@ CUDA toolkit (``nvcc``). It imports nothing of JAX or of ``paddle_tpu``.
     the card against the same program on the CPU. The compilers' caches
     and the artifacts stay under ``paddle_tpu_torch/csrc/build/``.
 
-Flash design: bf16 at head_dim 64 and 128 with 16-byte rows takes the
-wgmma / TMA kernels (``csrc/flash_attention{,_bwd}_sm90.cu``, counted
-under ``flash_attention{,_bwd}_sm90``), every other input the mma.sync
-and CUDA-core ones (``_mma``). Each flash row records the design its timed launches ran and
-must be ``sm90`` (rows 1, 1a, 1b, 2, 2a, 2b and their dropout rows) or
-``mma`` (the ``_d36`` and ``_d16`` rows, and their sub-rows); the Llama,
-ERNIE and encoder steps must launch every flash kernel on ``sm90``.
+Flash design: bf16 at every head width whose rows TMA reads (16-byte head
+rows, or the Conformer's 8-byte rows of 36 inside 16-byte token rows)
+takes the wgmma / TMA kernels (``csrc/flash_attention{,_bwd}_sm90.cuh``,
+one source a class group, counted under ``flash_attention{,_bwd}_sm90``),
+f32 and narrower bf16 rows the mma.sync and CUDA-core ones (``_mma``).
+Each flash row records the design its timed launches ran and must be
+``sm90``, but for the f32 ``ernie_tiny`` entry of the ``_d16`` rows
+(``mma``); ``[flash head_dim]`` asserts each width's design from the rule
+(``sweep_design``); the Llama, ERNIE, encoder, Whisper and Conformer
+steps must launch every flash kernel on ``sm90``. The ``_d36`` rows and
+the bf16 sub-rows of the ``_d16`` rows also time the mma kernels the sm90
+ones replaced at those widths, on the same inputs (``mma_ms``), and give
+a third bound, the exponentials (one a score) over the card's exp2 rate
+as ``[exp2 probe]`` measures it, naming which of bytes, operations or
+exponentials sets ``bound_ms`` (``bound_set_by``; exponentials count
+under "operations" in ``bound_by``).
 
 The ``launches`` of the JSON line sum the main path's runs: the engine,
 the no-cache forward, the 5 Llama training steps, the ERNIE steps, the
@@ -437,7 +446,8 @@ CONFORMER_DROPOUT = 0.1        # ConformerConfig's published dropout
 # in the forward, the beta kernel in the backward; no other kernel
 CONFORMER_PER_STEP = {"layernorm": 20, "flash_attention_dropout": 4,
                       "flash_attention_bwd_dropout": 4,
-                      "flash_attention_mma": 4, "flash_attention_bwd_mma": 4,
+                      "flash_attention_sm90": 4,
+                      "flash_attention_bwd_sm90": 4,
                       "ctc_alpha": 1, "ctc_beta": 1}
 # batch-norm running statistics after one O1 step vs the f32 CPU step
 BN_REL_L2 = 1e-2
@@ -451,8 +461,8 @@ RNNT_POST_ATOL = 1e-5
 # model's, the RNN-T alpha kernel in the forward, the beta-gradient kernel
 # in the backward, no CTC kernel
 RNNT_PER_STEP = {"layernorm": 20, "flash_attention_dropout": 4,
-                 "flash_attention_bwd_dropout": 4, "flash_attention_mma": 4,
-                 "flash_attention_bwd_mma": 4, "rnnt_alpha": 1,
+                 "flash_attention_bwd_dropout": 4, "flash_attention_sm90": 4,
+                 "flash_attention_bwd_sm90": 4, "rnnt_alpha": 1,
                  "rnnt_beta_grad": 1}
 # Flash slice: the flash kernels' bool mask, varlen and head widths. The
 # mask phase's main shape is tools/attn_bench.py bench_masked(2048)'s, the
@@ -466,6 +476,9 @@ F32_SMALL_ATOL = 1e-4
 D16_GRAD_REL_L2 = 1e-3
 # the head_dim-16 model step's attention: ernie_tiny() at batch 4 x 128
 D16_ATTN = (4, 128, 4, 16)
+# the exp2 probe (the flash rows' third bound): blocks of 256 threads (8 a
+# streaming multiprocessor), exponentials per chain, 8 chains a thread
+EXP2_PROBE = (132 * 8, 4096)
 ENCODER_STEPS = 10
 # [encoder mask]: batch, length, heads and head width of its attention
 ENCODER_ATTN = (16, 512, 12, 64)
@@ -555,9 +568,9 @@ STATIC_BF16_RATIO = 3.0
 STATIC_PER_FORWARD = {"flash_attention": 12, "layernorm": 25}
 STATIC_TIMED = {1: 50, 32: 20}     # calls per median, by batch
 STATIC_NN_F32 = dict(rtol=1e-4, atol=1e-5)
-# The flash rows at bf16 head_dim 64 / 128 run the wgmma / TMA kernels
-# (the sm90 design); the head_dim-36 and -16 rows the mma.sync and
-# CUDA-core ones (the mma design)
+# The flash rows in bf16 run the wgmma / TMA kernels (the sm90 design; the
+# head_dim-16 rows' bf16 sub-rows name their class group's source); the
+# head_dim-16 rows' main entry, f32, the CUDA-core ones (the mma design)
 SOURCES = {
     "flash_attention": ("paddle_tpu_torch/csrc/flash_attention_sm90.cu",
                         "paddle_tpu/kernels/flash_attention.py:108"),
@@ -585,12 +598,13 @@ SOURCES = {
     "flash_attention_bwd_dropout": (
         "paddle_tpu_torch/csrc/flash_attention_bwd_sm90.cu",
         "paddle_tpu/kernels/flash_attention.py:173"),
-    # the same kernels' head_dim-36 instantiations (the Conformer's)
+    # the same kernels' head_dim-36 instantiations (the Conformer's: class
+    # 48 through the flattened maps)
     "flash_attention_dropout_d36": (
-        "paddle_tpu_torch/csrc/flash_attention.cu",
+        "paddle_tpu_torch/csrc/flash_attention_sm90_narrow.cu",
         "paddle_tpu/kernels/flash_attention.py:108"),
     "flash_attention_bwd_dropout_d36": (
-        "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+        "paddle_tpu_torch/csrc/flash_attention_bwd_sm90_narrow.cu",
         "paddle_tpu/kernels/flash_attention.py:173"),
     "ctc_alpha": ("paddle_tpu_torch/csrc/ctc.cu",
                   "paddle_tpu/kernels/ctc.py:61"),
@@ -620,6 +634,66 @@ SOURCES = {
         "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
         "paddle_tpu/kernels/flash_attention.py:173"),
 }
+
+
+def sm90_build_report(libs):
+    """One line a class and kernel of the sm90 flash libraries: ptxas's
+    registers (the launch share; setmaxnreg then moves 24 a thread to the
+    producer and the rest to the consumers) and spill stores / loads of the
+    four variants (dropout, mask: 00 01 10 11), from the build's
+    ``-Xptxas=-v`` log, and the dynamic shared memory a block takes (the
+    library's own constants)."""
+    import ctypes
+    import re
+
+    from paddle_tpu_torch.kernels import _build
+
+    entry = re.compile(r"Compiling entry function '_ZN(\d+)")
+    kernel = re.compile(r"\d+flash_(\w+?)_sm90_kernelILi(\d+)ELb([01])ELb([01])")
+
+    def kernel_of(line):   # the name after its namespace's, by its length
+        m = entry.search(line)
+        if not m:
+            return None
+        k = kernel.match(line, m.end() + int(m.group(1)))
+        return k and (k.group(1), int(k.group(2)), k.group(3) + k.group(4))
+
+    kernels = {}
+    for name in sorted(libs):
+        if "_sm90" not in name:
+            continue
+        log = libs[name].with_suffix(".log")
+        if not log.exists():
+            print(f"  {name}: no build log (built earlier)")
+            continue
+        cur = spill = None
+        for line in log.read_text().splitlines():
+            k = kernel_of(line)
+            if k:
+                cur = k
+            elif cur and "spill stores" in line:
+                spill = "/".join(re.findall(r"(\d+) bytes spill", line))
+            elif cur and "Used" in line:
+                regs = int(re.search(r"Used (\d+) registers", line).group(1))
+                kernels.setdefault((name, cur[0], cur[1]), []).append(
+                    (cur[2], regs, spill))
+                cur = None
+    print("[flash sm90 build] ptxas per class and kernel: registers, spill "
+          "stores/loads bytes by (dropout, mask), dynamic shared memory")
+    for (name, kind, DP), rows in sorted(kernels.items(),
+                                         key=lambda r: (r[0][1], r[0][2])):
+        if kind == "fwd":
+            fn = _build.function(name, "flash_attention_sm90_fwd_smem",
+                                 [ctypes.c_int])
+            smem = fn(DP)
+        else:
+            fn = _build.function(name, "flash_attention_sm90_bwd_smem",
+                                 [ctypes.c_int, ctypes.c_int])
+            smem = fn(DP, int(kind == "bwd_dkv"))
+        regs = sorted({r for _, r, _ in rows})
+        spills = ", ".join(f"{v} {sp}" for v, _, sp in sorted(rows))
+        print(f"  {kind} class {DP} ({name}.cu): {regs} registers; spills "
+              f"{spills}; {smem} bytes shared")
 
 
 def card_line() -> str:
@@ -672,6 +746,73 @@ def bound_ms(nbytes, flops, peak=BF16_FLOPS):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+_EXP2_RATE = []
+
+
+def exp2_rate(torch):
+    """The card's exp2 rate in exponentials a second, probed once
+    (``kernels/flash_attention.py`` ``exp2_probe_cuda``: EXP2_PROBE's
+    blocks of 256 threads, each 8 independent chains of the flash
+    kernels' ``ex2.approx``), rather than the published 16 a clock an
+    SM."""
+    if not _EXP2_RATE:
+        from paddle_tpu_torch.kernels import flash_attention as F
+        blocks, iters = EXP2_PROBE
+        run = lambda: F.exp2_probe_cuda(blocks, iters)
+        if not bool(torch.isfinite(run()).all()):
+            raise AssertionError("exp2 probe: non-finite")
+        ms = time_ms(torch, run, iters=5, warmup=1)
+        _EXP2_RATE.append(blocks * 256 * 8 * iters / (ms * 1e-3))
+        print(f"[exp2 probe] {_EXP2_RATE[0] / 1e12:.4f} T exp2/s "
+              f"({blocks} blocks x 256 threads x 8 chains x {iters} in "
+              f"{ms:.4f} ms)")
+    return _EXP2_RATE[0]
+
+
+def flash_bound(torch, nbytes, flops, exps, peak=BF16_FLOPS):
+    """:func:`bound_ms` with the flash kernels' third bound, ``exps``
+    exponentials (one a score) over the probed exp2 rate, which sets the
+    bound at small head widths; the special-function units' exponentials
+    count under "operations". Returns (ms, "bytes" | "operations", the
+    exponentials' ms, "bytes" | "operations" | "exponentials": which
+    set it)."""
+    t, by = bound_ms(nbytes, flops, peak)
+    t_exp = exps / exp2_rate(torch) * 1e3
+    if t_exp > t:
+        return t_exp, "operations", t_exp, "exponentials"
+    return t, by, t_exp, by
+
+
+def _mma_times(torch, F, q, k, v, do, lse, dg, p=0.0, seed=11):
+    """Device ms of the mma kernels (the design the sm90 kernels replaced
+    at these widths), forward and backward, non-causal, at the inputs the
+    timed row's sm90 kernels take, launched directly
+    (``_launch_fwd`` / ``_launch_bwd`` with ``design="mma"``): the old
+    design beside the new on one card, a call of this script alone. The
+    first launch of each is held against the plain version."""
+    B, S, H, D = q.shape
+    Sk = k.shape[1]
+    drop, scale = F._drop_args(p, seed), 1.0 / math.sqrt(D)
+    out, lse_o = torch.empty_like(q), torch.empty(B, H, S, device=q.device)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    fwd = lambda: F._launch_fwd(q, k, v, out, lse_o, B, S, Sk, False, scale,
+                                drop, None, design="mma")
+    bwd = lambda: F._launch_bwd(q, k, v, do, lse, dg, dq, dk, dv, B, S, Sk,
+                                False, scale, drop, None, design="mma")
+    fwd()
+    bwd()
+    p_out, _ = F.flash_attention_plain(q, k, v, False, None, p, seed)
+    want = F.flash_attention_bwd_plain(q, k, v, do, lse, dg, False, None, p,
+                                       seed)
+    torch.cuda.synchronize()
+    check(torch, f"mma [{B}, {S}, {H}, {D}] p {p} out", out, p_out,
+          ATTN_ATOL, BF16_RTOL)
+    for name, a, b in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        check_grad(torch, f"mma [{B}, {S}, {H}, {D}] p {p} {name}", a, b,
+                   GRAD_FRAC_BF16)
+    return time_ms(torch, fwd), time_ms(torch, bwd)
 
 
 def check(torch, name, got, want, atol, rtol=0.0) -> float:
@@ -1682,24 +1823,38 @@ def flash_d36_phase(torch, g):
     bwd_lib = time_ms(torch, lambda: torch.autograd.grad(
         og, (qg, kg, vg), do.transpose(1, 2), retain_graph=True))
     del og
+    # the mma kernels these widths ran before, at the same inputs
+    from paddle_tpu_torch.kernels import flash_attention as F
+    mma = _mma_times(torch, F, q, k, v, do, lse, dg, p, seed)
+    mma_dense = _mma_times(torch, F, q, k, v, do, lse, dg)
     pairs = S * S
-    # as the dropout phase counts them, at the real width 36
-    bound_f, by_f = bound_ms(4 * q.numel() * 2 + B * H * S * 4,
-                             4 * pairs * D * B * H)
-    bound_b, by_b = bound_ms(7 * q.numel() * 2 + 2 * B * H * S * 4,
-                             10 * pairs * D * B * H)
+    # as the dropout phase counts them, at the real width 36; one
+    # exponential a score, forward and backward
+    bound_f = flash_bound(torch, 4 * q.numel() * 2 + B * H * S * 4,
+                          4 * pairs * D * B * H, pairs * B * H)
+    bound_b = flash_bound(torch, 7 * q.numel() * 2 + 2 * B * H * S * 4,
+                          10 * pairs * D * B * H, pairs * B * H)
     print(f"  [{B}, {S}, {H}, {D}]: forward kernel {fwd:.4f} ms (dense "
-          f"{dense:.4f}), plain {fwd_plain:.4f}, SDPA(dropout) {fwd_lib:.4f}, "
-          f"bound {bound_f:.4f} ({by_f}); backward kernel {bwd:.4f} ms "
-          f"(dense {bwd_dense:.4f}), plain {bwd_plain:.4f}, SDPA backward "
-          f"{bwd_lib:.4f}, bound {bound_b:.4f} ({by_b})")
+          f"{dense:.4f}), mma kernel {mma[0]:.4f} (dense {mma_dense[0]:.4f}),"
+          f" plain {fwd_plain:.4f}, SDPA(dropout) {fwd_lib:.4f}, bound "
+          f"{bound_f[0]:.4f} (set by {bound_f[3]}; exponentials "
+          f"{bound_f[2]:.4f}); backward kernel {bwd:.4f} ms (dense "
+          f"{bwd_dense:.4f}), mma kernel {mma[1]:.4f} (dense "
+          f"{mma_dense[1]:.4f}), plain {bwd_plain:.4f}, SDPA backward "
+          f"{bwd_lib:.4f}, bound {bound_b[0]:.4f} (set by {bound_b[3]}; "
+          f"exponentials {bound_b[2]:.4f})")
     shape = f"[{B}, {S}, {H}, {D}] bf16 p={p}"
     return (dict(shape=shape, ms=fwd, plain_ms=fwd_plain, library_ms=fwd_lib,
-                 bound_ms=bound_f, bound_by=by_f, dense_ms=dense,
+                 bound_ms=bound_f[0], bound_by=bound_f[1],
+                 bound_exp_ms=bound_f[2], bound_set_by=bound_f[3],
+                 dense_ms=dense, mma_ms=mma[0], mma_dense_ms=mma_dense[0],
                  max_abs_err=worst_f, design=design_f),
             dict(shape=shape, ms=bwd, plain_ms=bwd_plain, library_ms=bwd_lib,
-                 bound_ms=bound_b, bound_by=by_b, dense_ms=bwd_dense,
-                 max_abs_err=worst_b, design=design_b))
+                 bound_ms=bound_b[0], bound_by=bound_b[1],
+                 bound_exp_ms=bound_b[2], bound_set_by=bound_b[3],
+                 dense_ms=bwd_dense, mma_ms=mma[1],
+                 mma_dense_ms=mma_dense[1], max_abs_err=worst_b,
+                 design=design_b))
 
 
 # ---------------------------------------------------------------------------
@@ -1799,22 +1954,30 @@ def _flash_timed(torch, F, tag, q, k, v, do, lse, dg, p=0.0, seed=11,
     pairs = B * S * S if pairs is None else pairs
     nb = q.numel() * q.element_size()
     mb = 0 if mask is None else B * S       # a key-padding mask's bytes
-    bounds = (bound_ms(4 * nb + B * H * S * 4 + mb, 4 * pairs * H * D, peak),
-              bound_ms(7 * nb + 2 * B * H * S * 4 + mb, 10 * pairs * H * D,
-                       peak))
+    # one exponential a score, forward and backward (the backward's P)
+    bounds = (flash_bound(torch, 4 * nb + B * H * S * 4 + mb,
+                          4 * pairs * H * D, pairs * H, peak),
+              flash_bound(torch, 7 * nb + 2 * B * H * S * 4 + mb,
+                          10 * pairs * H * D, pairs * H, peak))
     print(f"  {tag}: forward kernel {times[0]:.4f} ms, plain {times[2]:.4f}, "
-          f"SDPA {times[4]:.4f}, bound {bounds[0][0]:.4f} ({bounds[0][1]}); "
-          f"backward kernel {times[1]:.4f} ms, plain {times[3]:.4f}, SDPA "
-          f"backward {times[5]:.4f}, bound {bounds[1][0]:.4f} "
-          f"({bounds[1][1]})")
+          f"SDPA {times[4]:.4f}, bound {bounds[0][0]:.4f} (set by "
+          f"{bounds[0][3]}; exponentials {bounds[0][2]:.4f}); backward "
+          f"kernel {times[1]:.4f} ms, plain {times[3]:.4f}, SDPA backward "
+          f"{times[5]:.4f}, bound {bounds[1][0]:.4f} (set by {bounds[1][3]}; "
+          f"exponentials {bounds[1][2]:.4f})")
     return times, bounds
 
 
 def _rows(shape, times, bounds, errs, **extra):
+    """The forward and backward rows of a timed shape; bounds from
+    :func:`flash_bound` add the exponentials' bound and what set it."""
     fwd, bwd = ({"shape": shape, "ms": times[i], "plain_ms": times[2 + i],
                  "library_ms": times[4 + i], "bound_ms": bounds[i][0],
                  "bound_by": bounds[i][1], "max_abs_err": errs[i],
-                 "design": times[6 + i], **extra}
+                 "design": times[6 + i], **extra,
+                 **({"bound_exp_ms": bounds[i][2],
+                     "bound_set_by": bounds[i][3]} if len(bounds[i]) == 4
+                    else {})}
                 for i in (0, 1))
     return fwd, bwd
 
@@ -1824,7 +1987,9 @@ def _sub_rows(rows, key, more):
     ``rows``' (their errors fold into the main rows')."""
     for r, m in zip(rows, more):
         r[key] = {n: m[n] for n in ("shape", "ms", "plain_ms", "library_ms",
-                                    "bound_ms", "bound_by", "design")
+                                    "bound_ms", "bound_by", "bound_exp_ms",
+                                    "bound_set_by", "mma_ms", "source",
+                                    "design")
                   if n in m}
         r["max_abs_err"] = max(r["max_abs_err"], m["max_abs_err"])
 
@@ -2051,26 +2216,53 @@ def flash_varlen_phase(torch, g, K):
     return rows, launched
 
 
+def sweep_design(bf16, d, H, Hkv):
+    """The design the routing rule gives a launch on fresh (16-byte based)
+    tensors: sm90 for bf16 whose head rows are 16-byte (d % 8 == 0) or
+    8-byte inside 16-byte token rows of one KV head a query head (d % 8 ==
+    4 up to 44, H d a multiple of 8, H == Hkv), else mma."""
+    rows = d % 8 == 0 or (d % 8 == 4 and d <= 44 and H * d % 8 == 0
+                          and H == Hkv)
+    return "sm90" if bf16 and rows else "mma"
+
+
 def flash_head_dim_phase(torch, g):
     """Every head width class: each multiple of 8 from 8 to 256, the odd
-    widths 7 and 33 and the 4-byte-chunk widths 6 and 34, f32 and bf16,
-    forward and backward against the plain versions (causal on alternate
-    widths, dropout on the odd ones). Then the kernel the head_dim-16 model
-    step launches, at that step's inputs (f32 [4, 128, 4, 16], dropout 0.1),
-    and the bf16 tensor-core kernels at [16, 512, H, D], H = 768 / D
-    rounded, for D 16, 96 and 256: each against the plain versions and
-    timed against SDPA."""
+    widths 7 and 33, the 4-byte-chunk widths 6 and 34 and the 8-byte rows
+    of 36 (4 KV heads: sm90) and 44 (GQA: mma), f32 and bf16, forward and
+    backward against the plain versions (causal on alternate widths, dropout on the odd ones), each
+    launch on the design the routing rule gives (sweep_design). Then the
+    kernel the head_dim-16 model step launches, at that step's inputs (f32
+    [4, 128, 4, 16], dropout 0.1), and the bf16 kernels at [16, 512, H, D],
+    H = 768 / D rounded, for D 16, 96 and 256: each against the plain
+    versions, timed against SDPA and against the mma kernels they
+    replaced."""
+    from paddle_tpu_torch import kernels as K
     from paddle_tpu_torch.kernels import flash_attention as F
 
-    widths = [6, 7, 33, 34] + list(range(8, 257, 8))
+    widths = [6, 7, 33, 34, 36, 44] + list(range(8, 257, 8))
     print(f"[flash head_dim] the flash kernels at head_dim {widths}, f32 and "
-          f"bf16, [2, 70, 4 (Hkv 2), D]")
+          f"bf16, [2, 70, 4 (Hkv 2; 4 at D 36), D]")
     worst = [0.0, 0.0]
+    ran = {"sm90": [], "mma": []}
     for dt in (torch.bfloat16, torch.float32):
         for d in widths:
-            ef, eb = _flash_case(torch, g, F, f"{dt} D={d}", 2, 70, 70, 4, 2,
-                                 d, dt, d % 16 == 8, 0.1 if d % 2 else 0.0)
+            before = K.launch_counts()
+            hkv = 4 if d == 36 else 2    # the Conformer's 4 heads of 36
+            ef, eb = _flash_case(torch, g, F, f"{dt} D={d}", 2, 70, 70, 4,
+                                 hkv, d, dt, d % 16 == 8,
+                                 0.1 if d % 2 else 0.0)
+            want = sweep_design(dt == torch.bfloat16, d, 4, hkv)
+            got = (ran_design(K, before),
+                   ran_design(K, before, "flash_attention_bwd"))
+            if got != (want, want):
+                raise AssertionError(f"{dt} head_dim {d}: ran {got}, the "
+                                     f"rule gives {want}")
+            ran[want].append(f"{'bf16' if dt == torch.bfloat16 else 'f32'}"
+                             f" {d}")
             worst = [max(worst[0], ef), max(worst[1], eb)]
+    print(f"  designs as the rule gives: sm90 at {ran['sm90']}; mma at "
+          f"{ran['mma']}")
     B, S, H, d = D16_ATTN
     p, seed = ERNIE_DROPOUT, 20242
     q, k, v, do = (torch.randn(B, S, H, d, device="cuda", generator=g)
@@ -2091,8 +2283,16 @@ def flash_head_dim_phase(torch, g):
                                       q, k, v, do)
         times, bounds = _flash_timed(torch, F, f"[{B}, {S}, {H}, {d}] bf16",
                                      q, k, v, do, lse, dg)
-        _sub_rows(rows, f"bf16_d{d}", _rows(f"[{B}, {S}, {H}, {d}] bf16",
-                                            times, bounds, (ef, eb)))
+        mma = _mma_times(torch, F, q, k, v, do, lse, dg)
+        print(f"  [{B}, {S}, {H}, {d}] bf16: the mma kernels forward "
+              f"{mma[0]:.4f} ms, backward {mma[1]:.4f} (sm90 {times[0]:.4f}"
+              f" / {times[1]:.4f})")
+        sub = _rows(f"[{B}, {S}, {H}, {d}] bf16", times, bounds, (ef, eb))
+        for r, t, lib in zip(sub, mma, ("", "_bwd")):
+            r["mma_ms"] = t
+            r["source"] = (f"paddle_tpu_torch/csrc/"
+                           f"{F._sm90_lib(d, bool(lib))}.cu")
+        _sub_rows(rows, f"bf16_d{d}", sub)
         del q, k, v, do, lse, dg
     return rows
 
@@ -2982,8 +3182,8 @@ def whole_step_conformer(torch, K, head="ctc"):
     # 2 of the 4 layers: half the per-layer kernels, one loss's pair
     want = {k: v // 2 if k in ("layernorm", "flash_attention_dropout",
                                "flash_attention_bwd_dropout",
-                               "flash_attention_mma",
-                               "flash_attention_bwd_mma") else v
+                               "flash_attention_sm90",
+                               "flash_attention_bwd_sm90") else v
             for k, v in per_layers.items()}
     if per_step != want:
         raise AssertionError(f"the card's {tag} step launched {per_step}, "
@@ -3132,6 +3332,7 @@ def conformer_training_phase(torch, K, head="ctc"):
     if per_step != want:
         raise AssertionError(f"the {tag} steps launched other kernels than "
                              f"the model's structure gives")
+    all_sm90(f"the {tag} steps", counts)
     mean = sum(walls) / len(walls)
     flops = conformer_flops_per_utterance(
         cfg, T, None if head == "ctc" else L + 1)
@@ -5209,6 +5410,7 @@ def main() -> int:
     libs = _build.build_all()
     print(f"kernels built in {time.monotonic() - t0:.1f}s: "
           f"{sorted(libs)}")
+    sm90_build_report(libs)
 
     g = torch.Generator(device="cuda").manual_seed(0)
     rows = {"rmsnorm": rmsnorm_phase(torch, g),
@@ -5240,12 +5442,18 @@ def main() -> int:
     fwd_bwd = (rows["flash_attention"], rows["flash_attention_bwd"])
     _sub_rows(fwd_bwd, "whisper_encoder", enc)
     _sub_rows(fwd_bwd[:1], "whisper_decode", (dec,))
-    # bf16 at head_dim 64 / 128: the wgmma / TMA kernels; head_dim 36, the
-    # f32 kernel and the other widths: the mma.sync / CUDA-core ones
+    # bf16 at every timed head width (16, 36, 64, 96, 128, 256): the wgmma
+    # / TMA kernels; ernie_tiny()'s f32 row (the _d16 rows' main entry):
+    # the mma.sync / CUDA-core ones
     for name, r in rows.items():
-        if name.startswith("flash_attention"):
-            want_design([r], "mma" if name.endswith(("_d36", "_d16"))
-                        else "sm90")
+        if name.endswith("_d16"):
+            subs = [x["design"] for x in r.values()
+                    if isinstance(x, dict) and "design" in x]
+            if r["design"] != "mma" or set(subs) != {"sm90"}:
+                raise AssertionError(f"{name}: ran {r['design']} and {subs}, "
+                                     f"want mma and sm90 (the bf16 sub-rows)")
+        elif name.startswith("flash_attention"):
+            want_design([r], "sm90")
     for name, r in rows.items():
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         print(f"  {name} ({r.get('design', 'cuda')}) at {r['shape']}: kernel "
@@ -5364,8 +5572,11 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "shape": r["shape"],
-            # sub-rows (other shapes of the same kernel), notes
-            **{n: x for n, x in r.items() if isinstance(x, (dict, str))}})
+            # sub-rows (other shapes of the same kernel), notes, and the
+            # flash rows' third bound and the mma kernels' times
+            **{n: x for n, x in r.items() if isinstance(x, (dict, str))
+               or n in ("bound_exp_ms", "mma_ms", "mma_dense_ms",
+                        "dense_ms")}})
     for k in kernels:
         for key in ("ms", "plain_ms", "bound_ms", "max_abs_err"):
             if not math.isfinite(k[key]):

@@ -1,7 +1,9 @@
-// Flash attention backward for Hopper: dQ, dK, dV in bf16 at head_dim 64
-// and 128, rows and base addresses 16-byte aligned
-// (kernels/flash_attention.py `_flash_design`); every other input keeps
-// flash_attention_bwd.cu.
+// Flash attention backward for Hopper: dQ, dK, dV in bf16 at the
+// head-width classes 64 and 128, rows and base addresses 16-byte aligned
+// (kernels/flash_attention.py `_flash_design`). The other bf16 widths TMA
+// reads run the classes of flash_attention_bwd_sm90.cuh; f32 and narrower
+// bf16 rows keep flash_attention_bwd.cu. These two classes keep their own
+// kernels, as the forward's do (flash_attention_sm90.cu).
 //
 // Replaces paddle_tpu/kernels/flash_attention.py `_bwd_dq_kernel` and
 // `_bwd_dkv_kernel` (pallas_calls in `_flash_core_bwd`) for those inputs,
@@ -274,16 +276,16 @@ __global__ void __launch_bounds__(NTH, 1)
     if ((t & 31) == 0) sm90::mbar_arrive(&empty[s]);
   }
 
-  const size_t qs = static_cast<size_t>(a.H) * D;
+  const size_t qs = static_cast<size_t>(a.H) * a.D;   // a.D <= D
 #pragma unroll
   for (int hi = 0; hi < 2; ++hi) {
     const int qi = row[hi];
     if (qi >= rw.Lq) continue;
     bf16* orow = dq + (static_cast<size_t>(rw.qbase) + qi) * qs +
-                 static_cast<size_t>(h) * D;
+                 static_cast<size_t>(h) * a.D;
 #pragma unroll
     for (int n = 0; n < D / 8; ++n)
-      store_pair<16>(orow, n * 8 + 2 * tq4, D, acc[4 * n + 2 * hi] * a.scale,
+      store_pair<16>(orow, n * 8 + 2 * tq4, a.D, acc[4 * n + 2 * hi] * a.scale,
                      acc[4 * n + 2 * hi + 1] * a.scale);
   }
 }
@@ -538,25 +540,25 @@ __global__ void __launch_bounds__(NTH, 1)
     }
   }
 
-  const size_t ks = static_cast<size_t>(a.Hkv) * D;
+  const size_t ks = static_cast<size_t>(a.Hkv) * a.D;   // a.D <= D
 #pragma unroll
   for (int hi = 0; hi < 2; ++hi) {
     const int kj = key[hi];
     if (kj >= r0.Lk) continue;
     const size_t o = (static_cast<size_t>(r0.kbase) + kj) * ks +
-                     static_cast<size_t>(hk) * D;
+                     static_cast<size_t>(hk) * a.D;
 #pragma unroll
     for (int n = 0; n < D / 8; ++n) {
       const int col = n * 8 + 2 * tq4;
       const float x0 = acc[4 * n + 2 * hi], x1 = acc[4 * n + 2 * hi + 1];
       if constexpr (BYKEYS) {
-        store_pair<16>(dv + o, col, D, x0, x1);
-        store_pair<16>(dk + o, col, D, acc2[4 * n + 2 * hi] * a.scale,
+        store_pair<16>(dv + o, col, a.D, x0, x1);
+        store_pair<16>(dk + o, col, a.D, acc2[4 * n + 2 * hi] * a.scale,
                        acc2[4 * n + 2 * hi + 1] * a.scale);
       } else if (is_dk) {
-        store_pair<16>(dk + o, col, D, x0 * a.scale, x1 * a.scale);
+        store_pair<16>(dk + o, col, a.D, x0 * a.scale, x1 * a.scale);
       } else {
-        store_pair<16>(dv + o, col, D, x0, x1);
+        store_pair<16>(dv + o, col, a.D, x0, x1);
       }
     }
   }
@@ -610,7 +612,7 @@ int dispatch(const CUtensorMap* m, const Tensors& x, const FlashArgs& a,
 PTT_EXPORT_ERROR_STRING
 
 // The arguments of flash_attention_bwd.cu's flash_attention_bwd without
-// dtype and chunk (bf16, 16-byte rows), plus geo: eight tensor maps'
+// dtype (bf16), chunk 16 (16-byte rows), plus geo: eight tensor maps'
 // geometry (sm90::GEO values each, kernels/flash_attention.py
 // `tma_geometry`): q, dout with 128-row boxes and k, v with 64-row boxes
 // (the dQ kernel), then k, v with dkv_bk-row and q, dout with 64-row
@@ -622,10 +624,12 @@ extern "C" int flash_attention_sm90_bwd(
     int H, int Hkv, int Sq, int Sk, int D, float scale, int causal,
     int dropout, uint32_t seed, uint32_t thresh, float rp, const void* mask,
     long long m_sb, long long m_sh, long long m_sq, long long m_sk,
-    const void* cu_q, const void* cu_k, int Tq, const long long* geo,
-    void* stream) {
+    const void* cu_q, const void* cu_k, int Tq, int chunk,
+    const long long* geo, void* stream) {
   if (B == 0 || Sq == 0 || Sk == 0) return 0;
-  if (D != 64 && D != 128) return static_cast<int>(cudaErrorInvalidValue);
+  const int DP = sm90::flash_class(D);   // 64 or 128: D 49..64, 97..128
+  if ((DP != 64 && DP != 128) || chunk != 16)
+    return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap maps[8];
   const void* bases[8] = {q, dout, k, v, k, v, q, dout};
   for (int i = 0; i < 8; ++i) {
@@ -641,6 +645,17 @@ extern "C" int flash_attention_sm90_bwd(
                   static_cast<const float*>(dg), static_cast<bf16*>(dq),
                   static_cast<bf16*>(dk), static_cast<bf16*>(dv)};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return D == 64 ? dispatch<64>(maps, x, a, dropout, st)
-                 : dispatch<128>(maps, x, a, dropout, st);
+  return DP == 64 ? dispatch<64>(maps, x, a, dropout, st)
+                  : dispatch<128>(maps, x, a, dropout, st);
+}
+
+// the dynamic shared memory a dQ (dkv 0) or dK/dV (1) block of head_dim D
+// takes (chip_smoke.py prints it), 0 for another D
+extern "C" int flash_attention_sm90_bwd_smem(int D, int dkv) {
+  if (D == 64)
+    return static_cast<int>(dkv ? dkv_smem_bytes<64>() : dq_smem_bytes<64>());
+  if (D == 128)
+    return static_cast<int>(dkv ? dkv_smem_bytes<128>()
+                                : dq_smem_bytes<128>());
+  return 0;
 }

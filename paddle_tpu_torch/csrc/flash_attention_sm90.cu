@@ -1,6 +1,11 @@
-// Flash attention forward for Hopper: bf16 at head_dim 64 and 128, rows and
-// base addresses 16-byte aligned (kernels/flash_attention.py
-// `_flash_design`); every other input keeps flash_attention.cu.
+// Flash attention forward for Hopper: bf16 at head_dim 49..64 and 97..128
+// (the head-width classes 64 and 128), rows and base addresses 16-byte
+// aligned (kernels/flash_attention.py `_flash_design`): the widths of the
+// Llama, ERNIE, encoder and Whisper paths. The other bf16 widths TMA reads
+// run the classes of flash_attention_sm90.cuh; f32 and narrower bf16 rows
+// keep flash_attention.cu. These two classes keep their own kernel: the
+// class template of flash_attention_sm90.cuh, instantiated at 64 and 128,
+// ran their masked rows slower, its masked variants spilling.
 //
 // Replaces paddle_tpu/kernels/flash_attention.py `_fwd_kernel` (pallas_call
 // in `_core_fwd`) for those inputs, with every option of flash_attention.cu
@@ -254,7 +259,7 @@ __global__ void __launch_bounds__(NTH, 1)
     if ((t & 31) == 0) sm90::mbar_arrive(&empty[s]);
   }
 
-  const size_t qs = static_cast<size_t>(a.H) * D;
+  const size_t qs = static_cast<size_t>(a.H) * a.D;   // a.D <= D
 #pragma unroll
   for (int hi = 0; hi < 2; ++hi) {
     const int qi = row[hi];
@@ -263,10 +268,10 @@ __global__ void __launch_bounds__(NTH, 1)
     const float inv = 1.f / ls;
     const float mm = m[hi] == -INFINITY ? FLASH_NEG_INF : m[hi];  // no key
     bf16* orow = out + (static_cast<size_t>(rw.qbase) + qi) * qs +
-                 static_cast<size_t>(h) * D;
+                 static_cast<size_t>(h) * a.D;
 #pragma unroll
     for (int n = 0; n < D / 8; ++n)
-      store_pair<16>(orow, n * 8 + 2 * tq4, D, o[4 * n + 2 * hi] * inv,
+      store_pair<16>(orow, n * 8 + 2 * tq4, a.D, o[4 * n + 2 * hi] * inv,
                      o[4 * n + 2 * hi + 1] * inv);
     if (tq4 == 0) lse[rw.lse0 + qi] = mm + logf(ls);
   }
@@ -304,18 +309,20 @@ int dispatch(const CUtensorMap* maps, void* out, void* lse,
 PTT_EXPORT_ERROR_STRING
 
 // The arguments of flash_attention.cu's flash_attention_fwd without dtype
-// and chunk (bf16, 16-byte rows), plus geo: the three tensor maps' geometry
-// (q, k, v; sm90::GEO values each, kernels/flash_attention.py
-// `tma_geometry`). D is 64 or 128.
+// (bf16), chunk 16 (16-byte rows), plus geo: the three tensor maps'
+// geometry (q, k, v; sm90::GEO values each, kernels/flash_attention.py
+// `tma_geometry`). D is 64 or 128 (the class 64: D 49..64 pads to 64).
 extern "C" int flash_attention_sm90_fwd(
     const void* q, const void* k, const void* v, void* out, void* lse, int B,
     int H, int Hkv, int Sq, int Sk, int D, float scale, int causal,
     int dropout, uint32_t seed, uint32_t thresh, float rp, const void* mask,
     long long m_sb, long long m_sh, long long m_sq, long long m_sk,
-    const void* cu_q, const void* cu_k, int Tq, const long long* geo,
-    void* stream) {
+    const void* cu_q, const void* cu_k, int Tq, int chunk,
+    const long long* geo, void* stream) {
   if (B == 0 || Sq == 0) return 0;
-  if (D != 64 && D != 128) return static_cast<int>(cudaErrorInvalidValue);
+  const int DP = sm90::flash_class(D);   // 64 or 128: D 49..64, 97..128
+  if ((DP != 64 && DP != 128) || chunk != 16)
+    return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap maps[3];
   const void* bases[3] = {q, k, v};
   for (int i = 0; i < 3; ++i) {
@@ -328,6 +335,43 @@ extern "C" int flash_attention_sm90_fwd(
                     static_cast<const int*>(cu_q),
                     static_cast<const int*>(cu_k), Tq, 16};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return D == 64 ? dispatch<64>(maps, out, lse, a, dropout, st)
-                 : dispatch<128>(maps, out, lse, a, dropout, st);
+  return DP == 64 ? dispatch<64>(maps, out, lse, a, dropout, st)
+                  : dispatch<128>(maps, out, lse, a, dropout, st);
+}
+
+// the dynamic shared memory a block of head_dim D takes (chip_smoke.py
+// prints it), 0 for another D
+extern "C" int flash_attention_sm90_fwd_smem(int D) {
+  return D == 64 ? static_cast<int>(smem_bytes<64>())
+                 : D == 128 ? static_cast<int>(smem_bytes<128>()) : 0;
+}
+
+// A timing probe, not a kernel of any model path: each of 256 threads a
+// block runs 8 independent chains of `iters` exponentials (x <- 2^-x by
+// sm90::ex2, the flash templates' instruction; bounded in (0, 1]), so the
+// special-function units are the limit. chip_smoke.py divides the
+// exponentials by its time into the card's exp2 rate: the flash kernels'
+// bound at small head widths, where one exponential a score costs more
+// than the products.
+__global__ void __launch_bounds__(256)
+    flash_exp2_probe_kernel(float* __restrict__ out, int iters) {
+  float x[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) x[i] = 0.125f * (threadIdx.x % 5 + i);
+  for (int n = 0; n < iters; ++n) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) x[i] = sm90::ex2(-x[i]);
+  }
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) s += x[i];
+  out[blockIdx.x * 256 + threadIdx.x] = s;
+}
+
+extern "C" int flash_exp2_probe(void* out, int blocks, int iters,
+                                void* stream) {
+  flash_exp2_probe_kernel<<<blocks, 256, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<float*>(out), iters);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -1,14 +1,22 @@
-// Hopper building blocks of the flash kernels flash_attention_sm90.cu and
-// flash_attention_bwd_sm90.cu, in inline PTX (sm_90a): mbarriers, TMA tile
-// loads through a tensor map, wgmma on 128-byte-swizzled shared memory,
+// Hopper building blocks of the flash kernels (flash_attention_sm90.cuh,
+// flash_attention_bwd_sm90.cuh and, for the classes 64 and 128,
+// flash_attention{,_bwd}_sm90.cu), in inline PTX (sm_90a): mbarriers, TMA
+// tile loads through a tensor map, wgmma on swizzled shared memory,
 // register reallocation between warpgroups, and the host side that encodes
 // a tensor map.
 //
-// Tiles in shared memory are the TMA box {64 columns, rows}: 128-byte rows
-// (64 bf16) in 1024-byte atoms of 8 rows, 16-byte chunks swizzled by the
-// row (CU_TENSOR_MAP_SWIZZLE_128B). A head of 128 columns is two such tiles,
-// one after the other ("halves"). Every tile starts on a 1024-byte boundary,
-// so the wgmma descriptors need no base offset.
+// Head-width classes. A head of D columns rides in a tile DP wide
+// (flash_class: 16, 32, 48, 64, 96, 128, 160, 192, 224 or 256), stored as
+// DP / W blocks of W columns one after the other (W = block_cols(DP): 64
+// where DP is a multiple of 64, else 32 where a multiple of 32, else 16),
+// each block the TMA box {W columns, rows}: rows of 2 W bytes (128, 64 or
+// 32) in atoms of 8 rows, 16-byte chunks swizzled by the row with the
+// swizzle of the same width (CU_TENSOR_MAP_SWIZZLE_128B / 64B / 32B, the
+// wgmma descriptor's layout type 1 / 2 / 3). Every tile starts on a
+// 1024-byte boundary, so the descriptors need no base offset. Columns D to
+// DP - 1 are zeros: TMA fills them (the map's dim 0 is D), or, on the
+// flattened map of 8-byte head rows, the kernels write them (zero_pad;
+// there a head sits at [sh, sh + D), flat_shift).
 #pragma once
 
 #include <cuda.h>   // CUtensorMap and its enums only: no -lcuda
@@ -18,6 +26,15 @@
 namespace sm90 {
 
 constexpr float LOG2E = 1.4426950408889634f;
+
+// 2^x by the special-function unit alone (ex2.approx.ftz: a result below
+// 2^-126 flushes to 0, far under a probability's bf16 rounding), where
+// exp2f wraps the same instruction in a fix-up for such results.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -136,19 +153,47 @@ __device__ __forceinline__ void fence_regs(float* r) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
-// Shared-memory matrix descriptor, 128-byte swizzle. K-major operands
-// (rows of 64 contiguous depth elements): lbo unused (16), sbo = 1024, the
-// 8-row atom stride; a k16 step adds 32 bytes to the start. MN-major
-// operands (rows of 64 contiguous N elements, one row per depth index, the
-// transpose bit set): sbo = 1024 between groups of 8 depth rows, lbo = the
-// bytes between the 64-column halves of N; a k16 step adds 16 rows (2048
+// The block width of class DP (see the note at the top) and its swizzle's
+// code in the wgmma descriptor's layout type field (bits 62-63).
+__host__ __device__ constexpr int block_cols(int DP) {
+  return DP % 64 == 0 ? 64 : DP % 32 == 0 ? 32 : 16;
+}
+__host__ __device__ constexpr uint64_t layout_type(int W) {
+  return W == 64 ? 1 : W == 32 ? 2 : 3;   // 128-, 64-, 32-byte swizzle
+}
+
+// Shared-memory matrix descriptor of a tile in W-column blocks. K-major
+// operands (rows of W contiguous depth elements, the depth split over the
+// blocks): lbo unused (16), sbo = the 8-row atom's bytes (16 W); a k16 step
+// adds 32 bytes within a block, or moves to the next block. MN-major
+// operands (rows of W contiguous N elements, one row per depth index, the
+// transpose bit set): sbo = 16 W between groups of 8 depth rows, lbo = the
+// bytes between the W-column blocks of N; a k16 step adds 16 rows (32 W
 // bytes).
+template <int W>
+__device__ __forceinline__ uint64_t desc(const void* p, uint32_t lbo) {
+  constexpr uint32_t sbo = 16 * W;
+  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
+         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 |
+         layout_type(W) << 62;
+}
+
+// The same with the 128-byte swizzle and an explicit sbo (the classes 64
+// and 128 of flash_attention{,_bwd}_sm90.cu: 1024, the 8-row atom).
 __device__ __forceinline__ uint64_t desc(const void* p, uint32_t lbo,
                                          uint32_t sbo) {
   return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
          static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
          static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 |
-         static_cast<uint64_t>(1) << 62;
+         layout_type(64) << 62;
+}
+
+// The element offset of k16 step kk of a K-major operand of `rows` rows in
+// W-column blocks.
+template <int W>
+__device__ __forceinline__ int kstep(int kk, int rows) {
+  return (kk / (W / 16)) * rows * W + (kk % (W / 16)) * 16;
 }
 
 // A descriptor `elems` bf16 further into its tile (the start address field
@@ -229,15 +274,56 @@ __device__ __forceinline__ void wgmma_ss128(float* d, uint64_t da,
 
 // D += A.B, m64nNk16: A from registers (four b32 of bf16 pairs a thread, the
 // layout of mma.sync m16n8k16's A fragment on the warp's 16 rows), B from
-// shared memory MN-major (transpose bit set).
+// shared memory MN-major (transpose bit set). N is a head-width class: the
+// output of P.V, dQ += dS.K, dV += P^T.dO and dK += dS^T.Q.
+__device__ __forceinline__ void wgmma_rs16(float* d, const uint32_t* a,
+                                           uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+__device__ __forceinline__ void wgmma_rs32(float* d, const uint32_t* a,
+                                           uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+__device__ __forceinline__ void wgmma_rs48(float* d, const uint32_t* a,
+                                           uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23"
+      "}, {%24, %25, %26, %27}, %28, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
 __device__ __forceinline__ void wgmma_rs64(float* d, const uint32_t* a,
                                            uint64_t db, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
-      "%26, %27, %28, %29, %30, %31"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31"
       "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
@@ -248,17 +334,38 @@ __device__ __forceinline__ void wgmma_rs64(float* d, const uint32_t* a,
         "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
+__device__ __forceinline__ void wgmma_rs96(float* d, const uint32_t* a,
+                                           uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47"
+      "}, {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
 __device__ __forceinline__ void wgmma_rs128(float* d, const uint32_t* a,
                                            uint64_t db, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
-      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
-      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
-      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
-      "%62, %63"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
       "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
@@ -273,6 +380,157 @@ __device__ __forceinline__ void wgmma_rs128(float* d, const uint32_t* a,
         "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+__device__ __forceinline__ void wgmma_rs160(float* d, const uint32_t* a,
+                                           uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %85, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
+      "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79"
+      "}, {%80, %81, %82, %83}, %84, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+__device__ __forceinline__ void wgmma_rs192(float* d, const uint32_t* a,
+                                           uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
+      "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "
+      "%93, %94, %95"
+      "}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+__device__ __forceinline__ void wgmma_rs224(float* d, const uint32_t* a,
+                                           uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %117, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n224k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
+      "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "
+      "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, "
+      "%105, %106, %107, %108, %109, %110, %111"
+      "}, {%112, %113, %114, %115}, %116, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+__device__ __forceinline__ void wgmma_rs256(float* d, const uint32_t* a,
+                                           uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
+      "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "
+      "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, "
+      "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "
+      "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, "
+      "%127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
@@ -290,10 +548,29 @@ __device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db,
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
                                          uint64_t db, int scale_d) {
-  if constexpr (N == 64)
+  static_assert(N % 16 == 0 && N >= 16 && N <= 256 &&
+                    (N <= 64 || N % 32 == 0),
+                "a head-width class");
+  if constexpr (N == 16)
+    wgmma_rs16(d, a, db, scale_d);
+  else if constexpr (N == 32)
+    wgmma_rs32(d, a, db, scale_d);
+  else if constexpr (N == 48)
+    wgmma_rs48(d, a, db, scale_d);
+  else if constexpr (N == 64)
     wgmma_rs64(d, a, db, scale_d);
-  else
+  else if constexpr (N == 96)
+    wgmma_rs96(d, a, db, scale_d);
+  else if constexpr (N == 128)
     wgmma_rs128(d, a, db, scale_d);
+  else if constexpr (N == 160)
+    wgmma_rs160(d, a, db, scale_d);
+  else if constexpr (N == 192)
+    wgmma_rs192(d, a, db, scale_d);
+  else if constexpr (N == 224)
+    wgmma_rs224(d, a, db, scale_d);
+  else
+    wgmma_rs256(d, a, db, scale_d);
 }
 
 // The A fragments of the k16 step j of a product whose A is an m64nN
@@ -323,12 +600,68 @@ __device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
   return p + ((1024 - (a & 1023)) & 1023);
 }
 
+// Make this thread's shared-memory writes visible to the async proxy (the
+// wgmma operand reads and TMA writes that follow them).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// The `n` threads meeting at named barrier `id` (1..15; 0 is __syncthreads)
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// Zero columns [0, lo) and [hi, DP) of rows [0, rows) of a tile in
+// W-column blocks of `ld` rows each (the 16-byte chunks swizzled as TMA
+// stores them: chunk c of row r at c ^ (r mod 8) for 128-byte rows,
+// c ^ ((r / 2) mod 4) for 64-byte rows, c ^ ((r / 4) mod 2) for 32-byte
+// rows), by the `nth` threads of index t. lo is 0 or 4 and hi % 8 is 0 or
+// 4 (the flattened maps' 8-byte head rows: a head's D columns at [lo, hi)),
+// so a chunk is cleared whole or by its low or high 8 bytes. The caller
+// fences (fence_proxy_async) and meets its threads before a product reads
+// the tile.
+template <int W, int DP>
+__device__ __forceinline__ void zero_pad(__nv_bfloat16* tile, int ld, int rows,
+                                         int lo, int hi, int t, int nth) {
+  constexpr int CW = W / 8;                  // 16-byte chunks a block row
+  const int c0 = hi / 8;
+  const int pc = DP / 8 - c0 + (lo ? 1 : 0);  // chunks touched a row
+  for (int e = t; e < rows * pc; e += nth) {
+    const int r = e / pc, k = e % pc;
+    const bool low = lo && k == pc - 1;      // chunk 0's first 8 bytes
+    const int c = low ? 0 : c0 + k;
+    const int sw = W == 64 ? (r & 7) : W == 32 ? ((r >> 1) & 3) : ((r >> 2) & 1);
+    __nv_bfloat16* p =
+        tile + (c / CW) * ld * W + r * W + (((c % CW) ^ sw) * 8);
+    if (low)
+      *reinterpret_cast<uint2*>(p) = make_uint2(0, 0);
+    else if (c == c0 && hi % 8)
+      *reinterpret_cast<uint2*>(p + 4) = make_uint2(0, 0);
+    else
+      *reinterpret_cast<uint4*>(p) = make_uint4(0, 0, 0, 0);
+  }
+}
+
+// The classes that take the flattened maps of 8-byte head rows: up to 48
+// (head_dim 4 to 44 with D % 8 == 4, the Conformer's 36 among them); the
+// kernels of the wider classes carry none of their code.
+__host__ __device__ constexpr bool flat_class(int DP) { return DP <= 48; }
+
+// The flattened maps' shift of head h's box (8-byte head rows, D % 8 == 4):
+// TMA starts a box on a 16-byte boundary, so head h's box starts at column
+// h D - sh, sh = (h D) mod 8 (0 or 4), and the head's D columns sit at
+// [sh, sh + D) of the tile.
+__device__ __forceinline__ int flat_shift(bool flat, int h, int D) {
+  return flat ? (h * D) & 7 : 0;
+}
+
 // ---------------------------------------------------------------------------
 // host: tensor maps
 // ---------------------------------------------------------------------------
 // A map's geometry as kernels/flash_attention.py `tma_geometry` computes it:
-// dims[4] (innermost first), byte strides of dims 1..3, box[4].
-constexpr int GEO = 11;
+// dims[4] (innermost first), byte strides of dims 1..3, box[4], and the
+// swizzle's bytes (the box's row: 128, 64 or 32).
+constexpr int GEO = 12;
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
                                  cuuint32_t, void*, const cuuint64_t*,
@@ -357,7 +690,8 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// bf16, 128-byte swizzle, zeros out of bounds; returns a CUDA error code
+// bf16, the box row's swizzle, zeros out of bounds; returns a CUDA error
+// code
 inline int encode_map(CUtensorMap* m, const void* base, const long long* g) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
@@ -373,13 +707,39 @@ inline int encode_map(CUtensorMap* m, const void* base, const long long* g) {
                              static_cast<cuuint32_t>(g[9]),
                              static_cast<cuuint32_t>(g[10])};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
+  CUtensorMapSwizzle swz;
+  switch (g[11]) {
+    case 128: swz = CU_TENSOR_MAP_SWIZZLE_128B; break;
+    case 64: swz = CU_TENSOR_MAP_SWIZZLE_64B; break;
+    case 32: swz = CU_TENSOR_MAP_SWIZZLE_32B; break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (g[7] * 2 != g[11]) return static_cast<int>(cudaErrorInvalidValue);
   const CUresult r = fn(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                         const_cast<void*>(base), dims, strides, box, unit,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The SMs of the current device, read once (the looping kernels launch
+// as many blocks as are resident).
+inline int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    if (n <= 0) n = 132;
+  }
+  return n;
+}
+
+// The class a head of D columns rides in: a multiple of 16 up to 64, of 32
+// up to 256 (0 above).
+__host__ __device__ constexpr int flash_class(int D) {
+  return D <= 64 ? (D + 15) / 16 * 16 : D <= 256 ? (D + 31) / 32 * 32 : 0;
 }
 
 }  // namespace sm90

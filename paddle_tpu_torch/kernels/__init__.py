@@ -23,7 +23,8 @@ flash kernels count their dropout, bool-mask and varlen variants under
 their own names, so a run can show which variant its path took, and each
 launch once more under the design that ran it:
 ``flash_attention{,_bwd}_sm90``, the wgmma / TMA kernels
-``flash_attention{,_bwd}_sm90.cu``, or ``_mma``, the mma.sync ones):
+``flash_attention{,_bwd}_sm90.cu`` and ``.cuh``, or ``_mma``, the mma.sync
+ones):
 
 ===========================  =============================  =====================
 name                         port (kernels/ + csrc/)        replaces, in

@@ -5,7 +5,7 @@ library with a plain C interface (no PyTorch headers, so one file builds in
 seconds), loaded with ``ctypes``:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \\
-         --split-compile=0 -shared -Xcompiler -fPIC \\
+         --split-compile=0 -Xptxas=-v -shared -Xcompiler -fPIC \\
          -o csrc/build/<name>-<hash>.so csrc/<name>.cu
 
 The output directory ``paddle_tpu_torch/csrc/build/`` is git-ignored; a
@@ -13,8 +13,9 @@ library's file name carries a hash of its source and the flags, so an
 edited source builds anew and an unchanged one is reused. The first use of
 any kernel builds every missing library, one ``nvcc`` per source, all
 started together; ``--split-compile=0`` lets one source's many kernel
-instantiations (the flash files') optimise on every core. A missing
-``nvcc`` raises.
+instantiations (the flash files') optimise on every core. ``-Xptxas=-v``
+leaves each kernel's registers, shared memory and spills in the build's
+log, ``csrc/build/<name>-<hash>.log``. A missing ``nvcc`` raises.
 
 Calling convention of every C entry: tensor pointers and the CUDA stream
 are ``c_void_p`` (a plain ``c_int`` would cut a 64-bit pointer), sizes are
@@ -37,7 +38,8 @@ __all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "nvcc_path", "sources",
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--split-compile=0", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "--split-compile=0", "-Xptxas=-v", "-shared", "-Xcompiler",
+              "-fPIC")
 
 _libs: dict[str, ctypes.CDLL] = {}
 _fns: dict[tuple[str, str], object] = {}

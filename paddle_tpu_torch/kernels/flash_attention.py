@@ -58,36 +58,47 @@ attends key j iff ``j <= i + (Sk - Sq)``.
 
 What bounds the kernels on the H100: at long S, the flops (``4 * Sq * Sk
 * D`` per head forward, 2.5 times that backward, about half of each
-causal) against the bf16 tensor-core peak. Two kernel families compute the
-same function (:func:`_flash_design` picks one from the inputs alone):
+causal) against the bf16 tensor-core peak; at small D (16, the
+Conformer's 36) the exponentials, one a score, against the
+special-function units. Two kernel families compute the same function
+(:func:`_flash_design` picks one from the inputs alone):
 
-- ``sm90`` (``csrc/flash_attention_sm90.cu``,
-  ``csrc/flash_attention_bwd_sm90.cu``): bf16 at head_dim 64 and 128 with
-  every row and base address 16-byte aligned, the widths of every
-  full-width model path. Hopper's design: a producer warp keeps TMA loads
-  of K and V (Q and dO in the dK/dV kernel) in flight through a ring of
-  shared-memory stages, two consumer warpgroups run ``wgmma`` on them
-  (probabilities and ds as the register operand, V, K, Q and dO read
-  transposed through the descriptor, nothing moved by a thread), softmax
-  in f32 with ``exp2f``. The backward keeps FlashAttention-2's two kernels
-  (dQ; dK/dV looping over the query heads of its KV group), so it adds no
-  atomics. Their tensor maps' geometry is :func:`tma_geometry`.
+- ``sm90`` (``csrc/flash_attention_sm90.cuh``,
+  ``csrc/flash_attention_bwd_sm90.cuh``, built per head-width class group
+  by ``csrc/flash_attention{,_bwd}_sm90_{narrow,wide,wider}.cu``; the
+  classes 64 and 128 keep their own tuned kernels in
+  ``csrc/flash_attention{,_bwd}_sm90.cu``): bf16
+  at every head_dim 1..256 whose rows TMA can read (:func:`_tma_rows`):
+  16-byte head rows (D a multiple of 8) with every base address 16-byte
+  aligned, or 8-byte head rows (D % 8 == 4 up to 44, the Conformer's 36)
+  inside 16-byte token rows (``H * D`` a multiple of 8, ``H == Hkv``), read
+  through a tensor map flattened over the heads. Hopper's design: a
+  producer warp keeps TMA loads of K and V (Q and dO in the dK/dV kernel)
+  in flight through a ring of shared-memory stages, two consumer
+  warpgroups run ``wgmma`` on them (probabilities and ds as the register
+  operand, V, K, Q and dO read transposed through the descriptor, nothing
+  moved by a thread), softmax in f32 with ``exp2``. A head rides in its
+  class (:func:`sm90_class`: a multiple of 16 up to 64, of 32 up to 256),
+  in blocks of 64, 32 or 16 columns with the swizzle of the same width.
+  The backward keeps FlashAttention-2's two kernels (dQ; dK/dV looping
+  over the query heads of its KV group), so it adds no atomics. Their
+  tensor maps' geometry is :func:`tma_geometry`.
 - ``mma`` (``csrc/flash_attention.cu``, ``csrc/flash_attention_bwd.cu``):
-  everything else — f32 (CUDA cores), the other head widths and rows that
-  are not 16-byte aligned (``mma.sync`` on tiles the threads load).
+  f32 (CUDA cores; a tensor-core path would be TF32 and change the
+  arithmetic) and the bf16 rows TMA cannot read (odd widths, 2- or 4-byte
+  chunks, misaligned bases), with ``mma.sync`` on tiles the threads load.
 
 Probabilities and ds are rounded to bf16 as product operands, as in
 FlashAttention. Each launch counts under its variant
 (``flash_attention{,_bwd}`` + ``_dropout``/``_mask``/``_varlen``) and its
 design (``flash_attention{,_bwd}_sm90`` or ``_mma``).
 
-Head widths 1..256: each rides zero-padded in the kernels' shared-memory
-tiles to its class, a multiple of 16 up to 128 (the tensor-core product
-steps its depth by 16) and of 32 up to 256; only the real columns are
-loaded and stored, rows moving in the widest chunk (16, 8, 4 or 2 bytes)
-their length and base addresses allow. The softmax scale stays
-``1 / sqrt(D)``; the dropout bits do not depend on the width. Above 256
-the CUDA wrappers raise.
+Head widths 1..256: in the ``mma`` kernels each rides zero-padded in the
+shared-memory tiles to a multiple of 16 up to 128 and of 32 up to 256;
+only the real columns are loaded and stored, rows moving in the widest
+chunk (16, 8, 4 or 2 bytes) their length and base addresses allow. The
+softmax scale stays ``1 / sqrt(D)``; the dropout bits do not depend on the
+width. Above 256 the CUDA wrappers raise.
 """
 from __future__ import annotations
 
@@ -109,8 +120,9 @@ __all__ = ["flash_attention_fwd", "flash_attention_plain",
            "flash_attn_varlen_plain", "flash_attn_varlen_cuda",
            "flash_attn_varlen_bwd_plain", "flash_attn_varlen_bwd_cuda",
            "FlashVarlenFunction", "mask_view", "segments_from_cu",
-           "MAX_HEAD_DIM", "SM90_HEAD_DIMS", "tma_geometry", "fwd_geometry",
-           "bwd_geometry", "dkv_key_tile"]
+           "MAX_HEAD_DIM", "SM90_CLASSES", "sm90_class", "tma_geometry",
+           "fwd_geometry", "bwd_geometry", "fwd_key_tile", "dq_key_tile",
+           "dkv_key_tile", "dkv_query_tile", "exp2_probe_cuda"]
 
 NEG_INF = -1e30
 # bf16(-1e30) in f32: the reference's _canon_mask stores a masked entry so
@@ -425,31 +437,77 @@ def _counter(base, drop, mask, varlen):
                    else "_dropout" if drop else "")
 
 
-SM90_HEAD_DIMS = (64, 128)
+SM90_CLASSES = (16, 32, 48, 64, 96, 128, 160, 192, 224, 256)
 
 
-def _flash_design(dtype, D, chunk):
+def sm90_class(D):
+    """``(DP, W)``: the head-width class a head of D columns rides in
+    zero-padded in the sm90 kernels (a multiple of 16 up to 64, of 32 up to
+    256: ``sm90::flash_class``) and its block width (``sm90::block_cols``:
+    64 where DP is a multiple of 64, else 32, else 16), the columns of a
+    TMA box and of a swizzle row (2 W bytes)."""
+    DP = -(-D // 16) * 16 if D <= 64 else -(-D // 32) * 32
+    return DP, 64 if DP % 64 == 0 else 32 if DP % 32 == 0 else 16
+
+
+def _tma_rows(D, H, Hkv, *tensors):
+    """The rows the sm90 kernels' tensor maps read, in bytes a head row:
+    16 where every head row is 16-byte (D a multiple of 8, the maps
+    ``{D, heads, rows, batches}``), 8 where head rows are 8-byte (D % 8 ==
+    4, up to 44: only the classes up to 48 compile the flattened maps)
+    inside 16-byte token rows (``H * D`` a multiple of 8: the maps
+    flattened over the heads, ``{heads * D, 1, rows, batches}``) and
+    ``H == Hkv`` (TMA starts a box on a 16-byte boundary, so head h's box
+    starts ``(h D) mod 8`` columns early; a query head and its KV head must
+    share that shift), else 0; 0 too unless every base address is 16-byte
+    aligned (TMA)."""
+    if any(t.data_ptr() % 16 for t in tensors):
+        return 0
+    if D % 8 == 0:
+        return 16
+    if D % 8 == 4 and D <= 44 and H == Hkv and (H * D) % 8 == 0:
+        return 8
+    return 0
+
+
+def _flash_design(dtype, D, tma):
     """Which kernel family takes a launch: ``"sm90"`` (the wgmma / TMA
-    kernels, ``csrc/flash_attention{,_bwd}_sm90.cu``) for bf16 at head_dim
-    64 or 128 with every row and base address 16-byte aligned (``chunk``
-    16, which TMA needs), else ``"mma"`` (``csrc/flash_attention{,_bwd}.cu``:
-    f32, other widths, misaligned rows). Each launch also counts under
+    kernels) for bf16 at head_dim 1..256 whose rows the tensor maps read
+    (``tma``, :func:`_tma_rows`, 16 or 8), else ``"mma"``
+    (``csrc/flash_attention{,_bwd}.cu``: f32, bf16 rows of 2 or 4 bytes or
+    misaligned bases). Each launch also counts under
     ``flash_attention{,_bwd}_<design>``."""
-    return ("sm90" if dtype == torch.bfloat16 and D in SM90_HEAD_DIMS
-            and chunk == 16 else "mma")
+    return ("sm90" if dtype == torch.bfloat16 and 1 <= D <= MAX_HEAD_DIM
+            and tma in (8, 16) else "mma")
 
 
-def tma_geometry(rows, batches, heads, D, box_rows):
+def _sm90_lib(D, bwd):
+    """The library (``csrc/<name>.cu``) holding class ``sm90_class(D)``:
+    the class groups each build with one nvcc, all in parallel; the
+    classes 64 and 128 are ``flash_attention{,_bwd}_sm90``'s own
+    kernels."""
+    DP = sm90_class(D)[0]
+    group = ("_narrow" if DP <= 48 else "" if DP in (64, 128)
+             else "_wide" if DP <= 160 or not bwd else "_wider")
+    return f"flash_attention{'_bwd' if bwd else ''}_sm90{group}"
+
+
+def tma_geometry(rows, batches, heads, D, box_rows, flat=False):
     """The TMA tensor map of a bf16 ``[batches, rows, heads, D]`` tensor as
     the sm90 kernels read it (``sm90::encode_map``): dims innermost first
-    ``(D, heads, rows, batches)``, the byte strides of dims 1..3, and the
-    box ``(64, 1, box_rows, 1)``: 64 columns (128 bytes, one 128-byte
-    swizzle atom; a 128-wide head loads as two boxes) of one head over
-    ``box_rows`` rows. Varlen tensors ``[T, heads, D]`` are ``rows = T``,
-    ``batches = 1``. Rows past ``rows`` read as zeros."""
-    return (D, heads, rows, batches,
-            2 * D, 2 * heads * D, 2 * rows * heads * D,
-            64, 1, box_rows, 1)
+    ``(D, heads, rows, batches)``, the byte strides of dims 1..3, the box
+    ``(W, 1, box_rows, 1)``: W columns (:func:`sm90_class`; 2 W bytes, one
+    swizzle row; a head loads as ``DP / W`` boxes) of one head over
+    ``box_rows`` rows, and the swizzle's bytes (2 W). ``flat`` (8-byte head
+    rows): dims ``(heads * D, 1, rows, batches)``, head h's box starting at
+    column ``h * D - (h * D) % 8`` (16-byte aligned, as TMA needs). Varlen tensors ``[T, heads, D]`` are ``rows = T``,
+    ``batches = 1``. Rows past ``rows`` read as zeros, and columns past D
+    (past ``heads * D`` when flat)."""
+    W = sm90_class(D)[1]
+    row = 2 * heads * D
+    dims = (heads * D, 1) if flat else (D, heads)
+    return (*dims, rows, batches, row if flat else 2 * D, row,
+            row * rows, W, 1, box_rows, 1, 2 * W)
 
 
 def _geometry(maps):
@@ -464,31 +522,56 @@ def _rows_batches(t, B, varlen):
     return (t.shape[0], 1) if varlen else (t.shape[1], B)
 
 
-def fwd_geometry(q, k, B, varlen):
-    """The forward's tensor maps: q, k, v, each with 128-row boxes."""
+def fwd_key_tile(D):
+    """The forward's key tile (``fwd_bk``): 128 for the classes 64 to 128,
+    else 64 (up to class 48 two blocks an SM share the registers; above 128
+    two Q buffers and two stages share the shared memory)."""
+    return 128 if 64 <= sm90_class(D)[0] <= 128 else 64
+
+
+def fwd_geometry(q, k, B, varlen, flat=False):
+    """The forward's tensor maps: q with 128-row boxes, k and v with
+    :func:`fwd_key_tile` rows."""
     H, D, Hkv = q.shape[-2], q.shape[-1], k.shape[-2]
-    gq = tma_geometry(*_rows_batches(q, B, varlen), H, D, 128)
-    gk = tma_geometry(*_rows_batches(k, B, varlen), Hkv, D, 128)
+    gq = tma_geometry(*_rows_batches(q, B, varlen), H, D, 128, flat)
+    gk = tma_geometry(*_rows_batches(k, B, varlen), Hkv, D, fwd_key_tile(D),
+                      flat)
     return (gq, gk, gk)
+
+
+def dq_key_tile(D):
+    """The dQ kernel's key tile (``dq_bk``): 64, 32 up to class 48 (two
+    blocks an SM, consumers in 104 registers) and from class 192 on (dQ's
+    accumulator is DP / 2 registers a thread)."""
+    DP = sm90_class(D)[0]
+    return 32 if DP <= 48 or DP >= 192 else 64
 
 
 def dkv_key_tile(D):
     """The dK/dV kernel's key tile (``dkv_bk`` in
-    ``csrc/flash_attention_bwd_sm90.cu``): 128 keys at head_dim 64, whose
-    two consumer warpgroups split them, 64 at 128, where they split dK
-    from dV instead."""
-    return 128 if D == 64 else 64
+    ``csrc/flash_attention_bwd_sm90.cuh``): 128 up to class 96, whose two
+    consumer warpgroups split them, 64 above, where they split dK from dV
+    instead."""
+    return 128 if sm90_class(D)[0] <= 96 else 64
 
 
-def bwd_geometry(q, k, B, varlen):
+def dkv_query_tile(D):
+    """The dK/dV kernel's query tile (``dkv_bq``): 64, 32 from class 192
+    on."""
+    return 32 if sm90_class(D)[0] >= 192 else 64
+
+
+def bwd_geometry(q, k, B, varlen, flat=False):
     """The backward's tensor maps: for the dQ kernel q and dO with 128-row
-    boxes, k and v with 64; for the dK/dV kernel k and v with
-    :func:`dkv_key_tile` rows, q and dO with 64."""
+    boxes, k and v with :func:`dq_key_tile`; for the dK/dV kernel k and v
+    with :func:`dkv_key_tile` rows, q and dO with :func:`dkv_query_tile`."""
     H, D, Hkv = q.shape[-2], q.shape[-1], k.shape[-2]
     rq, rk = _rows_batches(q, B, varlen), _rows_batches(k, B, varlen)
-    q128, q64 = (tma_geometry(*rq, H, D, n) for n in (128, 64))
-    k64, kt = (tma_geometry(*rk, Hkv, D, n) for n in (64, dkv_key_tile(D)))
-    return (q128, q128, k64, k64, kt, kt, q64, q64)
+    q128, qt = (tma_geometry(*rq, H, D, n, flat)
+                for n in (128, dkv_query_tile(D)))
+    kq, kt = (tma_geometry(*rk, Hkv, D, n, flat)
+              for n in (dq_key_tile(D), dkv_key_tile(D)))
+    return (q128, q128, kq, kq, kt, kt, qt, qt)
 
 
 _FWD_ARGS = [_P] * 5 + [_I] * 6 + [_F, _I, _I, _I, _U, _U, _F] \
@@ -496,31 +579,35 @@ _FWD_ARGS = [_P] * 5 + [_I] * 6 + [_F, _I, _I, _I, _U, _U, _F] \
 _BWD_ARGS = [_P] * 9 + [_I] * 6 + [_F, _I, _I, _I, _U, _U, _F] \
     + [_P, _L, _L, _L, _L, _P, _P, _I, _I, _P]
 _SM90_FWD_ARGS = [_P] * 5 + [_I] * 6 + [_F, _I, _I, _U, _U, _F] \
-    + [_P, _L, _L, _L, _L, _P, _P, _I, _P, _P]
+    + [_P, _L, _L, _L, _L, _P, _P, _I, _I, _P, _P]
 _SM90_BWD_ARGS = [_P] * 9 + [_I] * 6 + [_F, _I, _I, _U, _U, _F] \
-    + [_P, _L, _L, _L, _L, _P, _P, _I, _P, _P]
+    + [_P, _L, _L, _L, _L, _P, _P, _I, _I, _P, _P]
 
 
 def _launch_fwd(q, k, v, out, lse, B, Sq, Sk, causal, scale, drop, m4,
-                cu=(None, None), Tq=0):
+                cu=(None, None), Tq=0, design=None):
+    """Launch the forward of the inputs' design; ``design`` names one
+    instead (``chip_smoke.py`` times the mma kernels beside the sm90 ones
+    at the same inputs with it; no entry point passes it)."""
     H, D, Hkv = q.shape[-2], q.shape[-1], k.shape[-2]
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    chunk = _chunk(D, q, k, v, out)
-    design = _flash_design(q.dtype, D, chunk)
+    tma = _tma_rows(D, H, Hkv, q, k, v, out)
+    design = design or _flash_design(q.dtype, D, tma)
     common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
               lse.data_ptr(), B, H, Hkv, Sq, Sk, D, float(scale),
               int(bool(causal)))
     tail = (*drop, *_mask_args(m4),
             *(None if c is None else c.data_ptr() for c in cu), Tq)
     if design == "sm90":
-        lib, name = "flash_attention_sm90", "flash_attention_sm90_fwd"
+        lib, name = _sm90_lib(D, False), "flash_attention_sm90_fwd"
         fn = _build.function(lib, name, _SM90_FWD_ARGS)
-        err = fn(*common, *tail,
-                 _geometry(fwd_geometry(q, k, B, cu[0] is not None)), stream)
+        geo = fwd_geometry(q, k, B, cu[0] is not None, tma == 8)
+        err = fn(*common, *tail, tma, _geometry(geo), stream)
     else:
         lib, name = "flash_attention", "flash_attention_fwd"
         fn = _build.function(lib, name, _FWD_ARGS)
-        err = fn(*common, _DTYPES[q.dtype], *tail, chunk, stream)
+        err = fn(*common, _DTYPES[q.dtype], *tail, _chunk(D, q, k, v, out),
+                 stream)
     _build.check(err, lib, f"{name} launch")
     LAUNCHES[_counter("flash_attention", drop[0], m4 is not None,
                       cu[0] is not None)] += 1
@@ -528,11 +615,13 @@ def _launch_fwd(q, k, v, out, lse, B, Sq, Sk, causal, scale, drop, m4,
 
 
 def _launch_bwd(q, k, v, g, lse, dg, dq, dk, dv, B, Sq, Sk, causal, scale,
-                drop, m4, cu=(None, None), Tq=0):
+                drop, m4, cu=(None, None), Tq=0, design=None):
+    """Launch the backward of the inputs' design (``design`` as in
+    :func:`_launch_fwd`)."""
     H, D, Hkv = q.shape[-2], q.shape[-1], k.shape[-2]
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    chunk = _chunk(D, q, k, v, g, dq, dk, dv)
-    design = _flash_design(q.dtype, D, chunk)
+    tma = _tma_rows(D, H, Hkv, q, k, v, g, dq, dk, dv)
+    design = design or _flash_design(q.dtype, D, tma)
     common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
               lse.data_ptr(), dg.data_ptr(), dq.data_ptr(), dk.data_ptr(),
               dv.data_ptr(), B, H, Hkv, Sq, Sk, D, float(scale),
@@ -540,18 +629,35 @@ def _launch_bwd(q, k, v, g, lse, dg, dq, dk, dv, B, Sq, Sk, causal, scale,
     tail = (*drop, *_mask_args(m4),
             *(None if c is None else c.data_ptr() for c in cu), Tq)
     if design == "sm90":
-        lib, name = "flash_attention_bwd_sm90", "flash_attention_sm90_bwd"
+        lib, name = _sm90_lib(D, True), "flash_attention_sm90_bwd"
         fn = _build.function(lib, name, _SM90_BWD_ARGS)
-        err = fn(*common, *tail,
-                 _geometry(bwd_geometry(q, k, B, cu[0] is not None)), stream)
+        geo = bwd_geometry(q, k, B, cu[0] is not None, tma == 8)
+        err = fn(*common, *tail, tma, _geometry(geo), stream)
     else:
         lib, name = "flash_attention_bwd", "flash_attention_bwd"
         fn = _build.function(lib, name, _BWD_ARGS)
-        err = fn(*common, _DTYPES[q.dtype], *tail, chunk, stream)
+        err = fn(*common, _DTYPES[q.dtype], *tail,
+                 _chunk(D, q, k, v, g, dq, dk, dv), stream)
     _build.check(err, lib, f"{name} launch")
     LAUNCHES[_counter("flash_attention_bwd", drop[0], m4 is not None,
                       cu[0] is not None)] += 1
     LAUNCHES[f"flash_attention_bwd_{design}"] += 1
+
+
+def exp2_probe_cuda(blocks, iters, device="cuda"):
+    """Launch ``flash_exp2_probe`` (``csrc/flash_attention_sm90.cu``):
+    ``blocks`` blocks of 256 threads, each thread 8 independent chains of
+    ``iters`` exponentials (``ex2.approx``, as the sm90 templates' softmax);
+    returns the threads' sums ``[blocks * 256]``. A
+    timing probe of the card's exp2 rate (the flash kernels' bound at small
+    head widths), not a kernel of any model path."""
+    out = torch.empty(blocks * 256, device=device, dtype=torch.float32)
+    fn = _build.function("flash_attention_sm90", "flash_exp2_probe",
+                         [_P, _I, _I, _P])
+    err = fn(out.data_ptr(), blocks, iters,
+             torch.cuda.current_stream(out.device).cuda_stream)
+    _build.check(err, "flash_attention_sm90", "flash_exp2_probe launch")
+    return out
 
 
 def flash_attention_cuda(q, k, v, causal=False, sm_scale=None,

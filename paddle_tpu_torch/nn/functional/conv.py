@@ -6,8 +6,9 @@ The reference computes convolutions with XLA's ``conv_general_dilated``,
 in no Pallas kernel of its own, so the port's counterpart is PyTorch's
 library convolution, as ``torch.matmul`` is for the projections. Paddle's
 semantics are kept: weights ``[out, in / groups, *k]``; ``padding`` an int,
-one int per spatial dim, a ``[before, after]`` pair per dim (flat or
-nested), or ``"SAME"`` / ``"VALID"``; ``data_format`` channels first
+one int per spatial dim, a ``[before, after]`` pair per spatial dim (flat
+or nested), Paddle's nested pair per dim of ``x`` (batch and channel pairs
+zeros, placed by ``data_format``), or ``"SAME"`` / ``"VALID"``; ``data_format`` channels first
 (``"NCL"``, ``"NCHW"``) or last (``"NLC"``, ``"NHWC"``). Convolutions are
 on amp's white list: under ``auto_cast`` they compute in the amp dtype.
 """
@@ -29,8 +30,13 @@ def _tuple(v, n):
     return (int(v),) * n
 
 
-def _pad_pairs(padding, n):
-    """``[(before, after)] * n`` from Paddle's int / per-dim / pair forms."""
+def _pad_pairs(padding, n, data_format):
+    """``[(before, after)] * n`` from Paddle's int / per-dim / flat-pair
+    forms, or from its nested form of one pair per dimension of ``x``:
+    ``n + 2`` pairs, batch and channel included (``[[0, 0], [0, 0], [t, b],
+    [l, r]]`` for NCHW, ``[[0, 0], [t, b], [l, r], [0, 0]]`` for NHWC),
+    whose batch and channel pairs must be zeros, as Paddle requires; ``n``
+    nested pairs are taken as the spatial ones."""
     if isinstance(padding, int):
         return [(padding, padding)] * n
     padding = list(padding)
@@ -38,7 +44,21 @@ def _pad_pairs(padding, n):
         return [(p, p) for p in padding]
     if len(padding) == 2 * n and all(isinstance(p, int) for p in padding):
         return [(padding[2 * i], padding[2 * i + 1]) for i in range(n)]
-    return [tuple(int(q) for q in p) for p in padding]
+    pairs = [tuple(int(q) for q in p) for p in padding]
+    if len(pairs) == n + 2:
+        if data_format in _CHANNELS_LAST:
+            spatial, other = pairs[1:-1], (pairs[0], pairs[-1])
+        else:
+            spatial, other = pairs[2:], pairs[:2]
+        if any(p != (0, 0) for p in other):
+            raise ValueError(
+                f"conv{n}d: the batch and channel pairs of padding "
+                f"{padding} must be [0, 0] (data_format {data_format})")
+        pairs = spatial
+    if len(pairs) != n or any(len(p) != 2 for p in pairs):
+        raise ValueError(f"conv{n}d: padding {padding} is not an int, {n} "
+                         f"ints, {2 * n} ints or {n} or {n + 2} pairs")
+    return pairs
 
 
 def _same_pairs(x, weight, stride, dilation, n):
@@ -69,7 +89,7 @@ def _conv(x, weight, bias, stride, padding, dilation, groups, n,
         else:
             raise ValueError(f"conv{n}d: unknown padding {padding!r}")
     else:
-        pairs = _pad_pairs(padding, n)
+        pairs = _pad_pairs(padding, n, data_format)
     if all(a == b for a, b in pairs):
         pad = tuple(a for a, _ in pairs)
     else:   # asymmetric: pad explicitly (F.pad takes the last dim first)

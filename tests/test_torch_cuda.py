@@ -813,11 +813,13 @@ def test_flash_head_dim_36_matches_plain(gen, dtype, p, causal, sq, sk, hkv):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-def test_flash_head_dim_36_applies_the_plain_mask(gen, dtype):
+@pytest.mark.parametrize("H", [3, 4])
+def test_flash_head_dim_36_applies_the_plain_mask(gen, dtype, H):
     """The probes of ``test_flash_kernels_apply_the_plain_mask`` at
     D = 36, whose padding columns must neither leak into the real ones nor
-    be stored."""
-    d, B, H, Sq, p, seed = 36, 2, 3, 150, 0.1, 78
+    be stored: at 3 heads in bf16 the mma kernels (token rows of 216
+    bytes), at 4 the sm90 ones through the flattened maps."""
+    d, B, Sq, p, seed = 36, 2, 150, 0.1, 78
     zeros = torch.zeros(B, Sq, H, d, device="cuda", dtype=dtype)
     kzero = torch.zeros(B, d, H, d, device="cuda", dtype=dtype)
     eye = torch.eye(d, device="cuda", dtype=dtype)[None, :, None, :].expand(
@@ -1284,7 +1286,7 @@ def test_flash_attn_unpadded_on_the_card_counts_the_varlen_kernels(gen):
         tensors, torch.bfloat16)
     assert {k: v for k, v in launched.items() if v} == {
         "flash_attention_varlen": 1, "flash_attention_bwd_varlen": 1,
-        "flash_attention_mma": 1, "flash_attention_bwd_mma": 1}
+        "flash_attention_sm90": 1, "flash_attention_bwd_sm90": 1}
 
 
 def test_rms_norm_layer_under_auto_cast_on_the_card(gen):
@@ -1317,7 +1319,7 @@ def test_rms_norm_layer_under_auto_cast_on_the_card(gen):
 
 
 # ---------------------------------------------------------------------------
-# the Hopper flash kernels (wgmma / TMA): bf16 at head_dim 64 and 128
+# the Hopper flash kernels (wgmma / TMA): bf16 at every head-width class
 # ---------------------------------------------------------------------------
 
 def _designs(before):
@@ -1459,6 +1461,96 @@ def test_flash_sm90_varlen_kernels_match_plain(gen, causal):
     assert _designs(before) == SM90_BOTH
 
 
+# one width of every sm90 head-width class (and the flattened 8-byte rows
+# of 36 and 44): 24 -> 32, 56 -> 64, 72 -> 96, 120 -> 128, 136 -> 160,
+# 176 -> 192, 200 -> 224
+SM90_CLASS_WIDTHS = [8, 16, 24, 36, 44, 48, 56, 72, 96, 120, 136, 160, 176,
+                     192, 200, 224, 256]
+
+
+@pytest.mark.parametrize("d", SM90_CLASS_WIDTHS)
+@pytest.mark.parametrize("case", ["causal_gqa_dropout", "mask", "cross"])
+def test_flash_sm90_every_class_matches_plain(gen, d, case):
+    """Every head-width class of the sm90 kernels, forward and backward
+    against the plain versions: causal with GQA (8 query heads on 4 KV
+    heads; 8 on 8 for the flattened rows of 36 and 44) and dropout; a bool key-padding mask with fully masked rows
+    and dropout; Sq 70 against Sk 300 causal (the bottom-right diagonal)."""
+    before = K.launch_counts()
+    rep = 1 if d % 8 else 2     # the flattened maps take no GQA
+    if case == "causal_gqa_dropout":
+        _flash_pair(gen, torch.bfloat16, 2, 200, 200, 8, 8 // rep, d, True,
+                    0.1)
+    elif case == "mask":
+        mask = torch.rand(2, 4, 1, 150, device="cuda", generator=gen) > 0.3
+        mask[1, :, :, :] = False
+        mask[1, :, :, 140:] = True
+        _flash_pair(gen, torch.bfloat16, 2, 150, 150, 4, 4, d, True, 0.1,
+                    mask.expand(2, 4, 150, 150))
+    else:
+        _flash_pair(gen, torch.bfloat16, 2, 70, 300, 4, 4 // rep, d, True)
+    assert _designs(before) == SM90_BOTH
+
+
+@pytest.mark.parametrize("d", [16, 36, 96, 256])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_sm90_varlen_classes_match_plain(gen, d, causal):
+    """Packed sequences (an empty one, one shorter than a tile, a tail past
+    cu[-1]) at the timed widths, dropout on."""
+    from paddle_tpu_torch.kernels.flash_attention import (
+        flash_attn_varlen_bwd_cuda, flash_attn_varlen_bwd_plain,
+        flash_attn_varlen_cuda, flash_attn_varlen_plain)
+
+    cu = torch.tensor([0, 37, 37, 200, 333], device="cuda",
+                      dtype=torch.int32)
+    dt, hkv = torch.bfloat16, 4 if d % 8 else 2
+    q, g = _rnd(gen, dt, 340, 4, d), _rnd(gen, dt, 340, 4, d)
+    k, v = _rnd(gen, dt, 340, hkv, d), _rnd(gen, dt, 340, hkv, d)
+    before = K.launch_counts()
+    out, lse = flash_attn_varlen_cuda(q, k, v, cu, cu, causal, None, 0.1, 3)
+    p_out, p_lse = flash_attn_varlen_plain(q, k, v, cu, cu, causal, None,
+                                           0.1, 3)
+    _close(out, p_out, **_tol(dt))
+    _close(lse[:, :333], p_lse[:, :333], atol=1e-3, rtol=1e-5)
+    dg = delta_minus_glse(p_out, g)
+    got = flash_attn_varlen_bwd_cuda(q, k, v, g, p_lse, dg, cu, cu, causal,
+                                     None, 0.1, 3)
+    want = flash_attn_varlen_bwd_plain(q, k, v, g, p_lse, dg, cu, cu, causal,
+                                       None, 0.1, 3)
+    for a, b in zip(got, want):
+        _close(a, b, **_grad_tol(dt, b))
+    assert _designs(before) == SM90_BOTH
+
+
+@pytest.mark.parametrize("p", [0.0, 0.1])
+def test_flash_sm90_d36_keeps_a_neighbours_non_finite_values_out(gen, p):
+    """At head_dim 36 the flattened maps' boxes of head h read head h + 1's
+    first 12 columns (the class 48's padding), which the kernels zero
+    before every product at depth D. Head 2 of q, k, v and dO holds NaN and
+    inf: heads 0, 1 and 3 (1 reads 2's columns) come out finite and equal
+    to the plain version's, forward and backward."""
+    B, S, H, d = 2, 140, 4, 36
+    q, k, v, g = (_rnd(gen, torch.bfloat16, B, S, H, d) for _ in range(4))
+    for t in (q, k, v, g):
+        t[:, :, 2] = float("nan")
+        t[:, 5, 2, 3] = float("inf")
+    keep = [0, 1, 3]
+    before = K.launch_counts()
+    out, lse = flash_attention_cuda(q, k, v, False, None, p, 7)
+    p_out, p_lse = flash_attention_plain(q, k, v, False, None, p, 7)
+    assert torch.isfinite(out[:, :, keep]).all()
+    assert torch.isfinite(lse[:, keep]).all()
+    _close(out[:, :, keep], p_out[:, :, keep], **_tol(torch.bfloat16))
+    dg = delta_minus_glse(p_out, g)
+    got = flash_attention_bwd_cuda(q, k, v, g, p_lse, dg, False, None, p, 7)
+    want = flash_attention_bwd_plain(q, k, v, g, p_lse, dg, False, None, p,
+                                     7)
+    for a, b in zip(got, want):
+        assert torch.isfinite(a[:, :, keep]).all()
+        _close(a[:, :, keep], b[:, :, keep],
+               **_grad_tol(torch.bfloat16, b[:, :, keep]))
+    assert _designs(before) == SM90_BOTH
+
+
 @pytest.mark.parametrize("offset", [1, 2, 4])
 @pytest.mark.parametrize("d", [64, 128])
 def test_flash_misaligned_view_routes_to_the_mma_kernels(gen, offset, d):
@@ -1482,16 +1574,19 @@ def test_flash_misaligned_view_routes_to_the_mma_kernels(gen, offset, d):
 
 @pytest.mark.parametrize("dtype,d,design", [
     (torch.bfloat16, 64, "sm90"), (torch.bfloat16, 128, "sm90"),
-    (torch.bfloat16, 36, "mma"), (torch.bfloat16, 96, "mma"),
-    (torch.bfloat16, 56, "mma"), (torch.bfloat16, 120, "mma"),
-    (torch.bfloat16, 256, "mma"), (torch.float32, 64, "mma"),
-    (torch.float32, 128, "mma")])
+    (torch.bfloat16, 36, "sm90"), (torch.bfloat16, 96, "sm90"),
+    (torch.bfloat16, 56, "sm90"), (torch.bfloat16, 120, "sm90"),
+    (torch.bfloat16, 256, "sm90"), (torch.bfloat16, 16, "sm90"),
+    (torch.bfloat16, 34, "mma"), (torch.bfloat16, 33, "mma"),
+    (torch.float32, 64, "mma"), (torch.float32, 128, "mma"),
+    (torch.float32, 36, "mma")])
 def test_flash_design_counters_name_the_kernels_that_ran(gen, dtype, d,
                                                          design):
-    """Through the differentiable entry: bf16 at head_dim 64 / 128 takes
-    the sm90 kernels, head_dim 36 (the Conformer's), other widths and f32
-    the mma ones (56 and 120 ride padded in the mma kernels' 64- and
-    128-wide tiles with 16-byte rows); the variant counters count as
+    """Through the differentiable entry: bf16 at every head_dim whose rows
+    TMA reads takes the sm90 kernels (36, the Conformer's, through the
+    flattened maps at 4 heads; 56 and 120 ride padded in the classes 64 and
+    128, 96 and 256 in their own), bf16 rows of 4-byte chunks (34) or odd
+    widths (33) and f32 the mma ones; the variant counters count as
     before."""
     q, k, v = (_rnd(gen, dtype, 2, 100, 4, d).requires_grad_()
                for _ in range(3))

@@ -238,9 +238,9 @@ def test_flash_attention_api_shape():
     np.testing.assert_array_equal(out.numpy(), ref.numpy())
 
 
-# the head_dim sweep of the plain versions: odd, multiples of 8 and 16,
-# past 128 and the top class
-@pytest.mark.parametrize("d", [7, 8, 16, 24, 40, 96, 256])
+# the head_dim sweep of the plain versions: odd, multiples of 8 and 16, the
+# Conformer's 36 and its sm90 class 48, past 128 and the top class
+@pytest.mark.parametrize("d", [7, 8, 16, 24, 36, 40, 48, 96, 256])
 @pytest.mark.parametrize("causal", [False, True])
 def test_head_dim_sweep_matches_mirror(d, causal):
     rng, q, k, v, g, glse = _inputs(d, hkv=2, d=d, sq=21, sk=21)

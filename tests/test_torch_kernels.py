@@ -371,5 +371,10 @@ def test_every_kernel_source_is_present():
     names = {p.stem for p in _build.sources()}
     assert names == {"ctc", "flash_attention", "flash_attention_bwd",
                      "flash_attention_sm90", "flash_attention_bwd_sm90",
+                     "flash_attention_sm90_narrow",
+                     "flash_attention_bwd_sm90_narrow",
+                     "flash_attention_sm90_wide",
+                     "flash_attention_bwd_sm90_wide",
+                     "flash_attention_bwd_sm90_wider",
                      "layernorm", "paged_attention", "rmsnorm", "rnnt",
                      "softmax_ce"}
