@@ -267,9 +267,12 @@ CUDA toolkit (``nvcc``). It imports nothing of JAX or of ``paddle_tpu``.
     the update, the batch-norm buffers); the O1 pairs printed (see
     ``whole_step_resnet``: bf16 does not determine this step's gradients
     at initialisation).
-26. ``[vision zoo]``: LeNet, AlexNet, VGG-16 and MobileNetV1 / V2 /
-    V3-Large at their published widths, batch 8: one O1 step each (finite
-    loss, one softmax-CE forward and backward), then ``o1_eval_check``.
+26. ``[vision zoo]``: LeNet, AlexNet, VGG-16, MobileNetV1 / V2 /
+    V3-Large, SqueezeNet 1.1, GoogLeNet and InceptionV3 (at 299) at their
+    published widths, batch 8: one O1 step each (finite loss, one
+    softmax-CE forward and backward a head: GoogLeNet's loss is its main
+    head's plus 0.3 x each auxiliary head's, 3 / 3), then
+    ``o1_eval_check`` on the main logits.
 27. High-level API slice's kernel shapes (run with the other kernel
     phases): softmax-CE at the f32 logits ``Model.fit`` hands it, LeNet's
     ``[256, 10]`` and ResNet-50's ``[64, 1000]`` (sub-rows ``hapi_lenet``
@@ -346,6 +349,28 @@ CUDA toolkit (``nvcc``). It imports nothing of JAX or of ``paddle_tpu``.
     ``static.nn``'s builders, ``cond``, ``while_loop`` and ``gradients`` on
     the card against the same program on the CPU. The compilers' caches
     and the artifacts stay under ``paddle_tpu_torch/csrc/build/``.
+35. ``[shufflenet]`` (after ``[vision zoo]``): ShuffleNetV2 x1.0 at its
+    published widths (2.28 M parameters, 1000 classes) at the PaddleClas
+    recipe (``ShuffleNetV2_x1_0.yaml``: Momentum 0.9, L2 4e-5, cosine lr
+    0.5 at 256 images a card) cut to SHUFFLE_BATCH images a card (the lr
+    scaled to SHUFFLE_LR, the cosine's period to the run), f32 parameters
+    under ``auto_cast(O1, bf16)``, one repeated seeded batch of 224 x 224:
+    a warm-up step and SHUFFLE_STEPS timed ones (losses finite and
+    falling, exactly one softmax-CE forward and backward launch a step),
+    step wall (median), images/s, MFU (``shufflenet_flops_per_image``),
+    peak memory, a profiled step's busy and idle share.
+36. ``[whole step shufflenet]``: one f64 ShuffleNetV2 x1.0 step at batch
+    SHUFFLE_WHOLE_BATCH on the card against the CPU's from the same
+    weights, held to the whole-step limits (every gradient, every
+    parameter after the update, the batch-norm buffers); the depthwise
+    blocks' batch-norm biases (exact gradient 0) and the running means
+    after them (exact 0) held apart.
+37. ``[nn surface]`` (after ``[eager autograd]``): every case of
+    ``tools/nn_surface_cases.py`` (the last nn slice's 36 functionals and
+    44 layers; GRU and SimpleRNN as 2-layer bidirectional layers with
+    ``sequence_length``) on the card against the CPU, forward and
+    backward, f32, TF32 off, within EAGER_F32. The three phases' seconds
+    are printed (``[nn slice phases]``).
 
 Flash design: bf16 at every head width whose rows TMA reads (16-byte head
 rows, or the Conformer's 8-byte rows of 36 inside 16-byte token rows)
@@ -369,7 +394,8 @@ the no-cache forward, the 5 Llama training steps, the ERNIE steps, the
 Conformer-CTC and the RNN-T steps, the encoder steps, the
 ``F.flash_attn_unpadded`` call, the Whisper ``generate`` and its
 teacher-forced forward, the Whisper training steps, the ResNet-50
-training steps, the zoo's steps, the two ``Model.fit`` phases (fits and
+training steps, the zoo's steps, the ShuffleNetV2 steps, the two
+``Model.fit`` phases (fits and
 evaluations), the DenseNet-121 steps and the static-graph path's held
 forwards (the ``_d36`` rows: the Conformer steps'
 launches of the dropout flash kernels, all at head_dim 36; the ``_d16``
@@ -536,6 +562,15 @@ DENSENET_STEPS = 10
 DENSENET_WHOLE_BATCH = 8
 SHELL_TURNS = 2
 SHELL_STEPS = 3
+# Last nn slice: ShuffleNetV2 x1.0 at the PaddleClas recipe (ppcls/configs/
+# ImageNet/ShuffleNet/ShuffleNetV2_x1_0.yaml: 224 x 224 crops, 1000
+# classes, Momentum 0.9, L2 4e-5, cosine lr 0.5 at 256 images a card). Cut:
+# 64 images a card, the lr scaled with the batch (0.5 x 64 / 256) and the
+# cosine's period cut to the run's steps (warm-up, timed, profiled).
+SHUFFLE_BATCH = 64
+SHUFFLE_STEPS = 10
+SHUFFLE_LR = 0.5 * SHUFFLE_BATCH / 256
+SHUFFLE_WHOLE_BATCH = 8
 # [eager ops] / [eager autograd]: the card's f32 against the CPU's f32
 # (TF32 off): the same arithmetic in another order (rtol 1e-4, atol 1e-5;
 # the decompositions' and special functions' library routines 1e-3, 1e-4)
@@ -3869,21 +3904,26 @@ def rel_l2(a, b):
 
 
 def o1_eval_check(torch, what, model, x):
-    """``model``'s eval logits on ``x`` under O1 against its f32 forward
+    """``model``'s eval logits on ``x`` (a tuple's first, the main head)
+    under O1 against its f32 forward
     (TF32 off), held to VISION_O1_ROUNDING_RATIO x the error of an f32
     forward with the weights and the input rounded to bf16, and to
     VISION_O1_REL_L2_MAX; returns both errors."""
     from paddle_tpu_torch import amp
 
+    def logits(inp):        # GoogLeNet's main head of (out, aux1, aux2)
+        out = model(inp)
+        return out[0] if isinstance(out, tuple) else out
+
     model.eval()
     with tf32_off(torch), torch.no_grad():
         with amp.auto_cast(level="O1"):
-            low = model(x)
-        want = model(x)
+            low = logits(x)
+        want = logits(x)
         saved = [p.detach().clone() for p in model.parameters()]
         for p in model.parameters():
             p.copy_(p.bfloat16())
-        rounded = model(x.bfloat16().float())
+        rounded = logits(x.bfloat16().float())
         for p, keep in zip(model.parameters(), saved):
             p.copy_(keep)
     err, ref = rel_l2(low, want), rel_l2(rounded, want)
@@ -4050,12 +4090,14 @@ def _vision_step(torch, model, x, y, o1, lr=0.1, loss_fn=None):
             {n: copy(p) for n, p in model.named_parameters()})
 
 
-def _step_errors(a, b):
+def _step_errors(a, b, skip=frozenset()):
     """Loss difference and the worst relative L2 errors of gradients,
-    buffers and updated parameters of step ``a`` against step ``b``."""
+    buffers and updated parameters of step ``a`` against step ``b`` (the
+    parameters named in ``skip`` left out)."""
     out = {"loss": abs(a[0] - b[0])}
     for i, key in ((1, "gradient"), (2, "buffer"), (3, "parameter")):
-        rel = {n: rel_l2(a[i][n], t) for n, t in b[i].items()}
+        rel = {n: rel_l2(a[i][n], t) for n, t in b[i].items()
+               if n not in skip}
         out[key] = max(rel.items(), key=lambda r: r[1])
     return out
 
@@ -4128,16 +4170,31 @@ def whole_step_resnet(torch, K):
 ZOO = (("LeNet", "LeNet", 1, 28), ("AlexNet", "alexnet", 3, 224),
        ("VGG-16", "vgg16", 3, 224), ("MobileNetV1", "mobilenet_v1", 3, 224),
        ("MobileNetV2", "mobilenet_v2", 3, 224),
-       ("MobileNetV3-Large", "mobilenet_v3_large", 3, 224))
+       ("MobileNetV3-Large", "mobilenet_v3_large", 3, 224),
+       ("SqueezeNet 1.1", "squeezenet1_1", 3, 224),
+       ("GoogLeNet", "googlenet", 3, 224),
+       ("InceptionV3", "inception_v3", 3, 299))
+
+
+def googlenet_loss(out, y):
+    """GoogLeNet's training loss: the main head's cross-entropy plus 0.3 x
+    each auxiliary head's (one softmax-CE forward and backward a head)."""
+    from paddle_tpu_torch.nn import functional as F
+
+    main, aux1, aux2 = out
+    return F.cross_entropy(main, y) + 0.3 * (F.cross_entropy(aux1, y)
+                                             + F.cross_entropy(aux2, y))
 
 
 def vision_zoo_phase(torch, K):
-    """LeNet (10 classes, 1 x 28 x 28), AlexNet, VGG-16 and MobileNetV1 /
-    V2 / V3-Large (1000 classes, 3 x 224 x 224) at their published widths,
-    batch ZOO_BATCH: one O1 training step each (Momentum 0.9, L2 1e-4, lr
-    0.01) with a finite loss and one softmax-CE forward and backward
-    launch; then its eval logits under O1 against its f32 forward
-    (``o1_eval_check``). Returns the steps' launches."""
+    """LeNet (10 classes, 1 x 28 x 28), AlexNet, VGG-16, MobileNetV1 / V2 /
+    V3-Large, SqueezeNet 1.1 and GoogLeNet (1000 classes, 3 x 224 x 224)
+    and InceptionV3 (3 x 299 x 299) at their published widths, batch
+    ZOO_BATCH: one O1 training step each (Momentum 0.9, L2 1e-4, lr 0.01)
+    with a finite loss and one softmax-CE forward and backward launch a
+    head (GoogLeNet: ``googlenet_loss``, 3 / 3); then its main eval logits
+    under O1 against its f32 forward (``o1_eval_check``). Returns the
+    steps' launches."""
     from paddle_tpu_torch.vision import models
 
     print(f"[vision zoo] batch {ZOO_BATCH}: one O1 step each, then eval "
@@ -4152,7 +4209,9 @@ def vision_zoo_phase(torch, K):
         K.reset_launch_counts()
         torch.cuda.synchronize()
         t0 = time.monotonic()
-        loss = _vision_step(torch, model, x, y, True, lr=0.01)[0]
+        heads = 3 if what == "GoogLeNet" else 1
+        loss = _vision_step(torch, model, x, y, True, lr=0.01,
+                            loss_fn=googlenet_loss if heads == 3 else None)[0]
         torch.cuda.synchronize()
         wall = (time.monotonic() - t0) * 1e3
         counts = K.launch_counts()
@@ -4162,7 +4221,7 @@ def vision_zoo_phase(torch, K):
               f"{loss:.4f} ({wall:.1f} ms, first call), launches {launched}")
         if not math.isfinite(loss):
             raise AssertionError(f"{what}: non-finite loss {loss}")
-        if launched != {"softmax_ce": 1, "softmax_ce_bwd": 1}:
+        if launched != {"softmax_ce": heads, "softmax_ce_bwd": heads}:
             raise AssertionError(f"{what}: the step launched {launched}")
         o1_eval_check(torch, what, model, x)
         del model
@@ -4784,6 +4843,215 @@ def whole_step_densenet(torch, K):
         raise AssertionError(f"the card's O1 DenseNet-121 loss is "
                              f"{runs['card O1'][0]}")
     return held
+
+
+def shufflenet_training_phase(torch, K):
+    """ShuffleNetV2 x1.0 at its published widths (2.28 M parameters, 1000
+    classes) trained at the PaddleClas recipe cut to one card's batch of
+    SHUFFLE_BATCH (Momentum 0.9, L2 4e-5, CosineAnnealingDecay from
+    SHUFFLE_LR over the run's steps), f32 parameters under auto_cast(O1,
+    bf16), one repeated seeded batch of 224 x 224: a warm-up step, then
+    SHUFFLE_STEPS timed steps; losses finite and falling; exactly one
+    softmax-CE forward and backward launch a step; step wall (median),
+    images/s, MFU (``shufflenet_flops_per_image``, training 3x the
+    forward), peak memory, a profiled step's busy and idle share. Returns
+    the timed steps' launches."""
+    from paddle_tpu_torch import amp, framework
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.optimizer import CosineAnnealingDecay, Momentum
+    from paddle_tpu_torch.vision.models import (shufflenet_flops_per_image,
+                                                shufflenet_v2_x1_0)
+
+    B = SHUFFLE_BATCH
+    print(f"[shufflenet] ShuffleNetV2 x1.0 (PaddleClas ShuffleNetV2_x1_0.yaml "
+          f"widths), batch {B} x 3 x 224 x 224 (cut from 256 a card), f32 "
+          f"params under auto_cast(O1, bf16), Momentum 0.9, L2 4e-5, "
+          f"CosineAnnealingDecay({SHUFFLE_LR}, T_max={SHUFFLE_STEPS + 2})")
+    framework.seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    model = shufflenet_v2_x1_0(seed=0)
+    n_params = sum(p.numel() for p in model.parameters())
+    flops = 3 * shufflenet_flops_per_image(model)
+    sched = CosineAnnealingDecay(SHUFFLE_LR, T_max=SHUFFLE_STEPS + 2)
+    opt = Momentum(learning_rate=sched, momentum=0.9,
+                   parameters=model.parameters(), weight_decay=4e-5)
+    x, y = resnet_batch(torch, B, 224, 1000, 2, "cuda")
+
+    def step():
+        with amp.auto_cast(level="O1", dtype="bfloat16"):
+            loss = F.cross_entropy(model(x), y)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        sched.step()
+        return loss
+
+    t0 = time.monotonic()
+    losses = [step().item()]
+    print(f"  {n_params / 1e6:.2f} M parameters; warm-up step "
+          f"{time.monotonic() - t0:.2f}s, loss {losses[0]:.4f}")
+    K.reset_launch_counts()
+    walls = []
+    for _ in range(SHUFFLE_STEPS):
+        t0 = time.monotonic()
+        losses.append(step().item())
+        torch.cuda.synchronize()
+        walls.append(time.monotonic() - t0)
+    counts = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  losses {[round(v, 4) for v in losses]}")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite ShuffleNetV2 loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the ShuffleNetV2 loss did not fall: {losses}")
+    per_step = {k: c / SHUFFLE_STEPS for k, c in counts.items() if c}
+    print(f"  launches per step: {per_step}")
+    if per_step != {"softmax_ce": 1.0, "softmax_ce_bwd": 1.0}:
+        raise AssertionError("the ShuffleNetV2 steps launched other kernels "
+                             "than one softmax-CE forward and backward each")
+    med = sorted(walls)[len(walls) // 2]
+    img_s = B / med
+    print(f"  step wall {med * 1e3:.2f} ms (median of {SHUFFLE_STEPS}, min "
+          f"{min(walls) * 1e3:.2f}, max {max(walls) * 1e3:.2f}); "
+          f"{img_s:.1f} images/s; MFU {100 * img_s * flops / BF16_FLOPS:.3f}% "
+          f"({flops / 1e9:.3f} GFLOP an image, 3x the forward's "
+          f"{flops / 6e9:.4f} G multiply-adds, against "
+          f"{BF16_FLOPS / 1e12:.0f} TFLOP/s); peak memory "
+          f"{peak / 2 ** 30:.2f} GiB")
+    busy = profile_step(torch, step, "ShuffleNetV2 training step",
+                        share=vision_share, top=12)
+    print(f"  busy {100 * busy / (med * 1e3):.1f}%, idle "
+          f"{100 * (1 - busy / (med * 1e3)):.1f}% of the unprofiled median "
+          f"step wall")
+    return counts
+
+
+def shufflenet_exact_zeros(model):
+    """What a ShuffleNetV2 step at initialisation makes exactly 0: the
+    batch-norm biases of the depthwise blocks (no activation follows them,
+    then a 1x1 convolution and a training-mode batch norm, which subtracts
+    any per-channel shift, so their gradient is 0 and they stay 0), and
+    the running means of the batch norms after those 1x1 convolutions
+    (their input has zero mean on every channel while the biases are 0).
+    Returns (biases, running means)."""
+    biases, means = set(), set()
+    for i, unit in enumerate(model.stages):
+        pairs = ((("left.0", "left.1"), ("right.1", "right.2"))
+                 if hasattr(unit, "left") else (("branch.1", "branch.2"),))
+        for dw, pw in pairs:
+            biases.add(f"stages.{i}.{dw}.1.bias")
+            means.add(f"stages.{i}.{pw}.1._mean")
+    return biases, means
+
+
+def whole_step_shufflenet(torch, K):
+    """ShuffleNetV2 x1.0, batch SHUFFLE_WHOLE_BATCH x 224: one f64 step
+    (forward, torch's cross-entropy, backward, ``_vision_step``'s Momentum
+    0.9 / L2 1e-4 at lr SHUFFLE_LR) from the same weights on the card (cuDNN's f64
+    depthwise convolutions and batch norm) and on the CPU, held to the
+    whole-step limits: the loss within STEP_LOSS_TOL, every gradient and
+    every parameter after the update within STEP_GRAD_REL_L2 relative L2,
+    the batch-norm buffers within BN_REL_L2. In f64 because depthwise
+    convolutions and training-mode batch norm leave an f32 step at
+    initialisation determined to a few per cent only (ROADMAP C2 / C3).
+    What is exactly 0 in this step (``shufflenet_exact_zeros``: the
+    depthwise blocks' batch-norm biases and the running means after them)
+    is held apart: on each side those biases' gradients below 1e-9 of the
+    largest gradient's norm, and the biases and running means after the
+    step within 1e-12 of each other (rounding noise on both sides)."""
+    from paddle_tpu_torch.vision.models import shufflenet_v2_x1_0
+
+    B = SHUFFLE_WHOLE_BATCH
+    print(f"[whole step shufflenet] ShuffleNetV2 x1.0, batch {B} x 3 x 224 "
+          f"x 224: one f64 Momentum step on the card and on the CPU")
+    card = shufflenet_v2_x1_0(seed=4)
+    state = {k: v.clone() for k, v in card.state_dict().items()}
+    cpu = shufflenet_v2_x1_0(device="cpu")
+    x, y = resnet_batch(torch, B, 224, 1000, 5, "cpu")
+
+    def torch_ce(logits, labels):
+        return torch.nn.functional.cross_entropy(logits, labels.reshape(-1))
+
+    runs = {}
+    for name, model in (("card f64", card), ("CPU f64", cpu)):
+        model.set_state_dict(state)
+        model.double()
+        dev = next(model.parameters()).device
+        runs[name] = _vision_step(torch, model, x.double().to(dev),
+                                  y.to(dev), False, lr=SHUFFLE_LR,
+                                  loss_fn=torch_ce)
+    zero, means = shufflenet_exact_zeros(cpu)
+    e = _step_errors(runs["card f64"], runs["CPU f64"], skip=zero | means)
+    print(f"  losses: card {runs['card f64'][0]:.10f}, CPU "
+          f"{runs['CPU f64'][0]:.10f}; loss |diff| {e['loss']:.2e}; worst "
+          f"relative L2: gradient {e['gradient'][1]:.2e} "
+          f"({e['gradient'][0]}), buffer {e['buffer'][1]:.2e} "
+          f"({e['buffer'][0]}), parameter after the step "
+          f"{e['parameter'][1]:.2e} ({e['parameter'][0]})")
+    held = {}
+    for name, run in runs.items():
+        scale = max(g.norm().item() for g in run[1].values())
+        held[name] = max(run[1][n].norm().item() for n in zero) / scale
+    moved = max([(runs["card f64"][3][n] - runs["CPU f64"][3][n]).abs()
+                 .max().item() for n in zero]
+                + [(runs["card f64"][2][n] - runs["CPU f64"][2][n]).abs()
+                   .max().item() for n in means])
+    print(f"  the {len(zero)} depthwise blocks' batch-norm biases (exact "
+          f"gradient 0): gradient norm / largest gradient norm "
+          + ", ".join(f"{n} {v:.1e}" for n, v in held.items())
+          + f"; they and the {len(means)} running means after them (exact "
+          f"0) after the step: max |card - CPU| {moved:.1e}")
+    if not (e["loss"] <= STEP_LOSS_TOL
+            and e["gradient"][1] <= STEP_GRAD_REL_L2
+            and e["parameter"][1] <= STEP_GRAD_REL_L2
+            and e["buffer"][1] <= BN_REL_L2
+            and max(held.values()) < 1e-9 and moved < 1e-12):
+        raise AssertionError(f"whole ShuffleNetV2 step (f64, card vs CPU): "
+                             f"{e}, zero-gradient biases {held}, {moved}")
+    return e
+
+
+def nn_surface_phase(torch):
+    """Every case of ``tools/nn_surface_cases.py``, the 36 functionals and
+    44 layers of the last nn slice (the recurrent layers as 2-layer
+    bidirectional GRU and SimpleRNN with ``sequence_length``), on the card
+    against the CPU: outputs, input gradients and parameter gradients
+    within EAGER_F32, TF32 off; ``SpectralNorm`` raises on both, and the
+    cells derive from ``RNNCellBase``."""
+    import numpy as np
+
+    from paddle_tpu_torch import nn
+    from tools.nn_surface_cases import FUNCTIONALS, LAYERS, cases, run
+
+    todo = cases()
+    print(f"[nn surface] {len(todo)} cases of {len(FUNCTIONALS)} functionals "
+          f"and {len(LAYERS)} layers on the card against the CPU, f32 "
+          f"forward and backward (TF32 off)")
+    worst = (0.0, None)
+    with tf32_off(torch):
+        for case in todo:
+            got, want = run(torch, case, "cuda"), run(torch, case, "cpu")
+            if len(got) != len(want):
+                raise AssertionError(f"[nn surface] {case[1]}: {len(got)} "
+                                     f"arrays on the card, {len(want)}")
+            for a, b in zip(got, want):
+                np.testing.assert_allclose(a, b, err_msg=case[1],
+                                           **EAGER_F32)
+                if b.size and np.abs(a - b).max() > worst[0]:
+                    worst = (float(np.abs(a - b).max()), case[1])
+    try:
+        nn.SpectralNorm([4, 3])
+    except NotImplementedError:
+        pass
+    else:
+        raise AssertionError("SpectralNorm did not raise")
+    if not all(issubclass(c, nn.RNNCellBase) for c in
+               (nn.SimpleRNNCell, nn.GRUCell, nn.LSTMCell)):
+        raise AssertionError("a cell does not derive from RNNCellBase")
+    print(f"  {len(todo)} cases matched the CPU (largest |card - CPU| "
+          f"{worst[0]:.2e} in {worst[1]}); SpectralNorm raises; the cells "
+          f"derive from RNNCellBase")
+    return len(todo)
 
 
 def _sign_free(name, arrs):
@@ -5526,9 +5794,19 @@ def main() -> int:
     whole_step_resnet(torch, K)
     gc.collect()
     torch.cuda.empty_cache()
+    t_slice = time.monotonic()
     zoo = vision_zoo_phase(torch, K)
+    t_zoo = time.monotonic() - t_slice
     gc.collect()
     torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    shufflenet = shufflenet_training_phase(torch, K)
+    gc.collect()
+    torch.cuda.empty_cache()
+    whole_step_shufflenet(torch, K)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_slice = time.monotonic() - t0
 
     lenet = hapi_lenet_phase(torch, K)
     hapi_resnet = hapi_resnet_phase(torch, K)
@@ -5548,14 +5826,20 @@ def main() -> int:
     eager_autograd_phase(torch)
     gc.collect()
     torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    nn_surface_phase(torch)
+    t_slice += time.monotonic() - t0
+    print(f"[nn slice phases] {t_slice:.1f} s ([shufflenet], [whole step "
+          f"shufflenet], [nn surface]); [vision zoo] with its three new "
+          f"models {t_zoo:.1f} s")
     t_deploy = time.monotonic()
     deploy = static_deploy_phases(torch, K)
     print(f"[static phases] {time.monotonic() - t_deploy:.1f} s "
           f"(to_static, jit, predictor, static ernie, static nn)")
     launches = {k: launches[k] + conformer[k] + rnnt[k] + encoder[k]
                 + varlen[k] + whisper[k] + whisper_train[k] + resnet[k]
-                + zoo[k] + lenet[k] + hapi_resnet[k] + densenet[k]
-                + deploy[k] for k in conformer}
+                + zoo[k] + shufflenet[k] + lenet[k] + hapi_resnet[k]
+                + densenet[k] + deploy[k] for k in conformer}
     # the head_dim-36 rows: the Conformer steps' launches of those kernels;
     # the head_dim-16 rows: the tiny ERNIE step's
     for name in ("flash_attention_dropout", "flash_attention_bwd_dropout"):

@@ -1,6 +1,6 @@
 """Convolution functionals (counterpart of
-``paddle_tpu/nn/functional/conv.py``; ports ``conv1d``, ``conv2d`` and
-``conv3d``).
+``paddle_tpu/nn/functional/conv.py``): ``conv1d``, ``conv2d``,
+``conv3d`` and their transposes.
 
 The reference computes convolutions with XLA's ``conv_general_dilated``,
 in no Pallas kernel of its own, so the port's counterpart is PyTorch's
@@ -11,6 +11,16 @@ or nested), Paddle's nested pair per dim of ``x`` (batch and channel pairs
 zeros, placed by ``data_format``), or ``"SAME"`` / ``"VALID"``; ``data_format`` channels first
 (``"NCL"``, ``"NCHW"``) or last (``"NLC"``, ``"NHWC"``). Convolutions are
 on amp's white list: under ``auto_cast`` they compute in the amp dtype.
+
+The transposes keep the reference's arithmetic, which is not Paddle's
+(ROADMAP R16): ``lax.conv_general_dilated`` over the stride-dilated input
+with the ``[in, out / groups, *k]`` weight NOT flipped, padded
+``dilation * (k - 1) - padding`` before and that plus ``output_padding``
+after (XLA's own pads for ``"SAME"`` / ``"VALID"``, which it takes at
+stride 1 only), and ``output_size`` ignored. That is PyTorch's
+``conv_transpose*d`` with the spatially flipped weight: the port runs it
+unpadded and pads or crops the result to the reference's window, then
+adds the bias. Under ``auto_cast`` they follow ``torch.autocast``.
 """
 from __future__ import annotations
 
@@ -19,7 +29,8 @@ import torch.nn.functional as TF
 
 from ...amp import cast_for
 
-__all__ = ["conv1d", "conv2d", "conv3d"]
+__all__ = ["conv1d", "conv2d", "conv3d", "conv1d_transpose",
+           "conv2d_transpose", "conv3d_transpose"]
 
 _CHANNELS_LAST = ("NLC", "NWC", "NHWC", "NDHWC")
 
@@ -122,3 +133,69 @@ def conv3d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
     C]``) with ``weight`` ``[out, C / groups, kd, kh, kw]``."""
     return _conv(x, weight, bias, stride, padding, dilation, groups, 3,
                  data_format)
+
+
+def _conv_transpose(x, weight, bias, stride, padding, output_padding,
+                    dilation, groups, n, data_format):
+    channels_last = data_format in _CHANNELS_LAST
+    if channels_last:
+        x = x.movedim(-1, 1)
+    st, dl = _tuple(stride, n), _tuple(dilation, n)
+    op = _tuple(output_padding, n) if output_padding else (0,) * n
+    full = [dl[i] * (weight.shape[2 + i] - 1) for i in range(n)]
+    if isinstance(padding, str):        # XLA's pads of the undilated input
+        if any(s != 1 for s in st):
+            raise ValueError(f"conv{n}d_transpose: padding {padding!r} "
+                             f"with stride {st}: the reference's XLA "
+                             f"convolution takes string padding at stride "
+                             f"1 only")
+        if padding.upper() == "VALID":
+            pads = [(0, 0)] * n
+        elif padding.upper() == "SAME":
+            pads = [(e // 2, e - e // 2) for e in full]
+        else:
+            raise ValueError(f"conv{n}d_transpose: unknown padding "
+                             f"{padding!r}")
+    else:
+        pads = [(e - a, e - b + o) for e, (a, b), o in
+                zip(full, _pad_pairs(padding, n, data_format), op)]
+    conv_t = (TF.conv_transpose1d, TF.conv_transpose2d,
+              TF.conv_transpose3d)[n - 1]
+    out = conv_t(x, weight.flip(list(range(2, 2 + n))), None, st, 0, 0,
+                 groups, dl)
+    # the unpadded transpose pads full[i] a side; pad or crop to pads[i]
+    out = TF.pad(out, [p - e for (lo, hi), e in zip(reversed(pads),
+                                                    reversed(full))
+                       for p in (lo, hi)])
+    if bias is not None:
+        out = out + bias.reshape([1, -1] + [1] * n)
+    return out.movedim(1, -1) if channels_last else out
+
+
+def conv1d_transpose(x, weight, bias=None, stride=1, padding=0,
+                     output_padding=0, groups=1, dilation=1,
+                     output_size=None, data_format="NCL", name=None):
+    """The reference's 1-D transposed convolution of ``x`` ``[N, C, L]``
+    with ``weight`` ``[C, out / groups, k]`` (module docstring: no flip,
+    ``output_size`` ignored)."""
+    return _conv_transpose(x, weight, bias, stride, padding, output_padding,
+                           dilation, groups, 1, data_format)
+
+
+def conv2d_transpose(x, weight, bias=None, stride=1, padding=0,
+                     output_padding=0, groups=1, dilation=1,
+                     output_size=None, data_format="NCHW", name=None):
+    """The reference's 2-D transposed convolution of ``x`` ``[N, C, H, W]``
+    with ``weight`` ``[C, out / groups, kh, kw]`` (module docstring)."""
+    return _conv_transpose(x, weight, bias, stride, padding, output_padding,
+                           dilation, groups, 2, data_format)
+
+
+def conv3d_transpose(x, weight, bias=None, stride=1, padding=0,
+                     output_padding=0, groups=1, dilation=1,
+                     output_size=None, data_format="NCDHW", name=None):
+    """The reference's 3-D transposed convolution of ``x`` ``[N, C, D, H,
+    W]`` with ``weight`` ``[C, out / groups, kd, kh, kw]`` (module
+    docstring)."""
+    return _conv_transpose(x, weight, bias, stride, padding, output_padding,
+                           dilation, groups, 3, data_format)

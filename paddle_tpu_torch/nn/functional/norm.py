@@ -1,6 +1,7 @@
 """Normalisation functionals (counterpart of
 ``paddle_tpu/nn/functional/norm.py``; ports ``rms_norm``, ``layer_norm``,
-``batch_norm``, ``group_norm`` and ``instance_norm``)."""
+``batch_norm``, ``group_norm``, ``instance_norm`` and
+``local_response_norm``)."""
 from __future__ import annotations
 
 import torch
@@ -10,7 +11,7 @@ from ...kernels.layernorm import layernorm
 from ...kernels.rmsnorm import rmsnorm
 
 __all__ = ["layer_norm", "rms_norm", "batch_norm", "group_norm",
-           "instance_norm"]
+           "instance_norm", "local_response_norm"]
 
 
 def rms_norm(x, weight=None, epsilon=1e-6, axis=-1, name=None):
@@ -128,3 +129,18 @@ def group_norm(x, num_groups, epsilon=1e-5, weight=None, bias=None,
     var = (xg - mean).square().mean(axes, keepdim=True)
     out = ((xg - mean) / torch.sqrt(var + epsilon)).reshape(x.shape)
     return _affine(out, weight, bias)
+
+
+def local_response_norm(x, size, alpha=1e-4, beta=0.75, k=1.0,
+                        data_format="NCHW", name=None):
+    """``x / (k + alpha * S / size) ** beta``, ``S`` the sum of ``x^2`` over
+    a window of ``size`` channels, padded ``(size // 2, size - size // 2 -
+    1)`` on the channel axis (axis 1, whatever ``data_format`` says, as in
+    the reference)."""
+    half = size // 2
+    sq = x.square().movedim(1, -1)
+    padded = torch.nn.functional.pad(sq, (half, size - half - 1)).movedim(
+        -1, 1)
+    c = x.shape[1]
+    acc = sum(padded[:, i:i + c] for i in range(size))
+    return x / (k + alpha * acc / size) ** beta

@@ -1,6 +1,8 @@
-"""Normalisation layers (counterpart of ``paddle_tpu/nn/layers/norm.py``;
-ports ``LayerNorm``, ``RMSNorm``, ``BatchNorm``, ``BatchNorm1D``,
-``BatchNorm2D`` and ``BatchNorm3D``). Each builds on
+"""Normalisation layers (counterpart of ``paddle_tpu/nn/layers/norm.py``):
+``LayerNorm``, ``RMSNorm``, the batch norms (``SyncBatchNorm`` is batch
+norm on one process, as in the reference), ``GroupNorm``, the instance
+norms and ``LocalResponseNorm``; ``SpectralNorm`` raises as the
+reference's does. Each builds on
 ``cuda`` unless ``device="cpu"`` (``core.resolve_device``: with no card
 and no device named, construction raises)."""
 from __future__ import annotations
@@ -10,11 +12,14 @@ from torch import nn
 
 from ...amp import cast_for
 from ...core import resolve_device
-from ..functional.norm import batch_norm, layer_norm, rms_norm
+from ..functional.norm import (batch_norm, group_norm, instance_norm,
+                               layer_norm, local_response_norm, rms_norm)
 from ..layer import Layer
 
 __all__ = ["LayerNorm", "RMSNorm", "BatchNorm", "BatchNorm1D", "BatchNorm2D",
-           "BatchNorm3D"]
+           "BatchNorm3D", "SyncBatchNorm", "GroupNorm", "InstanceNorm1D",
+           "InstanceNorm2D", "InstanceNorm3D", "LocalResponseNorm",
+           "SpectralNorm"]
 
 
 class LayerNorm(Layer):
@@ -141,3 +146,109 @@ class BatchNorm2D(_BatchNormBase):
 
 class BatchNorm3D(_BatchNormBase):
     _default_format = "NCDHW"
+
+
+class SyncBatchNorm(_BatchNormBase):
+    """Batch norm whose statistics would span every process. On one
+    process it is ``BatchNorm``; with ``torch.distributed`` initialised
+    over more than one rank it raises, as the reference does in eager
+    multi-process execution, rather than normalise with local statistics
+    (cross-process statistics are not implemented)."""
+
+    def forward(self, x):
+        dist = torch.distributed
+        if (self.training and dist.is_available() and dist.is_initialized()
+                and dist.get_world_size() > 1):
+            raise NotImplementedError(
+                "SyncBatchNorm: multi-process execution would compute LOCAL "
+                "batch statistics; cross-process statistics are not "
+                "implemented")
+        return super().forward(x)
+
+    @classmethod
+    def convert_sync_batchnorm(cls, layer):
+        """Every batch norm under ``layer`` made a ``SyncBatchNorm`` in
+        place (its parameters, buffers and settings kept)."""
+        for sub in layer.children():
+            if isinstance(sub, _BatchNormBase):
+                sub.__class__ = cls
+            else:
+                cls.convert_sync_batchnorm(sub)
+        return layer
+
+
+class GroupNorm(Layer):
+    """``F.group_norm`` over NC... inputs with a per-channel ``weight`` (1)
+    and ``bias`` (0), each dropped by ``weight_attr`` / ``bias_attr``
+    False."""
+
+    def __init__(self, num_groups, num_channels, epsilon=1e-5,
+                 weight_attr=None, bias_attr=None, data_format="NCHW",
+                 name=None, *, device=None, dtype=torch.float32):
+        super().__init__()
+        self._num_groups, self._epsilon = num_groups, epsilon
+        kw = dict(device=resolve_device(device), dtype=dtype)
+        self.weight = (None if weight_attr is False else nn.Parameter(
+            torch.ones(num_channels, **kw)))
+        self.bias = (None if bias_attr is False else nn.Parameter(
+            torch.zeros(num_channels, **kw)))
+
+    def forward(self, x):
+        return group_norm(x, self._num_groups, self._epsilon, self.weight,
+                          self.bias)
+
+    def extra_repr(self):
+        return f"num_groups={self._num_groups}, epsilon={self._epsilon}"
+
+
+class _InstanceNormBase(Layer):
+    """``F.instance_norm`` with the reference's parameter names: ``scale``
+    (1) and ``bias`` (0)."""
+
+    def __init__(self, num_features, epsilon=1e-5, momentum=0.9,
+                 weight_attr=None, bias_attr=None, data_format="NCHW",
+                 name=None, *, device=None, dtype=torch.float32):
+        super().__init__()
+        self._epsilon = epsilon
+        kw = dict(device=resolve_device(device), dtype=dtype)
+        self.scale = (None if weight_attr is False else nn.Parameter(
+            torch.ones(num_features, **kw)))
+        self.bias = (None if bias_attr is False else nn.Parameter(
+            torch.zeros(num_features, **kw)))
+
+    def forward(self, x):
+        return instance_norm(x, weight=self.scale, bias=self.bias,
+                             eps=self._epsilon)
+
+
+class InstanceNorm1D(_InstanceNormBase):
+    pass
+
+
+class InstanceNorm2D(_InstanceNormBase):
+    pass
+
+
+class InstanceNorm3D(_InstanceNormBase):
+    pass
+
+
+class LocalResponseNorm(Layer):
+    def __init__(self, size, alpha=1e-4, beta=0.75, k=1.0,
+                 data_format="NCHW", name=None):
+        super().__init__()
+        self.size, self.alpha, self.beta, self.k = size, alpha, beta, k
+
+    def forward(self, x):
+        return local_response_norm(x, self.size, self.alpha, self.beta,
+                                   self.k)
+
+
+class SpectralNorm(Layer):
+    """Not implemented, as in the reference: constructing one raises."""
+
+    def __init__(self, weight_shape, dim=0, power_iters=1, eps=1e-12,
+                 dtype="float32"):
+        super().__init__()
+        raise NotImplementedError(
+            "SpectralNorm layer: use nn.utils.spectral_norm")

@@ -6,7 +6,8 @@ numpy only, on CHW float arrays, so they run in loader workers.
 of the triangle kernel at ``(out + 0.5) / scale - 0.5``, widened by
 ``1 / scale`` when shrinking, each output's weights normalised to sum 1
 (``jax._src.image.scale.compute_weight_mat``), the weights computed in
-float64 and applied in float32. ``torch.nn.functional.interpolate`` does
+float64 and applied in float32 (``nn.functional.common.resize_weights``,
+which ``F.interpolate`` builds on). ``torch.nn.functional.interpolate`` does
 not antialias and differs when it shrinks. ``RandomCrop`` and
 ``RandomHorizontalFlip`` act on the last two axes and draw from numpy's
 global ``np.random``, as the reference's do.
@@ -14,6 +15,8 @@ global ``np.random``, as the reference's do.
 from __future__ import annotations
 
 import numpy as np
+
+from ..nn.functional.common import resize_weights
 
 __all__ = ["Compose", "ToTensor", "Normalize", "Resize", "CenterCrop",
            "RandomCrop", "RandomHorizontalFlip", "Transpose"]
@@ -57,21 +60,6 @@ class Normalize:
         return (np.asarray(img, np.float32) - self.mean) / self.std
 
 
-def _resize_weights(n_in, n_out):
-    """``[n_in, n_out]`` bilinear weights with jax's antialias."""
-    scale = n_out / n_in
-    inv = 1.0 / scale
-    kernel_scale = max(inv, 1.0)
-    sample = (np.arange(n_out, dtype=np.float64) + 0.5) * inv - 0.5
-    x = np.abs(sample[None, :] - np.arange(n_in, dtype=np.float64)[:, None])
-    w = np.maximum(0.0, 1.0 - x / kernel_scale)
-    total = w.sum(axis=0, keepdims=True)
-    w = np.where(np.abs(total) > 1000.0 * float(np.finfo(np.float32).eps),
-                 w / np.where(total != 0, total, 1), 0.0)
-    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
-    return np.where(inside[None, :], w, 0.0).astype(np.float32)
-
-
 class Resize:
     """Bilinear resize of the last two axes of a CHW (or HW) array to
     ``size``, as ``jax.image.resize`` computes it (module docstring)."""
@@ -86,7 +74,7 @@ class Resize:
             n_in = out.shape[axis]
             if n_in == n_out:
                 continue
-            w = _resize_weights(n_in, n_out)
+            w = resize_weights(n_in, n_out, "linear").astype(np.float32)
             out = np.moveaxis(np.tensordot(out, w, axes=([axis], [0])),
                               -1, axis)
         return np.ascontiguousarray(out)

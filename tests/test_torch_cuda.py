@@ -105,6 +105,15 @@ bf16: the counters move inside the ops, the design is bf16's sm90 and
 f32's mma, outputs at the kernels' tolerances above; a small ERNIE
 through ``jit.StaticFunction`` launches what its eager forward does, its
 f32 logits (TF32 off) within 1e-4 relative L2.
+
+The last nn slice: every case of ``tools/nn_surface_cases.py`` (the 36
+functionals and 44 layers it added; the recurrent layers as 2-layer
+bidirectional GRU and SimpleRNN with ``sequence_length``) on the card
+against the CPU, outputs and gradients, f32 with TF32 off, rtol 1e-4 and
+atol 1e-5 (the card's convolutions and GEMMs sum in another order); an
+O1 step of ShuffleNetV2 and one of GoogLeNet (main loss plus 0.3 x each
+auxiliary head's) launch exactly one softmax-CE forward and backward a
+head: 1 / 1 and 3 / 3.
 """
 import math
 
@@ -2089,3 +2098,57 @@ def test_to_static_ernie_launches_in_its_program(gen):
     counts = K.launch_counts()
     assert counts["layernorm"] == 5 and counts["flash_attention"] == 2
     assert ((got - want).norm() / want.norm()).item() <= 1e-4
+
+
+def _surface_cases():
+    from tools.nn_surface_cases import cases
+
+    return cases()
+
+
+@pytest.mark.parametrize("index", range(len(_surface_cases())))
+def test_nn_surface_case_on_the_card_matches_the_cpu(gen, index):
+    from tools.nn_surface_cases import run
+
+    case = _surface_cases()[index]
+    prev = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        got = run(torch, case, "cuda")
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = prev
+    want = run(torch, case, "cpu")
+    assert len(got) == len(want), case[1]
+    for a, b in zip(got, want):
+        torch.testing.assert_close(torch.from_numpy(a), torch.from_numpy(b),
+                                   rtol=1e-4, atol=1e-5, msg=case[1])
+
+
+@pytest.mark.parametrize("name,heads,size", [("shufflenet_v2_x1_0", 1, 224),
+                                             ("googlenet", 3, 224)])
+def test_vision_o1_step_launches_one_softmax_ce_a_head(gen, name, heads,
+                                                       size):
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.nn.functional import cross_entropy
+    from paddle_tpu_torch.vision import models
+
+    model = getattr(models, name)(generator=gen)
+    x = torch.randn(4, 3, size, size, device="cuda", generator=gen)
+    y = torch.randint(0, 1000, (4, 1), device="cuda", generator=gen)
+    K.reset_launch_counts()
+    with amp.auto_cast(level="O1"):
+        out = model(x)
+        if heads == 1:
+            loss = cross_entropy(out, y)
+        else:
+            loss = cross_entropy(out[0], y) + 0.3 * (
+                cross_entropy(out[1], y) + cross_entropy(out[2], y))
+    loss.backward()
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in K.launch_counts().items() if v}
+    assert launched == {"softmax_ce": heads, "softmax_ce_bwd": heads}
+    assert math.isfinite(loss.item())
+    assert all(torch.isfinite(p.grad).all() for p in model.parameters())

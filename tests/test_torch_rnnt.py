@@ -175,7 +175,8 @@ def test_lstm_init_and_a_custom_cell_takes_the_step_loop():
             self.inner = inner
 
         def get_initial_states(self, x, batch_dim_idx=0):
-            return self.inner.get_initial_states(x, batch_dim_idx)
+            return self.inner.get_initial_states(
+                x, batch_dim_idx=batch_dim_idx)
 
         def forward(self, x, states):
             return self.inner(x, states)

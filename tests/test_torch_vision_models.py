@@ -6,7 +6,9 @@ Each model's eval forward (dropout off, batch norms on their running
 buffers) of a seeded batch: LeNet at 2 x 1 x 28 x 28, AlexNet at 64 px
 (its three stride-2 pools need 63), VGG-11 (10 classes) and the
 MobileNets at 32 px and narrow scales, logits within atol = rtol = 1e-4
-(XLA and torch sum in different orders). MobileNetV1 at scale 0.25 also
+(XLA and torch sum in different orders); SqueezeNet 1.1 at 48 px and
+ShuffleNetV2 x0.25 at 32 px too (``tests/test_torch_vision_zoo_rest.py``
+holds the other variants of the last four families). MobileNetV1 at scale 0.25 also
 takes a training-mode forward and backward (depthwise convolutions,
 batch statistics; it has no dropout) in f64, with every gradient and the
 buffers after the step (tolerances in its test).
@@ -24,6 +26,7 @@ from paddle_tpu_torch.nn import functional as TF
 from paddle_tpu_torch.vision.models import resnet_flops_per_image
 from paddle_tpu_torch.vision.models.mobilenetv2 import _make_divisible
 from tests.test_torch_vision_resnet import _tgrads, rel_l2
+from tests.test_torch_vision_zoo_rest import numpy_init
 
 torch.set_num_threads(2)
 TOL = dict(atol=1e-4, rtol=1e-4)
@@ -40,6 +43,10 @@ ZOO = {
                      dict(scale=0.35, num_classes=10), (2, 3, 32, 32)),
     "mobilenet_v3_small": (J.mobilenet_v3_small, T.mobilenet_v3_small,
                            dict(scale=0.5, num_classes=10), (2, 3, 32, 32)),
+    "squeezenet1_1": (J.squeezenet1_1, T.squeezenet1_1,
+                      dict(num_classes=10), (2, 3, 48, 48)),
+    "shufflenet_v2_x0_25": (J.shufflenet_v2_x0_25, T.shufflenet_v2_x0_25,
+                            dict(num_classes=10), (2, 3, 32, 32)),
 }
 
 
@@ -113,9 +120,14 @@ def test_zoo_parameter_names_and_shapes_are_the_reference():
     reference's state dict names and shapes, linear weights transposed)."""
     builds = [(J.mobilenet_v3_large, T.mobilenet_v3_large, {}),
               (J.mobilenet_v2, T.mobilenet_v2, {}),
-              (J.mobilenet_v1, T.mobilenet_v1, {})]
+              (J.mobilenet_v1, T.mobilenet_v1, {}),
+              (J.shufflenet_v2_x1_0, T.shufflenet_v2_x1_0, {}),
+              (J.squeezenet1_0, T.squeezenet1_0, {}),
+              (J.googlenet, T.googlenet, {}),
+              (J.inception_v3, T.inception_v3, {})]
     for jbuild, tbuild, kw in builds:
-        jm = jbuild(**kw)
+        with numpy_init():
+            jm = jbuild(**kw)
         tm = tbuild(**kw, device="cpu")
         want = {n: tuple(p.shape) for n, p in jm.named_parameters()}
         want.update({n: tuple(b.shape) for n, b in jm.named_buffers()})
