@@ -329,7 +329,9 @@ CUDA toolkit (``nvcc``). It imports nothing of JAX or of ``paddle_tpu``.
     the CPU.
 34. The static-graph and deployment path (``static_deploy_phases``):
     ERNIE-3.0-Base sequence classification (2 classes, eval, seeded
-    weights) in f32 (TF32 off) and bf16, unmasked token ids ``[32, 128]``,
+    weights) in f32 (TF32 off; the model cut to STATIC_F32_LAYERS layers,
+    which saves ~40 s of inductor compile) and bf16 (all 12 layers),
+    unmasked token ids ``[32, 128]``,
     ``[1, 128]`` and ``[8, 64]``. ``[to_static ernie]``: ``jit.to_static``
     compiled with inductor (compile seconds printed); ``[jit ernie]``:
     ``jit.save`` with a ``[None, None]`` int64 spec, ``jit.load`` serving
@@ -338,12 +340,13 @@ CUDA toolkit (``nvcc``). It imports nothing of JAX or of ``paddle_tpu``.
     the handle workflow (``share_external_data`` without a copy,
     ``copy_from_cpu`` / ``copy_to_cpu``) and a ``clone()`` on a second
     stream; ``[static ernie]``: the model on ``static.data("input_ids",
-    [None, 128])`` through ``Executor.run`` (one compile), then
+    [None, 128])`` through ``Executor.run`` (one compile, f32 at
+    STATIC_F32_LAYERS layers), then
     ``save_inference_model`` and a predictor over it. Each run is held in
     f32 to STATIC_F32_REL_L2 of the eager f32 forward, in bf16 to
     STATIC_BF16_RATIO x the eager bf16 forward's own error, and to
-    exactly 12 flash launches (sm90 in bf16, mma in f32) and 25 LayerNorm
-    launches a forward. ``[static timing]`` prints, unheld, ms a batch at
+    exactly L flash launches (sm90 in bf16, mma in f32) and 2 L + 1
+    LayerNorm launches a forward at depth L. ``[static timing]`` prints, unheld, ms a batch at
     batch 1 and sequences/s at batch 32 for eager, ``to_static`` and the
     predictor, with device busy against host wall. ``[static nn]``:
     ``static.nn``'s builders, ``cond``, ``while_loop`` and ``gradients`` on
@@ -371,6 +374,37 @@ CUDA toolkit (``nvcc``). It imports nothing of JAX or of ``paddle_tpu``.
     ``sequence_length``) on the card against the CPU, forward and
     backward, f32, TF32 off, within EAGER_F32. The three phases' seconds
     are printed (``[nn slice phases]``).
+38. ``[compiled kernels]`` (after the static phases): every registered op
+    of ``kernels/library.py`` inside a small ``jit.to_static(backend=
+    "aot_eager")`` program on the card, forward and backward
+    (``torch.func.grad`` inside the program), against the eager launches
+    of the same inputs, bit for bit, with exactly one launch of each
+    kernel counted inside the ops: flash causal, with a bool mask and with
+    dropout at an explicit seed (which the program hands the kernels as a
+    device tensor), varlen, paged attention, RMSNorm, softmax-CE, CTC and
+    RNN-T; flash dropout without a seed drops different masks in two calls
+    of one program.
+39. ``[to_static llama]``: Llama-2 at ``llama_7b()`` widths cut to
+    LLAMA_DEPLOY_LAYERS layers, bf16, eval, through ``jit.to_static``
+    (inductor) at LLAMA_DEPLOY_SHAPES and ``jit.save`` / ``jit.load`` with
+    a ``[None, None]`` int64 spec serving both shapes from one artifact:
+    each within STATIC_BF16_RATIO x the eager bf16 forward's error against
+    the eager f32 one, exactly 2 L + 1 RMSNorm and L flash (sm90) launches
+    a forward; ``[llama deploy timing]`` ms a forward of eager,
+    ``to_static`` and ``jit.load``.
+40. ``[static llama grad]``: a static Program over the same model with
+    ``static.gradients`` of the next-token softmax-CE with respect to
+    every parameter, one compiled ``Executor.run``: every gradient within
+    STATIC_GRAD_REL_L2 of eager autograd's, the RMSNorm, flash and
+    softmax-CE forward and backward kernels launched as ops.
+41. ``[ernie lamb]``: ERNIE-3.0-Base MLM, 16 x 512, O1, Lamb over
+    OneCycleLR with global-norm clipping, LAMB_STEPS steps on one
+    repeated batch: losses finite and falling, ERNIE_PER_STEP launches a
+    step, step wall, the Lamb update's wall, peak memory.
+42. ``[optimizers]``: Adagrad, RMSProp (and centered), Adadelta, Adamax,
+    Lamb, AdamW with ``lr_ratio`` / ``apply_decay_param_fun`` and LBFGS
+    with and without its line search, 5 steps each on the card against
+    the CPU, f32, TF32 off, within OPTIMIZERS_F32.
 
 Flash design: bf16 at every head width whose rows TMA reads (16-byte head
 rows, or the Conformer's 8-byte rows of 36 inside 16-byte token rows)
@@ -394,7 +428,8 @@ the no-cache forward, the 5 Llama training steps, the ERNIE steps, the
 Conformer-CTC and the RNN-T steps, the encoder steps, the
 ``F.flash_attn_unpadded`` call, the Whisper ``generate`` and its
 teacher-forced forward, the Whisper training steps, the ResNet-50
-training steps, the zoo's steps, the ShuffleNetV2 steps, the two
+training steps, the zoo's steps, the ShuffleNetV2 steps, the Llama
+deploy forwards and the static gradient program, the Lamb steps, the two
 ``Model.fit`` phases (fits and
 evaluations), the DenseNet-121 steps and the static-graph path's held
 forwards (the ``_d36`` rows: the Conformer steps'
@@ -407,6 +442,7 @@ prints no result.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
 import json
 import math
@@ -600,9 +636,30 @@ STATIC_BATCHES = ((32, 128), (1, 128))
 STATIC_EXTRA = (8, 64)
 STATIC_F32_REL_L2 = 1e-4
 STATIC_BF16_RATIO = 3.0
-STATIC_PER_FORWARD = {"flash_attention": 12, "layernorm": 25}
+# the f32 deploy pairs run ERNIE cut to STATIC_F32_LAYERS layers (their
+# inductor compile took 51 s at 12), bf16 the full 12
+STATIC_F32_LAYERS = 2
+STATIC_PER_FORWARD = {
+    n: {"flash_attention": n, "layernorm": 2 * n + 1}
+    for n in (STATIC_F32_LAYERS, 12)}
 STATIC_TIMED = {1: 50, 32: 20}     # calls per median, by batch
 STATIC_NN_F32 = dict(rtol=1e-4, atol=1e-5)
+# Llama-2 at 7B widths deployed as one compiled / exported program and
+# differentiated as one static program; depth cut to fit the smoke's time
+LLAMA_DEPLOY_LAYERS = 2
+LLAMA_DEPLOY_SHAPES = ((1, 512), (4, 512))
+LLAMA_DEPLOY_PER_FORWARD = {"rmsnorm": 2 * LLAMA_DEPLOY_LAYERS + 1,
+                            "flash_attention": LLAMA_DEPLOY_LAYERS}
+LLAMA_DEPLOY_TIMED = 20            # calls per median
+STATIC_GRAD_REL_L2 = 5e-2          # the [whole step] gradient limit
+STATIC_GRAD_KERNELS = ("rmsnorm", "rmsnorm_bwd", "flash_attention",
+                       "flash_attention_bwd", "softmax_ce", "softmax_ce_bwd")
+# the rest of the optimizer surface: ERNIE-3.0-Base pretraining with Lamb
+# over OneCycleLR; the new optimizers card vs CPU (elementwise f32 updates;
+# Lamb's norms and LBFGS's dots sum in another order on the card)
+LAMB_STEPS = 10
+LAMB_MAX_LR = 2e-3
+OPTIMIZERS_F32 = dict(rtol=1e-5, atol=1e-6)
 # The flash rows in bf16 run the wgmma / TMA kernels (the sm90 design; the
 # head_dim-16 rows' bf16 sub-rows name their class group's source); the
 # head_dim-16 rows' main entry, f32, the CUDA-core ones (the mma design)
@@ -5322,10 +5379,13 @@ def _static_held(torch, K, what, fn, x, want, ref16, dtype, totals):
     """``fn(x)`` once with the launch counters zeroed: its output against
     the eager f32 forward ``want`` (f32: STATIC_F32_REL_L2; bf16:
     STATIC_BF16_RATIO x ``ref16``, the eager bf16 forward's error), and
-    exactly STATIC_PER_FORWARD launches, every flash one of the design of
+    exactly the STATIC_PER_FORWARD launches of its depth (f32:
+    STATIC_F32_LAYERS layers, bf16: 12), every flash one of the design of
     ``dtype`` (bf16: sm90, f32: mma). Adds the counts to ``totals``;
     returns the output and the call's wall seconds (a first call compiles)."""
     design = "sm90" if dtype == torch.bfloat16 else "mma"
+    per_forward = STATIC_PER_FORWARD[
+        12 if dtype == torch.bfloat16 else STATIC_F32_LAYERS]
     K.reset_launch_counts()
     t0 = time.monotonic()
     with torch.no_grad(), tf32_off(torch):
@@ -5338,7 +5398,7 @@ def _static_held(torch, K, what, fn, x, want, ref16, dtype, totals):
     err = rel_l2(out.float(), want)
     limit = (STATIC_F32_REL_L2 if dtype == torch.float32
              else STATIC_BF16_RATIO * ref16)
-    launched = {k: counts[k] for k in STATIC_PER_FORWARD}
+    launched = {k: counts[k] for k in per_forward}
     print(f"  {what} {tuple(x.shape)}: relative L2 {err:.3e} vs eager f32 "
           f"(limit {limit:.3e}), launches {launched}, "
           f"flash_attention_{design} {counts[f'flash_attention_{design}']}, "
@@ -5346,10 +5406,11 @@ def _static_held(torch, K, what, fn, x, want, ref16, dtype, totals):
     if not (torch.isfinite(out).all() and out.shape == (x.shape[0], 2)
             and err <= limit):
         raise AssertionError(f"{what}: output off by {err} (limit {limit})")
-    if launched != STATIC_PER_FORWARD or \
-            counts[f"flash_attention_{design}"] != 12:
+    if launched != per_forward or \
+            counts[f"flash_attention_{design}"] != \
+            per_forward["flash_attention"]:
         raise AssertionError(f"{what}: launches {counts}, want "
-                             f"{STATIC_PER_FORWARD} of the {design} design")
+                             f"{per_forward} of the {design} design")
     return out, wall
 
 
@@ -5416,30 +5477,38 @@ def static_deploy_phases(torch, K):
     os.makedirs(art)
     cfg = ernie_base()
     f32, bf16 = torch.float32, torch.bfloat16
-    models = {f32: ErnieForSequenceClassification(cfg, device="cuda",
-                                                  seed=0).eval()}
+    full32 = ErnieForSequenceClassification(cfg, device="cuda",
+                                            seed=0).eval()
+    models = {f32: ErnieForSequenceClassification(
+        dataclasses.replace(cfg, num_hidden_layers=STATIC_F32_LAYERS),
+        device="cuda", seed=0).eval()}
     models[bf16] = ErnieForSequenceClassification(
         cfg, device="cuda", dtype=bf16, seed=0).eval()
-    models[bf16].set_state_dict(models[f32].state_dict())
+    models[bf16].set_state_dict(full32.state_dict())
     gen = torch.Generator(device="cuda").manual_seed(15)
     shapes = (*STATIC_BATCHES, STATIC_EXTRA)
     ids = {s: torch.randint(5, cfg.vocab_size, s, device="cuda",
                             generator=gen) for s in shapes}
     with torch.no_grad(), tf32_off(torch):
-        want = {s: models[f32](x).float() for s, x in ids.items()}
-        ref16 = {s: rel_l2(models[bf16](x).float(), want[s])
+        # each dtype against its own depth's eager f32 forward
+        want = {(dt, s): m(x).float() for dt, m in ((f32, models[f32]),
+                                                    (bf16, full32))
+                for s, x in ids.items()}
+        ref16 = {s: rel_l2(models[bf16](x).float(), want[bf16, s])
                  for s, x in ids.items()}
+    del full32
     print(f"[to_static ernie] ERNIE-3.0-Base classification, "
-          f"{sum(p.numel() for p in models[f32].parameters()) / 1e6:.1f} M "
-          f"parameters, unmasked batches {list(shapes)}; eager bf16 vs f32 "
+          f"{sum(p.numel() for p in models[bf16].parameters()) / 1e6:.1f} M "
+          f"parameters (bf16; the f32 pairs cut to {STATIC_F32_LAYERS} "
+          f"layers), unmasked batches {list(shapes)}; eager bf16 vs f32 "
           f"relative L2 "
           + ", ".join(f"{s}: {e:.3e}" for s, e in ref16.items())
           + f"; {card_line()}")
     totals = {k: 0 for k in K.LAUNCHES}
 
     def held(what, fn, s, dt):
-        return _static_held(torch, K, what, fn, ids[s], want[s], ref16[s],
-                            dt, totals)
+        return _static_held(torch, K, what, fn, ids[s], want[dt, s],
+                            ref16[s], dt, totals)
 
     big, one = STATIC_BATCHES
     xs = {1: ids[one], 32: ids[big]}
@@ -5484,7 +5553,7 @@ def static_deploy_phases(torch, K):
     subprocess.run([sys.executable, "-c", child], check=True, timeout=600,
                    cwd=here)
     got = torch.as_tensor(np.load(out_path), device="cuda")
-    err = rel_l2(got, want[STATIC_EXTRA])
+    err = rel_l2(got, want[bf16, STATIC_EXTRA])
     limit = STATIC_BF16_RATIO * ref16[STATIC_EXTRA]
     print(f"  fresh process (imports paddle_tpu_torch only) "
           f"{STATIC_EXTRA}: relative L2 {err:.3e} vs eager f32 (limit "
@@ -5522,7 +5591,7 @@ def static_deploy_phases(torch, K):
     p0.get_input_handle("input_0").copy_from_cpu(ids[big].cpu().numpy())
     p0.run()
     host = p0.get_output_handle("output_0").copy_to_cpu()
-    err = rel_l2(torch.as_tensor(host, device="cuda"), want[big])
+    err = rel_l2(torch.as_tensor(host, device="cuda"), want[bf16, big])
     clone, side = p0.clone(), torch.cuda.Stream()
     with torch.cuda.stream(side):
         held("predictor clone bf16 (second stream)", handles(clone), one,
@@ -5536,7 +5605,8 @@ def static_deploy_phases(torch, K):
                                         handles(p0), xs)
 
     print(f"[static ernie] static.data('input_ids', [None, 128]), "
-          f"Executor.run (compiled, bf16), save_inference_model and a "
+          f"Executor.run (compiled, f32 at {STATIC_F32_LAYERS} layers), "
+          f"save_inference_model and a "
           f"predictor over it (the exported graph, f32 and bf16); "
           f"{card_line()}")
     for dt, m in models.items():
@@ -5546,9 +5616,10 @@ def static_deploy_phases(torch, K):
             logits = m(x)
         exe = static.Executor()
         name = str(dt)[6:]
-        if dt == bf16:
-            # the compiled route is held once, in bf16 (to_static holds the
-            # compiled f32 forward); each compile of ERNIE-Base costs ~25 s
+        if dt == f32:
+            # the compiled route is held once, in f32 at STATIC_F32_LAYERS
+            # layers (to_static and the predictor hold the compiled 12-layer
+            # bf16 forward, whose every compile costs 25-47 s)
             def run(v, exe=exe, prog=main_prog, logits=logits):
                 return exe.run(prog, feed={"input_ids": v},
                                fetch_list=[logits], return_numpy=False)[0]
@@ -5648,6 +5719,546 @@ def static_nn_phase(torch):
           f"card vs CPU max |diff| {worst:.3e} (rtol "
           f"{STATIC_NN_F32['rtol']:g}, atol {STATIC_NN_F32['atol']:g}); "
           f"compiles {runs['cuda'][2]._trace_count}")
+
+
+def llama_deploy_model(torch, cfg, dtype, state=None):
+    """``LlamaForCausalLM`` at ``cfg``, eval, on the card: seeded random
+    weights, or ``state`` (a Paddle state dict) cast to ``dtype``."""
+    from paddle_tpu_torch.models import LlamaForCausalLM
+
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    model = LlamaForCausalLM(cfg, device="cuda", dtype=dtype, generator=gen)
+    if state is not None:
+        model.set_state_dict(state)
+    return model.eval()
+
+
+def _median_ms(torch, fn, x, n):
+    with torch.no_grad():
+        fn(x)
+        torch.cuda.synchronize()
+        ts = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            fn(x)
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0) * 1e3)
+    return sorted(ts)[n // 2]
+
+
+def llama_deploy_phase(torch, K):
+    """``[to_static llama]``: Llama-2 at 7B widths (``llama_7b()``, depth
+    cut to LLAMA_DEPLOY_LAYERS), bf16, eval, seeded weights, through
+    ``jit.to_static`` (inductor) at each of LLAMA_DEPLOY_SHAPES, then
+    ``jit.save`` with a ``[None, None]`` int64 spec and ``jit.load``
+    serving both shapes from the one artifact. Each forward within
+    STATIC_BF16_RATIO x the eager bf16 forward's own error against the
+    eager f32 one (TF32 off), with exactly LLAMA_DEPLOY_PER_FORWARD
+    launches (sm90 flash). Prints eager / to_static / jit.load ms a
+    forward (median of LLAMA_DEPLOY_TIMED). Returns the held runs'
+    launches, the bf16 model and its ids."""
+    import shutil
+
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.models import llama_7b
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    art = os.path.join(here, "paddle_tpu_torch", "csrc", "build",
+                       "artifacts_llama")
+    shutil.rmtree(art, ignore_errors=True)
+    os.makedirs(art)
+    cfg = llama_7b()
+    cfg.num_hidden_layers = LLAMA_DEPLOY_LAYERS
+    m32 = llama_deploy_model(torch, cfg, torch.float32)
+    m16 = llama_deploy_model(torch, cfg, torch.bfloat16, m32.state_dict())
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    ids = {s: torch.randint(0, cfg.vocab_size, s, device="cuda",
+                            generator=gen) for s in LLAMA_DEPLOY_SHAPES}
+    with torch.no_grad(), tf32_off(torch):
+        want = {s: m32(x).float() for s, x in ids.items()}
+        ref16 = {s: rel_l2(m16(x).float(), want[s]) for s, x in ids.items()}
+    del m32
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[to_static llama] LlamaForCausalLM at llama_7b() widths (hidden "
+          f"4096, 32 heads of 128, FFN 11008, vocab 32000), depth cut to "
+          f"{LLAMA_DEPLOY_LAYERS} layers (of 32) to fit the smoke's time, "
+          f"bf16, eval, seeded weights, "
+          f"{m16.num_params() / 1e6:.1f} M parameters; ids "
+          f"{list(LLAMA_DEPLOY_SHAPES)}; eager bf16 vs f32 relative L2 "
+          + ", ".join(f"{s}: {e:.3e}" for s, e in ref16.items())
+          + f"; {card_line()}")
+    totals = {k: 0 for k in K.LAUNCHES}
+
+    def held(what, fn, s):
+        K.reset_launch_counts()
+        t0 = time.monotonic()
+        with torch.no_grad():
+            out = fn(ids[s])
+            torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        counts = K.launch_counts()
+        for k, v in counts.items():
+            totals[k] += v
+        err = rel_l2(out.float(), want[s])
+        limit = STATIC_BF16_RATIO * ref16[s]
+        launched = {k: counts[k] for k in LLAMA_DEPLOY_PER_FORWARD}
+        print(f"  {what} {s}: relative L2 {err:.3e} vs eager f32 (limit "
+              f"{limit:.3e}), launches {launched}, flash_attention_sm90 "
+              f"{counts['flash_attention_sm90']}, {wall:.2f} s")
+        if not (torch.isfinite(out).all() and err <= limit
+                and tuple(out.shape) == (*s, cfg.vocab_size)):
+            raise AssertionError(f"{what} {s}: off by {err} (limit {limit})")
+        if launched != LLAMA_DEPLOY_PER_FORWARD or \
+                counts["flash_attention_sm90"] != LLAMA_DEPLOY_LAYERS:
+            raise AssertionError(f"{what} {s}: launches {counts}, want "
+                                 f"{LLAMA_DEPLOY_PER_FORWARD} (sm90)")
+
+    sf = jit.StaticFunction(m16)
+    for s in LLAMA_DEPLOY_SHAPES:
+        held("to_static bf16 (compile + first call)", sf, s)
+    prefix = os.path.join(art, "llama")
+    t0 = time.monotonic()
+    jit.save(m16, prefix, input_spec=[([None, None], "int64")])
+    print(f"  jit.save: {time.monotonic() - t0:.1f} s, .pdmodel "
+          f"{os.path.getsize(prefix + '.pdmodel') / 1e6:.2f} MB, .pdiparams "
+          f"{os.path.getsize(prefix + '.pdiparams') / 1e6:.1f} MB")
+    loaded = jit.load(prefix)
+    for s in LLAMA_DEPLOY_SHAPES:
+        held("jit.load bf16 (one artifact)", loaded, s)
+    timing = {name: {f"{s[0]}x{s[1]}": _median_ms(torch, fn, ids[s],
+                                                  LLAMA_DEPLOY_TIMED)
+                     for s in LLAMA_DEPLOY_SHAPES}
+              for name, fn in (("eager", m16), ("to_static", sf),
+                               ("jit.load", loaded))}
+    print("[llama deploy timing] ms a forward (median of "
+          f"{LLAMA_DEPLOY_TIMED}): " + json.dumps(timing)
+          + f"; {card_line()}")
+    shutil.rmtree(art, ignore_errors=True)
+    return totals, m16, ids
+
+
+def llama_static_grad_phase(torch, K, model, ids):
+    """``[static llama grad]``: a ``static`` Program over the bf16 model of
+    ``[to_static llama]`` on ``static.data("ids", [None, S])``, the mean
+    softmax-CE of the next token (labels the ids shifted by one) and
+    ``static.gradients`` of it with respect to every parameter, fetched
+    through ``Executor.run`` (one compiled program, inductor). Every
+    gradient within STATIC_GRAD_REL_L2 of eager autograd's on the card;
+    the kernels of STATIC_GRAD_KERNELS each launched inside the program.
+    Returns the compiled run's launches."""
+    from paddle_tpu_torch import jit, static
+    from paddle_tpu_torch.nn import functional as F
+
+    x = ids[LLAMA_DEPLOY_SHAPES[-1]]
+    V = model.config.vocab_size
+
+    def loss_of(logits, tok):
+        return F.cross_entropy(logits[:, :-1].reshape([-1, V]),
+                               tok[:, 1:].reshape([-1]))
+
+    params = list(model.parameters())
+    for p in params:
+        p.grad = None
+    loss = loss_of(model(x), x)
+    loss.backward()
+    want = [torch.Tensor.detach(p.grad).clone() for p in params]
+    want_loss = loss.item()
+    for p in params:
+        p.grad = None
+    main = static.Program()
+    t0 = time.monotonic()
+    with static.program_guard(main):
+        tok = static.data("ids", [None, x.shape[1]], "int64")
+        target = loss_of(model(tok), tok)
+        grads = static.gradients([target], params)
+    build = time.monotonic() - t0
+    exe = static.Executor()
+    K.reset_launch_counts()
+    t0 = time.monotonic()
+    outs = exe.run(main, feed={"ids": x}, fetch_list=[target, *grads],
+                   return_numpy=False)
+    torch.cuda.synchronize()
+    first = time.monotonic() - t0
+    counts = K.launch_counts()
+    t0 = time.monotonic()
+    exe.run(main, feed={"ids": x}, fetch_list=[target, *grads],
+            return_numpy=False)
+    torch.cuda.synchronize()
+    again = (time.monotonic() - t0) * 1e3
+    errs = [rel_l2(g.float(), w.float()) for g, w in zip(outs[1:], want)]
+    worst = max(range(len(errs)), key=errs.__getitem__)
+    names = [n for n, _ in model.named_parameters()]
+    launched = {k: counts[k] for k in STATIC_GRAD_KERNELS}
+    print(f"[static llama grad] static.data('ids', [None, {x.shape[1]}]), "
+          f"mean softmax-CE of the next token, static.gradients w.r.t. all "
+          f"{len(params)} parameters, Executor.run ({jit.DEFAULT_BACKEND}) at "
+          f"{tuple(x.shape)}; the model of [to_static llama]; "
+          f"{card_line()}")
+    print(f"  loss {outs[0].item():.6f} (eager {want_loss:.6f}); gradients "
+          f"vs eager autograd: worst relative L2 {errs[worst]:.3e} "
+          f"({names[worst]}; limit {STATIC_GRAD_REL_L2:g}), median "
+          f"{sorted(errs)[len(errs) // 2]:.3e}; launches {launched}; "
+          f"build {build:.1f} s, compile + first run {first:.1f} s, a "
+          f"second run {again:.1f} ms; compiles {exe._trace_count}")
+    if not errs[worst] <= STATIC_GRAD_REL_L2 or \
+            not abs(outs[0].item() - want_loss) <= 1e-2 * abs(want_loss):
+        raise AssertionError(f"static gradients off: {errs[worst]} at "
+                             f"{names[worst]}")
+    if not all(launched.values()) or exe._trace_count != 1:
+        raise AssertionError(f"static llama grad: launches {launched}, "
+                             f"compiles {exe._trace_count}")
+    del outs, want
+    return counts
+
+
+def _compiled_case(torch, K, jit, name, fn, args, eager_fn, want_counts,
+                   exact=True, tol=None):
+    """``fn(*args)`` through ``jit.to_static(backend="aot_eager")`` against
+    ``eager_fn(*args)`` (the eager launches, direct): each output bitwise
+    equal (``exact``) or within ``tol`` (atol, rtol), and the program's
+    launches exactly ``want_counts``. Returns the largest difference."""
+    prog = jit.to_static(fn, backend="aot_eager")
+    K.reset_launch_counts()
+    got = prog(*args)
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    want = eager_fn(*args)
+    torch.cuda.synchronize()
+    worst = 0.0
+    for a, b in zip(got, want):
+        a, b = torch.Tensor.detach(a), torch.Tensor.detach(b)
+        if exact and not torch.equal(a, b):
+            raise AssertionError(f"[compiled kernels] {name}: the compiled "
+                                 f"program's bits differ from eager's")
+        d = (a.float() - b.float()).abs().max().item() if a.numel() else 0.0
+        if not exact and not d <= tol[0] + tol[1] * b.float().abs().max():
+            raise AssertionError(f"[compiled kernels] {name}: off by {d}")
+        worst = max(worst, d)
+    moved = {k: counts[k] for k in want_counts}
+    print(f"  {name}: {'bitwise equal' if exact else f'max |diff| {worst:.3e}'}"
+          f" to eager; launches in the program {moved}")
+    if moved != want_counts:
+        raise AssertionError(f"[compiled kernels] {name}: launches {counts}, "
+                             f"want {want_counts}")
+    return worst
+
+
+def compiled_kernels_phase(torch, K):
+    """``[compiled kernels]``: every registered op in a small
+    ``jit.to_static(backend="aot_eager")`` program on the card, held
+    against the eager launches of the same inputs, bitwise (every kernel
+    here is deterministic: no atomics, fixed-order sums), the counters
+    moving inside the ops: flash forward and backward (rows 1, 2; causal
+    and a bool mask, rows 1a / 2a; dropout with an explicit seed, which
+    the program reads as a device tensor), varlen (1b / 2b), paged
+    attention (3), RMSNorm (4 / 5), softmax-CE (6 / 7), CTC (9 / 10),
+    RNN-T (11 / 12); then dropout without a seed: two calls of one
+    program drop different masks. Backward rows run as
+    ``torch.func.grad`` inside the program, against ``backward()``."""
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.kernels import ctc as C
+    from paddle_tpu_torch.kernels import flash_attention as F
+    from paddle_tpu_torch.kernels import paged_attention as P
+    from paddle_tpu_torch.kernels import rnnt as R
+    from paddle_tpu_torch.kernels.rmsnorm import rmsnorm
+    from paddle_tpu_torch.kernels.softmax_ce import softmax_ce
+
+    t0 = time.monotonic()
+    print(f"[compiled kernels] every registered op in a to_static "
+          f"(aot_eager) program vs its eager launch; {card_line()}")
+    g = torch.Generator(device="cuda").manual_seed(20)
+    bf = torch.bfloat16
+
+    def rnd(*shape, dtype=bf):
+        return torch.randn(*shape, device="cuda", generator=g).to(dtype)
+
+    def with_grads(f, n):
+        """``f``'s outputs and the gradients of ``sum(out0 * cot)`` w.r.t.
+        its first ``n`` arguments, through ``torch.func.grad`` (the
+        program: one forward, its outputs as the aux) and ``backward()``
+        (eager)."""
+        def program(*a):
+            *xs, cot = a
+
+            def loss(*d):
+                # an alias of each grad input: see static._GradNode
+                outs = f(*(t.view_as(t) for t in d), *xs[n:])
+                return (outs[0].float() * cot).sum(), outs
+
+            grads, outs = torch.func.grad(loss, argnums=tuple(range(n)),
+                                          has_aux=True)(*xs[:n])
+            return (*outs, *grads)
+
+        def eager(*a):
+            *xs, cot = a
+            leaves = [x.detach().requires_grad_() for x in xs[:n]]
+            outs = f(*leaves, *xs[n:])
+            (outs[0].float() * cot).sum().backward()
+            return (*(o.detach() for o in outs),
+                    *(x.grad for x in leaves))
+        return program, eager
+
+    # flash, dense: causal, bool mask, dropout with an explicit seed
+    q, k, v = rnd(2, 256, 8, 128), rnd(2, 256, 8, 128), rnd(2, 256, 8, 128)
+    mask = torch.rand(2, 1, 256, 256, device="cuda", generator=g) > 0.2
+    cot = rnd(2, 256, 8, 128, dtype=torch.float32)
+    for name, kw, counts in (
+            ("flash causal (rows 1 / 2)", dict(causal=True),
+             {"flash_attention": 1, "flash_attention_bwd": 1}),
+            ("flash bool mask (rows 1a / 2a)", dict(mask=mask),
+             {"flash_attention_mask": 1, "flash_attention_bwd_mask": 1}),
+            ("flash dropout 0.1, seed 1234", dict(dropout_p=0.1, seed=1234),
+             {"flash_attention_dropout": 1,
+              "flash_attention_bwd_dropout": 1})):
+        prog, eager = with_grads(
+            lambda q_, k_, v_, kw=kw: F.flash_attention_fwd(q_, k_, v_,
+                                                            **kw), 3)
+        _compiled_case(torch, K, jit, name, prog, (q, k, v, cot), eager,
+                       counts)
+    drop = jit.to_static(
+        lambda q_: F.flash_attention_fwd(q_, q_, q_, dropout_p=0.1)[0],
+        backend="aot_eager")
+    a, b = drop(q), drop(q)
+    if torch.equal(a, b):
+        raise AssertionError("[compiled kernels] compiled dropout drew the "
+                             "same mask twice")
+    print(f"  flash dropout without a seed: two calls of one program differ "
+          f"in {(a != b).float().mean().item() * 100:.1f} % of outputs")
+    # varlen: 4 documents in 1024 tokens, causal, max_seqlen given
+    cu = torch.tensor([0, 300, 317, 800, 1024], device="cuda",
+                      dtype=torch.int32)
+    vq, vk, vv = (rnd(1024, 8, 128) for _ in range(3))
+    vcot = rnd(1024, 8, 128, dtype=torch.float32)
+    prog, eager = with_grads(
+        lambda q_, k_, v_, c: F.flash_attn_varlen(
+            q_, k_, v_, c, c, causal=True, max_seqlen_q=483,
+            max_seqlen_k=483), 3)
+    _compiled_case(torch, K, jit, "flash varlen (rows 1b / 2b)", prog,
+                   (vq, vk, vv, cu, vcot), eager,
+                   {"flash_attention_varlen": 1,
+                    "flash_attention_bwd_varlen": 1})
+    # paged attention: 4 slots, bs 16, 32 heads of 128
+    pool = rnd(4 * 64 + 1, 2, 32, 16, 128)
+    pq = rnd(4, 32, 128)
+    bt = (torch.randperm(256, device="cuda", generator=g) + 1).reshape(
+        4, 64).to(torch.int32)
+    ctx = torch.tensor([1, 17, 1000, 513], device="cuda", dtype=torch.int32)
+    paged = lambda *a: (P.paged_attention(*a),)
+    _compiled_case(torch, K, jit, "paged attention (row 3)", paged,
+                   (pq, pool, bt, ctx), paged, {"paged_attention": 1})
+    # RMSNorm and softmax-CE, forward and backward
+    x, w = rnd(512, 4096), 1 + 0.1 * rnd(4096)
+    prog, eager = with_grads(lambda x_, w_: (rmsnorm(x_, w_, 1e-5),), 2)
+    _compiled_case(torch, K, jit, "rmsnorm (rows 4 / 5)", prog,
+                   (x, w, rnd(512, 4096, dtype=torch.float32)), eager,
+                   {"rmsnorm": 1, "rmsnorm_bwd": 1})
+    logits = rnd(512, 32000)
+    labels = torch.randint(0, 32000, (512,), device="cuda", generator=g)
+    prog, eager = with_grads(lambda l_, y: (softmax_ce(l_, y),), 1)
+    _compiled_case(torch, K, jit, "softmax-CE (rows 6 / 7)", prog,
+                   (logits, labels, rnd(512, dtype=torch.float32)), eager,
+                   {"softmax_ce": 1, "softmax_ce_bwd": 1})
+    # CTC and RNN-T lattices
+    lp, lbl, il, ll = ctc_batch(torch, 200, 4, 64, 20, 21, "cuda")
+    prog, eager = with_grads(
+        lambda lp_, *r: (C.ctc_lattice(lp_, *r, 0),), 1)
+    _compiled_case(torch, K, jit, "CTC (rows 9 / 10)", prog,
+                   (lp, lbl, il, ll, rnd(4, dtype=torch.float32)), eager,
+                   {"ctc_alpha": 1, "ctc_beta": 1})
+    blank, emit, tl, ul = rnnt_lattices(torch, 4, 100, 17, (60, 100),
+                                        (8, 16), 22)
+    prog, eager = with_grads(
+        lambda b_, e_, *r: (R.rnnt_lattice(b_, e_, *r),), 2)
+    _compiled_case(torch, K, jit, "RNN-T (rows 11 / 12)", prog,
+                   (blank, emit, tl, ul, rnd(4, dtype=torch.float32)), eager,
+                   {"rnnt_alpha": 1, "rnnt_beta_grad": 1})
+    print(f"  [compiled kernels] {time.monotonic() - t0:.1f} s")
+
+
+def ernie_lamb_phase(torch, K):
+    """``[ernie lamb]``: ERNIE-3.0-Base MLM at its published width and depth,
+    16 x 512, f32 parameters under ``auto_cast(O1, bf16)``, ``Lamb``
+    (lamb_weight_decay 0.01, biases and norms excluded) over
+    ``OneCycleLR`` with ``ClipGradByGlobalNorm(1.0)``, the large-batch
+    pretraining optimizer of BERT / ERNIE (You et al. 2019), a warm-up step
+    and LAMB_STEPS timed ones on one repeated seeded batch: losses finite
+    and falling, ERNIE_PER_STEP launches a step; step wall (mean), the
+    Lamb update's wall (one more step, split), peak memory. Returns the
+    timed steps' launches."""
+    from paddle_tpu_torch import amp, framework
+    from paddle_tpu_torch.models import ErnieForMaskedLM, ernie_base
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.optimizer import Lamb, OneCycleLR
+
+    B, S = 16, 512
+    cfg = ernie_base()
+    print(f"[ernie lamb] ERNIE-3.0-Base MLM (12 layers, hidden 768, vocab "
+          f"40000, dropout 0.1 / 0.1), batch {B} x {S}, f32 params under "
+          f"auto_cast(O1, bf16), Lamb (lamb_weight_decay 0.01, 1-D "
+          f"parameters excluded) over OneCycleLR(max {LAMB_MAX_LR:g}, "
+          f"{LAMB_STEPS + 2} steps), ClipGradByGlobalNorm(1.0); "
+          f"{card_line()}")
+    framework.seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    model = ErnieForMaskedLM(cfg, seed=0)
+    sched = OneCycleLR(max_learning_rate=LAMB_MAX_LR,
+                       total_steps=LAMB_STEPS + 2)
+    opt = Lamb(learning_rate=sched, lamb_weight_decay=0.01,
+               parameters=model.parameters(),
+               grad_clip=ClipGradByGlobalNorm(1.0),
+               exclude_from_weight_decay_fn=lambda p: p.dim() == 1)
+    x, y = ernie_batch(torch, B, S, cfg.vocab_size, 1, "cuda")
+
+    def forward_backward():
+        with amp.auto_cast(level="O1", dtype="bfloat16"):
+            loss = mlm_loss(F, model, x, y)
+        loss.backward()
+        return loss
+
+    def step():
+        loss = forward_backward()
+        opt.step()
+        opt.clear_grad()
+        sched.step()
+        return loss
+
+    t0 = time.monotonic()
+    losses = [step().item()]                      # warm-up
+    print(f"  warm-up step {time.monotonic() - t0:.2f} s, loss "
+          f"{losses[0]:.4f}")
+    K.reset_launch_counts()
+    walls = []
+    for _ in range(LAMB_STEPS):
+        t0 = time.monotonic()
+        losses.append(step().item())
+        torch.cuda.synchronize()
+        walls.append(time.monotonic() - t0)
+    counts = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    # one more step, split: forward + backward, then clipping and Lamb
+    forward_backward()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    opt.step()
+    torch.cuda.synchronize()
+    update_ms = (time.monotonic() - t0) * 1e3
+    opt.clear_grad()
+    print(f"  losses {[round(v, 4) for v in losses]}")
+    per_step = {k: counts[k] / LAMB_STEPS for k in ERNIE_PER_STEP}
+    mean = sum(walls) / len(walls)
+    print(f"  step wall {mean * 1e3:.1f} ms (mean of {LAMB_STEPS}, min "
+          f"{min(walls) * 1e3:.1f}), {B * S / mean:.0f} tokens/s; clip + "
+          f"Lamb update {update_ms:.1f} ms (one step, host clock around "
+          f"synchronised calls); peak memory {peak / 2 ** 30:.2f} GiB; "
+          f"launches per step {per_step}")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite Lamb loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the Lamb loss did not fall: {losses}")
+    if per_step != {k: float(v) for k, v in ERNIE_PER_STEP.items()}:
+        raise AssertionError("the Lamb steps launched other kernels than "
+                             "the model's structure gives")
+    del model, opt
+    return counts
+
+
+def _optimizer_runs(torch, device):
+    """Each optimizer the last optimizer slice added, 5 steps on seeded f32
+    parameters and gradients on ``device``; LBFGS 5 steps of at most 4
+    iterations on a seeded quadratic of f32 parameters, with and without
+    its line search.
+    Returns {name: [parameter arrays]}."""
+    import numpy as np
+
+    from paddle_tpu_torch import optimizer as O
+    from paddle_tpu_torch.core.tensor import Parameter
+
+    shapes = ((64, 48), (48,), ())
+
+    def params(seed=0):
+        rng = np.random.RandomState(seed)
+        return [Parameter(torch.as_tensor(
+            np.asarray(rng.randn(*s), dtype=np.float32), device=device),
+            name=n) for n, s in zip(("weight", "bias", "scale"), shapes)]
+
+    makes = {
+        "Adagrad": lambda ps: O.Adagrad(0.1, parameters=ps,
+                                        initial_accumulator_value=0.1),
+        "RMSProp": lambda ps: O.RMSProp(0.01, rho=0.9, momentum=0.5,
+                                        parameters=ps),
+        "RMSProp centered": lambda ps: O.RMSProp(
+            0.01, rho=0.9, momentum=0.5, centered=True, epsilon=1e-4,
+            parameters=ps),
+        "Adadelta": lambda ps: O.Adadelta(1.0, rho=0.9, parameters=ps),
+        "Adamax": lambda ps: O.Adamax(0.02, parameters=ps),
+        "Lamb": lambda ps: O.Lamb(0.05, parameters=ps),
+        "AdamW lr_ratio, apply_decay_param_fun": lambda ps: O.AdamW(
+            0.05, weight_decay=0.1, parameters=ps,
+            lr_ratio=lambda p: 0.5 if p.dim() == 2 else 1.0,
+            apply_decay_param_fun=lambda n: n != "bias"),
+    }
+    out = {}
+    for name, make in makes.items():
+        ps = params()
+        opt = make(ps)
+        for s in range(5):
+            rng = np.random.RandomState(100 + s)
+            for p, shp in zip(ps, shapes):
+                p.grad = torch.as_tensor(
+                    np.asarray(rng.randn(*shp), dtype=np.float32),
+                    device=device)
+            opt.step()
+            opt.clear_grad()
+        out[name] = [p.detach().cpu().numpy() for p in ps]
+    # the quadratic's loss in f64 (x stays f32): near the minimiser the
+    # line search compares losses a few f32 ulps apart, and f32 sums on the
+    # card and the CPU round apart by an ulp, which flips its decisions
+    rng = np.random.RandomState(3)
+    a = rng.randn(32, 32)
+    A = torch.as_tensor((a @ a.T + 32 * np.eye(32)) / 32, device=device)
+    b = torch.as_tensor(rng.randn(32), device=device)
+    for search in (None, "strong_wolfe"):
+        x = Parameter(torch.zeros(32, device=device), name="x")
+        opt = O.LBFGS(1.0, max_iter=4, line_search_fn=search, parameters=[x])
+
+        def closure():
+            opt.clear_grad()
+            xd = x.double()
+            loss = 0.5 * (xd * (A @ xd)).sum() - (b * xd).sum()
+            loss.backward()
+            return loss
+
+        for _ in range(5):
+            opt.step(closure)
+        out[f"LBFGS {search}"] = [x.detach().cpu().numpy()]
+    return out
+
+
+def optimizers_phase(torch):
+    """``[optimizers]``: every optimizer the last optimizer slice added
+    (``_optimizer_runs``) on the card against the CPU, f32, TF32 off,
+    within OPTIMIZERS_F32 (elementwise updates; Lamb's norms and LBFGS's
+    dot products sum in another order on the card)."""
+    import numpy as np
+
+    t0 = time.monotonic()
+    with tf32_off(torch):
+        card = _optimizer_runs(torch, "cuda")
+        cpu = _optimizer_runs(torch, "cpu")
+    worst = {}
+    for name, arrays in card.items():
+        for got, want in zip(arrays, cpu[name]):
+            np.testing.assert_allclose(got, want, err_msg=name,
+                                       **OPTIMIZERS_F32)
+        worst[name] = max(float(np.abs(g - w).max())
+                          for g, w in zip(arrays, cpu[name]))
+    print(f"[optimizers] 5 steps on the card vs the CPU, f32, TF32 off "
+          f"(rtol {OPTIMIZERS_F32['rtol']:g}, atol "
+          f"{OPTIMIZERS_F32['atol']:g}): max |diff| "
+          + ", ".join(f"{n} {w:.2e}" for n, w in worst.items())
+          + f"; {time.monotonic() - t0:.1f} s; {card_line()}")
 
 
 def main() -> int:
@@ -5836,10 +6447,33 @@ def main() -> int:
     deploy = static_deploy_phases(torch, K)
     print(f"[static phases] {time.monotonic() - t_deploy:.1f} s "
           f"(to_static, jit, predictor, static ernie, static nn)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    seconds = {}
+
+    def timed(name, fn):
+        t = time.monotonic()
+        out = fn()
+        gc.collect()
+        torch.cuda.empty_cache()
+        seconds[name] = round(time.monotonic() - t, 1)
+        return out
+
+    timed("compiled kernels", lambda: compiled_kernels_phase(torch, K))
+    llama_deploy, model, llama_ids = timed(
+        "to_static llama", lambda: llama_deploy_phase(torch, K))
+    static_grad = timed("static llama grad", lambda: llama_static_grad_phase(
+        torch, K, model, llama_ids))
+    del model
+    lamb = timed("ernie lamb", lambda: ernie_lamb_phase(torch, K))
+    timed("optimizers", lambda: optimizers_phase(torch))
+    print(f"[compiled and optimizer phases] seconds {json.dumps(seconds)}, "
+          f"{sum(seconds.values()):.1f} s in all")
     launches = {k: launches[k] + conformer[k] + rnnt[k] + encoder[k]
                 + varlen[k] + whisper[k] + whisper_train[k] + resnet[k]
                 + zoo[k] + shufflenet[k] + lenet[k] + hapi_resnet[k]
-                + densenet[k] + deploy[k] for k in conformer}
+                + densenet[k] + deploy[k] + llama_deploy[k] + static_grad[k]
+                + lamb[k] for k in conformer}
     # the head_dim-36 rows: the Conformer steps' launches of those kernels;
     # the head_dim-16 rows: the tiny ERNIE step's
     for name in ("flash_attention_dropout", "flash_attention_bwd_dropout"):

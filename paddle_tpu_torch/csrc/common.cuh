@@ -192,11 +192,19 @@ __device__ __forceinline__ float drop_apply(float x, uint32_t krow, int j,
   return drop_keep(krow, j, thresh) ? x * rp : 0.f;
 }
 
-// the dropout arguments every flash kernel takes (unused when p = 0)
+// the dropout arguments every flash kernel takes (unused when p = 0). The
+// seed is `seed`, or the low 32 bits of the int64 at `seed_ptr` in device
+// memory where that is not null: a compiled program draws its seed on the
+// card each call, and the kernels read it there without a host sync.
 struct Drop {
   uint32_t seed, thresh;
   float rp;
+  const long long* seed_ptr;
 };
+
+__device__ __forceinline__ uint32_t drop_seed(const Drop& d) {
+  return d.seed_ptr ? static_cast<uint32_t>(*d.seed_ptr) : d.seed;
+}
 
 #define PTT_EXPORT_ERROR_STRING                                \
   extern "C" const char* ptt_error_string(int e) {               \

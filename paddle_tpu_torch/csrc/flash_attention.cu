@@ -118,7 +118,7 @@ __global__ void __launch_bounds__(NT)
 #pragma unroll
     for (int c = 0; c < ND; ++c) o[i][c] = 0.f;
     if constexpr (DROP)
-      krow[i] = drop_row_key(a.dr.seed, rw.dbh, rw.di0 + q0 + ty + 16 * i);
+      krow[i] = drop_row_key(drop_seed(a.dr), rw.dbh, rw.di0 + q0 + ty + 16 * i);
   }
 
   const int n_kt = (rw.Lk + T - 1) / T;
@@ -311,8 +311,8 @@ __global__ void __launch_bounds__(MMA_NT, mma_min_blocks<DP>())
   const int qrow[2] = {q0 + wr + g, q0 + wr + g + 8};
   uint32_t krow[2];
   if constexpr (DROP) {
-    krow[0] = drop_row_key(a.dr.seed, rw.dbh, rw.di0 + qrow[0]);
-    krow[1] = drop_row_key(a.dr.seed, rw.dbh, rw.di0 + qrow[1]);
+    krow[0] = drop_row_key(drop_seed(a.dr), rw.dbh, rw.di0 + qrow[0]);
+    krow[1] = drop_row_key(drop_seed(a.dr), rw.dbh, rw.di0 + qrow[1]);
   }
 
   for (int kt = 0; kt < n_kt; ++kt) {
@@ -518,20 +518,23 @@ PTT_EXPORT_ERROR_STRING
 // f32. Varlen (cu_q, cu_k int32 [B + 1] on the card): q/out [Tq, H, D], k/v
 // [Tk, Hkv, D], lse [H, Tq], Sq / Sk the longest sequence's lengths. D in
 // 1..256; chunk the bytes a bf16 row moves in. dropout != 0 applies dropout
-// with keep threshold `thresh` and rp = 1 / (1 - p) from the 32-bit `seed`.
+// with keep threshold `thresh` and rp = 1 / (1 - p) from the 32-bit `seed`,
+// or from the int64 at `seed_ptr` on the card where that is not null.
 // mask (uint8, or null) with element strides m_sb, m_sh, m_sq, m_sk over
 // (batch, query head, query, key); 0 on broadcast dims.
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* out, void* lse, int B,
     int H, int Hkv, int Sq, int Sk, int D, float scale, int causal, int dtype,
-    int dropout, uint32_t seed, uint32_t thresh, float rp, const void* mask,
+    int dropout, uint32_t seed, const void* seed_ptr, uint32_t thresh,
+    float rp, const void* mask,
     long long m_sb, long long m_sh, long long m_sq, long long m_sk,
     const void* cu_q, const void* cu_k, int Tq, int chunk, void* stream) {
   if (B == 0 || Sq == 0) return 0;
   if (D < 1 || D > 256) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const FlashArgs a{B, H, Hkv, Sq, Sk, D, scale, causal,
-                    Drop{seed, thresh, rp},
+                    Drop{seed, thresh, rp,
+                         static_cast<const long long*>(seed_ptr)},
                     static_cast<const uint8_t*>(mask), m_sb, m_sh, m_sq, m_sk,
                     static_cast<const int*>(cu_q),
                     static_cast<const int*>(cu_k), Tq, chunk};

@@ -123,7 +123,7 @@ __global__ void __launch_bounds__(NT)
     lr[i] = qi < rw.Lq ? lse[rw.lse0 + qi] : INFINITY;   // padding: p = 0
     gr[i] = qi < rw.Lq ? dg[rw.lse0 + qi] : 0.f;
     need |= flash_needs_hidden(lr[i]);
-    if constexpr (DROP) rk[i] = drop_row_key(a.dr.seed, rw.dbh, rw.di0 + qi);
+    if constexpr (DROP) rk[i] = drop_row_key(drop_seed(a.dr), rw.dbh, rw.di0 + qi);
 #pragma unroll
     for (int c = 0; c < ND; ++c) acc[i][c] = 0.f;
   }
@@ -295,7 +295,7 @@ __global__ void __launch_bounds__(NT)
         L_s[tid] = qi < rw.Lq ? lb[qi] : INFINITY;   // padding: p = 0
         G_s[tid] = qi < rw.Lq ? gb[qi] : 0.f;
         if constexpr (DROP)
-          R_s[tid] = drop_row_key(a.dr.seed, rw.dbh, rw.di0 + qi);
+          R_s[tid] = drop_row_key(drop_seed(a.dr), rw.dbh, rw.di0 + qi);
       }
       __syncthreads();
 
@@ -474,7 +474,7 @@ __global__ void __launch_bounds__(MMA_NT)
     gr[hi] = ok ? dg[rw.lse0 + qrow[hi]] : 0.f;
     need |= flash_needs_hidden(lr[hi]);
     if constexpr (DROP)
-      rk[hi] = drop_row_key(a.dr.seed, rw.dbh, rw.di0 + qrow[hi]);
+      rk[hi] = drop_row_key(drop_seed(a.dr), rw.dbh, rw.di0 + qrow[hi]);
   }
   float acc[NO][4];
 #pragma unroll
@@ -638,7 +638,7 @@ __global__ void __launch_bounds__(MMA_NT * dkv_split<DP>())
         L_s[tid] = qi < rw.Lq ? lb[qi] : INFINITY;   // padding: p = 0
         G_s[tid] = qi < rw.Lq ? gb[qi] : 0.f;
         if constexpr (DROP)
-          R_s[tid] = drop_row_key(a.dr.seed, rw.dbh, rw.di0 + qi);
+          R_s[tid] = drop_row_key(drop_seed(a.dr), rw.dbh, rw.di0 + qi);
       }
       __syncthreads();
 
@@ -814,13 +814,15 @@ extern "C" int flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* dg, void* dq, void* dk, void* dv, int B,
     int H, int Hkv, int Sq, int Sk, int D, float scale, int causal, int dtype,
-    int dropout, uint32_t seed, uint32_t thresh, float rp, const void* mask,
+    int dropout, uint32_t seed, const void* seed_ptr, uint32_t thresh,
+    float rp, const void* mask,
     long long m_sb, long long m_sh, long long m_sq, long long m_sk,
     const void* cu_q, const void* cu_k, int Tq, int chunk, void* stream) {
   if (B == 0 || Sq == 0 || Sk == 0) return 0;
   if (D < 1 || D > 256) return static_cast<int>(cudaErrorInvalidValue);
   const FlashArgs a{B, H, Hkv, Sq, Sk, D, scale, causal,
-                    Drop{seed, thresh, rp},
+                    Drop{seed, thresh, rp,
+                         static_cast<const long long*>(seed_ptr)},
                     static_cast<const uint8_t*>(mask), m_sb, m_sh, m_sq, m_sk,
                     static_cast<const int*>(cu_q),
                     static_cast<const int*>(cu_k), Tq, chunk};

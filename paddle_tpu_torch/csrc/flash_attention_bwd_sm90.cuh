@@ -294,7 +294,7 @@ __global__ void __launch_bounds__(NTH, dq_ctas<DP>())
       lb[hi] = lr[hi] * sm90::LOG2E;
       need |= flash_needs_hidden(lr[hi]);
       if constexpr (DROP)
-        rk[hi] = drop_row_key(a.dr.seed, rw.dbh, rw.di0 + row[hi]);
+        rk[hi] = drop_row_key(drop_seed(a.dr), rw.dbh, rw.di0 + row[hi]);
     }
     int n_own = 0;
     if (r0 < rw.Lq)
@@ -530,7 +530,7 @@ __global__ void __launch_bounds__(NTH, 1)
               rs.lse[r] = x;
               rs.dg[r] = ok ? dg[rw.lse0 + qi] : 0.f;
               if constexpr (DROP)
-                rs.krow[r] = drop_row_key(a.dr.seed, rw.dbh, rw.di0 + qi);
+                rs.krow[r] = drop_row_key(drop_seed(a.dr), rw.dbh, rw.di0 + qi);
               hidden |= flash_needs_hidden(x);
             }
             const int need = qt >= qt_lo || __any_sync(0xffffffffu, hidden);
@@ -844,7 +844,8 @@ int dispatch(const long long* geo, const CUtensorMap* m, const Tensors& x,
       const void* q, const void* k, const void* v, const void* dout,         \
       const void* lse, const void* dg, void* dq, void* dk, void* dv, int B,  \
       int H, int Hkv, int Sq, int Sk, int D, float scale, int causal,        \
-      int dropout, uint32_t seed, uint32_t thresh, float rp,                 \
+      int dropout, uint32_t seed, const void* seed_ptr, uint32_t thresh,    \
+      float rp,                                                              \
       const void* mask, long long m_sb, long long m_sh, long long m_sq,      \
       long long m_sk, const void* cu_q, const void* cu_k, int Tq,            \
       int chunk, const long long* geo, void* stream) {                       \
@@ -860,7 +861,8 @@ int dispatch(const long long* geo, const CUtensorMap* m, const Tensors& x,
       if (e) return e;                                                       \
     }                                                                        \
     const FlashArgs a{B, H, Hkv, Sq, Sk, D, scale, causal,                   \
-                      Drop{seed, thresh, rp},                                \
+                      Drop{seed, thresh, rp,                                 \
+                           static_cast<const long long*>(seed_ptr)},         \
                       static_cast<const uint8_t*>(mask), m_sb, m_sh, m_sq,   \
                       m_sk, static_cast<const int*>(cu_q),                   \
                       static_cast<const int*>(cu_k), Tq, chunk};             \

@@ -147,8 +147,8 @@ __global__ void __launch_bounds__(NTH, 1)
                 : n_kt;
   uint32_t krow[2] = {0, 0};
   if constexpr (DROP) {
-    krow[0] = drop_row_key(a.dr.seed, rw.dbh, rw.di0 + row[0]);
-    krow[1] = drop_row_key(a.dr.seed, rw.dbh, rw.di0 + row[1]);
+    krow[0] = drop_row_key(drop_seed(a.dr), rw.dbh, rw.di0 + row[0]);
+    krow[1] = drop_row_key(drop_seed(a.dr), rw.dbh, rw.di0 + row[1]);
   }
   const float sl2 = a.scale * sm90::LOG2E;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
@@ -315,7 +315,8 @@ PTT_EXPORT_ERROR_STRING
 extern "C" int flash_attention_sm90_fwd(
     const void* q, const void* k, const void* v, void* out, void* lse, int B,
     int H, int Hkv, int Sq, int Sk, int D, float scale, int causal,
-    int dropout, uint32_t seed, uint32_t thresh, float rp, const void* mask,
+    int dropout, uint32_t seed, const void* seed_ptr, uint32_t thresh,
+    float rp, const void* mask,
     long long m_sb, long long m_sh, long long m_sq, long long m_sk,
     const void* cu_q, const void* cu_k, int Tq, int chunk,
     const long long* geo, void* stream) {
@@ -330,7 +331,8 @@ extern "C" int flash_attention_sm90_fwd(
     if (e) return e;
   }
   const FlashArgs a{B, H, Hkv, Sq, Sk, D, scale, causal,
-                    Drop{seed, thresh, rp},
+                    Drop{seed, thresh, rp,
+                         static_cast<const long long*>(seed_ptr)},
                     static_cast<const uint8_t*>(mask), m_sb, m_sh, m_sq, m_sk,
                     static_cast<const int*>(cu_q),
                     static_cast<const int*>(cu_k), Tq, 16};

@@ -22,7 +22,9 @@ Here ``torch.compile`` is the tracer and compiler:
   (ROADMAP R14): the compiled path serves.
 - :func:`save` writes ``<prefix>.pdmodel`` (a ``torch.export`` archive of
   the eval forward, taking the parameters as inputs in Paddle's layouts;
-  ``None`` / ``-1`` dims of the input spec become ``torch.export.Dim``s),
+  ``None`` / ``-1`` dims of the input spec export as dynamic,
+  ``torch.export.Dim.DYNAMIC``, within the bounds the model itself sets,
+  such as Llama's position table),
   ``.pdmodel.txt`` (the program's text), ``.pdiparams`` (the reference's
   pickle ``{"params", "buffers", "in_shapes"}``: numpy arrays by Paddle's
   names and layouts, so either package's ``load(prefix, layer_cls=...)``
@@ -31,9 +33,8 @@ Here ``torch.compile`` is the tracer and compiler:
   program on the card (or where ``device=`` says) without the model's
   Python, or with ``layer_cls`` rebuilds the layer from ``.pdiparams``.
 
-Only flash attention's and LayerNorm's forward kernels are registered ops
-(``kernels/library.py``); a program that reaches another kernel raises
-``kernels.NotCompilable`` naming it.
+Every kernel launch is a registered op (``kernels/library.py``), so a
+program traces through each kernel, forward and backward, as one node.
 """
 from __future__ import annotations
 
@@ -50,7 +51,6 @@ from ..core.device import resolve_device
 from ..core.dtype import convert_dtype
 from ..core.tensor import Tensor, wrap
 from ..framework.io import load_pickle
-from ..kernels import NotCompilable
 from ..nn.layer import Layer, functional_call, functional_state
 
 __all__ = ["to_static", "StaticFunction", "save", "load", "TranslatedLayer",
@@ -110,20 +110,14 @@ def _wrap_out(out):
 
 def _dynamo_failure(e):
     """``(kind, exception)`` for an exception raised while Dynamo traced:
-    ``"kernel"`` where a kernel that is not registered was met (the
-    :class:`NotCompilable` raised inside), ``"user"`` for another exception
-    the traced code raised (its own diagnostics), ``"refused"`` where
-    Dynamo could not trace the code (data-dependent control flow and the
-    like), else ``None``."""
-    if isinstance(e, NotCompilable):
-        return "kernel", e
+    ``"user"`` for an exception the traced code raised (its own
+    diagnostics), ``"refused"`` where Dynamo could not trace the code
+    (data-dependent control flow and the like), else ``None``."""
     if not isinstance(e, torch._dynamo.exc.TorchDynamoException):
         return None, e
     c = e
     while c is not None:
         name = type(c).__name__
-        if name.startswith("Observed" + NotCompilable.__name__):
-            return "kernel", NotCompilable(_observed_message(c))
         if name.startswith("Observed") and name != "ObservedException":
             return "user", c
         c = c.__cause__ or c.__context__
@@ -131,14 +125,6 @@ def _dynamo_failure(e):
                       torch._dynamo.exc.UserError)):
         return "refused", e
     return None, e
-
-
-def _observed_message(c):
-    """The message of an exception Dynamo observed in the traced code
-    (its str is ``raised exception Cls("message")``)."""
-    text = str(c)
-    start, end = text.find('("'), text.rfind('")')
-    return text[start + 2:end] if 0 <= start < end else text
 
 
 def _first_line(e):
@@ -225,9 +211,7 @@ class StaticFunction:
             self._cache[key] = entry
             return _wrap_out(out)
         except Exception as e:       # noqa: BLE001 (classified below)
-            kind, exc = _dynamo_failure(e)
-            if kind == "kernel":
-                raise exc from None
+            kind, _ = _dynamo_failure(e)
             if kind != "refused" or entry.transform:
                 raise
         # Dynamo refused the Python (data-dependent control flow): rewrite
@@ -244,8 +228,6 @@ class StaticFunction:
             reason = e
         except Exception as e:       # noqa: BLE001 (classified below)
             kind, exc = _dynamo_failure(e)
-            if kind == "kernel":
-                raise exc from None
             if kind is None:
                 raise
             reason = exc
@@ -398,7 +380,8 @@ class _Program(torch.nn.Module):
 def _spec_example(spec, i, device):
     """An input spec -> ``(example tensor, {dim: Dim} | None, shape
     strings, dtype name)``: ``None`` / ``-1`` dims become
-    ``torch.export.Dim``s, traced at size 2."""
+    ``torch.export.Dim.DYNAMIC`` (export keeps the bounds the model sets,
+    as a slice of a position table does), traced at size 2."""
     if isinstance(spec, torch.Tensor):
         t = _plain(spec)
         return t, None, tuple(str(s) for s in t.shape), str(t.dtype)
@@ -413,7 +396,7 @@ def _spec_example(spec, i, device):
     dims, concrete, names = {}, [], []
     for j, s in enumerate(shape):
         if s is None or s == -1:
-            dims[j] = torch.export.Dim(f"in{i}_d{j}")
+            dims[j] = torch.export.Dim.DYNAMIC
             concrete.append(2)
             names.append(f"in{i}_d{j}")
         else:

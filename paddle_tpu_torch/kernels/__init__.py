@@ -15,10 +15,10 @@ whose backward is a kernel too; a raw ``*_cuda`` wrapper, which returns
 buffers a ctypes launch filled, raises when it is handed a tensor that
 requires grad while grad mode is on (:func:`refuse_grad`), so no output is
 ever cut from the autograd graph in silence. Inside a compiled or exported
-program the LayerNorm and flash forwards run as registered ops
-(``library.py``); every other launch raises :class:`NotCompilable` there
-(:func:`refuse_compile`), never running eagerly in silence. The kernels so
-far (the
+program, and on functorch's wrapped tensors (``torch.func.grad``, which
+``static.gradients`` replays through), every launch runs as a registered op
+(``library.py``, :func:`in_program`); eager calls launch directly. The
+kernels so far (the
 flash kernels count their dropout, bool-mask and varlen variants under
 their own names, so a run can show which variant its path took, and each
 launch once more under the design that ran it:
@@ -65,8 +65,7 @@ import contextlib
 import torch
 
 __all__ = ["LAUNCHES", "use_kernel", "refuse_grad", "plain_math",
-           "launch_counts", "reset_launch_counts", "NotCompilable",
-           "refuse_compile"]
+           "launch_counts", "reset_launch_counts", "in_program"]
 
 # launches per kernel since the last reset (plain ints)
 LAUNCHES: dict[str, int] = {
@@ -124,23 +123,16 @@ def refuse_grad(name: str, *tensors) -> None:
             f"torch.no_grad()")
 
 
-class NotCompilable(RuntimeError):
-    """A kernel launch met while ``torch.compile`` or ``torch.export``
-    traces, where the launch is not registered as an op."""
-
-
-def refuse_compile(name: str) -> None:
-    """Raise :class:`NotCompilable` naming kernel ``name`` while
-    ``torch.compile`` / ``torch.export`` traces: its ctypes launch cannot
-    be traced, and it is not one of the registered ops of
-    ``kernels/library.py`` (flash attention's forward and LayerNorm's),
-    so a compiled or exported program never runs it eagerly in silence."""
-    if torch.compiler.is_compiling():
-        raise NotCompilable(
-            f"the {name} kernel is not registered as an op: it cannot run "
-            f"inside a compiled or exported program (to_static, jit.save, "
-            f"static.Executor); only flash attention's forward and "
-            f"LayerNorm's forward can so far (ROADMAP)")
+def in_program(*tensors) -> bool:
+    """True where a kernel call must go through its registered op
+    (``library.py``): while ``torch.compile`` or ``torch.export`` traces
+    (a ctypes launch cannot be traced), or where a tensor is one of
+    functorch's wrappers (the backward of a Function under an eager
+    ``torch.func.grad``), which has no storage to hand a launch; the op's
+    dispatch unwraps it. Eager calls on plain tensors launch directly."""
+    return torch.compiler.is_compiling() or any(
+        t is not None and torch._C._functorch.is_functorch_wrapped_tensor(t)
+        for t in tensors)
 
 
 def plain_math(device: torch.device):

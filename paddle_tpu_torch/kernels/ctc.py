@@ -60,7 +60,7 @@ from typing import NamedTuple
 
 import torch
 
-from . import (LAUNCHES, _build, plain_math, refuse_compile, refuse_grad,
+from . import (LAUNCHES, _build, in_program, plain_math, refuse_grad,
                use_kernel)
 from ..core.tensor import bound_public
 
@@ -379,28 +379,40 @@ def math_check_cuda(lo, n, fn):
 
 class CTCLossFunction(torch.autograd.Function):
     """``(log_probs [T, B, C], labels [B, L], input_lengths [B],
-    label_lengths [B], blank) -> loss [B] = -ll``, differentiable in
-    log_probs only. The alpha kernel forward and the beta kernel backward
-    for CUDA tensors; their plain versions for CPU tensors."""
+    label_lengths [B], blank) -> (loss [B] = -ll, alphas, ll)``,
+    differentiable in log_probs through the loss only. The alpha kernel
+    forward and the beta kernel backward for CUDA tensors; their plain
+    versions for CPU tensors; the registered ops (``library.py``) inside a
+    program."""
 
     @staticmethod
-    def forward(ctx, log_probs, labels, input_lengths, label_lengths, blank):
-        refuse_compile("ctc")
-        cuda = use_kernel(log_probs, labels, input_lengths, label_lengths)
-        alpha = ctc_alpha_cuda if cuda else ctc_alpha_plain
-        alphas, ll = alpha(log_probs, labels, input_lengths, label_lengths,
-                           blank)
-        ctx.cuda, ctx.blank = cuda, blank
+    def forward(log_probs, labels, input_lengths, label_lengths, blank):
+        args = (log_probs, labels, input_lengths, label_lengths)
+        if in_program(*args):
+            alphas, ll = torch.ops.paddle_tpu_torch.ctc_alpha(*args, blank)
+        else:
+            alpha = ctc_alpha_cuda if use_kernel(*args) else ctc_alpha_plain
+            alphas, ll = alpha(*args, blank)
+        return -ll, alphas, ll
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        log_probs, labels, input_lengths, label_lengths, blank = inputs
+        ctx.blank = blank
         ctx.dtype, ctx.num_classes = log_probs.dtype, log_probs.shape[2]
+        ctx.mark_non_differentiable(*output[1:])
         ctx.save_for_backward(log_probs, labels, input_lengths,
-                              label_lengths, alphas, ll)
-        return -ll
+                              label_lengths, *output[1:])
 
     @staticmethod
-    def backward(ctx, g):
+    def backward(ctx, g, *_):
         log_probs, labels, in_len, lbl_len, alphas, ll = ctx.saved_tensors
-        beta = ctc_beta_cuda if ctx.cuda else ctc_beta_plain
-        betas = beta(log_probs, labels, in_len, lbl_len, ctx.blank)
+        args = (log_probs, labels, in_len, lbl_len, ctx.blank)
+        if in_program(log_probs, g):
+            betas = torch.ops.paddle_tpu_torch.ctc_beta(*args)
+        else:
+            beta = ctc_beta_cuda if use_kernel(*args[:4]) else ctc_beta_plain
+            betas = beta(*args)
         grad = ctc_grad(alphas, betas, ll, labels, g, ctx.num_classes,
                         ctx.blank)
         return grad.to(ctx.dtype), None, None, None, None
@@ -410,7 +422,7 @@ def ctc_lattice(log_probs, labels, input_lengths, label_lengths, blank=0):
     """Per-utterance negative log-likelihood ``[B]`` f32 (no reduction, as
     the reference's ``ctc_loss_pallas``); differentiable in log_probs."""
     return CTCLossFunction.apply(log_probs, labels, input_lengths,
-                                 label_lengths, int(blank))
+                                 label_lengths, int(blank))[0]
 
 
 # public entry points hand back Tensors when a Tensor came in

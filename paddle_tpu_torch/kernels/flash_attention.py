@@ -46,7 +46,9 @@ a zero output and zero gradients (the reference gives them pad segment
 ids). The kernels walk each sequence's own rows, so keys of another
 sequence are never read; a query whose key sequence is empty gets out 0
 and lse -1e30. ``cu_seqlens`` is copied to the host once a forward call
-(it sizes the grid); the backward reuses that copy.
+(it sizes the grid); the backward reuses that copy. Inside a compiled or
+exported program the grid is sized from ``max_seqlen_*`` instead (else the
+total tokens), with no host read (:func:`flash_attn_varlen`).
 
 Layout is the reference's public one: q ``[B, Sq, H, D]``, k/v
 ``[B, Sk, Hkv, D]`` with ``H % Hkv == 0``. The forward returns
@@ -108,8 +110,8 @@ import math
 import torch
 
 from ..framework.random import next_seed
-from . import (LAUNCHES, NotCompilable, _build, plain_math, refuse_compile,
-               refuse_grad, use_kernel)
+from . import (LAUNCHES, _build, in_program, plain_math, refuse_grad,
+               use_kernel)
 from ..core.tensor import bound_public
 
 __all__ = ["flash_attention_fwd", "flash_attention_plain",
@@ -199,15 +201,26 @@ def dropout_bits_cuda(seed, BH, Sq, Sk, device):
     return bits.to(torch.int64) & _M32
 
 
-def _drop_args(dropout_p, seed):
-    """(flag, seed, threshold, 1 / (1 - p)) of the C entries."""
+def _drop_args(dropout_p, seed, device=None):
+    """(flag, seed, seed pointer, threshold, 1 / (1 - p)) of the C entries.
+    ``seed`` is an int, or an int64 tensor of one element on the inputs'
+    ``device`` (the registered ops' form), which the kernels read there: a
+    compiled program's seed, drawn on the card, never goes through the
+    host."""
     if not dropout_p:
-        return 0, 0, 0, 1.0
+        return 0, 0, None, 0, 1.0
     if not 0.0 < dropout_p < 1.0:
         raise ValueError(f"flash attention: dropout_p must lie in [0, 1); "
                          f"got {dropout_p}")
-    return (1, int(seed) & _M32, dropout_threshold(dropout_p),
-            float(1.0 / (1.0 - dropout_p)))
+    scale = (dropout_threshold(dropout_p), float(1.0 / (1.0 - dropout_p)))
+    if isinstance(seed, torch.Tensor):
+        if seed.dtype != torch.int64 or seed.numel() != 1 \
+                or seed.device != (device or seed.device):
+            raise ValueError(f"flash attention: a seed tensor must be one "
+                             f"int64 on {device}; got {seed.dtype} "
+                             f"{tuple(seed.shape)} on {seed.device}")
+        return (1, 0, seed.data_ptr(), *scale)
+    return (1, int(seed) & _M32, None, *scale)
 
 
 # ---------------------------------------------------------------------------
@@ -574,13 +587,13 @@ def bwd_geometry(q, k, B, varlen, flat=False):
     return (q128, q128, kq, kq, kt, kt, qt, qt)
 
 
-_FWD_ARGS = [_P] * 5 + [_I] * 6 + [_F, _I, _I, _I, _U, _U, _F] \
+_FWD_ARGS = [_P] * 5 + [_I] * 6 + [_F, _I, _I, _I, _U, _P, _U, _F] \
     + [_P, _L, _L, _L, _L, _P, _P, _I, _I, _P]
-_BWD_ARGS = [_P] * 9 + [_I] * 6 + [_F, _I, _I, _I, _U, _U, _F] \
+_BWD_ARGS = [_P] * 9 + [_I] * 6 + [_F, _I, _I, _I, _U, _P, _U, _F] \
     + [_P, _L, _L, _L, _L, _P, _P, _I, _I, _P]
-_SM90_FWD_ARGS = [_P] * 5 + [_I] * 6 + [_F, _I, _I, _U, _U, _F] \
+_SM90_FWD_ARGS = [_P] * 5 + [_I] * 6 + [_F, _I, _I, _U, _P, _U, _F] \
     + [_P, _L, _L, _L, _L, _P, _P, _I, _I, _P, _P]
-_SM90_BWD_ARGS = [_P] * 9 + [_I] * 6 + [_F, _I, _I, _U, _U, _F] \
+_SM90_BWD_ARGS = [_P] * 9 + [_I] * 6 + [_F, _I, _I, _U, _P, _U, _F] \
     + [_P, _L, _L, _L, _L, _P, _P, _I, _I, _P, _P]
 
 
@@ -668,7 +681,7 @@ def flash_attention_cuda(q, k, v, causal=False, sm_scale=None,
     Counts under ``flash_attention_mask`` with a mask, else
     ``flash_attention_dropout`` when ``dropout_p > 0``."""
     refuse_grad("flash_attention_cuda", q, k, v)
-    drop = _drop_args(dropout_p, seed)
+    drop = _drop_args(dropout_p, seed, q.device)
     _check_shapes(q, k, v, causal)
     q, k, v = _kernel_inputs("flash_attention", q, k, v)
     B, Sq, H, D = q.shape
@@ -701,7 +714,7 @@ def flash_attention_bwd_cuda(q, k, v, g, lse, dg, causal=False,
     Counts under ``flash_attention_bwd_mask`` with a mask, else
     ``flash_attention_bwd_dropout`` when ``dropout_p > 0``."""
     refuse_grad("flash_attention_bwd_cuda", q, k, v, g, lse, dg)
-    drop = _drop_args(dropout_p, seed)
+    drop = _drop_args(dropout_p, seed, q.device)
     _check_shapes(q, k, v, causal)
     q, k, v, g = _kernel_inputs("flash_attention_bwd", q, k, v, g)
     B, Sq, H, D = q.shape
@@ -720,44 +733,85 @@ class FlashAttentionFunction(torch.autograd.Function):
     """``(q, k, v, causal, sm_scale, dropout_p, seed, mask) -> (out, lse)``,
     differentiable in q, k and v through both outputs; ``mask`` is a bool
     ``[B, H, Sq, Sk]`` view (:func:`mask_view`) or None. The kernels for
-    CUDA tensors, the plain versions for CPU tensors; the backward
-    regenerates the forward's dropout mask from the same seed."""
+    CUDA tensors, the plain versions for CPU tensors, the registered ops
+    (``library.py``) inside a program (:func:`~paddle_tpu_torch.kernels.
+    in_program`); the backward regenerates the forward's dropout mask from
+    the same seed (an int, or a program's int64 tensor)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, sm_scale, dropout_p, seed, mask):
-        cuda = use_kernel(q, k, v)
-        if torch.compiler.is_compiling():
-            # a traced program calls the launch as one registered op
-            # (kernels/library.py); eager calls it directly
-            out, lse = torch.ops.paddle_tpu_torch.flash_attention_fwd(
-                q, k, v, mask, causal, sm_scale, dropout_p, seed)
-        else:
-            out, lse = (flash_attention_cuda if cuda
-                        else flash_attention_plain)(
-                q, k, v, causal=causal, sm_scale=sm_scale,
-                dropout_p=dropout_p, seed=seed, mask=mask)
-        ctx.cuda, ctx.causal, ctx.sm_scale = cuda, causal, sm_scale
-        ctx.dropout_p, ctx.seed, ctx.mask = dropout_p, seed, mask
-        ctx.save_for_backward(q, k, v, out, lse)
-        return out, lse
+    def forward(q, k, v, causal, sm_scale, dropout_p, seed, mask):
+        if in_program(q, k, v):
+            return torch.ops.paddle_tpu_torch.flash_attention_fwd(
+                q, k, v, mask, causal, sm_scale, dropout_p,
+                _seed_tensor(dropout_p, seed, q.device))
+        fwd = flash_attention_cuda if use_kernel(q, k, v) \
+            else flash_attention_plain
+        return fwd(q, k, v, causal=causal, sm_scale=sm_scale,
+                   dropout_p=dropout_p, seed=seed, mask=mask)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, causal, sm_scale, dropout_p, seed, mask = inputs
+        ctx.causal, ctx.sm_scale, ctx.dropout_p = causal, sm_scale, dropout_p
+        tensor_seed = isinstance(seed, torch.Tensor)
+        ctx.seed = None if tensor_seed else seed
+        ctx.save_for_backward(q, k, v, *output, seed if tensor_seed else None,
+                              mask)
 
     @staticmethod
     def backward(ctx, g, g_lse):
-        refuse_compile("flash_attention_bwd")
-        q, k, v, out, lse = ctx.saved_tensors
+        q, k, v, out, lse, seed_t, mask = ctx.saved_tensors
+        seed = ctx.seed if seed_t is None else seed_t
         dg = delta_minus_glse(out, g, g_lse)
-        bwd = (flash_attention_bwd_cuda if ctx.cuda
-               else flash_attention_bwd_plain)
-        dq, dk, dv = bwd(q, k, v, g, lse, dg, causal=ctx.causal,
-                         sm_scale=ctx.sm_scale, dropout_p=ctx.dropout_p,
-                         seed=ctx.seed, mask=ctx.mask)
+        if in_program(q, g):
+            dq, dk, dv = torch.ops.paddle_tpu_torch.flash_attention_bwd(
+                q, k, v, g, lse, dg, mask, ctx.causal, ctx.sm_scale,
+                ctx.dropout_p, _seed_tensor(ctx.dropout_p, seed, q.device))
+        else:
+            bwd = (flash_attention_bwd_cuda if use_kernel(q, k, v)
+                   else flash_attention_bwd_plain)
+            dq, dk, dv = bwd(q, k, v, g, lse, dg, causal=ctx.causal,
+                             sm_scale=ctx.sm_scale, dropout_p=ctx.dropout_p,
+                             seed=seed, mask=mask)
         return dq, dk, dv, None, None, None, None, None
 
 
-def _seed(dropout_p, seed):
-    if dropout_p and seed is None:
-        seed = next_seed()
-    return 0 if seed is None else int(seed)
+def _seed(dropout_p, seed, device):
+    """The dropout seed of a call: ``seed`` where given; else, eager, one
+    drawn on the host from ``framework.random``'s CPU generator (no wait
+    for the card), and inside a compiled or exported program an int64
+    tensor drawn on ``device`` by the program itself, so each call drops
+    another mask."""
+    if not dropout_p:
+        return 0
+    if seed is not None:
+        return int(seed)
+    if torch.compiler.is_compiling():
+        return torch.randint(0, 2 ** 32, (), dtype=torch.int64,
+                             device=device)
+    return next_seed()
+
+
+def _seed_tensor(dropout_p, seed, device):
+    """A registered op's seed argument: None without dropout, else an
+    int64 tensor on ``device`` (an int seed becomes a constant there, with
+    the same low 32 bits the eager launch takes)."""
+    if not dropout_p:
+        return None
+    if isinstance(seed, torch.Tensor):
+        return seed
+    return torch.full((), int(seed) & _M32, dtype=torch.int64, device=device)
+
+
+def _distinct(*tensors):
+    """The tensors with each repeat of an earlier one (self-attention's
+    ``q is k is v``, ``cu_seqlens_q is cu_seqlens_k``) replaced by an alias
+    of it: Dynamo refuses an ``autograd.Function`` handed one tensor
+    twice."""
+    out = []
+    for t in tensors:
+        out.append(t.view_as(t) if any(t is o for o in out) else t)
+    return out
 
 
 def flash_attention_fwd(q, k, v, causal=False, sm_scale=None, dropout_p=0.0,
@@ -765,52 +819,52 @@ def flash_attention_fwd(q, k, v, causal=False, sm_scale=None, dropout_p=0.0,
     """``(out, lse)`` through :class:`FlashAttentionFunction`: the kernels
     for CUDA tensors, the plain versions for CPU tensors; differentiable.
     ``dropout_p > 0`` drops probabilities in-kernel; ``seed`` (a 32-bit
-    int) fixes the mask, else one is drawn on the host from
-    ``framework.random``'s CPU generator (no wait for the card). ``mask``:
-    a bool attention mask (True = attend, see :func:`mask_view`)."""
+    int) fixes the mask, the same eager and compiled; else one is drawn
+    per call (:func:`_seed`). ``mask``: a bool attention mask (True =
+    attend, see :func:`mask_view`)."""
     dropout_p = float(dropout_p)
-    if dropout_p and torch.compiler.is_compiling():
-        # a seed drawn on the host would be a constant of the graph: every
-        # call of the program would drop the same probabilities
-        raise NotCompilable(
-            "flash attention with dropout_p > 0 cannot run inside a "
-            "compiled or exported program: its dropout seed is drawn on the "
-            "host and would be baked into the graph as a constant, so every "
-            "call would drop the same mask; call the layer in eval mode")
     _check_shapes(q, k, v, causal)
     B, Sq, H, _ = q.shape
     m4 = mask_view(mask, B, H, Sq, k.shape[1], device=q.device)
+    if torch.compiler.is_compiling():
+        q, k, v = _distinct(q, k, v)
     return FlashAttentionFunction.apply(q, k, v, causal, sm_scale, dropout_p,
-                                        _seed(dropout_p, seed), m4)
+                                        _seed(dropout_p, seed, q.device), m4)
 
 
 # ---------------------------------------------------------------------------
 # varlen (packed sequences)
 # ---------------------------------------------------------------------------
 
-def _check_varlen(q, k, v, cu_q, cu_k, causal):
-    """Shapes and ``cu_seqlens`` of a varlen call; returns the host copies
-    ``(cu_q, cu_k)`` as lists (one device-to-host copy each)."""
+def _check_varlen_shapes(q, k, v, cu_q, cu_k):
+    """The shapes of a varlen call (no host read)."""
     if q.dim() != 3 or k.dim() != 3 or k.shape != v.shape \
             or k.shape[2] != q.shape[2] or q.shape[1] % k.shape[1]:
         raise ValueError(
             f"flash_attn_varlen: q {tuple(q.shape)}, k {tuple(k.shape)}, "
             f"v {tuple(v.shape)} do not fit [T, H, D] with Hkv | H")
-    hosts = []
-    for name, cu, T in (("cu_seqlens_q", cu_q, q.shape[0]),
-                        ("cu_seqlens_k", cu_k, k.shape[0])):
+    for name, cu in (("cu_seqlens_q", cu_q), ("cu_seqlens_k", cu_k)):
         if cu.dim() != 1 or cu.shape[0] < 1 or cu.dtype.is_floating_point:
             raise ValueError(f"flash_attn_varlen: {name} must be a 1-D "
                              f"integer tensor of cumulative lengths")
+    if cu_q.shape != cu_k.shape:
+        raise ValueError("flash_attn_varlen: cu_seqlens_q and cu_seqlens_k "
+                         "must hold the same number of sequences")
+
+
+def _check_varlen(q, k, v, cu_q, cu_k, causal):
+    """Shapes and ``cu_seqlens`` of a varlen call; returns the host copies
+    ``(cu_q, cu_k)`` as lists (one device-to-host copy each)."""
+    _check_varlen_shapes(q, k, v, cu_q, cu_k)
+    hosts = []
+    for name, cu, T in (("cu_seqlens_q", cu_q, q.shape[0]),
+                        ("cu_seqlens_k", cu_k, k.shape[0])):
         h = [int(x) for x in cu.tolist()]
         if h[0] != 0 or any(b < a for a, b in zip(h, h[1:])) or h[-1] > T:
             raise ValueError(f"flash_attn_varlen: {name} must start at 0, "
                              f"never decrease and end at most at {T}; got "
                              f"{h}")
         hosts.append(h)
-    if len(hosts[0]) != len(hosts[1]):
-        raise ValueError("flash_attn_varlen: cu_seqlens_q and cu_seqlens_k "
-                         "must hold the same number of sequences")
     if causal and hosts[0] != hosts[1]:
         raise ValueError(
             "causal varlen attention requires cu_seqlens_q == cu_seqlens_k "
@@ -900,98 +954,151 @@ def _longest(cu):
     return max((b - a for a, b in zip(cu, cu[1:])), default=0)
 
 
+def _varlen_grid(q, k, v, cu_q, cu_k, causal, cu_host, max_len):
+    """``(sequences, Sq, Sk, first free q row, first free k row)`` of a
+    varlen launch: from the host copies of ``cu_seqlens`` (``cu_host``,
+    copied here when None), or, given ``max_len`` ``(max_q, max_k)`` (the
+    registered ops' form, with no host read), from those and the shapes,
+    every row then free (zeroed before the launch)."""
+    if max_len is not None:
+        _check_varlen_shapes(q, k, v, cu_q, cu_k)
+        return (cu_q.shape[0] - 1, *max_len, 0, 0)
+    if cu_host is None:
+        cu_host = _check_varlen(q, k, v, cu_q, cu_k, causal)
+    hq, hk = cu_host
+    return len(hq) - 1, _longest(hq), _longest(hk), hq[-1], hk[-1]
+
+
 def flash_attn_varlen_cuda(q, k, v, cu_q, cu_k, causal=False, sm_scale=None,
-                           dropout_p=0.0, seed=0, cu_host=None):
+                           dropout_p=0.0, seed=0, cu_host=None,
+                           max_len=None):
     """Launch the flash forward kernel on packed sequences (one thread
     block per sequence, query tile and head); same contract as
     :func:`flash_attn_varlen_plain`. ``cu_host`` (the lists
     :func:`_check_varlen` returns) spares the copy of ``cu_seqlens`` to the
-    host. Counts under ``flash_attention_varlen``."""
+    host; ``max_len`` sizes the grid without it (:func:`_varlen_grid`).
+    Counts under ``flash_attention_varlen``."""
     refuse_grad("flash_attn_varlen_cuda", q, k, v)
-    drop = _drop_args(dropout_p, seed)
-    if cu_host is None:
-        cu_host = _check_varlen(q, k, v, cu_q, cu_k, causal)
+    drop = _drop_args(dropout_p, seed, q.device)
+    nseq, Sq, Sk, end, _ = _varlen_grid(q, k, v, cu_q, cu_k, causal, cu_host,
+                                        max_len)
     q, k, v = _kernel_inputs("flash_attn_varlen", q, k, v)
     Tq, H, D = q.shape
-    hq, hk = cu_host
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(D)
     out = torch.empty_like(q)
     lse = torch.empty(H, Tq, device=q.device, dtype=torch.float32)
-    out[hq[-1]:] = 0            # past cu[-1]: no sequence, zero output
-    lse[:, hq[-1]:] = NEG_INF
+    out[end:] = 0               # past cu[-1]: no sequence, zero output
+    lse[:, end:] = NEG_INF
     cu = (_cu_device(cu_q, q.device), _cu_device(cu_k, q.device))
-    _launch_fwd(q, k, v, out, lse, len(hq) - 1, _longest(hq), _longest(hk),
-                causal, scale, drop, None, cu, Tq)
+    _launch_fwd(q, k, v, out, lse, nseq, Sq, Sk, causal, scale, drop, None,
+                cu, Tq)
     return out, lse
 
 
 def flash_attn_varlen_bwd_cuda(q, k, v, g, lse, dg, cu_q, cu_k, causal=False,
                                sm_scale=None, dropout_p=0.0, seed=0,
-                               cu_host=None):
+                               cu_host=None, max_len=None):
     """Launch the flash backward kernels on packed sequences; same
-    contract as :func:`flash_attn_varlen_bwd_plain`. Counts under
+    contract as :func:`flash_attn_varlen_bwd_plain`, ``cu_host`` and
+    ``max_len`` as in :func:`flash_attn_varlen_cuda`. Counts under
     ``flash_attention_bwd_varlen``."""
     refuse_grad("flash_attn_varlen_bwd_cuda", q, k, v, g, lse, dg)
-    drop = _drop_args(dropout_p, seed)
-    if cu_host is None:
-        cu_host = _check_varlen(q, k, v, cu_q, cu_k, causal)
+    drop = _drop_args(dropout_p, seed, q.device)
+    nseq, Sq, Sk, end_q, end_k = _varlen_grid(q, k, v, cu_q, cu_k, causal,
+                                              cu_host, max_len)
     q, k, v, g = _kernel_inputs("flash_attn_varlen_bwd", q, k, v, g)
     Tq, H, D = q.shape
     lse, dg = _check_grads("flash_attn_varlen_bwd", q, g, lse, dg, (H, Tq))
-    hq, hk = cu_host
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(D)
     dq = torch.empty_like(q)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    dq[hq[-1]:] = 0
-    dk[hk[-1]:] = 0
-    dv[hk[-1]:] = 0
+    dq[end_q:] = 0
+    dk[end_k:] = 0
+    dv[end_k:] = 0
     cu = (_cu_device(cu_q, q.device), _cu_device(cu_k, q.device))
-    _launch_bwd(q, k, v, g, lse, dg, dq, dk, dv, len(hq) - 1, _longest(hq),
-                _longest(hk), causal, scale, drop, None, cu, Tq)
+    _launch_bwd(q, k, v, g, lse, dg, dq, dk, dv, nseq, Sq, Sk, causal, scale,
+                drop, None, cu, Tq)
     return dq, dk, dv
 
 
 class FlashVarlenFunction(torch.autograd.Function):
-    """``(q, k, v, cu_q, cu_k, causal, sm_scale, dropout_p, seed) ->
-    (out, lse)`` over packed sequences, differentiable in q, k and v; the
-    kernels for CUDA tensors, the plain versions for CPU tensors. The
-    forward copies ``cu_seqlens`` to the host once; the backward reuses
-    it."""
+    """``(q, k, v, cu_q, cu_k, causal, sm_scale, dropout_p, seed, cu_host,
+    max_len) -> (out, lse)`` over packed sequences, differentiable in q, k
+    and v; the kernels for CUDA tensors, the plain versions for CPU
+    tensors. Eager calls hand in ``cu_host``, the host copy of
+    ``cu_seqlens`` (one a call), which the backward reuses; a program
+    hands in None and ``max_len`` (:func:`flash_attn_varlen`) and runs the
+    registered ops."""
 
     @staticmethod
-    def forward(ctx, q, k, v, cu_q, cu_k, causal, sm_scale, dropout_p, seed):
-        refuse_compile("flash_attention_varlen")
-        cuda = use_kernel(q, k, v)
-        cu_host = _check_varlen(q, k, v, cu_q, cu_k, causal)
-        fwd = flash_attn_varlen_cuda if cuda else flash_attn_varlen_plain
-        out, lse = fwd(q, k, v, cu_q, cu_k, causal, sm_scale, dropout_p,
-                       seed, cu_host=cu_host)
-        ctx.cuda, ctx.causal, ctx.sm_scale = cuda, causal, sm_scale
-        ctx.dropout_p, ctx.seed, ctx.cu_host = dropout_p, seed, cu_host
-        ctx.save_for_backward(q, k, v, out, lse, cu_q, cu_k)
-        return out, lse
+    def forward(q, k, v, cu_q, cu_k, causal, sm_scale, dropout_p, seed,
+                cu_host, max_len):
+        if cu_host is None:
+            return torch.ops.paddle_tpu_torch.flash_varlen_fwd(
+                q, k, v, cu_q, cu_k, *max_len, causal, sm_scale, dropout_p,
+                _seed_tensor(dropout_p, seed, q.device))
+        fwd = flash_attn_varlen_cuda if use_kernel(q, k, v) \
+            else flash_attn_varlen_plain
+        return fwd(q, k, v, cu_q, cu_k, causal, sm_scale, dropout_p, seed,
+                   cu_host=cu_host)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        (q, k, v, cu_q, cu_k, causal, sm_scale, dropout_p, seed, cu_host,
+         max_len) = inputs
+        ctx.causal, ctx.sm_scale, ctx.dropout_p = causal, sm_scale, dropout_p
+        ctx.cu_host = cu_host
+        ctx.max_len = max_len if cu_host is None else tuple(
+            _longest(h) for h in cu_host)
+        tensor_seed = isinstance(seed, torch.Tensor)
+        ctx.seed = None if tensor_seed else seed
+        ctx.save_for_backward(q, k, v, *output, cu_q, cu_k,
+                              seed if tensor_seed else None)
 
     @staticmethod
     def backward(ctx, g, g_lse):
-        q, k, v, out, lse, cu_q, cu_k = ctx.saved_tensors
+        q, k, v, out, lse, cu_q, cu_k, seed_t = ctx.saved_tensors
+        seed = ctx.seed if seed_t is None else seed_t
         dg = delta_minus_glse(out, g, g_lse)
-        bwd = (flash_attn_varlen_bwd_cuda if ctx.cuda
-               else flash_attn_varlen_bwd_plain)
-        dq, dk, dv = bwd(q, k, v, g.contiguous(), lse, dg, cu_q, cu_k,
-                         ctx.causal, ctx.sm_scale, ctx.dropout_p, ctx.seed,
-                         cu_host=ctx.cu_host)
-        return dq, dk, dv, None, None, None, None, None, None
+        g = g.contiguous()
+        if ctx.cu_host is None or in_program(q, g):
+            dq, dk, dv = torch.ops.paddle_tpu_torch.flash_varlen_bwd(
+                q, k, v, g, lse, dg, cu_q, cu_k, *ctx.max_len, ctx.causal,
+                ctx.sm_scale, ctx.dropout_p,
+                _seed_tensor(ctx.dropout_p, seed, q.device))
+        else:
+            bwd = (flash_attn_varlen_bwd_cuda if use_kernel(q, k, v)
+                   else flash_attn_varlen_bwd_plain)
+            dq, dk, dv = bwd(q, k, v, g, lse, dg, cu_q, cu_k, ctx.causal,
+                             ctx.sm_scale, ctx.dropout_p, seed,
+                             cu_host=ctx.cu_host)
+        return dq, dk, dv, None, None, None, None, None, None, None, None
 
 
 def flash_attn_varlen(q, k, v, cu_q, cu_k, causal=False, sm_scale=None,
-                      dropout_p=0.0, seed=None):
+                      dropout_p=0.0, seed=None, max_seqlen_q=None,
+                      max_seqlen_k=None):
     """``(out, lse)`` of packed sequences through
     :class:`FlashVarlenFunction`: q ``[Tq, H, D]``, k/v ``[Tk, Hkv, D]``,
     ``cu_seqlens`` int32 ``[nseq + 1]``; dropout and ``seed`` as in
-    :func:`flash_attention_fwd`."""
+    :func:`flash_attention_fwd`. Eager calls copy ``cu_seqlens`` to the
+    host once (the grid's size, and the checks) and ignore
+    ``max_seqlen_*``; inside a compiled or exported program the grid is
+    sized from ``max_seqlen_*`` (at least each sequence's length), else
+    from the total tokens, with no host read and no check of
+    ``cu_seqlens``' values."""
     dropout_p = float(dropout_p)
+    seed = _seed(dropout_p, seed, q.device)
+    if torch.compiler.is_compiling():
+        max_len = (q.shape[0] if max_seqlen_q is None else int(max_seqlen_q),
+                   k.shape[0] if max_seqlen_k is None else int(max_seqlen_k))
+        q, k, v, cu_q, cu_k = _distinct(q, k, v, cu_q, cu_k)
+        return FlashVarlenFunction.apply(q, k, v, cu_q, cu_k, causal,
+                                         sm_scale, dropout_p, seed, None,
+                                         max_len)
+    cu_host = _check_varlen(q, k, v, cu_q, cu_k, causal)
     return FlashVarlenFunction.apply(q, k, v, cu_q, cu_k, causal, sm_scale,
-                                     dropout_p, _seed(dropout_p, seed))
+                                     dropout_p, seed, cu_host, None)
 
 
 # public entry points hand back Tensors when a Tensor came in

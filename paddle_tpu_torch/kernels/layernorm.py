@@ -25,7 +25,7 @@ import ctypes
 
 import torch
 
-from . import LAUNCHES, _build, refuse_grad, use_kernel
+from . import LAUNCHES, _build, in_program, refuse_grad, use_kernel
 from ..core.tensor import bound_public
 
 __all__ = ["layer_norm_plain", "layer_norm_cuda", "layer_norm_bwd",
@@ -106,26 +106,30 @@ def layer_norm_bwd(x, weight, bias, mean, rstd, g):
 
 
 class LayerNormFunction(torch.autograd.Function):
-    """``(x [rows, F], weight, bias, eps) -> out``: the kernel for CUDA
-    tensors and the plain version for CPU tensors; the backward is
-    :func:`layer_norm_bwd` on either."""
+    """``(x [rows, F], weight, bias, eps) -> (out, mean, rstd)`` (mean and
+    rstd not differentiable): the kernel for CUDA tensors, the plain
+    version for CPU tensors, the registered op inside a program; the
+    backward is :func:`layer_norm_bwd` on either."""
 
     @staticmethod
-    def forward(ctx, x, weight, bias, eps):
-        cuda = use_kernel(x, weight, bias)
-        if torch.compiler.is_compiling():
-            # a traced program calls the launch as one registered op
+    def forward(x, weight, bias, eps):
+        if in_program(x, weight, bias):
+            # a program calls the launch as one registered op
             # (kernels/library.py); eager calls it directly
-            out, mean, rstd = torch.ops.paddle_tpu_torch.layernorm_fwd(
-                x, weight, bias, eps)
-        else:
-            fwd = layer_norm_cuda if cuda else layer_norm_plain
-            out, mean, rstd = fwd(x, weight, bias, eps)
-        ctx.save_for_backward(x, weight, bias, mean, rstd)
-        return out
+            return torch.ops.paddle_tpu_torch.layernorm_fwd(x, weight, bias,
+                                                            eps)
+        fwd = layer_norm_cuda if use_kernel(x, weight, bias) \
+            else layer_norm_plain
+        return fwd(x, weight, bias, eps)
 
     @staticmethod
-    def backward(ctx, g):
+    def setup_context(ctx, inputs, output):
+        x, weight, bias, _ = inputs
+        ctx.mark_non_differentiable(*output[1:])
+        ctx.save_for_backward(x, weight, bias, *output[1:])
+
+    @staticmethod
+    def backward(ctx, g, *_):
         x, weight, bias, mean, rstd = ctx.saved_tensors
         dx, dw, db = layer_norm_bwd(x, weight, bias, mean, rstd, g)
         return dx, dw, db, None
@@ -135,8 +139,8 @@ def layernorm(x, weight, bias, eps=1e-5):
     """LayerNorm over the last dim of ``x`` with ``weight`` and ``bias``;
     differentiable in all three."""
     shape = x.shape
-    out = LayerNormFunction.apply(x.reshape(-1, shape[-1]), weight, bias,
-                                  eps)
+    out, _, _ = LayerNormFunction.apply(x.reshape(-1, shape[-1]), weight,
+                                        bias, eps)
     return out.reshape(shape)
 
 

@@ -40,7 +40,7 @@ from typing import NamedTuple
 
 import torch
 
-from . import LAUNCHES, _build, refuse_compile, use_kernel
+from . import LAUNCHES, _build, in_program, use_kernel
 from ..core.tensor import bound_public
 
 __all__ = ["paged_attention", "paged_attention_plain", "paged_attention_cuda",
@@ -228,8 +228,11 @@ def paged_attention_cuda(q, kv_pool, block_tables, context_lens, *,
 
 
 def paged_attention(q, kv_pool, block_tables, context_lens, *, sm_scale=None):
-    """The kernel for CUDA tensors, the plain version for CPU tensors."""
-    refuse_compile("paged_attention")
+    """The kernel for CUDA tensors, the plain version for CPU tensors, the
+    registered op (``library.py``) inside a program."""
+    if in_program(q, kv_pool):
+        return torch.ops.paddle_tpu_torch.paged_attention(
+            q, kv_pool, block_tables, context_lens, sm_scale)
     impl = (paged_attention_cuda
             if use_kernel(q, kv_pool, block_tables, context_lens)
             else paged_attention_plain)

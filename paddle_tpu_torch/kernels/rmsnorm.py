@@ -26,7 +26,7 @@ import ctypes
 
 import torch
 
-from . import LAUNCHES, _build, refuse_compile, refuse_grad, use_kernel
+from . import LAUNCHES, _build, in_program, refuse_grad, use_kernel
 from ..core.tensor import bound_public
 
 __all__ = ["rmsnorm", "rmsnorm_residual", "rmsnorm_plain", "rmsnorm_cuda",
@@ -150,27 +150,40 @@ def rmsnorm_bwd_cuda(x, weight, rstd, g, residual=None):
 
 
 class RMSNormFunction(torch.autograd.Function):
-    """``(x [rows, F], weight, residual or None, eps) -> (out, h)`` with
-    ``h = x + residual`` (None without a residual). Forward and backward
-    are the kernels for CUDA tensors and the plain versions for CPU
-    tensors; the residual's gradient is x's (``dresid = dx``)."""
+    """``(x [rows, F], weight, residual or None, eps) -> (out, h, rstd)``
+    with ``h = x + residual`` (None without a residual) and ``rstd`` [rows]
+    f32 (not differentiable). Forward and backward are the kernels for CUDA
+    tensors, the plain versions for CPU tensors and the registered ops
+    (``library.py``) inside a program; the residual's gradient is x's
+    (``dresid = dx``)."""
 
     @staticmethod
-    def forward(ctx, x, weight, residual, eps):
+    def forward(x, weight, residual, eps):
+        if in_program(x, weight, residual):
+            out, h, rstd = torch.ops.paddle_tpu_torch.rmsnorm_fwd(
+                x, weight, residual, eps)
+            return out, (None if residual is None else h), rstd
         tensors = (x, weight) if residual is None else (x, weight, residual)
-        refuse_compile("rmsnorm")
-        cuda = use_kernel(*tensors)
-        out, h, rstd = (rmsnorm_cuda if cuda else rmsnorm_plain)(
-            x, weight, eps, residual)
-        ctx.cuda = cuda
-        ctx.save_for_backward(x, weight, residual, rstd)
-        return out, h
+        fwd = rmsnorm_cuda if use_kernel(*tensors) else rmsnorm_plain
+        return fwd(x, weight, eps, residual)
 
     @staticmethod
-    def backward(ctx, g_out, g_h):
+    def setup_context(ctx, inputs, output):
+        x, weight, residual, _ = inputs
+        ctx.mark_non_differentiable(output[2])
+        ctx.save_for_backward(x, weight, residual, output[2])
+
+    @staticmethod
+    def backward(ctx, g_out, g_h, _):
         x, weight, residual, rstd = ctx.saved_tensors
-        bwd = rmsnorm_bwd_cuda if ctx.cuda else rmsnorm_bwd_plain
-        dx, dw = bwd(x, weight, rstd, g_out.contiguous(), residual)
+        g = g_out.contiguous()
+        if in_program(x, g):
+            dx, dw = torch.ops.paddle_tpu_torch.rmsnorm_bwd(x, weight, rstd,
+                                                            g, residual)
+        else:
+            bwd = rmsnorm_bwd_cuda if use_kernel(x, weight) \
+                else rmsnorm_bwd_plain
+            dx, dw = bwd(x, weight, rstd, g, residual)
         if g_h is not None:          # h = x + residual feeds both addends
             dx = dx + g_h
         return dx, dw, (None if residual is None else dx), None
@@ -180,7 +193,7 @@ def _fwd(x, weight, eps, residual):
     shape = x.shape
     F = shape[-1]
     r2 = None if residual is None else residual.reshape(-1, F)
-    out, h = RMSNormFunction.apply(x.reshape(-1, F), weight, r2, eps)
+    out, h, _ = RMSNormFunction.apply(x.reshape(-1, F), weight, r2, eps)
     return out.reshape(shape), None if h is None else h.reshape(shape)
 
 

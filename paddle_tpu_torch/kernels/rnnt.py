@@ -60,7 +60,7 @@ from typing import NamedTuple
 
 import torch
 
-from . import (LAUNCHES, _build, plain_math, refuse_compile, refuse_grad,
+from . import (LAUNCHES, _build, in_program, plain_math, refuse_grad,
                use_kernel)
 from ..core.tensor import bound_public
 
@@ -338,26 +338,38 @@ def chain_probe_cuda(steps, terms, w):
 
 class RNNTLossFunction(torch.autograd.Function):
     """``(blank_lp, emit_lp [B, T, U + 1], t_len [B], u_len [B]) -> loss
-    [B] = -ll``, differentiable in both lattices. The alpha kernel forward
-    and the beta-gradient kernel backward for CUDA tensors; their plain
-    versions for CPU tensors. The backward returns ``-gb * g`` and
-    ``-ge * g``."""
+    [B] = -ll, alphas, ll)``, differentiable in both lattices through the
+    loss. The alpha kernel forward and the beta-gradient kernel backward
+    for CUDA tensors; their plain versions for CPU tensors; the registered
+    ops (``library.py``) inside a program. The backward returns
+    ``-gb * g`` and ``-ge * g``."""
 
     @staticmethod
-    def forward(ctx, blank_lp, emit_lp, t_len, u_len):
-        refuse_compile("rnnt")
-        cuda = use_kernel(blank_lp, emit_lp, t_len, u_len)
-        alpha = rnnt_alpha_cuda if cuda else rnnt_alpha_plain
-        alphas, ll = alpha(blank_lp, emit_lp, t_len, u_len)
-        ctx.cuda = cuda
-        ctx.save_for_backward(blank_lp, emit_lp, t_len, u_len, alphas, ll)
-        return -ll
+    def forward(blank_lp, emit_lp, t_len, u_len):
+        args = (blank_lp, emit_lp, t_len, u_len)
+        if in_program(*args):
+            alphas, ll = torch.ops.paddle_tpu_torch.rnnt_alpha(*args)
+        else:
+            alpha = rnnt_alpha_cuda if use_kernel(*args) \
+                else rnnt_alpha_plain
+            alphas, ll = alpha(*args)
+        return -ll, alphas, ll
 
     @staticmethod
-    def backward(ctx, g):
+    def setup_context(ctx, inputs, output):
+        ctx.mark_non_differentiable(*output[1:])
+        ctx.save_for_backward(*inputs, *output[1:])
+
+    @staticmethod
+    def backward(ctx, g, *_):
         blank_lp, emit_lp, t_len, u_len, alphas, ll = ctx.saved_tensors
-        beta = rnnt_beta_grad_cuda if ctx.cuda else rnnt_beta_grad_plain
-        gb, ge, _ = beta(blank_lp, emit_lp, alphas, t_len, u_len, ll)
+        args = (blank_lp, emit_lp, alphas, t_len, u_len, ll)
+        if in_program(blank_lp, g):
+            gb, ge = torch.ops.paddle_tpu_torch.rnnt_beta_grad(*args)
+        else:
+            beta = rnnt_beta_grad_cuda if use_kernel(blank_lp, emit_lp) \
+                else rnnt_beta_grad_plain
+            gb, ge, _ = beta(*args)
         g = g.float()[:, None, None]
         return ((-gb * g).to(blank_lp.dtype), (-ge * g).to(emit_lp.dtype),
                 None, None)
@@ -367,7 +379,7 @@ def rnnt_lattice(blank_lp, emit_lp, t_len, u_len):
     """Per-utterance negative log-likelihood ``[B]`` f32 (no reduction, as
     the reference's ``rnnt_core_pallas``); differentiable in both
     lattices."""
-    return RNNTLossFunction.apply(blank_lp, emit_lp, t_len, u_len)
+    return RNNTLossFunction.apply(blank_lp, emit_lp, t_len, u_len)[0]
 
 
 # public entry points hand back Tensors when a Tensor came in

@@ -26,7 +26,7 @@ import ctypes
 
 import torch
 
-from . import LAUNCHES, _build, refuse_compile, refuse_grad, use_kernel
+from . import LAUNCHES, _build, in_program, refuse_grad, use_kernel
 from ..core.tensor import bound_public
 
 __all__ = ["softmax_ce", "softmax_ce_plain", "softmax_ce_cuda",
@@ -113,24 +113,33 @@ def softmax_ce_bwd_cuda(x, labels, lse, g):
 
 
 class SoftmaxCEFunction(torch.autograd.Function):
-    """``(logits [N, V], labels [N]) -> loss [N] f32``, differentiable in
-    the logits. The kernels for CUDA tensors, the plain versions for CPU
-    tensors."""
+    """``(logits [N, V], labels [N]) -> (loss [N] f32, lse [N] f32)``,
+    differentiable in the logits through the loss. The kernels for CUDA
+    tensors, the plain versions for CPU tensors, the registered ops
+    (``library.py``) inside a program."""
 
     @staticmethod
-    def forward(ctx, x, labels):
-        refuse_compile("softmax_ce")
-        cuda = use_kernel(x, labels)
-        loss, lse = (softmax_ce_cuda if cuda else softmax_ce_plain)(x, labels)
-        ctx.cuda = cuda
-        ctx.save_for_backward(x, labels, lse)
-        return loss
+    def forward(x, labels):
+        if in_program(x, labels):
+            return torch.ops.paddle_tpu_torch.softmax_ce_fwd(x, labels)
+        fwd = softmax_ce_cuda if use_kernel(x, labels) else softmax_ce_plain
+        return fwd(x, labels)
 
     @staticmethod
-    def backward(ctx, g):
+    def setup_context(ctx, inputs, output):
+        ctx.mark_non_differentiable(output[1])
+        ctx.save_for_backward(*inputs, output[1])
+
+    @staticmethod
+    def backward(ctx, g, _):
         x, labels, lse = ctx.saved_tensors
-        bwd = softmax_ce_bwd_cuda if ctx.cuda else softmax_ce_bwd_plain
-        return bwd(x, labels, lse, g), None
+        if in_program(x, g):
+            dx = torch.ops.paddle_tpu_torch.softmax_ce_bwd(x, labels, lse, g)
+        else:
+            bwd = softmax_ce_bwd_cuda if use_kernel(x, labels) \
+                else softmax_ce_bwd_plain
+            dx = bwd(x, labels, lse, g)
+        return dx, None
 
 
 def softmax_ce(logits, labels):
@@ -138,7 +147,8 @@ def softmax_ce(logits, labels):
     labels [...] in [0, V). Returns the loss [...] float32."""
     V = logits.shape[-1]
     lead = logits.shape[:-1]
-    loss = SoftmaxCEFunction.apply(logits.reshape(-1, V), labels.reshape(-1))
+    loss, _ = SoftmaxCEFunction.apply(logits.reshape(-1, V),
+                                      labels.reshape(-1))
     return loss.reshape(lead)
 
 

@@ -118,12 +118,16 @@ def flash_attn_unpadded(query, key, value, cu_seqlens_q, cu_seqlens_k,
     positional in the packed rows and needs ``cu_seqlens_q ==
     cu_seqlens_k`` (raises otherwise); tokens past ``cu_seqlens[-1]`` get
     zeros. The kernels on CUDA tensors, the plain versions on CPU tensors,
-    differentiable in query, key and value. ``cu_seqlens`` is copied to the
-    host once a call (it sizes the kernels' grid), so ``max_seqlen_*`` are
-    taken for the API and not needed. Returns ``(out, None)``."""
+    differentiable in query, key and value. Eager, ``cu_seqlens`` is
+    copied to the host once a call (it sizes the kernels' grid), so
+    ``max_seqlen_*`` are taken for the API and not needed; inside a
+    compiled or exported program they size the grid (no host read), the
+    total tokens where they are None. Returns ``(out, None)``."""
     if not training:
         dropout = 0.0
     out, _ = flash_attn_varlen(query, key, value, cu_seqlens_q, cu_seqlens_k,
                                causal=causal, sm_scale=scale,
-                               dropout_p=dropout, seed=fixed_seed_offset)
+                               dropout_p=dropout, seed=fixed_seed_offset,
+                               max_seqlen_q=max_seqlen_q,
+                               max_seqlen_k=max_seqlen_k)
     return out, None

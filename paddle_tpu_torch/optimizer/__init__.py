@@ -1,9 +1,14 @@
 from . import lr
-from .lr import (CosineAnnealingDecay, LinearWarmup, LRScheduler,
-                 PiecewiseDecay, PolynomialDecay)
+from .lbfgs import LBFGS
+from .lr import (CosineAnnealingDecay, CosineAnnealingWarmRestarts, CyclicLR,
+                 ExponentialDecay, InverseTimeDecay, LambdaDecay,
+                 LinearWarmup, LRScheduler, MultiplicativeDecay,
+                 MultiStepDecay, NaturalExpDecay, NoamDecay, OneCycleLR,
+                 PiecewiseDecay, PolynomialDecay, ReduceOnPlateau, StepDecay)
 from .optimizer import Optimizer
-from .optimizers import SGD, Adam, AdamW, Momentum
+from .optimizers import (SGD, Adadelta, Adagrad, Adam, Adamax, AdamW, Lamb,
+                         Momentum, RMSProp)
 
-__all__ = ["Optimizer", "SGD", "Momentum", "Adam", "AdamW", "lr",
-           "LRScheduler", "LinearWarmup", "PiecewiseDecay", "PolynomialDecay",
-           "CosineAnnealingDecay"]
+__all__ = ["Optimizer", "SGD", "Momentum", "Adam", "AdamW", "Adagrad",
+           "RMSProp", "Adadelta", "Adamax", "Lamb", "LBFGS", "lr",
+           *lr.__all__]

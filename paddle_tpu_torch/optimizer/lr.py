@@ -1,16 +1,21 @@
-"""Learning-rate schedulers (counterpart of ``paddle_tpu/optimizer/lr.py``;
-ports ``LRScheduler``, ``LinearWarmup``, ``PiecewiseDecay``,
-``PolynomialDecay`` and ``CosineAnnealingDecay``, the rest is in ROADMAP
-Queue 1). Pure Python
-arithmetic, the reference's formulas. An optimizer given a scheduler as
+"""Learning-rate schedulers (counterpart of ``paddle_tpu/optimizer/lr.py``:
+all 17 of its classes). Pure Python arithmetic, the reference's formulas
+in the reference's order of operations. An optimizer given a scheduler as
 ``learning_rate`` reads ``scheduler()`` at each step; the caller advances
-it with ``scheduler.step()``, as in Paddle."""
+it with ``scheduler.step()`` (``ReduceOnPlateau``: ``step(metric)``), as in
+Paddle. ``state_dict`` holds the scheduler's numbers, lists and strings
+(not its functions), the reference's layout."""
 from __future__ import annotations
 
 import math
 
-__all__ = ["LRScheduler", "LinearWarmup", "PiecewiseDecay",
-           "PolynomialDecay", "CosineAnnealingDecay"]
+__all__ = [
+    "LRScheduler", "NoamDecay", "PiecewiseDecay", "NaturalExpDecay",
+    "InverseTimeDecay", "PolynomialDecay", "LinearWarmup", "ExponentialDecay",
+    "MultiStepDecay", "StepDecay", "LambdaDecay", "ReduceOnPlateau",
+    "CosineAnnealingDecay", "MultiplicativeDecay", "OneCycleLR",
+    "CyclicLR", "CosineAnnealingWarmRestarts",
+]
 
 
 class LRScheduler:
@@ -112,3 +117,250 @@ class CosineAnnealingDecay(LRScheduler):
     def get_lr(self):
         return self.eta_min + (self.base_lr - self.eta_min) * (
             1 + math.cos(math.pi * self.last_epoch / self.T_max)) / 2
+
+
+class NoamDecay(LRScheduler):
+    """``lr * d_model^-0.5 * min(step^-0.5, step * warmup^-1.5)`` (the
+    Transformer's schedule; step counted from 1)."""
+
+    def __init__(self, d_model, warmup_steps, learning_rate=1.0,
+                 last_epoch=-1, verbose=False):
+        self.d_model = d_model
+        self.warmup_steps = warmup_steps
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        step = max(self.last_epoch, 1)
+        return self.base_lr * (self.d_model ** -0.5) * min(
+            step ** -0.5, step * self.warmup_steps ** -1.5)
+
+
+class NaturalExpDecay(LRScheduler):
+    def __init__(self, learning_rate, gamma, last_epoch=-1, verbose=False):
+        self.gamma = gamma
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        return self.base_lr * math.exp(-self.gamma * self.last_epoch)
+
+
+class InverseTimeDecay(LRScheduler):
+    def __init__(self, learning_rate, gamma, last_epoch=-1, verbose=False):
+        self.gamma = gamma
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        return self.base_lr / (1 + self.gamma * self.last_epoch)
+
+
+class ExponentialDecay(LRScheduler):
+    def __init__(self, learning_rate, gamma, last_epoch=-1, verbose=False):
+        self.gamma = gamma
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        return self.base_lr * self.gamma ** self.last_epoch
+
+
+class MultiStepDecay(LRScheduler):
+    """``lr * gamma^n``, n the milestones passed."""
+
+    def __init__(self, learning_rate, milestones, gamma=0.1, last_epoch=-1,
+                 verbose=False):
+        self.milestones = list(milestones)
+        self.gamma = gamma
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        n = sum(1 for m in self.milestones if self.last_epoch >= m)
+        return self.base_lr * self.gamma ** n
+
+
+class StepDecay(LRScheduler):
+    def __init__(self, learning_rate, step_size, gamma=0.1, last_epoch=-1,
+                 verbose=False):
+        self.step_size = step_size
+        self.gamma = gamma
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        return self.base_lr * self.gamma ** (self.last_epoch // self.step_size)
+
+
+class LambdaDecay(LRScheduler):
+    """``lr * lr_lambda(epoch)``."""
+
+    def __init__(self, learning_rate, lr_lambda, last_epoch=-1,
+                 verbose=False):
+        self.lr_lambda = lr_lambda
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        return self.base_lr * self.lr_lambda(self.last_epoch)
+
+
+class MultiplicativeDecay(LRScheduler):
+    """``lr * prod(lr_lambda(e) for e in 1..epoch)``."""
+
+    def __init__(self, learning_rate, lr_lambda, last_epoch=-1,
+                 verbose=False):
+        self.lr_lambda = lr_lambda
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        lr = self.base_lr
+        for e in range(1, self.last_epoch + 1):
+            lr *= self.lr_lambda(e)
+        return lr
+
+
+class ReduceOnPlateau(LRScheduler):
+    """Multiplies the lr by ``factor`` (not below ``min_lr``) once the
+    metric handed to ``step(metric)`` has not improved by ``threshold``
+    (relative or absolute, for ``mode`` "min" or "max") for more than
+    ``patience`` calls, then waits ``cooldown`` calls; a change smaller
+    than ``epsilon`` is not made."""
+
+    def __init__(self, learning_rate, mode="min", factor=0.1, patience=10,
+                 threshold=1e-4, threshold_mode="rel", cooldown=0, min_lr=0,
+                 epsilon=1e-8, verbose=False):
+        self.mode = mode
+        self.factor = factor
+        self.patience = patience
+        self.threshold = threshold
+        self.threshold_mode = threshold_mode
+        self.cooldown = cooldown
+        self.min_lr = min_lr
+        self.epsilon = epsilon
+        self.best = None
+        self.num_bad_epochs = 0
+        self.cooldown_counter = 0
+        self.base_lr = float(learning_rate)
+        self.last_lr = self.base_lr
+        self.last_epoch = 0
+        self.verbose = verbose
+
+    def get_lr(self):
+        return self.last_lr
+
+    def step(self, metrics=None, epoch=None):
+        if metrics is None:
+            return
+        current = float(metrics)
+        if self.best is None or self._is_better(current, self.best):
+            self.best = current
+            self.num_bad_epochs = 0
+        else:
+            self.num_bad_epochs += 1
+        if self.cooldown_counter > 0:
+            self.cooldown_counter -= 1
+            self.num_bad_epochs = 0
+        if self.num_bad_epochs > self.patience:
+            new_lr = max(self.last_lr * self.factor, self.min_lr)
+            if self.last_lr - new_lr > self.epsilon:
+                self.last_lr = new_lr
+            self.cooldown_counter = self.cooldown
+            self.num_bad_epochs = 0
+        self.last_epoch += 1
+
+    def _is_better(self, a, best):
+        if self.mode == "min":
+            if self.threshold_mode == "rel":
+                return a < best * (1 - self.threshold)
+            return a < best - self.threshold
+        if self.threshold_mode == "rel":
+            return a > best * (1 + self.threshold)
+        return a > best + self.threshold
+
+
+class OneCycleLR(LRScheduler):
+    """The one-cycle policy: from ``max_learning_rate / divide_factor`` up
+    to ``max_learning_rate`` over ``phase_pct`` of ``total_steps``, then
+    down to ``end_learning_rate`` ("cos" or "linear" annealing)."""
+
+    def __init__(self, max_learning_rate, total_steps, divide_factor=25.0,
+                 end_learning_rate=0.0001, phase_pct=0.3,
+                 anneal_strategy="cos", three_phase=False, last_epoch=-1,
+                 verbose=False):
+        self.max_lr = max_learning_rate
+        self.total_steps = total_steps
+        self.initial_lr = max_learning_rate / divide_factor
+        self.end_lr = end_learning_rate
+        self.phase_pct = phase_pct
+        self.anneal = anneal_strategy
+        self.three_phase = three_phase
+        super().__init__(self.initial_lr, last_epoch, verbose)
+
+    def _anneal(self, start, end, pct):
+        if self.anneal == "cos":
+            return end + (start - end) / 2.0 * (math.cos(math.pi * pct) + 1)
+        return (end - start) * pct + start
+
+    def get_lr(self):
+        step = min(self.last_epoch, self.total_steps)
+        up_steps = float(self.phase_pct * self.total_steps) - 1
+        if up_steps > 0 and step <= up_steps:
+            return self._anneal(self.initial_lr, self.max_lr,
+                                step / up_steps)
+        down_steps = self.total_steps - up_steps - 1
+        pct = (step - up_steps) / max(down_steps, 1)
+        return self._anneal(self.max_lr, self.end_lr, min(pct, 1.0))
+
+
+class CyclicLR(LRScheduler):
+    """Cycles between ``base_learning_rate`` and ``max_learning_rate``
+    (up in ``step_size_up`` steps, down in ``step_size_down``), the
+    amplitude scaled by ``mode`` ("triangular", "triangular2",
+    "exp_range") or by ``scale_fn`` of the cycle or the step."""
+
+    def __init__(self, base_learning_rate, max_learning_rate, step_size_up,
+                 step_size_down=None, mode="triangular", exp_gamma=1.0,
+                 scale_fn=None, scale_mode="cycle", last_epoch=-1,
+                 verbose=False):
+        self.max_lr = max_learning_rate
+        self.step_size_up = step_size_up
+        self.step_size_down = step_size_down or step_size_up
+        self.mode = mode
+        self.exp_gamma = exp_gamma
+        self.scale_fn = scale_fn
+        self.scale_mode = scale_mode
+        super().__init__(base_learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        total = self.step_size_up + self.step_size_down
+        cycle = math.floor(1 + self.last_epoch / total)
+        x = self.last_epoch - (cycle - 1) * total
+        if x < self.step_size_up:
+            pct = x / self.step_size_up
+        else:
+            pct = 1 - (x - self.step_size_up) / self.step_size_down
+        amp = (self.max_lr - self.base_lr) * pct
+        if self.scale_fn is not None:
+            arg = cycle if self.scale_mode == "cycle" else self.last_epoch
+            amp *= self.scale_fn(arg)
+        elif self.mode == "triangular2":
+            amp /= 2 ** (cycle - 1)
+        elif self.mode == "exp_range":
+            amp *= self.exp_gamma ** self.last_epoch
+        return self.base_lr + amp
+
+
+class CosineAnnealingWarmRestarts(LRScheduler):
+    """Cosine annealing restarted after ``T_0`` steps, each period
+    ``T_mult`` times the last (SGDR)."""
+
+    def __init__(self, learning_rate, T_0, T_mult=1, eta_min=0,
+                 last_epoch=-1, verbose=False):
+        self.T_0 = T_0
+        self.T_mult = T_mult
+        self.eta_min = eta_min
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        t = self.last_epoch
+        t_i = self.T_0
+        while t >= t_i:
+            t -= t_i
+            t_i *= self.T_mult
+        return self.eta_min + (self.base_lr - self.eta_min) * (
+            1 + math.cos(math.pi * t / t_i)) / 2

@@ -415,28 +415,70 @@ class _WhileNode:
 class _GradNode:
     """``static.gradients``: the targets replayed from the seeds as a
     function of the inputs, differentiated with ``torch.func.grad`` (inside
-    the compiled program)."""
+    the compiled program). An input is a program value (a placeholder's or
+    a program parameter's descendant) or a parameter of a Layer the program
+    calls (Paddle's ``gradients(loss, model.parameters())``): that one is
+    handed to the recorded Layer calls that hold it, in place of their
+    state's entry."""
 
     def __init__(self, targets, inputs, target_gradients):
         self.uid = next_uid()
-        self.targets, self.inputs = freeze(targets), freeze(inputs)
-        self.tgrads = freeze(target_gradients)
+        self.targets, self.tgrads = freeze(targets), freeze(target_gradients)
+        self.inputs = [freeze(i) if isinstance(i, StaticTensor) else i
+                       for i in inputs]
+        self.slots = self._slots()
 
     def deps(self):
         return [*self.targets, *self.inputs, *self.tgrads]
 
+    def _slots(self):
+        """``{index of a Layer-parameter input: [(layer node, name)]}``:
+        where each such input sits in the recorded Layer calls the targets
+        depend on."""
+        wanted = {id(i): k for k, i in enumerate(self.inputs)
+                  if not isinstance(i, Ref)}
+        slots = {k: [] for k in wanted.values()}
+        for node in (_walk(self.targets)[2] if wanted else ()):
+            for name, p in torch.nn.Module.named_parameters(node.layer):
+                if id(p) in wanted:
+                    slots[wanted[id(p)]].append((node, name))
+        for k, where in slots.items():
+            if not where:
+                raise ValueError(
+                    f"static.gradients: input {k} is neither a program "
+                    f"value nor a parameter of a Layer the targets call")
+        return slots
+
     def run(self, env):
-        ivals = [_value(i, env) for i in self.inputs]
+        slots = self.slots
+
+        def state(node):
+            return env.layers.get(node.uid) or functional_state(node.layer)
+
+        ivals = [_value(i, env) if isinstance(i, Ref) else
+                 state(slots[k][0][0])[0][slots[k][0][1]]
+                 for k, i in enumerate(self.inputs)]
         gvals = [None if g is None else
                  _value(g, env) if isinstance(g, (Ref, torch.Tensor))
                  else torch.as_tensor(np.asarray(g)) for g in self.tgrads]
-        keys = [key_of(i.st) for i in self.inputs]
+        keys = {k: key_of(i.st) for k, i in enumerate(self.inputs)
+                if isinstance(i, Ref)}
 
         def f(*iv):
+            # Dynamo (torch 2.11-2.13) drops an autograd.Function's backward
+            # when a grad input reaches it unchanged, leaving the registered
+            # op's forward without a derivative; an alias of each input
+            # keeps it
+            iv = [v.view_as(v) for v in iv]
             # from the seeds only: memoized intermediates were computed from
             # the inputs' own values and would make the targets constants
-            e = _Env(dict(env.seeds), env.layers, env.build)
-            e.memo.update(zip(keys, iv))
+            layers = dict(env.layers)
+            for k, where in slots.items():
+                for node, name in where:
+                    params, buffers = layers.get(node.uid) or state(node)
+                    layers[node.uid] = ({**params, name: iv[k]}, buffers)
+            e = _Env(dict(env.seeds), layers, env.build)
+            e.memo.update((key, iv[k]) for k, key in keys.items())
             total = None
             for t, g in zip(self.targets, gvals):
                 tv = _value(t, e)
@@ -499,7 +541,8 @@ def _record_outputs(node, build_outs):
 
 def gradients(targets, inputs, target_gradients=None):
     """``static.gradients``: gradients of the sum of ``targets`` (each times
-    its ``target_gradients`` entry) with respect to ``inputs``, recorded
+    its ``target_gradients`` entry) with respect to ``inputs`` (program
+    values, or parameters of the Layers the program calls), recorded
     into the program: fetching them differentiates the compiled program at
     the fed values (Paddle's ``append_backward`` role)."""
     tlist = list(targets) if isinstance(targets, (list, tuple)) else [targets]
@@ -511,9 +554,10 @@ def gradients(targets, inputs, target_gradients=None):
                  if isinstance(target_gradients, (list, tuple))
                  else [target_gradients])
     for i in ilist:
-        if not isinstance(i, StaticTensor):
+        if not isinstance(i, torch.Tensor):
             raise ValueError("static.gradients: every input must flow from "
-                             "a placeholder or a parameter of the program")
+                             "a placeholder or a parameter of the program, "
+                             "or be a parameter of a Layer it calls")
     node = _GradNode(tlist, ilist, glist)
     return _record_outputs(node, node.run(_Env({}, build=True)))
 
@@ -714,7 +758,7 @@ def save_inference_model(path_prefix, feed_vars, fetch_vars, executor,
         d, concrete, names = {}, [], []
         for j, s in enumerate(declared):
             if s is None or s == -1:
-                d[j] = torch.export.Dim(f"feed{i}_d{j}")
+                d[j] = torch.export.Dim.DYNAMIC
                 concrete.append(2)
                 names.append(f"feed{i}_d{j}")
             else:

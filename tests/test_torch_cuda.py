@@ -2022,7 +2022,7 @@ def _compiled_kernels():
     from paddle_tpu_torch.kernels.layernorm import LayerNormFunction
 
     def f(x, w, b, q, k, v):
-        h = LayerNormFunction.apply(x, w, b, 1e-5)
+        h, _, _ = LayerNormFunction.apply(x, w, b, 1e-5)
         out, lse = FlashAttentionFunction.apply(q, k, v, False, None, 0.0, 0,
                                                 None)
         return h, out, lse
@@ -2152,3 +2152,218 @@ def test_vision_o1_step_launches_one_softmax_ce_a_head(gen, name, heads,
     assert launched == {"softmax_ce": heads, "softmax_ce_bwd": heads}
     assert math.isfinite(loss.item())
     assert all(torch.isfinite(p.grad).all() for p in model.parameters())
+
+
+# -- every kernel a registered op (F6 repaired): each Function inside a
+#    to_static program on the card, forward and backward, against its
+#    eager launches -----------------------------------------------------------
+
+def _program_and_eager(f, n):
+    """A program computing ``f``'s outputs and the gradients of
+    ``sum(out0 * cot)`` w.r.t. its first ``n`` arguments
+    (``torch.func.grad``; the inputs aliased, see ``static._GradNode``),
+    and the same through eager ``backward()``."""
+    def program(*a):
+        *xs, cot = a
+
+        def loss(*d):
+            outs = f(*(t.view_as(t) for t in d), *xs[n:])
+            return (outs[0].float() * cot).sum(), outs
+
+        grads, outs = torch.func.grad(loss, argnums=tuple(range(n)),
+                                      has_aux=True)(*xs[:n])
+        return (*outs, *grads)
+
+    def eager(*a):
+        *xs, cot = a
+        leaves = [x.detach().requires_grad_() for x in xs[:n]]
+        outs = f(*leaves, *xs[n:])
+        (outs[0].float() * cot).sum().backward()
+        return (*(o.detach() for o in outs), *(x.grad for x in leaves))
+    return program, eager
+
+
+def _op_case(gen, name):
+    """(f, differentiable arguments, arguments with the cotangent last,
+    the launches one program run makes)."""
+    from paddle_tpu_torch.kernels import ctc as C
+    from paddle_tpu_torch.kernels import rnnt as R
+    from paddle_tpu_torch.kernels.flash_attention import flash_attn_varlen
+
+    bf = torch.bfloat16
+    q, k, v = (_rnd(gen, bf, 2, 128, 8, 64) for _ in range(3))
+    cot = torch.randn(2, 128, 8, 64, device="cuda", generator=gen)
+    if name == "flash":
+        return (lambda a, b, c: flash_attention_fwd(a, b, c, causal=True), 3,
+                (q, k, v, cot),
+                {"flash_attention": 1, "flash_attention_bwd": 1})
+    if name == "flash_mask":
+        m = torch.rand(2, 1, 128, 128, device="cuda", generator=gen) > 0.2
+        return (lambda a, b, c: flash_attention_fwd(a, b, c, mask=m), 3,
+                (q, k, v, cot),
+                {"flash_attention_mask": 1, "flash_attention_bwd_mask": 1})
+    if name == "flash_dropout_seed":
+        return (lambda a, b, c: flash_attention_fwd(a, b, c, dropout_p=0.1,
+                                                    seed=99), 3,
+                (q, k, v, cot), {"flash_attention_dropout": 1,
+                                 "flash_attention_bwd_dropout": 1})
+    if name == "varlen":
+        cu = torch.tensor([0, 100, 117, 256], device="cuda",
+                          dtype=torch.int32)
+        vq, vk, vv = (_rnd(gen, bf, 256, 8, 64) for _ in range(3))
+        return (lambda a, b, c, u: flash_attn_varlen(
+            a, b, c, u, u, causal=True, max_seqlen_q=139, max_seqlen_k=139),
+            3, (vq, vk, vv, cu,
+                torch.randn(256, 8, 64, device="cuda", generator=gen)),
+            {"flash_attention_varlen": 1, "flash_attention_bwd_varlen": 1})
+    if name == "rmsnorm":
+        return (lambda a, w: (rmsnorm(a, w, 1e-5),), 2,
+                (_rnd(gen, bf, 64, 4096), _rnd(gen, bf, 4096),
+                 torch.randn(64, 4096, device="cuda", generator=gen)),
+                {"rmsnorm": 1, "rmsnorm_bwd": 1})
+    if name == "softmax_ce":
+        labels = torch.randint(0, 32000, (64,), device="cuda", generator=gen)
+        return (lambda a, y: (softmax_ce(a, y),), 1,
+                (_rnd(gen, bf, 64, 32000), labels,
+                 torch.randn(64, device="cuda", generator=gen)),
+                {"softmax_ce": 1, "softmax_ce_bwd": 1})
+    if name == "ctc":
+        lp = torch.log_softmax(torch.randn(100, 4, 32, device="cuda",
+                                           generator=gen), -1)
+        lbl = torch.randint(1, 32, (4, 12), device="cuda", generator=gen)
+        lens = (torch.tensor([100, 90, 80, 70], device="cuda"),
+                torch.tensor([12, 10, 7, 12], device="cuda"))
+        return (lambda a, *r: (C.ctc_lattice(a, *r),), 1,
+                (lp, lbl, *lens, torch.randn(4, device="cuda",
+                                             generator=gen)),
+                {"ctc_alpha": 1, "ctc_beta": 1})
+    assert name == "rnnt"
+    blank = torch.log_softmax(torch.randn(4, 50, 9, device="cuda",
+                                          generator=gen), -1)
+    emit = torch.log_softmax(torch.randn(4, 50, 9, device="cuda",
+                                         generator=gen), -1)
+    lens = (torch.tensor([50, 40, 45, 30], device="cuda"),
+            torch.tensor([8, 5, 8, 2], device="cuda"))
+    return (lambda a, b, *r: (R.rnnt_lattice(a, b, *r),), 2,
+            (blank, emit, *lens, torch.randn(4, device="cuda",
+                                             generator=gen)),
+            {"rnnt_alpha": 1, "rnnt_beta_grad": 1})
+
+
+@pytest.mark.parametrize("name", ["flash", "flash_mask", "flash_dropout_seed",
+                                  "varlen", "rmsnorm", "softmax_ce", "ctc",
+                                  "rnnt"])
+def test_registered_op_in_a_program_equals_its_eager_launch(gen, name):
+    """Forward and backward of each kernel family inside a to_static
+    (aot_eager) program: the counters move inside the ops, and every
+    output and gradient equals the eager launches' bit for bit (the
+    kernels are deterministic: no atomics, fixed-order sums)."""
+    from paddle_tpu_torch import jit
+
+    f, n, args, counts = _op_case(gen, name)
+    program, eager = _program_and_eager(f, n)
+    compiled = jit.to_static(program, backend="aot_eager")
+    K.reset_launch_counts()
+    got = compiled(*args)
+    torch.cuda.synchronize()
+    moved = {k: K.launch_counts()[k] for k in counts}
+    want = eager(*args)
+    torch.cuda.synchronize()
+    assert moved == counts
+    for a, b in zip(got, want):
+        assert torch.equal(torch.Tensor.detach(a), b)
+
+
+def test_registered_paged_attention_in_a_program_equals_its_launch(gen):
+    from paddle_tpu_torch import jit
+
+    pool = _rnd(gen, torch.bfloat16, 4 * 64 + 1, 2, 32, 16, 128)
+    q = _rnd(gen, torch.bfloat16, 4, 32, 128)
+    bt = (torch.randperm(256, device="cuda", generator=gen) + 1).reshape(
+        4, 64).to(torch.int32)
+    ctx = torch.tensor([1, 17, 1000, 513], device="cuda", dtype=torch.int32)
+    compiled = jit.to_static(paged_attention, backend="aot_eager")
+    K.reset_launch_counts()
+    got = compiled(q, pool, bt, ctx)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["paged_attention"] == 1
+    assert torch.equal(got, paged_attention(q, pool, bt, ctx))
+
+
+def test_regression_f6_compiled_dropout_reads_its_seed_on_the_card(gen):
+    """F6: a compiled program with flash dropout draws its seed on the card
+    each call (two calls drop different masks) and the kernels read it
+    there; an explicit seed gives the eager mask bit for bit."""
+    from paddle_tpu_torch import jit
+
+    q = _rnd(gen, torch.bfloat16, 2, 256, 8, 64)
+    unseeded = jit.to_static(
+        lambda a: flash_attention_fwd(a, a, a, dropout_p=0.2)[0],
+        backend="aot_eager")
+    a, b = unseeded(q), unseeded(q)
+    assert not torch.equal(a, b)
+    seeded = jit.to_static(
+        lambda a: flash_attention_fwd(a, a, a, dropout_p=0.2, seed=5)[0],
+        backend="aot_eager")
+    assert torch.equal(seeded(q),
+                       flash_attention_fwd(q, q, q, dropout_p=0.2, seed=5)[0])
+
+
+def test_regression_f6_llama_compiles_exports_and_differentiates(gen, tmp_path):
+    """F6: a small bf16 Llama through to_static (inductor), jit.save /
+    jit.load and a static program's gradients on the card, every kernel
+    launched as an op (2 L + 1 RMSNorm and L flash a forward; the
+    backward kernels in the gradient program), the logits within 3x eager
+    bf16's error against f32 and the gradients within 5e-2 relative L2 of
+    eager autograd's."""
+    from paddle_tpu_torch import jit, static
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama_tiny
+    from paddle_tpu_torch.nn.functional import cross_entropy
+
+    cfg = llama_tiny(vocab=512, hidden=256, layers=2, heads=4, kv_heads=4,
+                     inter=512, seq=256)
+    m32 = LlamaForCausalLM(cfg, device="cuda", generator=gen).eval()
+    m16 = LlamaForCausalLM(cfg, device="cuda", dtype=torch.bfloat16).eval()
+    m16.set_state_dict(m32.state_dict())
+    ids = torch.randint(0, 512, (2, 128), device="cuda", generator=gen)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            want = m32(ids).float()
+            ref = ((m16(ids).float() - want).norm() / want.norm()).item()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    jit.save(m16, str(tmp_path / "llama"),
+             input_spec=[([None, None], "int64")])
+    for fn in (jit.StaticFunction(m16), jit.load(str(tmp_path / "llama"))):
+        with torch.no_grad():
+            K.reset_launch_counts()
+            out = fn(ids).float()
+            torch.cuda.synchronize()
+        counts = K.launch_counts()
+        assert counts["rmsnorm"] == 5 and counts["flash_attention"] == 2
+        assert ((out - want).norm() / want.norm()).item() <= 3 * ref
+
+    def loss_of(logits, tok):
+        return cross_entropy(logits[:, :-1].reshape([-1, 512]),
+                             tok[:, 1:].reshape([-1]))
+
+    params = list(m16.parameters())
+    loss_of(m16(ids), ids).backward()
+    eager = [p.grad.float().clone() for p in params]
+    for p in params:
+        p.grad = None
+    main = static.Program()
+    with static.program_guard(main):
+        tok = static.data("ids", [None, 128], "int64")
+        grads = static.gradients([loss_of(m16(tok), tok)], params)
+    K.reset_launch_counts()
+    outs = static.Executor().run(main, feed={"ids": ids}, fetch_list=grads,
+                                 return_numpy=False)
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    for k in ("rmsnorm_bwd", "flash_attention_bwd", "softmax_ce_bwd"):
+        assert counts[k] > 0, k
+    for g, e in zip(outs, eager):
+        assert ((g.float() - e).norm() / e.norm()).item() <= 5e-2

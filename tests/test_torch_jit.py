@@ -8,7 +8,8 @@ and ``jit.save`` / ``jit.load``: f32 outputs agree to 1e-5 (MLPs) and to
 ``ernie_state_from_jax``). The port compiles with the ``aot_eager``
 backend here (``jit.DEFAULT_BACKEND``; inductor on the card). The
 registered ops pass ``torch.library.opcheck`` on their CPU implementations;
-eager calls of the kernels' Functions never dispatch through them.
+eager calls of the kernels' Functions never dispatch through them; RMSNorm
+and flash dropout compile (F6 repaired).
 """
 import json
 import os
@@ -224,25 +225,45 @@ def test_more_signatures_than_the_recompile_limit_all_compile(monkeypatch):
     assert len(f.concrete_programs) == n
 
 
-def test_unregistered_kernel_under_to_static_raises_by_name():
+def test_to_static_rms_norm_equals_eager():
+    """Every kernel is a registered op (F6 repaired): RMSNorm compiles and
+    its program gives the eager bits on the CPU."""
+    g = torch.Generator().manual_seed(3)
+    x, w = torch.randn(4, 16, generator=g), torch.randn(16, generator=g)
+
     @jit.to_static
     def f(x, w):
         return paddle.nn.functional.rms_norm(x, w)
 
-    with pytest.raises(kernels.NotCompilable, match="rmsnorm"):
-        f(torch.ones(2, 8), torch.ones(8))
+    torch.testing.assert_close(f(x, w), paddle.nn.functional.rms_norm(x, w),
+                               atol=0, rtol=0)
+    assert len(f.concrete_programs) == 1
 
 
-def test_flash_dropout_under_compile_raises():
+def test_flash_dropout_compiles():
+    """Flash attention with dropout compiles: the program draws its seed
+    each call (two calls drop different masks), and an explicit seed gives
+    the eager output bit for bit."""
     from paddle_tpu_torch.nn.functional import scaled_dot_product_attention
+
+    q = torch.randn(1, 16, 2, 8, generator=torch.Generator().manual_seed(4))
 
     @jit.to_static
     def f(q):
-        return scaled_dot_product_attention(q, q, q, dropout_p=0.1,
+        return scaled_dot_product_attention(q, q, q, dropout_p=0.5,
                                             training=True)
 
-    with pytest.raises(kernels.NotCompilable, match="dropout"):
-        f(torch.ones(1, 4, 2, 8))
+    assert not torch.equal(f(q), f(q))
+
+    @jit.to_static
+    def seeded(q):
+        return scaled_dot_product_attention(q, q, q, dropout_p=0.5,
+                                            training=True, seed=77)
+
+    torch.testing.assert_close(
+        seeded(q), scaled_dot_product_attention(q, q, q, dropout_p=0.5,
+                                                training=True, seed=77),
+        atol=0, rtol=0)
 
 
 def test_enable_to_static_off_runs_python():
@@ -282,7 +303,7 @@ def test_registered_ops_pass_opcheck(case):
         mask = (torch.rand(2, 3, 5, 5, generator=g) > 0.3)
     torch.library.opcheck(library.flash_attention_fwd,
                           (q, k, v, mask, case == "flash_causal", None, 0.0,
-                           0))
+                           None))
 
 
 def test_registered_ops_match_the_plain_versions():
@@ -298,7 +319,7 @@ def test_registered_ops_match_the_plain_versions():
         torch.testing.assert_close(got, want, atol=0, rtol=0)
     q = torch.randn(1, 4, 2, 8, generator=g)
     for got, want in zip(torch.ops.paddle_tpu_torch.flash_attention_fwd(
-            q, q, q, None, True, None, 0.0, 0),
+            q, q, q, None, True, None, 0.0, None),
             flash_attention_plain(q, q, q, causal=True)):
         torch.testing.assert_close(got, want, atol=0, rtol=0)
 
