@@ -405,6 +405,26 @@ CUDA toolkit (``nvcc``). It imports nothing of JAX or of ``paddle_tpu``.
     Lamb, AdamW with ``lr_ratio`` / ``apply_decay_param_fun`` and LBFGS
     with and without its line search, 5 steps each on the card against
     the CPU, f32, TF32 off, within OPTIMIZERS_F32.
+43. ``[eager ops]`` also runs the registry's other 184 ops
+    (``ops.parity``, ``ops.detection``, fft's three, the activations,
+    ``rnn``, the aliases; ``tools/eager_op_cases.py`` REGISTRY_CASES) on
+    the card against the CPU and requires ``op_coverage()`` 405 of 460.
+44. ``[op aliases]``: the six aliases that reach kernels (``flash_attn``,
+    ``flash_attn_unpadded``, ``layer_norm``, ``cross_entropy_with_softmax``,
+    ``warpctc``, ``warprnnt``) through ``OPS[name].fn`` at Llama's, row
+    1b's, ERNIE's and the Conformer's shapes: each kernel launched once,
+    output and gradients bitwise the direct call's.
+45. ``[detection ppyolo]``: PP-YOLO R50vd-DCN post-processing at 608 x 608,
+    batch 8 (DCNv2 forward and backward, ``yolo_box``, ``matrix_nms``),
+    each stage card against CPU, ms, host syncs, peak memory.
+46. ``[detection faster rcnn]``: Faster R-CNN R50-FPN proposals and RoI
+    features at 800 x 1344, batch 2 (``generate_proposals``, top 1000,
+    ``distribute_fpn_proposals``, ``roi_align``, ``box_coder``,
+    ``multiclass_nms3``), held and printed as 45.
+47. ``[fft]``: ``frame`` + ``rfft`` at Whisper-base's STFT over 8 x 30 s,
+    card against CPU. ``[containers]``: a TensorArray round trip on the
+    card. ``[nan inf]``: ``FLAGS_check_nan_inf`` raises on ``log(-1)``
+    with the op's name; off, no hook (``[densenet]`` ran so).
 
 Flash design: bf16 at every head width whose rows TMA reads (16-byte head
 rows, or the Conformer's 8-byte rows of 36 inside 16-byte token rows)
@@ -426,7 +446,8 @@ under "operations" in ``bound_by``).
 The ``launches`` of the JSON line sum the main path's runs: the engine,
 the no-cache forward, the 5 Llama training steps, the ERNIE steps, the
 Conformer-CTC and the RNN-T steps, the encoder steps, the
-``F.flash_attn_unpadded`` call, the Whisper ``generate`` and its
+``F.flash_attn_unpadded`` call, the ``[op aliases]`` calls, the Whisper
+``generate`` and its
 teacher-forced forward, the Whisper training steps, the ResNet-50
 training steps, the zoo's steps, the ShuffleNetV2 steps, the Llama
 deploy forwards and the static gradient program, the Lamb steps, the two
@@ -660,6 +681,50 @@ STATIC_GRAD_KERNELS = ("rmsnorm", "rmsnorm_bwd", "flash_attention",
 LAMB_STEPS = 10
 LAMB_MAX_LR = 2e-3
 OPTIMIZERS_F32 = dict(rtol=1e-5, atol=1e-6)
+# The rest of the op library: two PaddleDetection models' post-processing
+# at their published sizes, card against CPU on the same inputs. PP-YOLO
+# R50vd-DCN (configs/ppyolo/_base_/ppyolo_r50vd_dcn.yml): 608 x 608, 80
+# classes, its anchors and masks; head logits drawn so that each class
+# hands matrix NMS a few hundred candidates above 0.01, as a trained
+# detector's do (objectness ~ N(-5, 2), class ~ N(-5, 1.5): random logits
+# would pass nearly all 22743 boxes)
+PPYOLO_BATCH = 8
+PPYOLO_SIZE = 608
+PPYOLO_CLASSES = 80
+PPYOLO_ANCHORS = [[10, 13], [16, 30], [33, 23], [30, 61], [62, 45],
+                  [59, 119], [116, 90], [156, 198], [373, 326]]
+PPYOLO_MASKS = [[6, 7, 8], [3, 4, 5], [0, 1, 2]]
+PPYOLO_OBJ = (-5.0, 2.0)
+PPYOLO_CLS = (-5.0, 1.5)
+# matrix_nms at ~5000 candidates a class (uniform scores below this, 22 %
+# of 22743 above 0.01), held under a peak of PPYOLO_MANY_PEAK GiB
+PPYOLO_MANY_SCALE = 0.0128
+PPYOLO_MANY_PEAK = 4.0
+# the DCN block in f32, TF32 off: sums of 4608 products in another order;
+# its backward's scatter-adds are atomics on the card
+DCN_REL_L2 = 1e-5
+DCN_GRAD_REL_L2 = 1e-4
+# Faster R-CNN R50-FPN (configs/faster_rcnn/_base_/faster_rcnn_r50_fpn.yml):
+# batch 2 padded to 800 x 1344 (the images 800 x 1333 and 750 x 1344);
+# class logits over 81 classes ~ N(0, 1.5) with the background's mean 3
+RCNN_BATCH = 2
+RCNN_SHAPE = (800, 1344)
+RCNN_IM_SHAPES = ((800.0, 1333.0), (750.0, 1344.0))
+RCNN_CLS = (3.0, 1.5)
+# kept detections: equal rows (within DET_RTOL / DET_ATOL), or rows matched
+# by label and box rounded to DET_KEY, each pair within DET_RTOL /
+# DET_ATOL, and a row kept on one side only whose score or IoU lies within
+# DET_NEAR of a threshold
+DET_RTOL = 1e-5
+DET_ATOL = 1e-4
+DET_NEAR = 1e-5
+DET_KEY = 1e-2
+# roi_align: the card and the CPU take the same quotients (the bins are
+# divided by a tensor: a Python divisor would be a product with its
+# reciprocal on the card, one f32 step off, which moved samples at 336
+# feature pixels by up to 8e-5), so only the sum of each bin's samples
+# may round apart
+ROI_ATOL = 1e-5
 # The flash rows in bf16 run the wgmma / TMA kernels (the sm90 design; the
 # head_dim-16 rows' bf16 sub-rows name their class group's source); the
 # head_dim-16 rows' main entry, f32, the CUDA-core ones (the mma design)
@@ -5133,22 +5198,28 @@ def _sign_free(name, arrs):
 def eager_ops_phase(torch):
     """Every op of the port's op library (creation, math, manipulation,
     linalg, logic, search, stat, fused: the JAX package's 224 registered
-    names and the module functions it leaves out of its registry) on CUDA
-    tensors against the same op on CPU tensors, f32 inputs from the seeded
-    cases of ``tools/eager_op_cases.py`` (``tests/test_torch_ops.py``'s,
-    cast from f64): integer and bool results equal, floating ones within
-    EAGER_F32 (EAGER_F32_LOOSE for the decompositions and special
-    functions, ``tools.eager_op_cases.LOOSE``; sign-free quantities for
-    svd, qr and eigh), TF32 off. The random ops run on the card for their
-    shapes, dtypes and finiteness only (they agree in distribution, which
-    ``tests/test_torch_ops.py`` holds). Prints the count, the ops left out
-    with the reason, and ``op_coverage()``."""
+    names and the module functions it leaves out of its registry; then
+    the registry's other ops: ``ops.parity``, ``ops.detection``, fft's
+    three, the activations, ``rnn`` and the aliases) on CUDA tensors
+    against the same op on CPU tensors, f32 inputs from the seeded cases
+    of ``tools/eager_op_cases.py`` (``tests/test_torch_ops.py``'s and
+    ``tests/test_torch_parity_ops.py``'s, cast from f64): integer and bool
+    results equal, floating ones within EAGER_F32 (EAGER_F32_LOOSE for
+    the decompositions and special functions, ``LOOSE`` /
+    ``REGISTRY_LOOSE``; sign-free quantities for svd, qr and eigh), TF32
+    off. The random ops run on the card for their shapes, dtypes and
+    finiteness only (they agree in distribution, which the CPU tests
+    hold). Prints the counts, the ops left out with the reason, and
+    ``op_coverage()``, which must be 405 of 460."""
     import numpy as np
 
     import paddle_tpu_torch as paddle
     from paddle_tpu_torch import ops
     from paddle_tpu_torch.core import device as pdevice
-    from tools.eager_op_cases import LOOSE, cases
+    from paddle_tpu_torch.ops.registry import OPS
+    from tools.eager_op_cases import (LOOSE, REGISTRY_LOOSE, REGISTRY_RAISES,
+                                      REGISTRY_RANDOM, cases,
+                                      registry_cases)
 
     modules = ("creation", "math", "manipulation", "linalg", "logic",
                "search", "stat", "fused")
@@ -5156,10 +5227,17 @@ def eager_ops_phase(torch):
     left_out = {"to_tensor": "a constructor: every phase's inputs",
                 "create_parameter": "a constructor: nn.Layer makes them",
                 "is_tensor": "a type check, no tensor out"}
+    left_out.update(REGISTRY_RAISES)
     names = sorted(set().union(*(getattr(ops, m).__all__ for m in modules))
                    - random - set(left_out))
-    print(f"[eager ops] {len(names)} ops on the card against the CPU, f32 "
-          f"(TF32 off); {len(random)} random ops for shape and dtype")
+    core = modules + ("random",)
+    registry = sorted(n for n, d in OPS.items()
+                      if d.fn.__module__.split(".")[-1] not in core
+                      and n not in REGISTRY_RANDOM and n not in left_out)
+    print(f"[eager ops] {len(names)} ops of the op modules and "
+          f"{len(registry)} more of the registry on the card against the "
+          f"CPU, f32 (TF32 off); {len(random) + len(REGISTRY_RANDOM)} "
+          f"random ops for shape and dtype")
 
     def convert(args, dev):
         def one(a):
@@ -5177,24 +5255,24 @@ def eager_ops_phase(torch):
 
     def run(fn, args, kwargs, dev):
         paddle.set_device(dev)
-        out = fn(*convert(args, dev), **kwargs)
-        outs = out if isinstance(out, (list, tuple)) else [out]
-        return [o.numpy() for o in outs if hasattr(o, "numpy")]
+        kw = {k: convert([v], dev)[0] if isinstance(v, np.ndarray) else v
+              for k, v in kwargs.items()}
+        return _flat_arrays(fn(*convert(args, dev), **kw))
 
+    todo = [(n, getattr(ops, n), cases, LOOSE) for n in names] + [
+        (n, OPS[n].fn, registry_cases, REGISTRY_LOOSE) for n in registry]
     ran, worst = 0, (0.0, None)
     try:
         with tf32_off(torch):
-            for name in names:
-                fn = getattr(ops, name)
-
+            for name, fn, inputs, loose in todo:
                 def probe(args, kwargs, fn=fn):
                     try:
                         return bool(run(fn, args, kwargs, "cpu"))
                     except Exception:
                         return False
 
-                tol = EAGER_F32_LOOSE if name in LOOSE else EAGER_F32
-                for args, kwargs in cases(name, probe):
+                tol = EAGER_F32_LOOSE if name in loose else EAGER_F32
+                for args, kwargs in inputs(name, probe):
                     want = _sign_free(name, run(fn, args, kwargs, "cpu"))
                     got = _sign_free(name, run(fn, args, kwargs, "gpu"))
                     if len(got) != len(want):
@@ -5229,11 +5307,18 @@ def eager_ops_phase(torch):
                      "poisson": (x,), "gumbel_softmax": (x,),
                      "exponential_": (x.clone(),),
                      "uniform_": (x.clone(),), "normal_": (x.clone(),)}
-            if set(draws) != random:
+            registry_draws = {"gaussian": ([64, 8],),
+                              "truncated_gaussian_random": ([64, 8],),
+                              "dirichlet": (paddle.full([64, 3], 0.7),),
+                              "uniform_inplace": (x.clone(),)}
+            if set(draws) != random or set(registry_draws) != \
+                    REGISTRY_RANDOM:
                 raise AssertionError(f"[eager ops] random ops: "
                                      f"{sorted(random ^ set(draws))}")
-            for name, args in draws.items():
-                out = getattr(ops, name)(*args)
+            for name, args in list(draws.items()) + list(
+                    registry_draws.items()):
+                fn = getattr(ops, name) if name in draws else OPS[name].fn
+                out = fn(*args)
                 if out.device.type != "cuda" or \
                         not torch.isfinite(out.float()).all():
                     raise AssertionError(f"[eager ops] random {name}: "
@@ -5241,11 +5326,16 @@ def eager_ops_phase(torch):
     finally:
         pdevice._state["device"] = None
     cov = paddle.op_coverage()
+    missing = [n for n in cov["missing"] if not n.startswith("sparse.")]
     print(f"  {ran} ops matched the CPU (largest |card - CPU| {worst[0]:.2e} "
-          f"in {worst[1]}); {len(random)} random ops drew on the card; left "
-          f"out: " + "; ".join(f"{k} ({v})" for k, v in left_out.items()))
+          f"in {worst[1]}); the random ops drew on the card; left out: "
+          + "; ".join(f"{k} ({v})" for k, v in left_out.items()))
     print(f"  op_coverage(): {cov['covered']} of {cov['total']} reference "
-          f"ops ({100 * cov['pct']:.1f}%), {cov['registered']} registered")
+          f"ops ({100 * cov['pct']:.1f}%), {cov['registered']} registered; "
+          f"missing: {len(cov['missing']) - len(missing)} sparse.* (no "
+          f"sparse tensors yet), {missing} (no distributed yet)")
+    if cov["covered"] != 405:
+        raise AssertionError(f"op_coverage(): {cov['covered']}, want 405")
     return ran
 
 
@@ -6261,6 +6351,642 @@ def optimizers_phase(torch):
           + f"; {time.monotonic() - t0:.1f} s; {card_line()}")
 
 
+# -- the rest of the op library ---------------------------------------------
+
+
+def _flat_arrays(out):
+    """numpy arrays of an op's Tensor leaves (tuples of tuples included)."""
+    if isinstance(out, (list, tuple)):
+        return [a for o in out for a in _flat_arrays(o)]
+    return [out.numpy()] if hasattr(out, "numpy") else []
+
+
+def op_aliases_phase(torch, K):
+    """Each registry alias that reaches a hand-written kernel, called
+    through ``OPS[name].fn`` at a shape of a model the port runs, forward
+    and (where the kernel has one) backward: each of its kernels launched
+    exactly once (the launch counters, zeroed just before and read just
+    after), and the output and the gradients bit for bit the direct
+    functional call's. Returns the aliases' launches."""
+    import numpy as np
+
+    from paddle_tpu_torch.nn import functional as NF
+    from paddle_tpu_torch.ops.registry import OPS
+
+    g = torch.Generator(device="cuda").manual_seed(23)
+    bf16 = torch.bfloat16
+
+    def rand(*shape, dt=torch.float32, scale=1.0):
+        return (scale * torch.randn(*shape, device="cuda", generator=g)
+                ).to(dt)
+
+    T, NSEQ, H, D = VARLEN_SHAPE
+    cu = torch.tensor(varlen_cu(T, NSEQ), device="cuda")
+    lp, labels, in_len, lbl_len = ctc_batch(torch, 400, 16, 128, 48, 5,
+                                            "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    r_labels = torch.randint(1, 128, (16, 48), device="cuda", generator=gen)
+    r_tl = torch.randint(300, 401, (16,), device="cuda", generator=gen)
+    r_ul = torch.randint(24, 49, (16,), device="cuda", generator=gen)
+    ce_label = torch.randint(0, 32000, (8192, 1), device="cuda", generator=g)
+    ln_w, ln_b = rand(768), rand(768, scale=0.1)
+    # (alias, the direct functional, call(fn, *inputs) -> output, inputs,
+    #  whether to differentiate, the kernels it must launch once each)
+    cases = [
+        ("flash_attn", NF.flash_attention,
+         lambda fn, q, k, v: fn(q, k, v, causal=True)[0],
+         [rand(1, 2048, 32, 128, dt=bf16) for _ in range(3)], True,
+         {"flash_attention", "flash_attention_bwd"}),
+        ("flash_attn_unpadded", NF.flash_attn_unpadded,
+         lambda fn, q, k, v: fn(q, k, v, cu, cu, None, None,
+                                1.0 / math.sqrt(D), causal=True)[0],
+         [rand(T, H, D, dt=bf16) for _ in range(3)], True,
+         {"flash_attention_varlen", "flash_attention_bwd_varlen"}),
+        ("layer_norm", NF.layer_norm,
+         lambda fn, x: fn(x, [768], ln_w, ln_b, 1e-5),
+         [2 * rand(8192, 768) + 0.5], False, {"layernorm"}),
+        ("cross_entropy_with_softmax", NF.softmax_with_cross_entropy,
+         lambda fn, x: fn(x, ce_label),
+         [rand(8192, 32000, dt=bf16, scale=2.0)], True,
+         {"softmax_ce", "softmax_ce_bwd"}),
+        ("warpctc", NF.ctc_loss,
+         lambda fn, x: fn(x, labels, in_len, lbl_len),
+         [lp], True, {"ctc_alpha", "ctc_beta"}),
+        ("warprnnt", NF.rnnt_loss,
+         lambda fn, x: fn(x, r_labels, r_tl, r_ul),
+         [rand(16, 400, 49, 128)], True, {"rnnt_alpha", "rnnt_beta_grad"}),
+    ]
+    print("[op aliases] each alias that reaches a kernel, through "
+          "OPS[name].fn, forward and backward: flash_attn [1, 2048, 32, "
+          "128] bf16 causal, flash_attn_unpadded T 8192 of 16 documents x "
+          "32 x 128 bf16 causal, layer_norm [8192, 768] f32, "
+          "cross_entropy_with_softmax [8192, 32000] bf16, warpctc [400, 16, "
+          "128] f32 L 48, warprnnt [16, 400, 49, 128] f32")
+    total = {k: 0 for k in K.launch_counts()}
+    design = ("_sm90", "_mma")
+
+    def go(fn, call, inputs, grad, cot=None):
+        ins = [t.detach().clone().requires_grad_(grad) for t in inputs]
+        out = call(fn, *ins)
+        if grad:
+            if cot is None:
+                cot = torch.randn(out.shape, device="cuda", generator=g,
+                                  dtype=torch.float32).to(out.dtype) \
+                    if out.dim() else torch.ones_like(out)
+            out.backward(cot)
+        torch.cuda.synchronize()
+        return out, [t.grad for t in ins] if grad else [], cot
+
+    for name, direct, call, inputs, grad, want in cases:
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        out, grads, cot = go(OPS[name].fn, call, inputs, grad)
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = K.launch_counts()
+        kernels = {k: v for k, v in counts.items()
+                   if v and not k.endswith(design)}
+        for k, v in counts.items():
+            total[k] += v
+        d_out, d_grads, _ = go(direct, call, inputs, grad, cot)
+        same = torch.equal(out, d_out) and all(
+            torch.equal(a, b) for a, b in zip(grads, d_grads))
+        print(f"  {name} -> {getattr(direct, '__name__', direct)}: "
+              f"launches {kernels} (designs "
+              f"{ {k: v for k, v in counts.items() if v and k.endswith(design)} }), "
+              f"bitwise equal to the direct call {same}; the alias's call "
+              f"(forward and backward, the shape's first) {ms:.1f} ms")
+        if set(kernels) != want or set(kernels.values()) != {1}:
+            raise AssertionError(f"[op aliases] {name}: launched {kernels}, "
+                                 f"want each of {sorted(want)} once")
+        if not same:
+            raise AssertionError(f"[op aliases] {name}: differs from the "
+                                 f"direct call")
+        if not bool(torch.isfinite(out.float()).all()):
+            raise AssertionError(f"[op aliases] {name}: not finite")
+    del cases, inputs
+    return total
+
+
+@contextlib.contextmanager
+def host_syncs(torch, counter):
+    """Count the card-to-host synchronisations made inside the block, as
+    ``torch.cuda.set_sync_debug_mode("warn")`` reports them (reads of a
+    value: ``.item()``, ``.cpu()``, ``nonzero``, ``torch.equal``, ...);
+    the count is appended to ``counter``."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    counter.append(sum("synchroniz" in str(w.message) for w in caught))
+
+
+def _det_stage(torch, what, fn, stats):
+    """Run ``fn`` on the card (one warm-up, then one timed call with its
+    host syncs counted), and record its ms, syncs and peak memory under
+    ``what``."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    syncs = []
+    t0 = time.perf_counter()
+    with host_syncs(torch, syncs):
+        out = fn()
+    torch.cuda.synchronize()
+    stats[what] = {"ms": round((time.perf_counter() - t0) * 1e3, 3),
+                   "host_syncs": syncs[0],
+                   "peak_GiB": round(torch.cuda.max_memory_allocated()
+                                     / 2 ** 30, 3)}
+    return out
+
+
+def _cpu_ms(fn):
+    t0 = time.perf_counter()
+    out = fn()
+    return out, round((time.perf_counter() - t0) * 1e3, 1)
+
+
+def _box_iou(a, b):
+    import numpy as np
+
+    x0 = np.maximum(a[:, None, 0], b[None, :, 0])
+    y0 = np.maximum(a[:, None, 1], b[None, :, 1])
+    x1 = np.minimum(a[:, None, 2], b[None, :, 2])
+    y1 = np.minimum(a[:, None, 3], b[None, :, 3])
+    inter = np.maximum(x1 - x0, 0) * np.maximum(y1 - y0, 0)
+    area = lambda c: (c[:, 2] - c[:, 0]) * (c[:, 3] - c[:, 1])
+    return inter / (area(a)[:, None] + area(b)[None] - inter + 1e-10)
+
+
+def rows_agree(what, got, want, score_cuts=(), iou_cut=None):
+    """Kept detection rows of the card (``got``) against the CPU's
+    (``want``), ``[K, 6]`` (label, score, box) or ``[K, 4]`` boxes with
+    ``[K]`` scores given as ``(boxes, scores)``: equal within DET_RTOL /
+    DET_ATOL row for row, or else matched by label and box rounded to
+    DET_KEY, every matched pair equal within DET_RTOL / DET_ATOL (score and
+    box) and every row kept on one side only within DET_NEAR of a
+    threshold: its score of a ``score_cuts`` entry (or of the other side's
+    last kept score), or its IoU with a box of its label of ``iou_cut``.
+    Returns ``[rows kept on one side only, matched rows out of place]``
+    (both 0: equal row for row)."""
+    import numpy as np
+
+    def rows(x):
+        if isinstance(x, tuple):
+            b, s = x
+            return np.concatenate([np.zeros((len(s), 1)), s[:, None], b], 1)
+        return np.asarray(x, np.float64)
+
+    a, b = rows(got), rows(want)
+    if a.shape == b.shape and np.allclose(a, b, rtol=DET_RTOL,
+                                          atol=DET_ATOL):
+        return np.zeros(2, int)
+    cuts = list(score_cuts) + [r[-1, 1] for r in (a, b) if len(r)]
+
+    def key(r):
+        return (int(r[0]),) + tuple(np.round(r[2:] / DET_KEY, 0).astype(int))
+
+    free = {}
+    for j, r in enumerate(b):
+        free.setdefault(key(r), []).append(j)
+    only, moved = [], 0
+    for i, r in enumerate(a):
+        js = free.get(key(r))
+        if not js:
+            only.append(r)
+            continue
+        j = js.pop(0)
+        np.testing.assert_allclose(
+            r, b[j], rtol=DET_RTOL, atol=DET_ATOL,
+            err_msg=f"{what}: a row the card and the CPU both keep differs")
+        moved += i != j
+    only += [b[j] for js in free.values() for j in js]
+    both = np.concatenate([a, b])
+    for r in only:
+        near = any(abs(r[1] - c) <= DET_NEAR for c in cuts)
+        if not near and iou_cut is not None:
+            same = both[both[:, 0] == r[0]]
+            iou = _box_iou(r[None, 2:], same[:, 2:])[0]
+            near = bool(np.any(np.abs(iou - iou_cut) <= DET_NEAR))
+        if not near:
+            raise AssertionError(f"{what}: the card and the CPU keep "
+                                 f"different rows ({len(a)} vs {len(b)}), "
+                                 f"{r} not within {DET_NEAR} of a threshold")
+    return np.array([len(only), moved])
+
+
+def agreement(counts):
+    """``rows_agree``'s summed counts in words."""
+    if not counts.any():
+        return "identical"
+    return (f"{counts[0]} rows kept on one side only, each within "
+            f"{DET_NEAR} of a threshold; {counts[1]} rows kept by both "
+            f"within {DET_RTOL} / {DET_ATOL} but out of place")
+
+
+def ppyolo_phase(torch):
+    """PP-YOLO R50vd-DCN post-processing at its published sizes
+    (PaddleDetection configs/ppyolo/_base_/ppyolo_r50vd_dcn.yml: 608 x
+    608, 80 classes, the anchors and masks below, MatrixNMS), batch 8,
+    seeded weights and head maps, f32 (TF32 off): the stage-5 DCNv2 block
+    (``DeformConv2D`` 3 x 3, 512 -> 512 at 19 x 19, offsets and mask from a
+    plain 3 x 3 conv, the mask its sigmoid) forward and backward, then
+    ``yolo_box`` on the three heads (22743 boxes an image) and
+    ``matrix_nms`` a image. Every stage is held against the same port
+    function on the CPU fed the card's inputs: values within DET_F32 (the
+    DCN output within DCN_REL_L2, its gradients within DCN_GRAD_REL_L2
+    relative L2), kept rows equal or each difference within DET_NEAR of a
+    threshold. Prints each stage's ms, host syncs and peak memory, and how
+    many candidates each class hands to NMS."""
+    import numpy as np
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.ops.registry import OPS
+
+    B, S, C = PPYOLO_BATCH, PPYOLO_SIZE, PPYOLO_CLASSES
+    print(f"[detection ppyolo] PP-YOLO R50vd-DCN post-processing, batch {B} "
+          f"x {S} x {S}, {C} classes, f32 (TF32 off)")
+    paddle.seed(19)
+    g = torch.Generator(device="cuda").manual_seed(19)
+    stats = {}
+    with tf32_off(torch):
+        offset_conv = paddle.nn.Conv2D(512, 27, 3, padding=1)
+        dcn = paddle.vision.ops.DeformConv2D(512, 512, 3, padding=1)
+        feat = torch.randn(B, 512, 19, 19, device="cuda", generator=g)
+        cot = torch.randn(B, 512, 19, 19, device="cuda", generator=g)
+
+        def dcn_step(x, oc, layer):
+            x = x.detach().requires_grad_(True)
+            om = oc(x)
+            y = layer(x, om[:, :18], torch.sigmoid(om[:, 18:]))
+            y.backward(cot.to(x.device))
+            return y.detach(), [x.grad, oc.weight.grad, layer.weight.grad,
+                                layer.bias.grad]
+
+        def card_dcn():
+            for m in (offset_conv, dcn):
+                m.clear_gradients()
+            return dcn_step(feat, offset_conv, dcn)
+
+        y, grads = _det_stage(torch, "deform_conv2d fwd+bwd", card_dcn,
+                              stats)
+        oc_cpu = paddle.nn.Conv2D(512, 27, 3, padding=1, device="cpu")
+        oc_cpu.set_state_dict(offset_conv.state_dict())
+        dcn_cpu = paddle.vision.ops.DeformConv2D(512, 512, 3, padding=1,
+                                                 device="cpu")
+        dcn_cpu.set_state_dict(dcn.state_dict())
+        (y_c, grads_c), cpu_ms = _cpu_ms(
+            lambda: dcn_step(feat.cpu(), oc_cpu, dcn_cpu))
+        stats["deform_conv2d fwd+bwd"]["cpu_ms"] = cpu_ms
+        err = rel_l2(y.cpu(), y_c)
+        gerr = [rel_l2(a.cpu(), b) for a, b in zip(grads, grads_c)]
+        print(f"  DeformConv2D v2 3 x 3 512 -> 512 at [{B}, 512, 19, 19]: "
+              f"out rel L2 {err:.2e}; gradients (x, offset conv, weight, "
+              f"bias) rel L2 {[f'{e:.2e}' for e in gerr]}")
+        if not (err <= DCN_REL_L2 and max(gerr) <= DCN_GRAD_REL_L2):
+            raise AssertionError("[detection ppyolo] DeformConv2D: the card "
+                                 "disagrees with the CPU")
+
+        heads = []
+        for mask, ds in zip(PPYOLO_MASKS, (32, 16, 8)):
+            hw = S // ds
+            x = torch.randn(B, 3, 5 + C, hw, hw, device="cuda", generator=g)
+            x[:, :, 2:4] *= 0.5
+            x[:, :, 4] = x[:, :, 4] * PPYOLO_OBJ[1] + PPYOLO_OBJ[0]
+            x[:, :, 5:] = x[:, :, 5:] * PPYOLO_CLS[1] + PPYOLO_CLS[0]
+            anchors = [v for m in mask for v in PPYOLO_ANCHORS[m]]
+            heads.append((x.reshape(B, -1, hw, hw), anchors, ds))
+        img = torch.full((B, 2), S, dtype=torch.int32, device="cuda")
+
+        def boxes_of(dev):
+            outs = [OPS["yolo_box"].fn(x.to(dev), img.to(dev), anchors, C,
+                                       conf_thresh=0.01, downsample_ratio=ds,
+                                       clip_bbox=True, scale_x_y=1.05)
+                    for x, anchors, ds in heads]
+            return (torch.cat([o[0] for o in outs], 1),
+                    torch.cat([o[1] for o in outs], 1))
+
+        boxes, scores = _det_stage(torch, "yolo_box", lambda: boxes_of(
+            "cuda"), stats)
+        (boxes_c, scores_c), cpu_ms = _cpu_ms(lambda: boxes_of("cpu"))
+        stats["yolo_box"]["cpu_ms"] = cpu_ms
+        check(torch, "yolo_box boxes", boxes.cpu(), boxes_c, 1e-3, 1e-5)
+        check(torch, "yolo_box scores", scores.cpu(), scores_c, 1e-6, 1e-5)
+        per_class = (scores > 0.01).sum(1)            # [B, C]
+        print(f"  yolo_box: {boxes.shape[1]} boxes an image; candidates a "
+              f"class above 0.01: mean {per_class.float().mean():.1f}, min "
+              f"{int(per_class.min())}, max {int(per_class.max())}")
+        if boxes.shape[1] != 22743:
+            raise AssertionError(f"yolo_box: {boxes.shape[1]} boxes")
+        sc_t = scores.transpose(1, 2).contiguous()        # [B, C, N]
+        kw = dict(score_threshold=0.01, post_threshold=0.01, nms_top_k=-1,
+                  keep_top_k=100, background_label=-1)
+
+        def nms_all(b, s):
+            return [OPS["matrix_nms"].fn(b[i], s[i], **kw) for i in range(B)]
+
+        kept = _det_stage(torch, "matrix_nms", lambda: nms_all(boxes, sc_t),
+                          stats)
+        kept_c, cpu_ms = _cpu_ms(lambda: nms_all(boxes.cpu(), sc_t.cpu()))
+        stats["matrix_nms"]["cpu_ms"] = cpu_ms
+        near = sum(rows_agree(f"matrix_nms image {i}", a[0].cpu().numpy(),
+                              b[0].numpy(), score_cuts=(0.01,))
+                   for i, (a, b) in enumerate(zip(kept, kept_c)))
+        counts = [int(k[1][0]) for k in kept]
+        print(f"  matrix_nms: kept {counts} an image; card vs CPU: "
+              f"{agreement(near)}")
+        if not all(0 < c <= 100 for c in counts):
+            raise AssertionError(f"matrix_nms kept {counts}")
+
+        # a detector early in training: ~5000 candidates a class; the
+        # classes run in chunks, so the peak stays near one class's n^2
+        many = torch.rand(C, boxes.shape[1], device="cuda", generator=g) \
+            * PPYOLO_MANY_SCALE
+        big = dict(kw, keep_top_k=-1)
+        _det_stage(torch, "matrix_nms, ~5000 a class", lambda: OPS[
+            "matrix_nms"].fn(boxes[0], many, **big), stats)
+        n_many = int((many > 0.01).sum(1).float().mean())
+        peak = stats["matrix_nms, ~5000 a class"]["peak_GiB"]
+        one = C * n_many ** 2 * 4 / 2 ** 30
+        print(f"  matrix_nms of one image at {n_many} candidates a class "
+              f"(uniform scores below {PPYOLO_MANY_SCALE}), {C} classes: "
+              f"peak {peak} GiB, where one [classes, n, n] f32 matrix of "
+              f"all classes at once takes {one:.1f} GiB")
+        if not peak < min(PPYOLO_MANY_PEAK, one):
+            raise AssertionError(f"matrix_nms at {n_many} a class: peak "
+                                 f"{peak} GiB")
+        for dt in (torch.float32, torch.bfloat16):
+            got = OPS["matrix_nms"].fn(boxes[0], many[:4].to(dt), **big)
+            want = OPS["matrix_nms"].fn(boxes[0].cpu(), many[:4].to(
+                dt).cpu(), **big)
+            near = rows_agree(f"matrix_nms {dt} at {n_many} a class",
+                              got[0].cpu().numpy(), want[0].numpy(),
+                              score_cuts=(0.01,))
+            print(f"  matrix_nms {dt} scores, 4 classes at {n_many} a "
+                  f"class: kept {int(got[1][0])}; card vs CPU: "
+                  f"{agreement(near)}")
+    print(f"  stages: {json.dumps(stats)}")
+    return stats
+
+
+def _rcnn_anchors(torch, h, w, size, stride):
+    """PaddleDetection's AnchorGenerator at one level: ``size`` at
+    aspect ratios 0.5 / 1 / 2 (w = size / sqrt(r), h = size * sqrt(r)),
+    offset 0: ``[h, w, 3, 4]``."""
+    r = torch.tensor([0.5, 1.0, 2.0], device="cuda")
+    half_w, half_h = size / r.sqrt() / 2, size * r.sqrt() / 2
+    cy, cx = torch.meshgrid(torch.arange(h, device="cuda") * float(stride),
+                            torch.arange(w, device="cuda") * float(stride),
+                            indexing="ij")
+    return torch.stack([cx[..., None] - half_w, cy[..., None] - half_h,
+                        cx[..., None] + half_w, cy[..., None] + half_h], -1)
+
+
+def faster_rcnn_phase(torch):
+    """Faster R-CNN R50-FPN test-time proposals and RoI features at its
+    published sizes (PaddleDetection
+    configs/faster_rcnn/_base_/faster_rcnn_r50_fpn.yml): batch 2 padded to
+    800 x 1344, five RPN levels at strides 4-64 (anchor sizes 32-512,
+    aspect ratios 0.5 / 1 / 2: P2 200 x 336 x 3 anchors), seeded
+    objectness and deltas; ``generate_proposals`` a image and level
+    (pre / post NMS top 1000, NMS 0.7, min size 0), the top 1000 a image
+    collected, ``distribute_fpn_proposals`` (levels 2-5, refer level 4 at
+    scale 224), ``roi_align`` 7 x 7 (sampling ratio 0, aligned) on
+    256-channel maps, ``box_coder`` decode (variances 0.1 / 0.2) and
+    ``multiclass_nms3`` (score 0.05, NMS 0.5, keep 100) over seeded class
+    scores. Each stage against the same port function on the CPU fed the
+    card's inputs, as ``ppyolo_phase`` holds its stages."""
+    import numpy as np
+
+    from paddle_tpu_torch.ops.registry import OPS
+
+    B, (H, W) = RCNN_BATCH, RCNN_SHAPE
+    print(f"[detection faster rcnn] Faster R-CNN R50-FPN test-time "
+          f"proposals and RoI features, batch {B} padded to {H} x {W}, f32 "
+          f"(TF32 off)")
+    g = torch.Generator(device="cuda").manual_seed(29)
+    stats = {}
+    strides = (4, 8, 16, 32, 64)
+    with tf32_off(torch):
+        levels = []
+        for lvl, s in enumerate(strides):
+            h, w = H // s, W // s
+            anchors = _rcnn_anchors(torch, h, w, 32.0 * 2 ** lvl, s)
+            scores = torch.sigmoid(torch.randn(B, 3, h, w, device="cuda",
+                                               generator=g) * 2 - 2)
+            deltas = 0.2 * torch.randn(B, 12, h, w, device="cuda",
+                                       generator=g)
+            levels.append((scores, deltas, anchors, torch.ones_like(anchors)))
+        ims = torch.tensor(RCNN_IM_SHAPES, device="cuda")
+        kw = dict(pre_nms_top_n=1000, post_nms_top_n=1000, nms_thresh=0.7,
+                  min_size=0.0)
+
+        def proposals(dev):
+            return [[OPS["generate_proposals"].fn(
+                sc[b].to(dev), d[b].to(dev), ims[b].to(dev), a.to(dev),
+                v.to(dev), **kw) for sc, d, a, v in levels]
+                for b in range(B)]
+
+        props = _det_stage(torch, "generate_proposals", lambda: proposals(
+            "cuda"), stats)
+        props_c, stats["generate_proposals"]["cpu_ms"] = _cpu_ms(
+            lambda: proposals("cpu"))
+        near = np.zeros(2, int)
+        for b in range(B):
+            for lvl in range(len(strides)):
+                (pb, ps, _), (cb, cs, _) = props[b][lvl], props_c[b][lvl]
+                near += rows_agree(f"generate_proposals image {b} P{lvl + 2}",
+                                   (pb.cpu().numpy(), ps.cpu().numpy()),
+                                   (cb.numpy(), cs.numpy()), iou_cut=0.7)
+        print(f"  generate_proposals: "
+              f"{[[int(p[2][0]) for p in img] for img in props]} proposals "
+              f"a level; card vs CPU: {agreement(near)}")
+        rois = []
+        for b in range(B):
+            boxes = torch.cat([p[0] for p in props[b]])
+            sc = torch.cat([p[1] for p in props[b]])
+            rois.append(boxes[torch.argsort(-sc, stable=True)[:1000]])
+        dist = _det_stage(torch, "distribute_fpn_proposals", lambda: [
+            OPS["distribute_fpn_proposals"].fn(r, 2, 5, 4, 224)
+            for r in rois], stats)
+        dist_c, stats["distribute_fpn_proposals"]["cpu_ms"] = _cpu_ms(
+            lambda: [OPS["distribute_fpn_proposals"].fn(r.cpu(), 2, 5, 4, 224)
+                     for r in rois])
+        for a, b in zip(dist, dist_c):
+            for x, y in zip(a, b):
+                if not torch.equal(x.cpu(), y):
+                    raise AssertionError("distribute_fpn_proposals: the card "
+                                         "and the CPU assign differently")
+        per_level = [[int(d[i].shape[0]) for i in range(4)] for d in dist]
+        print(f"  distribute_fpn_proposals: rois a level (P2-P5) "
+              f"{per_level}")
+        feats = [torch.randn(B, 256, H // s, W // s, device="cuda",
+                             generator=g) for s in strides[:4]]
+
+        def align(dev):
+            out = []
+            for i, (f, s) in enumerate(zip(feats, strides)):
+                r = torch.cat([d[i] for d in dist]).to(dev)
+                num = torch.tensor([d[i].shape[0] for d in dist])
+                out.append(OPS["roi_align"].fn(
+                    f.to(dev), r, num, pooled_height=7, pooled_width=7,
+                    spatial_scale=1.0 / s, sampling_ratio=0, aligned=True))
+            return out
+
+        pooled = _det_stage(torch, "roi_align", lambda: align("cuda"),
+                            stats)
+        pooled_c, stats["roi_align"]["cpu_ms"] = _cpu_ms(lambda: align(
+            "cpu"))
+        for i, (a, b) in enumerate(zip(pooled, pooled_c)):
+            check(torch, f"roi_align P{i + 2} {list(a.shape)}", a.cpu(), b,
+                  ROI_ATOL, 1e-5)
+        # the quotient roi_align's bins avoid: a bin height over 7 by a
+        # Python number and by a tensor, on the card and on the CPU
+        from paddle_tpu_torch.ops.parity import quot
+        r = torch.cat([d[i] for d in dist for i in range(4)])
+        rh = torch.clamp(r[:, 3] - r[:, 1], min=1e-6)
+        by_number, by_tensor = rh / 7, quot(rh, 7)
+        print(f"  roi_align bin heights of {rh.numel()} rois: x / 7 on the "
+              f"card differs from the CPU's in "
+              f"{int((by_number.cpu() != rh.cpu() / 7).sum())}, divided "
+              f"by a tensor 7 in "
+              f"{int((by_tensor.cpu() != quot(rh.cpu(), 7)).sum())}")
+        R = sum(p.shape[0] for p in pooled)
+        var = torch.tensor([[0.1, 0.1, 0.2, 0.2]], device="cuda")
+        deltas = [torch.randn(r.shape[0], 4, device="cuda", generator=g)
+                  for r in rois]
+        logits = [torch.randn(r.shape[0], 81, device="cuda", generator=g)
+                  * RCNN_CLS[1] for r in rois]
+        for lg in logits:
+            lg[:, 0] += RCNN_CLS[0]                # the background class
+        cls = [torch.softmax(lg, -1)[:, 1:].T.contiguous() for lg in logits]
+
+        def decode(dev):
+            return [OPS["box_coder"].fn(r.to(dev), var.expand(
+                r.shape[0], 4).to(dev), d.to(dev),
+                code_type="decode_center_size", box_normalized=False)
+                for r, d in zip(rois, deltas)]
+
+        dec = _det_stage(torch, "box_coder", lambda: decode("cuda"), stats)
+        dec_c, stats["box_coder"]["cpu_ms"] = _cpu_ms(lambda: decode("cpu"))
+        for a, b in zip(dec, dec_c):
+            check(torch, "box_coder decode", a.cpu(), b, 1e-3, 1e-5)
+        nkw = dict(score_threshold=0.05, nms_threshold=0.5, keep_top_k=100)
+
+        def nms(dev, boxes):
+            return [OPS["multiclass_nms3"].fn(b.to(dev), c.to(dev), **nkw)
+                    for b, c in zip(boxes, cls)]
+
+        kept = _det_stage(torch, "multiclass_nms3", lambda: nms("cuda", dec),
+                          stats)
+        kept_c, stats["multiclass_nms3"]["cpu_ms"] = _cpu_ms(
+            lambda: nms("cpu", dec))
+        near = sum(rows_agree(f"multiclass_nms3 image {i}",
+                              a[0].cpu().numpy(), b[0].numpy(),
+                              score_cuts=(0.05,), iou_cut=0.5)
+                   for i, (a, b) in enumerate(zip(kept, kept_c)))
+        cand = [int((c > 0.05).sum()) for c in cls]
+        print(f"  multiclass_nms3: {cand} candidates above 0.05 an image, "
+              f"kept {[int(k[2][0]) for k in kept]}; card vs CPU: "
+              f"{agreement(near)}")
+        print(f"  roi_align: {R} rois x 256 x 7 x 7")
+    print(f"  stages: {json.dumps(stats)}")
+    return stats
+
+
+def fft_phase(torch):
+    """``paddle.fft`` at Whisper-base's STFT shapes: ``frame`` of 400
+    samples every 160 over 8 x 30 s at 16 kHz, then ``rfft`` along the
+    frame (cuFFT on the card) against the same on the CPU."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.ops.registry import OPS
+
+    g = torch.Generator(device="cuda").manual_seed(31)
+    x = torch.randn(8, 480000, device="cuda", generator=g)
+
+    def stft(v):
+        frames = OPS["frame"].fn(v, 400, 160)            # [8, 400, 2998]
+        return paddle.fft.rfft(frames, axis=1)
+
+    stats = {}
+    spec = _det_stage(torch, "frame + rfft", lambda: stft(x), stats)
+    want, stats["frame + rfft"]["cpu_ms"] = _cpu_ms(lambda: stft(x.cpu()))
+    err = check(torch, f"rfft of frames {list(spec.shape)} (real and "
+                       f"imaginary parts)", torch.view_as_real(spec).cpu(),
+                torch.view_as_real(want), 1e-3, 1e-4)
+    print(f"[fft] frame(400, 160) then rfft over 8 x 30 s at 16 kHz: "
+          f"{list(spec.shape)} {spec.dtype}, max |card - CPU| {err:.2e}; "
+          f"{json.dumps(stats)}")
+    if spec.shape != (8, 201, 2998):
+        raise AssertionError(f"[fft] spectrum shape {spec.shape}")
+
+
+def containers_phase(torch):
+    """A ``TensorArray`` round trip on the card: ``array_write`` at the
+    append position, ``array_read``, ``array_length``, ``stack`` /
+    ``concat``, an out-of-range write refused, ``pop``."""
+    import paddle_tpu_torch as paddle
+
+    arr = paddle.create_array("float32")
+    for i in range(4):
+        arr = paddle.array_write(paddle.full([2, 3], float(i)),
+                                 paddle.to_tensor(i), arr)
+    try:
+        arr.write(9, paddle.zeros([2, 3]))
+        raise AssertionError("[containers] a write past the end was taken")
+    except IndexError:
+        pass
+    stacked, cat = arr.stack(axis=0), arr.concat(axis=1)
+    ok = (int(paddle.array_length(arr)) == 4
+          and float(paddle.array_read(arr, 2).sum()) == 12.0
+          and list(stacked.shape) == [4, 2, 3]
+          and list(cat.shape) == [2, 12] and stacked.device.type == "cuda"
+          and float(stacked[3, 1, 2]) == 3.0 and float(arr.pop().sum()) == 18
+          and len(arr) == 3)
+    print(f"[containers] TensorArray on {stacked.device}: 4 writes, read, "
+          f"length, stack {list(stacked.shape)}, concat {list(cat.shape)}, "
+          f"pop: {'ok' if ok else 'WRONG'}")
+    if not ok:
+        raise AssertionError("[containers] the TensorArray round trip")
+
+
+def nan_inf_phase(torch, densenet):
+    """``FLAGS_check_nan_inf`` on the card: ``paddle.log`` of a negative
+    raises naming the op and the counts, a finite op passes; both flags
+    off leave ``core.dispatch.DEBUG_HOOKS`` False (one bool read an op),
+    as it was through ``[densenet]``, whose launches a step are printed
+    beside it."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core import dispatch
+
+    if dispatch.DEBUG_HOOKS:
+        raise AssertionError("[nan inf] the hooks were on")
+    x = paddle.to_tensor([-1.0, 0.0, 2.0])
+    paddle.set_flags({"FLAGS_check_nan_inf": True})
+    try:
+        paddle.exp(x)
+        try:
+            paddle.log(x)
+            raise AssertionError("[nan inf] log(-1) did not raise")
+        except RuntimeError as e:
+            msg = str(e)
+    finally:
+        paddle.set_flags({"FLAGS_check_nan_inf": False})
+    if "'log'" not in msg or "1 NaN / 1 Inf" not in msg:
+        raise AssertionError(f"[nan inf] message: {msg}")
+    per_step = {k: c / DENSENET_STEPS for k, c in densenet.items() if c}
+    print(f"[nan inf] FLAGS_check_nan_inf on: {msg!r}; off again: "
+          f"DEBUG_HOOKS {dispatch.DEBUG_HOOKS}; [densenet] ran with the "
+          f"hooks off at {per_step} launches a step")
+    if dispatch.DEBUG_HOOKS or per_step != {"softmax_ce": 1.0,
+                                            "softmax_ce_bwd": 1.0}:
+        raise AssertionError("[nan inf] the hooks stayed on")
+
+
 def main() -> int:
     import torch
 
@@ -6433,7 +7159,9 @@ def main() -> int:
     whole_step_densenet(torch, K)
     gc.collect()
     torch.cuda.empty_cache()
+    t_eager = time.monotonic()
     eager_ops_phase(torch)
+    t_eager = time.monotonic() - t_eager
     eager_autograd_phase(torch)
     gc.collect()
     torch.cuda.empty_cache()
@@ -6469,11 +7197,25 @@ def main() -> int:
     timed("optimizers", lambda: optimizers_phase(torch))
     print(f"[compiled and optimizer phases] seconds {json.dumps(seconds)}, "
           f"{sum(seconds.values()):.1f} s in all")
+    seconds = {}
+    before = time.monotonic() - t_start
+    print(f"[op library phases] the script at {before:.1f} s before them")
+    aliases = timed("op aliases", lambda: op_aliases_phase(torch, K))
+    timed("detection ppyolo", lambda: ppyolo_phase(torch))
+    timed("detection faster rcnn", lambda: faster_rcnn_phase(torch))
+    timed("fft", lambda: fft_phase(torch))
+    timed("containers", lambda: containers_phase(torch))
+    timed("nan inf", lambda: nan_inf_phase(torch, densenet))
+    print(f"[op library phases] seconds {json.dumps(seconds)}, "
+          f"{sum(seconds.values()):.1f} s in all ([eager ops] with the "
+          f"registry's ops: {t_eager:.1f} s); the script at "
+          f"{before:.1f} s before them, {time.monotonic() - t_start:.1f} s "
+          f"after")
     launches = {k: launches[k] + conformer[k] + rnnt[k] + encoder[k]
                 + varlen[k] + whisper[k] + whisper_train[k] + resnet[k]
                 + zoo[k] + shufflenet[k] + lenet[k] + hapi_resnet[k]
                 + densenet[k] + deploy[k] + llama_deploy[k] + static_grad[k]
-                + lamb[k] for k in conformer}
+                + lamb[k] + aliases[k] for k in conformer}
     # the head_dim-36 rows: the Conformer steps' launches of those kernels;
     # the head_dim-16 rows: the tiny ERNIE step's
     for name in ("flash_attention_dropout", "flash_attention_bwd_dropout"):

@@ -20,7 +20,13 @@ over ``PiecewiseDecay``), the high-level API (``Model`` with
 ``paddle.matmul``, ...), ``nn.Layer`` and ``nn.initializer``; and the
 static-graph and deployment path: ``jit.to_static`` / ``jit.save`` /
 ``jit.load``, ``static`` Program / Executor / ``save_inference_model``,
-``inference.create_predictor``, ``set_flags`` / ``get_flags``.
+``inference.create_predictor``, ``set_flags`` / ``get_flags``; and the
+rest of the op library: ``ops.parity`` and ``ops.detection`` (the
+reference's remaining op names, ``paddle.inverse``, ``paddle.complex``,
+``paddle.bincount``, ...), ``vision.ops``' detection functionals and
+``DeformConv2D``, ``fft``, ``TensorArray`` / ``create_array``,
+``text.viterbi_decode``, and the ``FLAGS_check_nan_inf`` /
+``FLAGS_benchmark`` hooks.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
 or calls ``set_device("cpu")``::
@@ -47,6 +53,22 @@ from .hapi import Model, summary
 from .ops import *  # noqa: F401,F403
 from .ops import __all__ as _ops_all
 from .ops import op_coverage
+from .ops import detection as _detection  # noqa: F401  (needs nn)
+from .ops import parity as _parity
+from . import fft, text  # noqa: E402
+from .core.containers import (SelectedRows, TensorArray, array_length,
+                              array_read, array_write, create_array)
+
+# the parity ops' public names, where neither the namespace nor Tensor has
+# them (the dict keeps max / min / all / any off every module's builtins)
+_installed = []
+for _k, _v in _parity.PUBLIC_OPS.items():
+    if _k not in globals():
+        globals()[_k] = _v
+        _installed.append(_k)
+    if not hasattr(Tensor, _k):
+        setattr(Tensor, _k, _v)
+del _k, _v
 
 bool = bool_  # paddle.bool
 
@@ -60,4 +82,6 @@ __all__ = ["amp", "autograd", "core", "framework", "hapi", "inference", "io",
            "CUDAPlace", "set_default_dtype", "get_default_dtype",
            "op_coverage", "bool", "bool_", "uint8", "int8", "int16",
            "int32", "int64", "float16", "bfloat16", "float32", "float64",
-           "complex64", "complex128", *_ops_all]
+           "complex64", "complex128", "fft", "text", "TensorArray",
+           "SelectedRows", "create_array", "array_write", "array_read",
+           "array_length", *_ops_all, *_installed]

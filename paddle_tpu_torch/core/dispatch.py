@@ -10,6 +10,15 @@ returns comes back as itself), and a failing op's exception carries the
 op's name and its tensor arguments' shapes and dtypes. An op applied to a
 value of a static Program being built is one replay node
 (``core.capture.record_call``).
+
+The debug hooks of the reference's dispatch run after every op while
+``FLAGS_check_nan_inf`` or ``FLAGS_benchmark`` is on
+(``framework.flags`` sets :data:`DEBUG_HOOKS`; with both off an op pays
+that one bool read): the first raises on an op output holding a NaN or an
+Inf, with the op's name and the counts; the second synchronises the
+output's device after each op, so a per-op time is the op's own. Both
+skip values being traced (``torch.compile``, ``torch.export``,
+functorch), as the reference skips tracers.
 """
 from __future__ import annotations
 
@@ -17,7 +26,11 @@ import torch
 
 from .tensor import Tensor, is_tensor_arg, plain_args, static_in, wrap
 
-__all__ = ["apply", "enrich_error"]
+__all__ = ["apply", "enrich_error", "DEBUG_HOOKS"]
+
+# True while FLAGS_check_nan_inf or FLAGS_benchmark is on (set by
+# framework.flags); the eager path reads it once an op
+DEBUG_HOOKS = False
 
 
 def apply(fn, *args, op_name="op", **kwargs):
@@ -52,10 +65,43 @@ def _tensor_in(args, kwargs) -> bool:
 
 def _call(fn, args, kwargs, op_name):
     try:
-        return fn(*args, **kwargs)
+        out = fn(*args, **kwargs)
     except Exception as e:
         enrich_error(e, op_name, args, kwargs)
         raise
+    if DEBUG_HOOKS:
+        debug_hooks(op_name, out)
+    return out
+
+
+def _traced(t) -> bool:
+    return (torch.compiler.is_compiling()
+            or isinstance(t, torch._subclasses.FakeTensor)
+            or torch._C._functorch.is_functorch_wrapped_tensor(t))
+
+
+def debug_hooks(op_name, out):
+    """``FLAGS_benchmark``: synchronise each output's device;
+    ``FLAGS_check_nan_inf``: raise ``RuntimeError`` naming the op and
+    the counts where a floating output holds a NaN or an Inf."""
+    from ..framework.flags import flag_value
+
+    check = flag_value("FLAGS_check_nan_inf")
+    bench = flag_value("FLAGS_benchmark")
+    outs = out if isinstance(out, (tuple, list)) else (out,)
+    for o in outs:
+        if not isinstance(o, torch.Tensor) or _traced(o):
+            continue
+        if bench and o.is_cuda:
+            torch.cuda.synchronize(o.device)
+        if check and (o.is_floating_point() or o.is_complex()):
+            nan = int(torch.isnan(o).sum())
+            inf = int(torch.isinf(o).sum())
+            if nan or inf:
+                raise RuntimeError(
+                    f"[FLAGS_check_nan_inf] op '{op_name}' produced {nan} "
+                    f"NaN / {inf} Inf values (shape {tuple(o.shape)}, "
+                    f"dtype {str(o.dtype).replace('torch.', '')})")
 
 
 def _signatures(args, kwargs):

@@ -8,12 +8,14 @@ Paddle enforces. Only the flags the port acts on are registered:
 - ``FLAGS_dy2static_eager_fallback``: let ``jit.to_static`` run a function
   eagerly, with a warning, where its control flow cannot be compiled;
 - ``FLAGS_cudnn_deterministic``: wired to
-  ``torch.backends.cudnn.deterministic`` (and cuDNN's benchmark mode off).
+  ``torch.backends.cudnn.deterministic`` (and cuDNN's benchmark mode off);
+- ``FLAGS_check_nan_inf``: every eager op checks its outputs and raises
+  on a NaN or an Inf with the op's name (``core.dispatch``);
+- ``FLAGS_benchmark``: every eager op synchronises its outputs' device.
 
-The JAX package's other flags (the Pallas policy, NaN/Inf checks, the
-benchmark sync, LockSan, fault plans, collective timeouts, the allocator
-strategy) wait for the modules that would act on them (ROADMAP) and raise
-as unknown until then.
+The JAX package's other flags (the Pallas policy, LockSan, fault plans,
+collective timeouts, the allocator strategy) wait for the modules that
+would act on them (ROADMAP) and raise as unknown until then.
 """
 from __future__ import annotations
 
@@ -107,3 +109,19 @@ register_flag("FLAGS_cudnn_deterministic", False,
               "cuDNN picks deterministic algorithms "
               "(torch.backends.cudnn.deterministic, benchmark mode off)",
               on_set=_cudnn_deterministic)
+
+
+def _debug_hooks(_value):
+    from ..core import dispatch
+
+    dispatch.DEBUG_HOOKS = any(
+        _REGISTRY[n].value for n in ("FLAGS_check_nan_inf", "FLAGS_benchmark")
+        if n in _REGISTRY)
+
+
+register_flag("FLAGS_check_nan_inf", False,
+              "raise when an eager op's output holds a NaN or an Inf, with "
+              "the op's name and the counts", on_set=_debug_hooks)
+register_flag("FLAGS_benchmark", False,
+              "synchronise the device after every eager op, so a per-op "
+              "time is the op's own", on_set=_debug_hooks)

@@ -60,3 +60,23 @@ __all__ = ["scaled_dot_product_attention", "sdpa_ref", "flash_attention",
 
 # the public functionals hand back Tensors when a Tensor came in
 _bound_public(globals())
+
+
+def _register_activations():
+    """The reference registers its activation functionals as ops (28
+    ``defop``s of ``nn/functional/activation.py``); here they are the
+    public functionals above, under the reference's op names."""
+    from ...ops.registry import register
+
+    g = globals()
+    for name in ("relu", "relu6", "sigmoid", "log_sigmoid", "silu",
+                 "softsign", "mish", "tanhshrink", "elu", "selu", "celu",
+                 "gelu", "softmax", "log_softmax", "leaky_relu", "rrelu",
+                 "swish", "hardswish", "hardsigmoid", "hardtanh",
+                 "hardshrink", "softshrink", "thresholded_relu", "softplus",
+                 "maxout", "glu", "one_hot"):
+        register(name, "activation")(g[name])
+    register("tanh_act", "activation")(g["tanh"])
+
+
+_register_activations()

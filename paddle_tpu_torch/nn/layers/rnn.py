@@ -39,6 +39,7 @@ from torch import nn
 
 from ...core import resolve_device
 from ...framework.random import get_generator
+from ...ops.registry import defop
 from ..functional.common import dropout
 from .common import LayerList
 from ..layer import Layer
@@ -67,13 +68,61 @@ def _mask(t, seq_lens, new, old, out):
     return new, torch.where(valid, out, 0.0)
 
 
+def _simple_step(xw, h, whh, bhh, activation):
+    pre = (xw + _linear(h.to(whh.dtype), whh)).to(_acc(xw.dtype))
+    h2 = torch.tanh(pre) if activation == "tanh" else torch.relu(pre)
+    return h2, h2
+
+
+def _lstm_step(xw, states, whh, bhh, activation):
+    h, c = states
+    gates = (xw + _linear(h.to(whh.dtype), whh)).to(_acc(xw.dtype))
+    i, f, g, o = gates.chunk(4, dim=-1)
+    c2 = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+    h2 = torch.sigmoid(o) * torch.tanh(c2)
+    return (h2, c2), h2
+
+
+def _gru_step(xw, h, whh, bhh, activation):
+    acc = _acc(xw.dtype)
+    hw = _linear(h.to(whh.dtype), whh, bhh).to(acc)
+    xr, xz, xc = xw.to(acc).chunk(3, dim=-1)
+    hr, hz, hc = hw.chunk(3, dim=-1)
+    r = torch.sigmoid(xr + hr)
+    z = torch.sigmoid(xz + hz)
+    c = torch.tanh(xc + r * hc)
+    h2 = z * h + (1.0 - z) * c
+    return h2, h2
+
+
+_STEPS = {"RNN": _simple_step, "LSTM": _lstm_step, "GRU": _gru_step}
+
+
+def time_loop(mode, x, states, order, seq_lens, wih, whh, bih, bhh,
+              activation="tanh"):
+    """One direction of ``mode``'s cell (``"RNN"``, ``"LSTM"`` or
+    ``"GRU"``) over ``x [T, B, in]`` in time ``order``, the input GEMM
+    hoisted with the biases folded in (GRU keeps the hidden bias inside its
+    reset gate's product): the outputs ``[T, B, H]`` and the final states
+    (``(h, c)`` for LSTM)."""
+    step = _STEPS[mode]
+    xw = _linear(x, wih, bih if mode == "GRU" else bih + bhh)
+    outs = [None] * x.shape[0]
+    for t in order:
+        new, out = step(xw[t], states, whh, bhh, activation)
+        states, outs[t] = _mask(t, seq_lens, new, states, out)
+    return torch.stack(outs), states
+
+
 class RNNCellBase(Layer):
     """A recurrent cell of ``gates`` gates over ``hidden_size``: the four
     parameters, their initialiser, ``get_initial_states`` and the time loop
-    over a whole sequence (``_steps``), which each cell's ``_step``
-    specialises."""
+    over a whole sequence (``_steps``, :func:`time_loop` of the cell's
+    ``mode``)."""
 
     gates = 1
+    mode = "RNN"
+    activation = "tanh"
 
     def __init__(self, input_size, hidden_size, *, device=None,
                  dtype=torch.float32, generator=None):
@@ -112,19 +161,12 @@ class RNNCellBase(Layer):
 
         return (full(), full()) if self.gates == 4 else full()
 
-    def _input_proj(self, x):
-        """``x @ w_ih^T`` plus the biases folded in before the loop."""
-        return _linear(x, self.weight_ih, self.bias_ih + self.bias_hh)
-
     def _steps(self, x, states, order, seq_lens):
         """One direction over ``x`` ``[T, B, in]``: the outputs ``[T, B,
         H]`` and the final states."""
-        xw = self._input_proj(x)
-        outs = [None] * x.shape[0]
-        for t in order:
-            new, out = self._step(xw[t], states)
-            states, outs[t] = _mask(t, seq_lens, new, states, out)
-        return torch.stack(outs), states
+        return time_loop(self.mode, x, states, order, seq_lens,
+                         self.weight_ih, self.weight_hh, self.bias_ih,
+                         self.bias_hh, self.activation)
 
     def forward(self, inputs, states=None):
         """One step: ``inputs [B, in]`` -> ``(output, new_states)``."""
@@ -146,16 +188,10 @@ class SimpleRNNCell(RNNCellBase):
         super().__init__(input_size, hidden_size, **kw)
         self.activation = activation
 
-    def _step(self, xw, h):
-        w = self.weight_hh
-        pre = (xw + _linear(h.to(w.dtype), w)).to(_acc(xw.dtype))
-        h2 = torch.tanh(pre) if self.activation == "tanh" else \
-            torch.relu(pre)
-        return h2, h2
-
 
 class LSTMCell(RNNCellBase):
     gates = 4
+    mode = "LSTM"
 
     def __init__(self, input_size, hidden_size, weight_ih_attr=None,
                  weight_hh_attr=None, bias_ih_attr=None, bias_hh_attr=None,
@@ -166,38 +202,15 @@ class LSTMCell(RNNCellBase):
     def state_shape(self):
         return ((self.hidden_size,), (self.hidden_size,))
 
-    def _step(self, xw, states):
-        h, c = states
-        w = self.weight_hh
-        gates = (xw + _linear(h.to(w.dtype), w)).to(_acc(xw.dtype))
-        i, f, g, o = gates.chunk(4, dim=-1)
-        c2 = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
-        h2 = torch.sigmoid(o) * torch.tanh(c2)
-        return (h2, c2), h2
-
 
 class GRUCell(RNNCellBase):
     gates = 3
+    mode = "GRU"
 
     def __init__(self, input_size, hidden_size, weight_ih_attr=None,
                  weight_hh_attr=None, bias_ih_attr=None, bias_hh_attr=None,
                  name=None, **kw):
         super().__init__(input_size, hidden_size, **kw)
-
-    def _input_proj(self, x):
-        # the hidden bias stays inside the reset gate's product
-        return _linear(x, self.weight_ih, self.bias_ih)
-
-    def _step(self, xw, h):
-        w, acc = self.weight_hh, _acc(xw.dtype)
-        hw = _linear(h.to(w.dtype), w, self.bias_hh).to(acc)
-        xr, xz, xc = xw.to(acc).chunk(3, dim=-1)
-        hr, hz, hc = hw.chunk(3, dim=-1)
-        r = torch.sigmoid(xr + hr)
-        z = torch.sigmoid(xz + hz)
-        c = torch.tanh(xc + r * hc)
-        h2 = z * h + (1.0 - z) * c
-        return h2, h2
 
 
 class RNN(Layer):
@@ -351,3 +364,24 @@ class GRU(_RNNBase):
                  direction="forward", time_major=False, dropout=0.0, **kw):
         super().__init__("GRU", input_size, hidden_size, num_layers,
                          direction, time_major, dropout, **kw)
+
+
+@defop("rnn")
+def rnn(x, h0, c0, wih, whh, bih, bhh, seq_lens=None, mode="LSTM",
+        activation="tanh", reverse=False):
+    """The reference's ``rnn`` op: one direction of one layer over ``x
+    [batch, time, in]`` from ``h0`` / ``c0 [batch, hidden]``, the weights
+    given, through the cells' own :func:`time_loop`.
+    Returns ``(outputs [batch, time, hidden], h_n, c_n)``; ``c_n`` is
+    ``c0`` for GRU and SimpleRNN, so the arity is fixed."""
+    mode = mode if mode in ("LSTM", "GRU") else "RNN"
+    zero = torch.zeros(whh.shape[0], dtype=whh.dtype, device=whh.device)
+    T = x.shape[1]
+    order = range(T - 1, -1, -1) if reverse else range(T)
+    lstm = mode == "LSTM"
+    outs, states = time_loop(
+        mode, x.transpose(0, 1), (h0, c0) if lstm else h0, order, seq_lens,
+        wih, whh, zero if bih is None else bih,
+        zero if bhh is None else bhh, activation)
+    h_n, c_n = states if lstm else (states, c0)
+    return outs.transpose(0, 1), h_n, c_n
