@@ -59,10 +59,28 @@ CUDA toolkit (``nvcc``). It imports nothing of JAX or of ``paddle_tpu``.
    zeroed just before each of the two paths (``LLMEngine.run``: paged
    attention and RMSNorm; the no-cache forward: flash attention and
    RMSNorm) and read just after it; a kernel of a path that was never
-   launched fails the run.
+   launched fails the run. ``[serving telemetry]`` then reads the run
+   back from the telemetry layer: the Prometheus text's
+   ``serving_*{engine=...}`` series equal ``stats()`` (7 finished, 112
+   tokens, the preemptions), the Chrome export holds one ``request`` root
+   per request with ``queued`` / ``prefill`` / ``decode`` children, the
+   flight ring holds the run's ``kv.alloc`` / ``kv.free`` events,
+   ``stats()["slo"]`` has TTFT and TPOT percentiles, the decode step's
+   roofline estimate (counted shape-only on the CPU's route, under
+   ``FakeTensorMode``, when ``stats()`` reads it) equals a decode step
+   counted on the card with its kernels launched, and
+   ``serving_roofline_frac`` lies in (0, 1.05].
 4. Profiles one decode step of 4 running slots: the wall time of
    unprofiled steps against the device busy time (the union of the
-   profiled step's kernel intervals), and the kernels that took it.
+   profiled step's kernel intervals), and the kernels that took it; times
+   10 more steps with telemetry on and off, interleaved, and prints the
+   difference; ``[profiler]`` wraps 3 steps in
+   ``paddle_tpu_torch.profiler.Profiler`` (CPU and GPU targets,
+   ``export_chrome_tracing``) and requires the paged-attention kernel's
+   device events and the ``engine.decode`` host annotations in the trace;
+   ``[faults]`` serves 3 requests under ``serving.prefill:error@2``:
+   request 2 FAILED with its ``FaultError``, the others the tokens of an
+   unfaulted run, a flight dump naming the fault.
 5. Whole-step check: one ``LlamaPipelineTrainer`` forward and backward
    on a narrow model with the 7B head (hidden 512, 4 heads of 128,
    2 layers, vocab 32000, batch 2 x 512) in bf16 on the card, against the
@@ -2704,6 +2722,7 @@ def encoder_mask_phase(torch, K):
 
 
 def serving_phase(torch, K):
+    from paddle_tpu_torch import telemetry
     from paddle_tpu_torch.models import LlamaForCausalLM, llama_7b
     from paddle_tpu_torch.serving import LLMEngine, SamplingParams
 
@@ -2733,13 +2752,18 @@ def serving_phase(torch, K):
                              seed=7)
     reqs = [eng.add_request(p, greedy) for p in prompts]
     reqs.append(eng.add_request(toks(123), sampled))
+    telemetry.flight().clear()
+    telemetry.tracer().clear()
     K.reset_launch_counts()
     t0 = time.monotonic()
     eng.run()
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     engine_launches = K.launch_counts()
-    st = eng.stats()
+    t0 = time.monotonic()
+    st = eng.stats()           # counts the roofline's pending signatures
+    serving_telemetry_checks(torch, K, eng, reqs, st,
+                             time.monotonic() - t0)
     for r in reqs:
         if r.state.value != "finished" or len(r.output_tokens) != 16:
             raise AssertionError(f"request {r.rid}: {r.state} {r.error!r}")
@@ -2780,7 +2804,7 @@ def serving_phase(torch, K):
           f"tokens saved {st['prefix_cache']['tokens_saved']}")
     print(f"  TTFT mean {sum(ttft) / len(ttft) * 1e3:.1f} ms "
           f"(max {max(ttft) * 1e3:.1f} ms, queueing included); decode "
-          f"{st['decode_tokens_per_sec']:.1f} tokens/s over "
+          f"{eng.decode_tokens / eng.decode_s:.1f} tokens/s over "
           f"{eng.decode_tokens} tokens; overall "
           f"{st['tokens_per_sec']:.1f} tokens/s")
     print(f"  teacher forcing: worst gap to the row max {worst:.4f} "
@@ -2800,6 +2824,251 @@ def serving_phase(torch, K):
     return model, launches
 
 
+def card_decode_count(torch, eng):
+    """One decode step of ``eng`` counted on the card under the cost
+    counter (every slot idle: each writes its token into the scratch
+    block): the paged-attention and RMSNorm kernels launch, and each
+    launch is counted by its plain version run beside it."""
+    from paddle_tpu_torch import telemetry
+
+    S, dev = eng.max_slots, eng.device
+    with torch.inference_mode():
+        est, _ = telemetry.cost.measure(
+            eng._decode_step, torch.zeros(S, dtype=torch.int32, device=dev),
+            torch.zeros(S, eng.max_blocks, dtype=torch.int32, device=dev),
+            torch.ones(S, dtype=torch.int32, device=dev),
+            ([0.0] * S, [0] * S, [1.0] * S, [0] * S, [0] * S),
+            inputs=eng._cost_inputs + [eng.cache.pool],
+            outputs=[eng.cache.pool])
+    torch.cuda.synchronize()
+    return est
+
+
+def serving_telemetry_checks(torch, K, eng, reqs, st, est_s):
+    """[serving telemetry]: what the run left in the telemetry layer. The
+    Prometheus text's ``serving_*{engine=...}`` series equal ``stats()``;
+    the Chrome export holds one ``request`` root per request with its
+    ``queued`` / ``prefill`` / ``decode`` children; the flight ring holds
+    the run's ``kv.alloc`` / ``kv.free`` events; ``stats()["slo"]`` has
+    TTFT and TPOT percentiles; the decode step's roofline estimate (counted
+    shape-only on the CPU's route when ``stats()`` read it) equals a
+    decode step counted on the card, kernels launched, and
+    ``serving_roofline_frac`` lies in (0, 1.05]."""
+    import tempfile
+
+    from paddle_tpu_torch import telemetry
+
+    lab = eng.engine_label
+    lines = set(telemetry.prometheus_text().splitlines())
+    series = {"serving_requests_finished_total": st["num_finished"],
+              "serving_generated_tokens_total": st["total_generated_tokens"],
+              "serving_preemptions_total": st["num_preemptions"],
+              "serving_requests_failed_total": st["num_failed"]}
+    for fam, v in series.items():
+        if f'{fam}{{engine="{lab}"}} {v}' not in lines:
+            raise AssertionError(f"{fam}{{engine={lab}}} is not {v} in the "
+                                 f"Prometheus text")
+    if (st["num_finished"], st["total_generated_tokens"]) != (
+            len(reqs), 16 * len(reqs)):
+        raise AssertionError(f"stats() {st['num_finished']} finished, "
+                             f"{st['total_generated_tokens']} tokens")
+    with tempfile.TemporaryDirectory() as d:
+        path = telemetry.tracer().export_chrome(os.path.join(d, "t.json"))
+        with open(path) as f:
+            evs = json.load(f)["traceEvents"]
+    roots = {e["args"]["rid"]: e for e in evs if e["name"] == "request"
+             and e["args"].get("engine") == lab}
+    if sorted(roots) != sorted(r.rid for r in reqs):
+        raise AssertionError(f"request roots {sorted(roots)}")
+    for rid, root in roots.items():
+        kids = sorted(e["name"] for e in evs if e.get("args", {}).get(
+            "parent_id") == root["args"]["span_id"])
+        if kids != ["decode", "prefill", "queued"]:
+            raise AssertionError(f"request {rid}'s spans: {kids}")
+    # a request whose every block the prefix index holds parks them in
+    # the LRU at its end (no kv.free), as in the reference
+    fl = telemetry.flight()
+    granted = sum(e["n"] for e in fl.events("kv.alloc") if e["granted"])
+    n_alloc = len(fl.events("kv.alloc"))
+    n_free = len(fl.events("kv.free"))
+    if not n_alloc or not n_free or granted < len(reqs):
+        raise AssertionError(f"flight ring: {n_alloc} kv.alloc ({granted} "
+                             f"blocks granted), {n_free} kv.free events for "
+                             f"{len(reqs)} requests")
+    slo = st["slo"]
+    for k in ("ttft", "tpot"):
+        if any(slo[k][q] is None for q in ("p50", "p95", "p99")):
+            raise AssertionError(f"stats()['slo'][{k!r}] = {slo[k]}")
+    roof = st["perf"]["roofline"]
+    dec = roof["decode"]["buckets"]["decode"]
+    est = telemetry.cost.lookup("engine.decode", "decode", eng._cost_fp)
+    t0 = time.monotonic()
+    launched = K.launch_counts()["paged_attention"]
+    card = card_decode_count(torch, eng)
+    count_s = time.monotonic() - t0
+    layers = eng.model.config.num_hidden_layers
+    if (dec["flops"], dec["bytes"], dec["matmul_flops"]) != (
+            card["flops"], card["bytes"], card["matmul_flops"]) \
+            or est["kernels"] != card["kernels"] \
+            or card["kernels"].get("paged_attention") != layers \
+            or K.launch_counts()["paged_attention"] != launched + layers:
+        raise AssertionError(f"decode roofline {est} != the step counted on "
+                             f"the card {card}")
+    frac = roof["serving_roofline_frac"]
+    if frac is None or not 0 < frac <= 1.05:
+        raise AssertionError(f"serving_roofline_frac {frac}")
+    peaks = roof["peaks"]
+    print(f"[serving telemetry] Prometheus serving_*{{engine={lab}}}: "
+          + ", ".join(f"{k.replace('serving_', '')} {v}"
+                      for k, v in series.items())
+          + f" (= stats()); {len(roots)} request roots with queued / "
+          f"prefill / decode; flight ring {n_alloc} kv.alloc ({granted} "
+          f"blocks), {n_free} kv.free; SLO TTFT p50/p99 {slo['ttft']['p50'] * 1e3:.1f} / "
+          f"{slo['ttft']['p99'] * 1e3:.1f} ms, TPOT p50/p99 "
+          f"{slo['tpot']['p50'] * 1e3:.2f} / {slo['tpot']['p99'] * 1e3:.2f}"
+          f" ms")
+    print(f"  decode roofline: {dec['flops']} flops ({dec['matmul_flops']} "
+          f"in products), {dec['bytes']} bytes, AI "
+          f"{dec['arithmetic_intensity']} (counted shape-only in stats(), "
+          f"{est_s:.2f} s); a step counted on the card equal ({count_s:.2f}"
+          f" s); kernels {card['kernels']}; peaks {peaks['platform']} "
+          f"{peaks['flops_per_s']:.4g} FLOP/s, {peaks['bytes_per_s']:.4g} "
+          f"B/s; roofline time "
+          f"{telemetry.cost.roofline_time_s(card, peaks) * 1e3:.3f} ms; "
+          f"serving_roofline_frac {frac:.4f} over "
+          f"{roof['decode']['samples']} decode steps ({card_line()})")
+
+
+def telemetry_overhead(torch, eng):
+    """[profile] one decode step (4 running slots) with telemetry on and
+    off (``telemetry.disable()``): 5 steps of each, interleaved on off off
+    on on off off on on off, each step's wall synchronised."""
+    from paddle_tpu_torch import telemetry
+
+    walls = {True: [], False: []}
+    try:
+        for on in (True, False, False, True, True, False, False, True, True,
+                   False):
+            (telemetry.enable if on else telemetry.disable)()
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            eng.step()
+            torch.cuda.synchronize()
+            walls[on].append((time.monotonic() - t0) * 1e3)
+    finally:
+        telemetry.enable()
+    on, off = (sum(walls[k]) / len(walls[k]) for k in (True, False))
+    print(f"[profile] telemetry's cost a decode step: on {on:.3f} ms, off "
+          f"{off:.3f} ms (means of 5 interleaved steps each; on "
+          f"{[round(w, 3) for w in walls[True]]}, off "
+          f"{[round(w, 3) for w in walls[False]]}): {on - off:+.3f} ms, "
+          f"{100 * (on - off) / off:+.2f}% ({card_line()})")
+
+
+def profiler_phase(torch, eng, K):
+    """[profiler]: 3 decode steps inside ``paddle_tpu_torch.profiler.
+    Profiler`` with CPU and GPU targets and ``export_chrome_tracing``: the
+    exported trace must hold the paged-attention kernel's device events
+    (one a layer a step) and the engine's ``engine.decode`` spans as host
+    annotations; prints ``summary()``'s top rows."""
+    import shutil
+    import tempfile
+
+    from paddle_tpu_torch import profiler
+
+    d = tempfile.mkdtemp(prefix="profiler_phase_")
+    try:
+        p = profiler.Profiler(
+            targets=[profiler.ProfilerTarget.CPU,
+                     profiler.ProfilerTarget.GPU],
+            on_trace_ready=profiler.export_chrome_tracing(d, "serving"))
+        before = K.launch_counts()["paged_attention"]
+        p.start()
+        for _ in range(3):
+            eng.step()
+            p.step(num_samples=len(eng.scheduler.running))
+        p.stop()
+        launched = K.launch_counts()["paged_attention"] - before
+        with open(p.last_trace_path) as f:
+            evs = json.load(f)["traceEvents"]
+        kern = [e for e in evs if e.get("cat") == "kernel"
+                and "paged" in e["name"]]
+        spans = [e for e in evs if e.get("cat") == "user_annotation"
+                 and e["name"] == "engine.decode"]
+        layers = eng.model.config.num_hidden_layers
+        if launched != 3 * layers or len(kern) < launched or len(spans) != 3:
+            raise AssertionError(
+                f"profiler trace: {len(kern)} paged-attention kernel events "
+                f"for {launched} launches, {len(spans)} engine.decode spans")
+        rep = p.summary(max_rows=6, print_table=False)
+        print(f"[profiler] 3 decode steps: {len(kern)} paged-attention "
+              f"kernel events ({launched} launches), {len(spans)} "
+              f"engine.decode host annotations, "
+              f"{os.path.getsize(p.last_trace_path) / 2 ** 20:.1f} MiB "
+              f"trace; batch_cost {rep['batch_cost'] * 1e3:.2f} ms "
+              f"({card_line()})")
+        for title, rows in (("device", rep["op_summary"]),
+                            ("host", rep["host_summary"])):
+            for r in rows:
+                print(f"  {title:6s} {r['total_us']:10.1f} us "
+                      f"x{r['calls']:<5d} {r['pct']:6.2f}%  "
+                      f"{r['name'][:70]}")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def faults_phase(torch, model):
+    """[faults]: 3 greedy requests of 8 tokens on the [serving] model
+    under ``FaultPlan.parse("serving.prefill:error@2")``: request 2 ends
+    FAILED with its ``FaultError``, the other two finish with the tokens of
+    an unfaulted run, and a flight dump names the fault."""
+    from paddle_tpu_torch import telemetry
+    from paddle_tpu_torch.serving import LLMEngine, SamplingParams
+    from paddle_tpu_torch.utils import faults
+
+    rng = torch.Generator().manual_seed(3)
+    prompts = [torch.randint(0, 32000, (n,), generator=rng).tolist()
+               for n in (21, 40, 33)]
+
+    def serve():
+        eng = LLMEngine(model, max_slots=4, max_model_len=128,
+                        block_size=16)
+        reqs = [eng.add_request(p, SamplingParams(max_new_tokens=8))
+                for p in prompts]
+        eng.run()
+        eng.close()
+        return reqs
+
+    clean = serve()
+    with faults.FaultPlan.parse("serving.prefill:error@2") as plan:
+        reqs = serve()
+    path = telemetry.dump(reason="faults phase")
+    with open(path) as f:
+        doc = json.load(f)
+    os.remove(path)
+    fired = [e for e in doc["events"] if e["kind"] == "fault.injected"
+             and e["site"] == "serving.prefill"]
+    bad = reqs[1]
+    if (bad.state.value != "failed"
+            or not isinstance(bad.error, faults.FaultError)
+            or bad.error.site != "serving.prefill"):
+        raise AssertionError(f"request 2: {bad.state} {bad.error!r}")
+    for i in (0, 2):
+        if reqs[i].state.value != "finished" or \
+                reqs[i].output_tokens != clean[i].output_tokens:
+            raise AssertionError(f"request {i + 1}: {reqs[i].state} "
+                                 f"{reqs[i].output_tokens} vs the "
+                                 f"unfaulted {clean[i].output_tokens}")
+    if [f.hit for f in plan.fired] != [2] or len(fired) != 1 \
+            or fired[0]["hit"] != 2:
+        raise AssertionError(f"plan fired {plan.summary()}, dump {fired}")
+    print(f"[faults] serving.prefill:error@2 over 3 requests x 8 tokens: "
+          f"request 2 FAILED ({bad.error}), requests 1 and 3 finished with "
+          f"the unfaulted run's tokens; the flight dump ({doc['num_events']} "
+          f"events) names fault.injected at serving.prefill hit "
+          f"{fired[0]['hit']}")
+
+
 def busy_ms(kernels):
     """Device busy ms: the union of the kernels' intervals (a CPU op's row
     in ``key_averages()`` repeats its kernels' time, so rows are not
@@ -2812,10 +3081,12 @@ def busy_ms(kernels):
     return busy_us / 1e3
 
 
-def profile_decode_step(torch, model):
+def profile_decode_step(torch, model, K):
     """Where one decode step's time goes (4 running slots, contexts
     ~300-700): the wall time of unprofiled steps against the device busy
-    time of one profiled step, taken as the union of its kernel intervals."""
+    time of one profiled step, taken as the union of its kernel intervals;
+    then telemetry's cost a step (:func:`telemetry_overhead`) and the
+    ``[profiler]`` phase on the same engine."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2825,7 +3096,7 @@ def profile_decode_step(torch, model):
     rng = torch.Generator().manual_seed(2)
     for n in (300, 400, 500, 700):
         eng.add_request(torch.randint(0, 32000, (n,), generator=rng).tolist(),
-                        SamplingParams(max_new_tokens=16))
+                        SamplingParams(max_new_tokens=32))
     for _ in range(3):                   # admit + prefill, then warm decode
         eng.step()
     torch.cuda.synchronize()
@@ -2861,6 +3132,8 @@ def profile_decode_step(torch, model):
           f"{100 * (1 - busy / wall):.1f}% of the unprofiled wall")
     for name, (ms, n) in sorted(per_name.items(), key=lambda r: -r[1][0])[:8]:
         print(f"  {ms:8.3f} ms  x{n:<5d} {name[:90]}")
+    telemetry_overhead(torch, eng)
+    profiler_phase(torch, eng, K)
     eng.run()
 
 
@@ -7068,7 +7341,11 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     model, launches = serving_phase(torch, K)
-    profile_decode_step(torch, model)
+    t_new = time.monotonic()
+    profile_decode_step(torch, model, K)
+    faults_phase(torch, model)
+    print(f"[serving phases] profile, telemetry cost, profiler and faults "
+          f"{time.monotonic() - t_new:.1f} s")
     del model
     gc.collect()
     torch.cuda.empty_cache()

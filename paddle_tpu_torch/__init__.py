@@ -36,9 +36,9 @@ or calls ``set_device("cpu")``::
     x = paddle.to_tensor([[1.0, 2.0]], stop_gradient=False)
     (paddle.matmul(x, x.t()) * 2).sum().backward()
 """
-from . import (amp, autograd, core, framework, hapi, inference, io, jit,
-               kernels, metric, models, nn, ops, optimizer, serving, static,
-               utils, vision)
+from . import (amp, analysis, autograd, core, framework, hapi, inference,
+               io, jit, kernels, metric, models, nn, ops, optimizer,
+               profiler, serving, static, telemetry, utils, vision)
 from .core import (CPUPlace, CUDAPlace, Place, device_count, get_device,
                    resolve_device, set_device)
 from .core.autograd import (enable_grad, grad, is_grad_enabled, no_grad,

@@ -11,11 +11,18 @@ Paddle enforces. Only the flags the port acts on are registered:
   ``torch.backends.cudnn.deterministic`` (and cuDNN's benchmark mode off);
 - ``FLAGS_check_nan_inf``: every eager op checks its outputs and raises
   on a NaN or an Inf with the op's name (``core.dispatch``);
-- ``FLAGS_benchmark``: every eager op synchronises its outputs' device.
+- ``FLAGS_benchmark``: every eager op synchronises its outputs' device;
+- ``FLAGS_fault_plan``: a fault plan (``utils.faults`` grammar,
+  ``site:kind[=arg][@start][xcount][%prob]``, ``;``-separated) that every
+  ``faults.inject`` site consults while no plan is activated in code;
+- ``FLAGS_locksan``: arm LockSan (``analysis.locksan``): locks made after
+  it is set record their acquisition order and report inversions and
+  blocking calls under a lock (set it in the environment at process start
+  so module-level locks are made armed).
 
-The JAX package's other flags (the Pallas policy, LockSan, fault plans,
-collective timeouts, the allocator strategy) wait for the modules that
-would act on them (ROADMAP) and raise as unknown until then.
+The JAX package's other flags (the Pallas policy, collective timeouts,
+the allocator strategy) wait for the modules that would act on them
+(ROADMAP) and raise as unknown until then.
 """
 from __future__ import annotations
 
@@ -125,3 +132,12 @@ register_flag("FLAGS_check_nan_inf", False,
 register_flag("FLAGS_benchmark", False,
               "synchronise the device after every eager op, so a per-op "
               "time is the op's own", on_set=_debug_hooks)
+register_flag("FLAGS_fault_plan", "",
+              "chaos harness: ';'-separated fault specs "
+              "(site:kind[=arg][@start][xcount][%prob]) armed at every "
+              "paddle_tpu_torch.utils.faults.inject site")
+register_flag("FLAGS_locksan", False,
+              "arm the LockSan runtime lock-order sanitizer "
+              "(paddle_tpu_torch.analysis.locksan): instrumented locks "
+              "record acquisition order and blocking-calls-under-lock; set "
+              "at process start so module-level locks are created armed")

@@ -17,8 +17,9 @@ order. The loader takes one of four paths, as the reference's does:
 - ``num_workers == 0``: one background thread that batches ahead
   (``use_buffer_reader``, the default), or batching inline.
 
-The reference's ``dataloader.next`` fault hook is not ported (it belongs
-with the fault-injection module).
+Every emitted batch passes the ``dataloader.next`` fault site
+(``utils.faults``): ``bad_batch`` turns its floats into NaN before it is
+delivered, as in the reference.
 """
 from __future__ import annotations
 
@@ -31,6 +32,7 @@ import torch
 
 from ..core.device import resolve_device
 from ..core.tensor import wrap
+from ..utils import faults
 
 __all__ = [
     "Dataset", "IterableDataset", "TensorDataset", "ComposeDataset",
@@ -307,6 +309,23 @@ def _first_place(places):
     return places
 
 
+def _poison_collated(batch):
+    """NaN-fill the floating leaves of a collated batch (the
+    ``dataloader.next:bad_batch`` fault — a corrupt reader shard)."""
+    if isinstance(batch, torch.Tensor):
+        if batch.is_floating_point():
+            return torch.full_like(batch, float("nan"))
+        return batch
+    if isinstance(batch, (list, tuple)):
+        return type(batch)(_poison_collated(b) for b in batch)
+    if isinstance(batch, dict):
+        return {k: _poison_collated(v) for k, v in batch.items()}
+    if isinstance(batch, np.ndarray) and np.issubdtype(batch.dtype,
+                                                       np.floating):
+        return np.full_like(batch, np.nan)
+    return batch
+
+
 def _deliver(batch, device):
     """A collated CPU batch as Tensors on ``device`` (pinned, then copied
     without blocking the host, when that is the card)."""
@@ -414,8 +433,13 @@ class DataLoader:
                 yield self.collate_fn([self.dataset[i] for i in idx_batch])
 
     def __iter__(self):
+        # dataloader.next fault site: per emitted batch; "bad_batch"
+        # NaN-poisons the floats, error / delay propagate as usual. One
+        # no-op inject call per batch when no plan is armed.
         dev = resolve_device(_first_place(self.places))
-        for batch in self._cpu_iter():
+        for i, batch in enumerate(self._cpu_iter()):
+            if faults.inject("dataloader.next", batch=i) == "bad_batch":
+                batch = _poison_collated(batch)
             yield _deliver(batch, dev)
 
     def _cpu_iter(self):

@@ -41,13 +41,16 @@ from __future__ import annotations
 import functools
 import os
 import pickle
+import time
 import types
 import warnings
 
 import numpy as np
 import torch
 
+from .. import telemetry
 from ..core.device import resolve_device
+from ..telemetry import perf as _perf
 from ..core.dtype import convert_dtype
 from ..core.tensor import Tensor, wrap
 from ..framework.io import load_pickle
@@ -206,9 +209,11 @@ class StaticFunction:
         if entry is not None:
             return _wrap_out(self._invoke(entry, arrays, kwargs))
         entry = self._build(self._needs_transform)
+        t0 = time.monotonic()
         try:
             out = self._invoke(entry, arrays, kwargs)
             self._cache[key] = entry
+            self._watch(arrays, t0)
             return _wrap_out(out)
         except Exception as e:       # noqa: BLE001 (classified below)
             kind, _ = _dynamo_failure(e)
@@ -223,6 +228,7 @@ class StaticFunction:
             out = self._invoke(entry, arrays, kwargs)
             self._cache[key] = entry
             self._needs_transform = True
+            self._watch(arrays, t0)
             return _wrap_out(out)
         except dy2static.UnsupportedSyntax as e:
             reason = e
@@ -248,6 +254,17 @@ class StaticFunction:
             "to_static(..., fallback=True) or "
             "paddle.set_flags({'FLAGS_dy2static_eager_fallback': True})"
         ) from reason
+
+    def _watch(self, arrays, t0):
+        """A new input signature compiled: the compile watcher's
+        ``jit.<function>`` entry, its wall the first call (which paid the
+        compile)."""
+        name = getattr(self._target, "__name__", type(self._target).__name__)
+        telemetry.compile_watcher().record_call(
+            f"jit.{name}",
+            _perf.abstract_signature(
+                [a for a in arrays if isinstance(a, torch.Tensor)]),
+            wall_s=time.monotonic() - t0)
 
     def _invoke(self, entry, arrays, kwargs):
         with torch.no_grad():

@@ -10,7 +10,9 @@ policy. Here the choice is the tensor's device and nothing else:
 
 Every wrapper adds one to its entry of :data:`LAUNCHES` where it launches
 its kernel, and nowhere else, so a run can show that its main path went
-through the kernels. A gradient goes through a ``torch.autograd.Function``
+through the kernels. Every eager call picks its route in :func:`route`,
+where a roofline counter (``telemetry.cost``) counts a launch's work by its
+plain version. A gradient goes through a ``torch.autograd.Function``
 whose backward is a kernel too; a raw ``*_cuda`` wrapper, which returns
 buffers a ctypes launch filled, raises when it is handed a tensor that
 requires grad while grad mode is on (:func:`refuse_grad`), so no output is
@@ -61,11 +63,13 @@ softmax_ce_bwd               softmax_ce.py, softmax_ce.cu   ``_bwd_kernel``
 from __future__ import annotations
 
 import contextlib
+import threading
 
 import torch
 
 __all__ = ["LAUNCHES", "use_kernel", "refuse_grad", "plain_math",
-           "launch_counts", "reset_launch_counts", "in_program"]
+           "launch_counts", "reset_launch_counts", "in_program", "route",
+           "work_counter", "push_work_counter", "pop_work_counter"]
 
 # launches per kernel since the last reset (plain ints)
 LAUNCHES: dict[str, int] = {
@@ -143,6 +147,49 @@ def plain_math(device: torch.device):
     if device.type not in ("cpu", "cuda"):
         return contextlib.nullcontext()
     return torch.autocast(device.type, enabled=False)
+
+
+# the work counters (``telemetry.cost.CostCounter``) active on this thread,
+# innermost last
+_WORK = threading.local()
+
+
+def push_work_counter(counter) -> None:
+    stack = getattr(_WORK, "stack", None)
+    if stack is None:
+        stack = _WORK.stack = []
+    stack.append(counter)
+
+
+def pop_work_counter(counter) -> None:
+    stack = getattr(_WORK, "stack", None)
+    if stack and stack[-1] is counter:
+        stack.pop()
+
+
+def work_counter():
+    """The innermost work counter active on this thread, or None."""
+    stack = getattr(_WORK, "stack", None)
+    return stack[-1] if stack else None
+
+
+def route(name: str, launch: bool, kernel, plain, *args, **kwargs):
+    """An eager wrapper's call: ``kernel(*args, **kwargs)`` where ``launch``
+    (the tensors lie on a CUDA device), else ``plain(*args, **kwargs)``.
+
+    Under a work counter the call is noted by ``name``, and a launch's work
+    is counted by running the plain version on the same inputs beside it,
+    its result dropped: a ctypes launch dispatches no aten op, so without
+    it a count on the card would miss the kernel's work that the CPU's
+    plain version shows. The card's count of a step then equals the
+    CPU's."""
+    counter = work_counter()
+    if counter is not None:
+        counter.note_kernel(name)
+        if launch:
+            with torch.no_grad():
+                plain(*args, **kwargs)
+    return (kernel if launch else plain)(*args, **kwargs)
 
 
 def launch_counts() -> dict[str, int]:

@@ -30,7 +30,10 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
+
+from ..telemetry import perf as _perf
 
 __all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "nvcc_path", "sources",
            "build_all", "function", "check"]
@@ -88,6 +91,7 @@ def build_all() -> dict[str, Path]:
     nvcc = nvcc_path()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = []
+    t0 = time.monotonic()
     for src, lib in todo:
         # write under a per-process name, then rename: concurrent builds
         # of the same source never see a half-written library
@@ -97,11 +101,17 @@ def build_all() -> dict[str, Path]:
             [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
             stdout=log, stderr=subprocess.STDOUT)))
     failed = []
+    watcher = _perf.compile_watcher()
     for src, lib, tmp, log, p in procs:
         rc = p.wait()
         log.close()
         if rc == 0:
             os.replace(tmp, lib)
+            # the build's wall, from the common start to this library's
+            # end (nvcc runs them all at once)
+            watcher.record_compile(f"nvcc.{src.stem}",
+                                   (("library", (), lib.name),),
+                                   time.monotonic() - t0)
         else:
             failed.append(f"{src.name} (rc={rc}):\n"
                           + lib.with_suffix(".log").read_text()[-4000:])

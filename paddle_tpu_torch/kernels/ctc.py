@@ -61,7 +61,7 @@ from typing import NamedTuple
 import torch
 
 from . import (LAUNCHES, _build, in_program, plain_math, refuse_grad,
-               use_kernel)
+               route, use_kernel)
 from ..core.tensor import bound_public
 
 __all__ = ["NEG", "MAX_STATES", "LaunchPlan", "launch_plan", "ROUTES",
@@ -391,8 +391,8 @@ class CTCLossFunction(torch.autograd.Function):
         if in_program(*args):
             alphas, ll = torch.ops.paddle_tpu_torch.ctc_alpha(*args, blank)
         else:
-            alpha = ctc_alpha_cuda if use_kernel(*args) else ctc_alpha_plain
-            alphas, ll = alpha(*args, blank)
+            alphas, ll = route("ctc_alpha", use_kernel(*args), ctc_alpha_cuda,
+                               ctc_alpha_plain, *args, blank)
         return -ll, alphas, ll
 
     @staticmethod
@@ -411,8 +411,8 @@ class CTCLossFunction(torch.autograd.Function):
         if in_program(log_probs, g):
             betas = torch.ops.paddle_tpu_torch.ctc_beta(*args)
         else:
-            beta = ctc_beta_cuda if use_kernel(*args[:4]) else ctc_beta_plain
-            betas = beta(*args)
+            betas = route("ctc_beta", use_kernel(*args[:4]), ctc_beta_cuda,
+                          ctc_beta_plain, *args)
         grad = ctc_grad(alphas, betas, ll, labels, g, ctx.num_classes,
                         ctx.blank)
         return grad.to(ctx.dtype), None, None, None, None

@@ -111,7 +111,7 @@ import torch
 
 from ..framework.random import next_seed
 from . import (LAUNCHES, _build, in_program, plain_math, refuse_grad,
-               use_kernel)
+               route, use_kernel)
 from ..core.tensor import bound_public
 
 __all__ = ["flash_attention_fwd", "flash_attention_plain",
@@ -744,10 +744,10 @@ class FlashAttentionFunction(torch.autograd.Function):
             return torch.ops.paddle_tpu_torch.flash_attention_fwd(
                 q, k, v, mask, causal, sm_scale, dropout_p,
                 _seed_tensor(dropout_p, seed, q.device))
-        fwd = flash_attention_cuda if use_kernel(q, k, v) \
-            else flash_attention_plain
-        return fwd(q, k, v, causal=causal, sm_scale=sm_scale,
-                   dropout_p=dropout_p, seed=seed, mask=mask)
+        return route("flash_attention_fwd", use_kernel(q, k, v),
+                     flash_attention_cuda, flash_attention_plain, q, k, v,
+                     causal=causal, sm_scale=sm_scale, dropout_p=dropout_p,
+                     seed=seed, mask=mask)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -768,11 +768,11 @@ class FlashAttentionFunction(torch.autograd.Function):
                 q, k, v, g, lse, dg, mask, ctx.causal, ctx.sm_scale,
                 ctx.dropout_p, _seed_tensor(ctx.dropout_p, seed, q.device))
         else:
-            bwd = (flash_attention_bwd_cuda if use_kernel(q, k, v)
-                   else flash_attention_bwd_plain)
-            dq, dk, dv = bwd(q, k, v, g, lse, dg, causal=ctx.causal,
-                             sm_scale=ctx.sm_scale, dropout_p=ctx.dropout_p,
-                             seed=seed, mask=mask)
+            dq, dk, dv = route(
+                "flash_attention_bwd", use_kernel(q, k, v),
+                flash_attention_bwd_cuda, flash_attention_bwd_plain, q, k, v,
+                g, lse, dg, causal=ctx.causal, sm_scale=ctx.sm_scale,
+                dropout_p=ctx.dropout_p, seed=seed, mask=mask)
         return dq, dk, dv, None, None, None, None, None
 
 
@@ -1037,10 +1037,10 @@ class FlashVarlenFunction(torch.autograd.Function):
             return torch.ops.paddle_tpu_torch.flash_varlen_fwd(
                 q, k, v, cu_q, cu_k, *max_len, causal, sm_scale, dropout_p,
                 _seed_tensor(dropout_p, seed, q.device))
-        fwd = flash_attn_varlen_cuda if use_kernel(q, k, v) \
-            else flash_attn_varlen_plain
-        return fwd(q, k, v, cu_q, cu_k, causal, sm_scale, dropout_p, seed,
-                   cu_host=cu_host)
+        return route("flash_varlen_fwd", use_kernel(q, k, v),
+                     flash_attn_varlen_cuda, flash_attn_varlen_plain, q, k, v,
+                     cu_q, cu_k, causal, sm_scale, dropout_p, seed,
+                     cu_host=cu_host)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -1067,11 +1067,11 @@ class FlashVarlenFunction(torch.autograd.Function):
                 ctx.sm_scale, ctx.dropout_p,
                 _seed_tensor(ctx.dropout_p, seed, q.device))
         else:
-            bwd = (flash_attn_varlen_bwd_cuda if use_kernel(q, k, v)
-                   else flash_attn_varlen_bwd_plain)
-            dq, dk, dv = bwd(q, k, v, g, lse, dg, cu_q, cu_k, ctx.causal,
-                             ctx.sm_scale, ctx.dropout_p, seed,
-                             cu_host=ctx.cu_host)
+            dq, dk, dv = route(
+                "flash_varlen_bwd", use_kernel(q, k, v),
+                flash_attn_varlen_bwd_cuda, flash_attn_varlen_bwd_plain, q, k,
+                v, g, lse, dg, cu_q, cu_k, ctx.causal, ctx.sm_scale,
+                ctx.dropout_p, seed, cu_host=ctx.cu_host)
         return dq, dk, dv, None, None, None, None, None, None, None, None
 
 

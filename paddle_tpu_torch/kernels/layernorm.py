@@ -25,7 +25,7 @@ import ctypes
 
 import torch
 
-from . import LAUNCHES, _build, in_program, refuse_grad, use_kernel
+from . import LAUNCHES, _build, in_program, refuse_grad, route, use_kernel
 from ..core.tensor import bound_public
 
 __all__ = ["layer_norm_plain", "layer_norm_cuda", "layer_norm_bwd",
@@ -118,9 +118,8 @@ class LayerNormFunction(torch.autograd.Function):
             # (kernels/library.py); eager calls it directly
             return torch.ops.paddle_tpu_torch.layernorm_fwd(x, weight, bias,
                                                             eps)
-        fwd = layer_norm_cuda if use_kernel(x, weight, bias) \
-            else layer_norm_plain
-        return fwd(x, weight, bias, eps)
+        return route("layernorm_fwd", use_kernel(x, weight, bias),
+                     layer_norm_cuda, layer_norm_plain, x, weight, bias, eps)
 
     @staticmethod
     def setup_context(ctx, inputs, output):

@@ -15,7 +15,9 @@ on an NVIDIA H100's host (a cProfile of a batch-1 ERNIE forward, 37 calls,
 
 Each op's CUDA kernel is the launch (``*_cuda``), which launches or raises;
 its CPU kernel is the plain version, which runs only for CPU tensors; its
-fake gives each output's shape and dtype from the inputs' (symbolic) shapes.
+fake gives each output's shape and dtype from the inputs' (symbolic) shapes,
+and reports the trace to ``telemetry``'s compile watcher as
+``kernel.<op>``.
 The launch counters move inside the CUDA kernels, so compiled and exported
 runs count their launches too. The ``autograd.Function``s of the kernel
 modules call these ops where :func:`~paddle_tpu_torch.kernels.in_program`
@@ -58,6 +60,7 @@ from .rnnt import (rnnt_alpha_cuda, rnnt_alpha_plain, rnnt_beta_grad_cuda,
                    rnnt_beta_grad_plain)
 from .softmax_ce import (softmax_ce_bwd_cuda, softmax_ce_bwd_plain,
                          softmax_ce_cuda, softmax_ce_plain)
+from ..telemetry import perf as _perf
 
 __all__ = ["OPS"]
 
@@ -308,12 +311,31 @@ OPS = {
         _rnnt_beta_grad(rnnt_beta_grad_plain), _rnnt_beta_grad_fake),
 }
 
+def _watched(name, schema, fake):
+    """The op's fake, reporting each trace of the op to the compile watcher
+    (``kernel.<op>``, its tensor arguments' shapes and dtypes, an absent
+    optional tensor as ``py:NoneType``): the counterpart of the
+    reference's trace-time record in its Pallas wrappers, one per kernel
+    build a program makes."""
+    params = schema.split("->")[0].strip()[1:-1].split(",")
+    slots = [(i, arg) for i, (typ, arg) in enumerate(
+        p.split() for p in params) if typ.startswith("Tensor")]
+    names = [arg for _, arg in slots]
+
+    def run(*args):
+        _perf.compile_watcher().record_call(
+            f"kernel.{name}",
+            _perf.abstract_signature([args[i] for i, _ in slots], names))
+        return fake(*args)
+    return run
+
+
 for _name, (_schema, _cuda, _plain, _fake) in OPS.items():
     _LIB.define(_name + _schema)
     _LIB.impl(_name, _cuda, "CUDA")
     _LIB.impl(_name, _cpu(_plain), "CPU")
-    torch.library.register_fake(f"paddle_tpu_torch::{_name}", _fake,
-                                lib=_LIB)
+    torch.library.register_fake(f"paddle_tpu_torch::{_name}",
+                                _watched(_name, _schema, _fake), lib=_LIB)
 
 flash_attention_fwd = torch.ops.paddle_tpu_torch.flash_attention_fwd.default
 layernorm_fwd = torch.ops.paddle_tpu_torch.layernorm_fwd.default

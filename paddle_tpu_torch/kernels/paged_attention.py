@@ -40,7 +40,7 @@ from typing import NamedTuple
 
 import torch
 
-from . import LAUNCHES, _build, in_program, use_kernel
+from . import LAUNCHES, _build, in_program, route, use_kernel
 from ..core.tensor import bound_public
 
 __all__ = ["paged_attention", "paged_attention_plain", "paged_attention_cuda",
@@ -233,10 +233,10 @@ def paged_attention(q, kv_pool, block_tables, context_lens, *, sm_scale=None):
     if in_program(q, kv_pool):
         return torch.ops.paddle_tpu_torch.paged_attention(
             q, kv_pool, block_tables, context_lens, sm_scale)
-    impl = (paged_attention_cuda
-            if use_kernel(q, kv_pool, block_tables, context_lens)
-            else paged_attention_plain)
-    return impl(q, kv_pool, block_tables, context_lens, sm_scale=sm_scale)
+    return route("paged_attention",
+                 use_kernel(q, kv_pool, block_tables, context_lens),
+                 paged_attention_cuda, paged_attention_plain, q, kv_pool,
+                 block_tables, context_lens, sm_scale=sm_scale)
 
 
 # public entry points hand back Tensors when a Tensor came in

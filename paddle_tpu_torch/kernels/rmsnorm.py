@@ -26,7 +26,7 @@ import ctypes
 
 import torch
 
-from . import LAUNCHES, _build, in_program, refuse_grad, use_kernel
+from . import LAUNCHES, _build, in_program, refuse_grad, route, use_kernel
 from ..core.tensor import bound_public
 
 __all__ = ["rmsnorm", "rmsnorm_residual", "rmsnorm_plain", "rmsnorm_cuda",
@@ -164,8 +164,8 @@ class RMSNormFunction(torch.autograd.Function):
                 x, weight, residual, eps)
             return out, (None if residual is None else h), rstd
         tensors = (x, weight) if residual is None else (x, weight, residual)
-        fwd = rmsnorm_cuda if use_kernel(*tensors) else rmsnorm_plain
-        return fwd(x, weight, eps, residual)
+        return route("rmsnorm_fwd", use_kernel(*tensors), rmsnorm_cuda,
+                     rmsnorm_plain, x, weight, eps, residual)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -181,9 +181,9 @@ class RMSNormFunction(torch.autograd.Function):
             dx, dw = torch.ops.paddle_tpu_torch.rmsnorm_bwd(x, weight, rstd,
                                                             g, residual)
         else:
-            bwd = rmsnorm_bwd_cuda if use_kernel(x, weight) \
-                else rmsnorm_bwd_plain
-            dx, dw = bwd(x, weight, rstd, g, residual)
+            dx, dw = route("rmsnorm_bwd", use_kernel(x, weight),
+                           rmsnorm_bwd_cuda, rmsnorm_bwd_plain, x, weight,
+                           rstd, g, residual)
         if g_h is not None:          # h = x + residual feeds both addends
             dx = dx + g_h
         return dx, dw, (None if residual is None else dx), None

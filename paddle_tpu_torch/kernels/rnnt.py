@@ -61,7 +61,7 @@ from typing import NamedTuple
 import torch
 
 from . import (LAUNCHES, _build, in_program, plain_math, refuse_grad,
-               use_kernel)
+               route, use_kernel)
 from ..core.tensor import bound_public
 
 __all__ = ["NEG", "MAX_STATES", "LaunchPlan", "launch_plan", "ROUTES",
@@ -350,9 +350,8 @@ class RNNTLossFunction(torch.autograd.Function):
         if in_program(*args):
             alphas, ll = torch.ops.paddle_tpu_torch.rnnt_alpha(*args)
         else:
-            alpha = rnnt_alpha_cuda if use_kernel(*args) \
-                else rnnt_alpha_plain
-            alphas, ll = alpha(*args)
+            alphas, ll = route("rnnt_alpha", use_kernel(*args),
+                               rnnt_alpha_cuda, rnnt_alpha_plain, *args)
         return -ll, alphas, ll
 
     @staticmethod
@@ -367,9 +366,10 @@ class RNNTLossFunction(torch.autograd.Function):
         if in_program(blank_lp, g):
             gb, ge = torch.ops.paddle_tpu_torch.rnnt_beta_grad(*args)
         else:
-            beta = rnnt_beta_grad_cuda if use_kernel(blank_lp, emit_lp) \
-                else rnnt_beta_grad_plain
-            gb, ge, _ = beta(*args)
+            gb, ge, _ = route("rnnt_beta_grad",
+                              use_kernel(blank_lp, emit_lp),
+                              rnnt_beta_grad_cuda, rnnt_beta_grad_plain,
+                              *args)
         g = g.float()[:, None, None]
         return ((-gb * g).to(blank_lp.dtype), (-ge * g).to(emit_lp.dtype),
                 None, None)

@@ -26,7 +26,7 @@ import ctypes
 
 import torch
 
-from . import LAUNCHES, _build, in_program, refuse_grad, use_kernel
+from . import LAUNCHES, _build, in_program, refuse_grad, route, use_kernel
 from ..core.tensor import bound_public
 
 __all__ = ["softmax_ce", "softmax_ce_plain", "softmax_ce_cuda",
@@ -122,8 +122,8 @@ class SoftmaxCEFunction(torch.autograd.Function):
     def forward(x, labels):
         if in_program(x, labels):
             return torch.ops.paddle_tpu_torch.softmax_ce_fwd(x, labels)
-        fwd = softmax_ce_cuda if use_kernel(x, labels) else softmax_ce_plain
-        return fwd(x, labels)
+        return route("softmax_ce_fwd", use_kernel(x, labels),
+                     softmax_ce_cuda, softmax_ce_plain, x, labels)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -136,9 +136,9 @@ class SoftmaxCEFunction(torch.autograd.Function):
         if in_program(x, g):
             dx = torch.ops.paddle_tpu_torch.softmax_ce_bwd(x, labels, lse, g)
         else:
-            bwd = softmax_ce_bwd_cuda if use_kernel(x, labels) \
-                else softmax_ce_bwd_plain
-            dx = bwd(x, labels, lse, g)
+            dx = route("softmax_ce_bwd", use_kernel(x, labels),
+                       softmax_ce_bwd_cuda, softmax_ce_bwd_plain, x, labels,
+                       lse, g)
         return dx, None
 
 

@@ -26,23 +26,67 @@ only the tail is prefilled; the first write into a shared block copies it
 (copy-on-write); completed prefixes nobody references sit in an LRU pool
 that is evicted on demand. The reference's host spill tier, cluster KV
 fabric and tenant quotas are later slices.
+
+Telemetry as in the reference: allocator traffic and prefix-cache moves
+land in the flight recorder (``kv.alloc`` / ``kv.share`` / ``kv.free`` /
+``kv.evict`` / ``kv.cow``), the prefix cache's running totals in the
+``kv_prefix_*`` families, and ``serving.kv.alloc`` / ``serving.kv.share``
+/ ``serving.kv.cow`` are fault sites (``utils.faults``).
 """
 from __future__ import annotations
 
 import hashlib
 from collections import OrderedDict
+from types import SimpleNamespace
 
 import numpy as np
 import torch
 
+from .. import telemetry
 from ..core import resolve_device
 from ..kernels.paged_attention import paged_attention
 from ..nn.functional.attention import sdpa_ref
+from ..utils import faults
 
 __all__ = ["BlockAllocator", "PagedKVCache", "PagedCacheView", "DenseKVCache",
            "SCRATCH_BLOCK"]
 
 SCRATCH_BLOCK = 0  # reserved: masked writes from inactive slots land here
+
+
+# prefix-cache metric families (process-global; per-engine gauges live on
+# the engine's labelled series), resolved lazily. The reference's spill-tier
+# and tenant families come with those features.
+_PM = None
+
+
+def _prefix_metrics() -> SimpleNamespace:
+    global _PM
+    if _PM is None:
+        reg = telemetry.registry()
+        _PM = SimpleNamespace(
+            hits=reg.counter("kv_prefix_hits_total",
+                             "admissions that matched a cached prefix"),
+            misses=reg.counter("kv_prefix_misses_total",
+                               "admissions that matched nothing"),
+            blocks_saved=reg.counter(
+                "kv_prefix_blocks_saved_total",
+                "KV blocks mapped shared instead of re-prefilled"),
+            tokens_saved=reg.counter(
+                "kv_prefix_tokens_saved_total",
+                "prompt tokens whose prefill was skipped via prefix hits"),
+            cow=reg.counter("kv_prefix_cow_copies_total",
+                            "copy-on-write private block copies"),
+            evictions=reg.counter(
+                "kv_prefix_evictions_total",
+                "cached prefix blocks reclaimed from the LRU pool"),
+            stale=reg.counter(
+                "kv_prefix_stale_drops_total",
+                "prefix matches dropped whole (stale/corrupt index)"),
+            cached=reg.gauge("kv_prefix_cached_blocks",
+                             "blocks held rc==0 in the evictable LRU pool"),
+        )
+    return _PM
 
 
 class BlockAllocator:
@@ -100,12 +144,22 @@ class BlockAllocator:
         free list cannot satisfy the request (nothing is half-allocated)."""
         if n < 0:
             raise ValueError(f"alloc({n})")
+        # chaos site: an "exhaust" fault makes the pool look dry for this
+        # call, exercising the caller's preempt/queue/fail path
+        if faults.inject("serving.kv.alloc", n=n) == "exhaust":
+            telemetry.record_event("kv.alloc", n=n, granted=False,
+                                   free=len(self._free), injected=True)
+            return None
         if n > len(self._free):
+            telemetry.record_event("kv.alloc", n=n, granted=False,
+                                   free=len(self._free))
             return None
         out = [self._free.pop() for _ in range(n)]
         for b in out:
             self._rc[b] = 1
         self.high_water = max(self.high_water, self.num_used)
+        telemetry.record_event("kv.alloc", n=n, granted=True,
+                               live=self.num_used, free=len(self._free))
         return out
 
     def share(self, blocks):
@@ -118,6 +172,8 @@ class BlockAllocator:
             self._cached.discard(b)
             self._rc[b] += 1
         self.high_water = max(self.high_water, self.num_used)
+        telemetry.record_event("kv.share", n=len(blocks),
+                               live=self.num_used, cached=len(self._cached))
 
     def _drop_refs(self, blocks) -> list[int]:
         blocks = list(blocks)
@@ -134,9 +190,12 @@ class BlockAllocator:
     def free(self, blocks):
         """Drop one reference per block; rc==0 blocks return to the free
         list."""
+        blocks = list(blocks)
         for b in self._drop_refs(blocks):
             del self._rc[b]
             self._free.append(b)
+        telemetry.record_event("kv.free", n=len(blocks),
+                               live=self.num_used, free=len(self._free))
 
     def release(self, blocks) -> list[int]:
         """Drop one reference per block, parking rc==0 blocks in the cached
@@ -193,6 +252,7 @@ class PagedKVCache:
         self.prefix_tokens_saved = 0
         self.cow_copies = 0
         self.prefix_evictions = 0
+        self.stale_drops = 0
 
     def blocks_for(self, num_tokens: int) -> int:
         return -(-int(num_tokens) // self.block_size)
@@ -221,7 +281,19 @@ class PagedKVCache:
         last position's logits)."""
         blocks: list[int] = []
         hashes: list[str] = []
-        if not self.prefix_cache or not self._index:
+        if not self.prefix_cache:
+            return blocks, hashes
+        # chaos site (consulted once per match attempt, so @k plans index
+        # admissions): a stale_hash fault models index corruption — the
+        # graceful path drops the whole match and prefills from scratch
+        if faults.inject("serving.kv.share", tokens=len(tokens)) \
+                == "stale_hash":
+            self.stale_drops += 1
+            _prefix_metrics().stale.inc()
+            telemetry.record_event("kv.share", stale=True,
+                                   tokens=len(tokens))
+            return [], []
+        if not self._index:
             return blocks, hashes
         bs = self.block_size
         parent = ""
@@ -276,6 +348,11 @@ class PagedKVCache:
         self._unregister(block)
         self.allocator.reclaim([block])
         self.prefix_evictions += 1
+        pm = _prefix_metrics()
+        pm.evictions.inc()
+        pm.cached.set(self.allocator.num_cached)
+        telemetry.record_event("kv.evict", block=block, spilled=False,
+                               cached=self.allocator.num_cached)
         return block
 
     def _alloc_evict(self, n: int):
@@ -308,18 +385,28 @@ class PagedKVCache:
             if matched:   # roll back; registered blocks park in the LRU
                 for b in self.allocator.release(matched):
                     self._lru[b] = None
+                _prefix_metrics().cached.set(self.allocator.num_cached)
             return False
         self.tables[seq_id] = matched + tail
         self._seq_hashes[seq_id] = list(hashes)
         cached_tokens = len(matched) * self.block_size
         self.seq_cached_tokens[seq_id] = cached_tokens
         if self.prefix_cache and tokens is not None:
+            pm = _prefix_metrics()
             if matched:
                 self.prefix_hits += 1
                 self.prefix_blocks_saved += len(matched)
                 self.prefix_tokens_saved += cached_tokens
+                pm.hits.inc()
+                pm.blocks_saved.inc(len(matched))
+                pm.tokens_saved.inc(cached_tokens)
+                pm.cached.set(self.allocator.num_cached)
+                telemetry.record_event(
+                    "kv.share", seq=str(seq_id), blocks=len(matched),
+                    cached_tokens=cached_tokens)
             else:
                 self.prefix_misses += 1
+                pm.misses.inc()
         return True
 
     def extend(self, seq_id, num_tokens: int) -> bool:
@@ -346,18 +433,29 @@ class PagedKVCache:
         table = self._table(seq_id)
         idx = position // self.block_size
         block = table[idx]
+        # chaos site: "exhaust" models the CoW allocation failing mid-decode
+        if faults.inject("serving.kv.cow", seq=str(seq_id),
+                         block=block) == "exhaust":
+            telemetry.record_event("kv.cow", seq=str(seq_id), block=block,
+                                   granted=False, injected=True)
+            return False
         if self.allocator.refcount(block) <= 1:
             if block in self._block_key:
                 self._unregister(block)
             return True
         new = self._alloc_evict(1)
         if new is None:
+            telemetry.record_event("kv.cow", seq=str(seq_id), block=block,
+                                   granted=False)
             return False
         [new_block] = new
         self.pool[:, new_block] = self.pool[:, block]
         self.allocator.free([block])             # rc > 1: pure decrement
         table[idx] = new_block
         self.cow_copies += 1
+        _prefix_metrics().cow.inc()
+        telemetry.record_event("kv.cow", seq=str(seq_id), src=block,
+                               dst=new_block)
         return True
 
     def free_seq(self, seq_id):
@@ -374,8 +472,10 @@ class PagedKVCache:
         registered = [b for b in table if b in self._block_key]
         if plain:
             self.allocator.free(plain)
-        for b in self.allocator.release(registered):
-            self._lru[b] = None                  # newest end of the LRU
+        if registered:
+            for b in self.allocator.release(registered):
+                self._lru[b] = None              # newest end of the LRU
+            _prefix_metrics().cached.set(self.allocator.num_cached)
 
     def utilization(self) -> float:
         return self.allocator.num_used / max(self.allocator.num_usable, 1)
@@ -391,6 +491,7 @@ class PagedKVCache:
             "tokens_saved": self.prefix_tokens_saved,
             "cow_copies": self.cow_copies,
             "evictions": self.prefix_evictions,
+            "stale_drops": self.stale_drops,
             "cached_blocks": self.allocator.num_cached,
             "indexed_blocks": len(self._block_key),
         }

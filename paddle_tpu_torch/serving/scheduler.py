@@ -19,8 +19,12 @@ engine shutdown); either way its slot and blocks return to the pool and the
 rest of the batch is untouched. The bounded queue (``max_queue``) raises
 :class:`QueueFull`, and a request preempted more than
 ``max_preemptions_per_request`` times fails with :class:`PreemptionStorm`.
-Tenancy (weighted-fair queueing), KV watermarks and deadlines are later
-slices.
+
+Every decision lands in the flight recorder (``scheduler.admit`` /
+``preempt`` / ``fail`` / ``reject``) and, through the owning engine's
+``on_event`` callback, in its labelled metrics; ``serving.admit`` is the
+fault site of each admission attempt. Tenancy (weighted-fair queueing), KV
+watermarks and deadlines are later slices.
 """
 from __future__ import annotations
 
@@ -29,6 +33,8 @@ import time
 from collections import deque
 from dataclasses import dataclass, field
 
+from .. import telemetry
+from ..utils import faults
 from .kv_cache import PagedKVCache
 
 __all__ = ["SamplingParams", "Request", "RequestState", "Scheduler",
@@ -89,6 +95,10 @@ class Request:
     num_preemptions: int = 0
     finish_reason: str | None = None
     error: BaseException | None = None
+    # request-trace context (telemetry.reqtrace): stamped on every span
+    # this request produces; trace_parent is the submitter's span id
+    trace_id: str | None = None
+    trace_parent: int | None = None
 
     @property
     def prefill_tokens(self) -> list[int]:
@@ -119,8 +129,12 @@ class Scheduler:
 
     def __init__(self, cache: PagedKVCache, max_slots: int,
                  max_model_len: int, max_queue: int | None = None,
-                 max_preemptions_per_request: int = 16):
+                 max_preemptions_per_request: int = 16, on_event=None):
         self.cache = cache
+        # telemetry hook: the owning engine passes a callback(kind, **ctx)
+        # so scheduler decisions feed its labelled metrics; standalone
+        # schedulers (tests) run without one
+        self._on_event = on_event or (lambda kind, **ctx: None)
         self.max_slots = int(max_slots)
         self.max_model_len = int(max_model_len)
         self.max_queue = None if max_queue is None else int(max_queue)
@@ -141,6 +155,10 @@ class Scheduler:
                 f"request {req.rid} rejected: the engine has been shut down")
         if self.max_queue is not None and len(self.waiting) >= self.max_queue:
             self.num_rejected += 1
+            telemetry.record_event("scheduler.reject", rid=req.rid,
+                                   waiting=len(self.waiting),
+                                   running=len(self.running))
+            self._on_event("reject", rid=req.rid)
             raise QueueFull(
                 f"request {req.rid} rejected: admission queue is full "
                 f"({len(self.waiting)}/{self.max_queue} waiting, "
@@ -173,11 +191,14 @@ class Scheduler:
         admitted = []
         while self.waiting and self._free_slots:
             req = self.waiting[0]
+            faults.inject("serving.admit", rid=req.rid)
             need = self.cache.blocks_for(len(req.prefill_tokens)) + 1
             if self.cache.num_effective_free < need:
                 break
             if not self.cache.allocate(req.rid, len(req.prefill_tokens),
                                        tokens=req.prefill_tokens):
+                # effective-free check passed but alloc failed (injected
+                # exhaustion): the request stays queued, retried next step
                 break
             self.waiting.popleft()
             slot = self._free_slots.pop(0)
@@ -187,6 +208,12 @@ class Scheduler:
                 req.admit_time = time.monotonic()
             self.running[slot] = req
             admitted.append((slot, req))
+            telemetry.record_event(
+                "scheduler.admit", rid=req.rid, slot=slot,
+                blocks=len(self.cache.tables.get(req.rid, ())),
+                cached_tokens=req.cached_tokens,
+                queue_depth=len(self.waiting))
+            self._on_event("admit", rid=req.rid, req=req)
         return admitted
 
     # -- decode-time capacity ---------------------------------------------
@@ -242,6 +269,9 @@ class Scheduler:
         victim.num_preemptions += 1
         self.num_preemptions += 1
         self.waiting.appendleft(victim)   # front: keep its progress hot
+        telemetry.record_event("scheduler.preempt", rid=victim.rid,
+                               slot=slot, nth=victim.num_preemptions)
+        self._on_event("preempt", rid=victim.rid)
 
     # -- completion / removal ---------------------------------------------
     def _release_slot(self, slot: int) -> Request:
@@ -260,14 +290,19 @@ class Scheduler:
         req.error = error
 
     def finish(self, slot: int, reason: str = "length"):
-        self._end(self._release_slot(slot), RequestState.FINISHED, reason)
+        req = self._release_slot(slot)
+        self._end(req, RequestState.FINISHED, reason)
+        self._on_event("finish", rid=req.rid)
 
     def fail(self, slot: int, error: BaseException):
         """Error isolation: tear down ONE slot, attach the error, keep the
         engine alive for every other request."""
-        self._end(self._release_slot(slot), RequestState.FAILED, "error",
-                  error)
+        req = self._release_slot(slot)
+        self._end(req, RequestState.FAILED, "error", error)
         self.num_failed += 1
+        telemetry.record_event("scheduler.fail", rid=req.rid, slot=slot,
+                               error=f"{type(error).__name__}: {error}")
+        self._on_event("fail", rid=req.rid)
 
     def cancel(self, rid: int, reason: str = "cancelled") -> bool:
         """Cancel a waiting or running request by id. Returns False if the
@@ -277,12 +312,14 @@ class Scheduler:
                 self.waiting.remove(req)
                 self._end(req, RequestState.CANCELLED, reason)
                 self.num_cancelled += 1
+                self._on_event("cancel", rid=rid)
                 return True
         for slot, req in list(self.running.items()):
             if req.rid == rid:
                 self._release_slot(slot)
                 self._end(req, RequestState.CANCELLED, reason)
                 self.num_cancelled += 1
+                self._on_event("cancel", rid=rid)
                 return True
         return False
 
@@ -298,6 +335,10 @@ class Scheduler:
                 f"request {req.rid} was still queued (never prefilled) "
                 f"when the engine closed"))
             self.num_failed += 1
+            telemetry.record_event(
+                "scheduler.fail", rid=req.rid,
+                error="EngineClosed: still queued at close()")
+            self._on_event("fail", rid=req.rid)
             dropped.append(req)
         for req in list(self.running.values()):
             if self.cancel(req.rid, reason="shutdown"):

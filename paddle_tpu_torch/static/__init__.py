@@ -36,11 +36,13 @@ from __future__ import annotations
 import contextlib
 import os
 import pickle
+import time
 import weakref
 
 import numpy as np
 import torch
 
+from .. import telemetry
 from ..core.device import resolve_device
 from ..core.capture import (Node, Ref, build_value, freeze, key_of,
                             next_uid)
@@ -600,6 +602,24 @@ def _param_value(name, param, scope):
     return build_value(param).detach()
 
 
+_EXEC_METRICS = None
+
+
+def _exec_metrics():
+    """Executor-cache counters (resolved at first use)."""
+    global _EXEC_METRICS
+    if _EXEC_METRICS is None:
+        reg = telemetry.registry()
+        _EXEC_METRICS = (
+            reg.counter("static_executor_cache_hits_total",
+                        "Executor.run served from the compiled-trace cache"),
+            reg.counter("static_executor_cache_misses_total",
+                        "Executor.run (re)compiles (cache miss or cache "
+                        "bypassed)"),
+        )
+    return _EXEC_METRICS
+
+
 class Executor:
     """``paddle.static.Executor``: compiles the replay of the fetch targets
     once per (program, fed names and signatures, fetch set) and caches it
@@ -650,7 +670,9 @@ class Executor:
                tuple(key_of(r.st) if isinstance(r, Ref) else id(f)
                      for r, f in zip(targets, fetch_ts)))
         compiled = self._cache.get(key) if use_program_cache else None
-        if compiled is None:
+        new = compiled is None
+        if new:
+            _exec_metrics()[1].inc()
             self._trace_count += 1
 
             def program_fn(seeds, layer_state):
@@ -661,8 +683,18 @@ class Executor:
                 program_fn, f"{self._trace_count}_{id(self) & 0xffffff:x}")
             if use_program_cache:
                 self._cache[key] = compiled
+        else:
+            _exec_metrics()[0].inc()
+        t0 = time.monotonic()
         with torch.no_grad():
             outs = compiled({**fvals, **pvals}, lstate)
+        # the compile watcher sees one signature per (feed shapes/dtypes);
+        # a new one's wall time is the first call, which pays the compile
+        telemetry.compile_watcher().record_call(
+            "static.Executor",
+            tuple((n[1], tuple(v.shape), str(v.dtype).replace("torch.", ""))
+                  for n, v in fvals.items()),
+            wall_s=(time.monotonic() - t0) if new else None)
         by_id = {id(t): v for t, v in zip(fetch_ts, outs)}
         return [_host(by_id[id(f)], return_numpy)
                 if isinstance(f, torch.Tensor) else f for f in fetch_list]

@@ -2367,3 +2367,74 @@ def test_regression_f6_llama_compiles_exports_and_differentiates(gen, tmp_path):
         assert counts[k] > 0, k
     for g, e in zip(outs, eager):
         assert ((g.float() - e).norm() / e.norm()).item() <= 5e-2
+
+
+def test_decode_cost_estimate_on_the_card_equals_the_cpu_s(gen):
+    """The roofline cost model (``telemetry.cost``) counts an eager launch
+    by its kernel's plain version, where the ctypes launch dispatches no
+    aten op: the tiny engine's decode step counted on the card (the paged
+    kernel launched) equals the engines' estimates (counted shape-only on
+    the CPU's route) and the step counted on the CPU, in flops, products,
+    bytes and kernels."""
+    from paddle_tpu_torch import telemetry
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama_tiny
+    from paddle_tpu_torch.serving import LLMEngine, SamplingParams
+
+    cfg = llama_tiny(vocab=101, hidden=256, layers=2, heads=4, kv_heads=2,
+                     inter=512, seq=256)
+    card = LlamaForCausalLM(cfg, generator=gen)
+    cpu = LlamaForCausalLM(cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    prompts = [list(range(3, 90)), list(range(50, 55)), [7] * 200]
+    ests = []
+    for m in (card, cpu):
+        telemetry.cost.clear()
+        eng = LLMEngine(m, block_size=16, max_slots=3, max_model_len=256)
+        eng.generate(prompts, SamplingParams(max_new_tokens=4))
+        eng.stats()
+        ests.append(telemetry.cost.lookup("engine.decode", "decode",
+                                          eng._cost_fp))
+        S, M, dev = eng.max_slots, eng.max_blocks, eng.device
+        launched = K.launch_counts()["paged_attention"]
+        with torch.inference_mode():
+            live, _ = telemetry.cost.measure(
+                eng._decode_step, torch.zeros(S, dtype=torch.int32,
+                                              device=dev),
+                torch.zeros(S, M, dtype=torch.int32, device=dev),
+                torch.ones(S, dtype=torch.int32, device=dev),
+                ([0.0] * S, [0] * S, [1.0] * S, [0] * S, [0] * S),
+                inputs=eng._cost_inputs + [eng.cache.pool],
+                outputs=[eng.cache.pool])
+        ests.append(live)
+        if m is card:
+            assert K.launch_counts()["paged_attention"] == launched + 2
+    for key in ("flops", "matmul_flops", "elementwise_flops", "bytes",
+                "kernels"):
+        assert all(e[key] == ests[0][key] for e in ests), key
+    assert ests[0]["kernels"]["paged_attention"] == 2
+
+
+def test_a_span_shows_in_torch_profiler_during_a_trace(gen):
+    """While ``paddle_tpu_torch.profiler.Profiler`` traces, a telemetry span
+    enters ``record_function``: the span sits in torch.profiler's events
+    as a host annotation over the kernel it launched."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch import telemetry
+
+    q = _rnd(gen, torch.bfloat16, 1, 9, 4, 64)
+    pool = _rnd(gen, torch.bfloat16, 4, 2, 4, 16, 64)
+    bt = torch.tensor([[1, 2]], device="cuda", dtype=torch.int32)
+    ctx = torch.tensor([20], device="cuda", dtype=torch.int32)
+    telemetry.set_device_trace_active(True)
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            with telemetry.span("engine.decode", batch=1):
+                paged_attention(q[:, 0], pool, bt, ctx)
+            torch.cuda.synchronize()
+    finally:
+        telemetry.set_device_trace_active(False)
+    names = [e.name for e in prof.events()]
+    assert "engine.decode" in names
+    assert any("paged" in n for n in names)

@@ -539,9 +539,14 @@ def test_flags_registry_env_and_unknown_names(monkeypatch):
     assert paddle.get_flags("FLAGS_dy2static_eager_fallback") == \
         paddle_tpu.get_flags("FLAGS_dy2static_eager_fallback") == {
             "FLAGS_dy2static_eager_fallback": False}
-    for name in ("FLAGS_use_pallas", "FLAGS_locksan", "FLAGS_no_such"):
+    for name in ("FLAGS_use_pallas", "FLAGS_allocator_strategy",
+                 "FLAGS_no_such"):
         with pytest.raises(ValueError, match="unknown flag"):
             paddle.set_flags({name: True})
+    # LockSan and fault plans are ported: known, with the reference's
+    # defaults
+    names = ["FLAGS_locksan", "FLAGS_fault_plan"]
+    assert paddle.get_flags(names) == paddle_tpu.get_flags(names)
     prev = torch.backends.cudnn.deterministic
     try:
         paddle.set_flags({"FLAGS_cudnn_deterministic": "1"})
