@@ -69,7 +69,24 @@ CUDA toolkit (``nvcc``). It imports nothing of JAX or of ``paddle_tpu``.
    roofline estimate (counted shape-only on the CPU's route, under
    ``FakeTensorMode``, when ``stats()`` reads it) equals a decode step
    counted on the card with its kernels launched, and
-   ``serving_roofline_frac`` lies in (0, 1.05].
+   ``serving_roofline_frac`` lies in (0, 1.05]. ``[serving tenancy]`` then
+   serves the port's workload engine's three-tenant mix (TENANCY_SPEC,
+   dispatched at its Poisson arrival times from one thread between engine
+   steps) on the same model through an engine with tenancy (weights 3 / 2
+   / 1, a cached-block quota on bronze), a 64-block pool, a 48-block host
+   spill tier and the KV high watermark at 0.85, with two deadlines meant
+   to be missed (TENANCY_DEADLINES): every other request finishes its 16
+   tokens, the two end CANCELLED with ``DeadlineExceeded`` (the queued one
+   never prefilled), the cache spilled and promoted, bronze's quota
+   evicted, the pressure latch set and cleared, the per-tenant flops sum
+   to the engine's step total, the served tokens pass the teacher-forcing
+   limits, paged attention and RMSNorm launched. The same workload on an
+   engine with spill, quotas and tenancy off and a pool that holds
+   everything, and the first engine rerun under
+   ``serving.kv.promote:corrupt@1x*`` (no promotion lands), serve the
+   streams printed against the first engine's. Prints TTFT per tenant,
+   decode tokens/s, spill and promote counts with their host ms, and the
+   phase's seconds.
 4. Profiles one decode step of 4 running slots: the wall time of
    unprofiled steps against the device busy time (the union of the
    profiled step's kernel intervals), and the kernels that took it; times
@@ -355,9 +372,10 @@ CUDA toolkit (``nvcc``). It imports nothing of JAX or of ``paddle_tpu``.
     ``jit.save`` with a ``[None, None]`` int64 spec, ``jit.load`` serving
     all three shapes, and the bf16 artifact in a fresh ``python -c``
     child that imports only ``paddle_tpu_torch``; ``[predictor ernie]``:
-    the handle workflow (``share_external_data`` without a copy,
-    ``copy_from_cpu`` / ``copy_to_cpu``) and a ``clone()`` on a second
-    stream; ``[static ernie]``: the model on ``static.data("input_ids",
+    the predictor compiled (IR optimisation) over the f32 artifact and as
+    exported over the bf16 one, the handle workflow
+    (``share_external_data`` without a copy, ``copy_from_cpu`` /
+    ``copy_to_cpu``) and a ``clone()`` on a second stream; ``[static ernie]``: the model on ``static.data("input_ids",
     [None, 128])`` through ``Executor.run`` (one compile, f32 at
     STATIC_F32_LAYERS layers), then
     ``save_inference_model`` and a predictor over it. Each run is held in
@@ -507,6 +525,37 @@ PAGED_ATOL = 2e-3
 # serves the wrong row's or position's token matches almost never.
 TF_TOL = 0.25
 TF_MIN_EXACT = 0.75
+# [serving tenancy]: a three-tenant mix modelled on the workload engine's
+# "tenant-mix" preset (Poisson at 10 qps, tenants 3 / 2 / 1, half of each
+# prompt from one of 3 shared prefixes), at 7B prompt lengths, served on
+# the [serving] model by an engine whose device pool must evict cached
+# prefixes: 64 usable blocks of 8 MiB (32 layers x K/V x 32 heads x 16
+# tokens x 128 x bf16; the least that holds one 1024-token request, so
+# that four running requests reach the watermark), a host spill tier of
+# 48 blocks, the KV high watermark at 0.85 and a cached-block quota on the
+# bronze tenant
+TENANCY_SPEC = dict(
+    name="tenant-mix-7b", seed=0, requests=24, vocab=32000,
+    arrival={"kind": "poisson", "rate_qps": 10.0},
+    prompt_len={"kind": "lognormal", "median": 192, "sigma": 0.6,
+                "min": 32, "max": 640},
+    output_len={"kind": "fixed", "value": 16},
+    tenants=[{"name": "gold", "weight": 3.0},
+             {"name": "silver", "weight": 2.0},
+             {"name": "bronze", "weight": 1.0}],
+    prefix={"share": 0.5, "groups": 3})
+TENANCY = {"tenants": [{"name": "gold", "weight": 3.0},
+                       {"name": "silver", "weight": 2.0},
+                       {"name": "bronze", "weight": 1.0, "block_quota": 8}]}
+TENANCY_ENGINE = dict(max_slots=4, max_model_len=1024, block_size=16,
+                      num_blocks=65, kv_spill_blocks=48,
+                      kv_high_watermark=0.85, tenancy=TENANCY)
+# two deadlines meant to be missed, by request index: (deadline_s,
+# max_new_tokens). The first request asks for 256 tokens within 1 s
+# (no host serves 256 decode steps in 1 s, and its prefill into an idle
+# engine takes far less), so it expires mid-decode; a later one arrives
+# with its deadline already passed (relayed late), so it expires queued
+TENANCY_DEADLINES = {0: (1.0, 256), 20: (0.0, 16)}
 F32_FLOPS = 67e12              # H100 SXM float32 outside the tensor cores
 # training slice: gradients (see the docstring), the softmax-CE loss/lse,
 # and the whole-step check. A bf16 step through 2 layers rounds every
@@ -685,7 +734,7 @@ STATIC_TIMED = {1: 50, 32: 20}     # calls per median, by batch
 STATIC_NN_F32 = dict(rtol=1e-4, atol=1e-5)
 # Llama-2 at 7B widths deployed as one compiled / exported program and
 # differentiated as one static program; depth cut to fit the smoke's time
-LLAMA_DEPLOY_LAYERS = 2
+LLAMA_DEPLOY_LAYERS = 1            # the compiles' time grows with depth
 LLAMA_DEPLOY_SHAPES = ((1, 512), (4, 512))
 LLAMA_DEPLOY_PER_FORWARD = {"rmsnorm": 2 * LLAMA_DEPLOY_LAYERS + 1,
                             "flash_attention": LLAMA_DEPLOY_LAYERS}
@@ -2770,33 +2819,13 @@ def serving_phase(torch, K):
     if st["prefix_cache"]["hits"] < 1:
         raise AssertionError("the shared prefix never hit the prefix cache")
 
-    # teacher forcing through the no-cache forward
-    worst = 0.0
-    exact = total = 0
+    # teacher forcing through the no-cache forward (the greedy requests)
     K.reset_launch_counts()
-    with torch.inference_mode():
-        for r, p in zip(reqs, prompts):     # the greedy requests only
-            ids = torch.tensor([p + r.output_tokens], device="cuda")
-            logits = model(ids)[0].float()
-            if not torch.isfinite(logits).all():
-                raise AssertionError(f"request {r.rid}: non-finite logits")
-            rows = logits[len(p) - 1:len(p) - 1 + len(r.output_tokens)]
-            served = torch.tensor(r.output_tokens, device="cuda")
-            chosen = rows.gather(1, served[:, None])[:, 0]
-            gap = (rows.max(1).values - chosen).max().item()
-            worst = max(worst, gap)
-            exact += (rows.argmax(1) == served).sum().item()
-            total += len(r.output_tokens)
-            if gap > TF_TOL:
-                raise AssertionError(
-                    f"request {r.rid}: a generated token's logit is {gap} "
-                    f"below its row's max (limit {TF_TOL})")
+    worst, exact, total = teacher_forced(
+        torch, model, dict(enumerate(reqs[:len(prompts)])),
+        dict(enumerate(prompts)))
     torch.cuda.synchronize()
     forward_launches = K.launch_counts()
-    if exact < TF_MIN_EXACT * total:
-        raise AssertionError(
-            f"only {exact} of {total} served greedy tokens are the "
-            f"teacher-forced argmax (need {TF_MIN_EXACT:.0%})")
     ttft = [r.ttft for r in reqs]
     print(f"  7 requests x 16 tokens in {wall:.2f}s; "
           f"preemptions {st['num_preemptions']}; prefix cache "
@@ -2822,6 +2851,276 @@ def serving_phase(torch, K):
     launches = {k: engine_launches[k] + forward_launches[k]
                 for k in engine_launches}
     return model, launches
+
+
+def drive_workload(torch, eng, wl, deadlines=None):
+    """Serve the workload ``wl`` on ``eng`` from one thread: each request
+    is added once the host clock passes its arrival time (between engine
+    steps); ``deadlines`` maps request indices to (``deadline_s``,
+    ``max_new_tokens``). Returns the request handles by index."""
+    from paddle_tpu_torch.serving import SamplingParams
+
+    deadlines = deadlines or {}
+    reqs, todo = {}, sorted(wl, key=lambda w: w.at_s)
+    t0 = time.monotonic()
+    while todo or eng.scheduler.has_work():
+        now = time.monotonic() - t0
+        while todo and todo[0].at_s <= now:
+            w = todo.pop(0)
+            deadline, n = deadlines.get(w.index, (None, w.max_new_tokens))
+            reqs[w.index] = eng.add_request(
+                list(w.prompt), SamplingParams(max_new_tokens=n),
+                tenant=w.tenant, deadline_s=deadline)
+        if eng.scheduler.has_work():
+            eng.step()
+        elif todo:
+            time.sleep(max(0.0, todo[0].at_s - (time.monotonic() - t0)))
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return reqs
+
+
+def teacher_forced(torch, model, reqs, prompts):
+    """Each request's served greedy tokens against the no-cache forward
+    (flash attention) over prompt + tokens: the worst gap of a served
+    token's logit to its row's max, and how many are that row's argmax.
+    Raises past TF_TOL / below TF_MIN_EXACT."""
+    worst, exact, total = 0.0, 0, 0
+    with torch.inference_mode():
+        for i, r in reqs.items():
+            p = prompts[i]
+            ids = torch.tensor([p + r.output_tokens], device=model.device)
+            logits = model(ids)[0].float()
+            if not torch.isfinite(logits).all():
+                raise AssertionError(f"request {i}: non-finite logits")
+            rows = logits[len(p) - 1:len(p) - 1 + len(r.output_tokens)]
+            served = torch.tensor(r.output_tokens, device=model.device)
+            chosen = rows.gather(1, served[:, None])[:, 0]
+            gap = (rows.max(1).values - chosen).max().item()
+            worst = max(worst, gap)
+            exact += (rows.argmax(1) == served).sum().item()
+            total += len(r.output_tokens)
+            if gap > TF_TOL:
+                raise AssertionError(
+                    f"request {i}: a generated token's logit is {gap} below "
+                    f"its row's max (limit {TF_TOL})")
+    if exact < TF_MIN_EXACT * total:
+        raise AssertionError(f"only {exact} of {total} served greedy tokens "
+                             f"are the teacher-forced argmax (need "
+                             f"{TF_MIN_EXACT:.0%})")
+    return worst, exact, total
+
+
+def first_divergence(torch, model, prompt, a, b):
+    """Where the greedy streams ``a`` and ``b`` of ``prompt`` part: the
+    index, and each side's token's logit gap to the row max of the no-cache
+    forward over prompt + their common tokens (both within TF_TOL: a bf16
+    near-tie of that row, which the two engines' different prefill splits
+    may break either way)."""
+    d = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+    with torch.inference_mode():
+        ids = torch.tensor([prompt + a[:d]], device=model.device)
+        row = model(ids)[0, -1].float()
+    top = row.max()
+    return d, (top - row[a[d]]).item(), (top - row[b[d]]).item()
+
+
+def spill_copy_probe(torch, eng, n=10):
+    """Host ms of one block's spill copy (the device pool's block to a
+    contiguous host array, as ``PagedKVCache._spill_block`` does) and of
+    one CRC32 pass over it: medians of ``n``."""
+    import zlib
+
+    pool = eng.cache.pool
+    copy_ms, crc_ms = [], []
+    for i in range(n):
+        if pool.is_cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        kv = pool[:, 1 + i % (pool.shape[1] - 1)].view(torch.int16).to(
+            "cpu", copy=True, memory_format=torch.contiguous_format).numpy()
+        t1 = time.perf_counter()
+        zlib.crc32(kv)
+        t2 = time.perf_counter()
+        copy_ms.append((t1 - t0) * 1e3)
+        crc_ms.append((t2 - t1) * 1e3)
+    return sorted(copy_ms)[n // 2], sorted(crc_ms)[n // 2], kv.nbytes
+
+
+def serving_tenancy_phase(torch, K, model):
+    """[serving tenancy]: the TENANCY_SPEC workload (the port's
+    ``serving.workload.generate``) on the [serving] model through an engine
+    with tenancy, the host spill tier, the KV watermarks and two missed
+    deadlines (TENANCY_ENGINE, TENANCY_DEADLINES). Every other request
+    finishes its 16 tokens; the deadline requests end CANCELLED with
+    ``DeadlineExceeded`` (the queued one never prefilled); the cache
+    spilled and promoted, the bronze quota evicted, the pressure latch set
+    and cleared; per-tenant flops sum to the engine's own step total; the
+    served tokens pass [serving]'s teacher-forcing limits; paged attention
+    and RMSNorm launched. Then the same workload on an engine with spill,
+    quotas and tenancy off and a pool that holds everything, and a rerun
+    of the first engine under ``serving.kv.promote:corrupt@1x*``: their
+    streams against the first engine's, equal or parting first at a bf16
+    near-tie of the teacher-forced row (both tokens within TF_TOL of its
+    max: another prefix hit length is another prefill split, whose bf16
+    rounding may break such a tie the other way). Returns the launches of
+    the first engine's run and of its teacher-forced check."""
+    from paddle_tpu_torch.serving import DeadlineExceeded, LLMEngine
+    from paddle_tpu_torch.serving.workload import WorkloadSpec, generate
+    from paddle_tpu_torch.utils import faults
+
+    t_phase = time.monotonic()
+    wl = generate(WorkloadSpec(**TENANCY_SPEC), max_model_len=1024)
+    prompts = {w.index: list(w.prompt) for w in wl}
+    lens = sorted(len(p) for p in prompts.values())
+    print(f"[serving tenancy] {len(wl)} requests of the workload engine's "
+          f"tenant-mix shape (Poisson {TENANCY_SPEC['arrival']['rate_qps']} "
+          f"qps over {wl.duration_s:.2f} s, tenants "
+          f"{[r.tenant for r in wl].count('gold')} gold / "
+          f"{[r.tenant for r in wl].count('silver')} silver / "
+          f"{[r.tenant for r in wl].count('bronze')} bronze, prompts "
+          f"{lens[0]}-{lens[-1]} tokens (median {lens[len(lens) // 2]}), "
+          f"half from 3 shared prefixes, 16 greedy tokens each; workload "
+          f"{wl.fingerprint()[:12]}) on the [serving] model; pool "
+          f"{TENANCY_ENGINE['num_blocks'] - 1} blocks, spill "
+          f"{TENANCY_ENGINE['kv_spill_blocks']}, watermark "
+          f"{TENANCY_ENGINE['kv_high_watermark']}, bronze quota "
+          f"{TENANCY['tenants'][2]['block_quota']} blocks; deadlines "
+          f"(s, tokens) {TENANCY_DEADLINES}; {card_line()}")
+    eng = LLMEngine(model, **TENANCY_ENGINE)
+    K.reset_launch_counts()
+    t0 = time.monotonic()
+    reqs = drive_workload(torch, eng, wl, TENANCY_DEADLINES)
+    wall = time.monotonic() - t0
+    engine_launches = K.launch_counts()
+    st = eng.stats()
+    spill = st["prefix_cache"]["spill"]
+    cache = eng.cache
+    missed = set(TENANCY_DEADLINES)
+    for i, r in reqs.items():
+        if i in missed:
+            continue
+        if r.state.value != "finished" or len(r.output_tokens) != 16:
+            raise AssertionError(f"request {i}: {r.state} "
+                                 f"{len(r.output_tokens)} tokens {r.error!r}")
+    decoding, queued = (reqs[i] for i in sorted(missed))
+    for what, r in (("mid-decode", decoding), ("queued", queued)):
+        if (r.state.value, r.finish_reason) != ("cancelled", "deadline") \
+                or not isinstance(r.error, DeadlineExceeded):
+            raise AssertionError(f"the {what} deadline request: {r.state} "
+                                 f"{r.finish_reason} {r.error!r}")
+    if queued.admit_time is not None or queued.output_tokens:
+        raise AssertionError("the queued deadline request was prefilled")
+    if not 1 <= len(decoding.output_tokens) < TENANCY_DEADLINES[
+            min(missed)][1]:
+        raise AssertionError(f"the mid-decode deadline request served "
+                             f"{len(decoding.output_tokens)} tokens")
+    if not (spill["spills"] > 0 and spill["promotes"] > 0):
+        raise AssertionError(f"spill tier unused: {spill}")
+    sched = eng.scheduler
+    if sched.num_pressure_events < 1 or sched.mem_pressure:
+        raise AssertionError(f"pressure latch: {sched.num_pressure_events} "
+                             f"latches, latched at the end "
+                             f"{sched.mem_pressure}")
+    if not cache.quota_evictions.get("bronze"):
+        raise AssertionError(f"quota evictions {cache.quota_evictions}")
+    ten = st["tenancy"]["tenants"]
+    flops = sum(t["cost"]["flops"] for t in ten.values())
+    total = sum(n * eng._trace_costs[k]["flops"]
+                for k, n in eng.steps_run.items())
+    if not abs(flops - total) <= 1e-9 * total:
+        raise AssertionError(f"tenant flops {flops} != the engine's {total}")
+    K.reset_launch_counts()
+    served = {i: r for i, r in reqs.items() if i not in missed}
+    worst, exact, ntok = teacher_forced(torch, model, served, prompts)
+    forward_launches = K.launch_counts()
+    for path, counts, needed in (
+            ("the tenancy engine", engine_launches,
+             ("paged_attention", "rmsnorm")),
+            ("its teacher-forced check", forward_launches,
+             ("flash_attention", "rmsnorm"))):
+        missing = [k for k in needed if counts[k] == 0]
+        if missing:
+            raise AssertionError(f"{path} never launched {missing}")
+
+    # the same workload with spill, quotas and tenancy off and a pool that
+    # holds everything; then the first engine's settings under corrupt
+    # promotions
+    plain = drive_workload(torch, LLMEngine(
+        model, max_slots=4, max_model_len=1024, block_size=16),
+        [w for w in wl if w.index not in missed])
+    with faults.FaultPlan.parse("serving.kv.promote:corrupt@1x*"):
+        eng3 = LLMEngine(model, **TENANCY_ENGINE)
+        corrupt = drive_workload(torch, eng3, wl, TENANCY_DEADLINES)
+    spill3 = eng3.stats()["prefix_cache"]["spill"]
+    if spill3["promotes"] != 0 or spill3["promote_corrupt_drops"] < 1:
+        raise AssertionError(f"corrupt rerun: {spill3}")
+    parted = {}
+    for name, other in (("no-spill engine", plain),
+                        ("corrupt-promotion rerun", corrupt)):
+        parted[name] = []
+        for i, r in served.items():
+            a, b = r.output_tokens, other[i].output_tokens
+            if a == b:
+                continue
+            d, ga, gb = first_divergence(torch, model, prompts[i], a, b)
+            hits = (r.cached_tokens_total, other[i].cached_tokens_total)
+            parted[name].append((i, d, round(ga, 4), round(gb, 4), hits))
+            if max(ga, gb) > TF_TOL:
+                raise AssertionError(
+                    f"request {i}: the {name}'s stream parts from the first "
+                    f"engine's at token {d} where the two tokens' logits "
+                    f"lie {ga} / {gb} below the teacher-forced row max "
+                    f"(limit {TF_TOL}); prefix hits {hits}")
+    copy_ms, crc_ms, nbytes = spill_copy_probe(torch, eng)
+
+    by_tenant = {}
+    for i, r in served.items():
+        by_tenant.setdefault(r.tenant, []).append(r.ttft)
+    ttft = {t: (1e3 * sum(v) / len(v), 1e3 * max(v))
+            for t, v in sorted(by_tenant.items())}
+    print(f"  {len(served)} requests x 16 tokens in {wall:.2f} s; TTFT ms "
+          f"mean / max (queueing included) "
+          + ", ".join(f"{t} {m:.1f} / {x:.1f}" for t, (m, x) in ttft.items())
+          + f"; decode {eng.decode_tokens / eng.decode_s:.1f} tokens/s over "
+          f"{eng.decode_tokens} tokens; preemptions {st['num_preemptions']}")
+    print(f"  spill tier: {spill['spills']} spills ({1e3 * cache.spill_s:.1f} "
+          f"ms host, {1e3 * cache.spill_s / max(spill['spills'], 1):.2f} ms "
+          f"a block), {spill['promotes']} promotes "
+          f"({1e3 * cache.promote_s:.1f} ms host, "
+          f"{1e3 * cache.promote_s / max(spill['promotes'], 1):.2f} ms a "
+          f"block), {spill['spill_drops']} dropped for capacity, "
+          f"{spill['promote_errors']} promotions refused by a dry pool; "
+          f"prefix hits {st['prefix_cache']['hits']} (tokens saved "
+          f"{st['prefix_cache']['tokens_saved']}); quota evictions "
+          f"{dict(cache.quota_evictions)}; pressure latches "
+          f"{sched.num_pressure_events}; high water "
+          f"{st['block_high_water']} blocks")
+    print(f"  deadlines: request {sorted(missed)[0]} cancelled after "
+          f"{len(decoding.output_tokens)} tokens, request "
+          f"{sorted(missed)[1]} while queued (never prefilled); tenant flops "
+          + ", ".join(f"{t} {v['cost']['flops']:.4g}"
+                      for t, v in sorted(ten.items()))
+          + f" = the engine's {total:.6g}")
+    print(f"  teacher forcing: worst gap {worst:.4f} (limit {TF_TOL}); "
+          f"{exact} of {ntok} served greedy tokens are the argmax (need "
+          f"{TF_MIN_EXACT:.0%}); corrupt rerun: "
+          f"{spill3['promote_corrupt_drops']} promotions refused, promotes "
+          f"{spill3['promotes']}")
+    for name, rows in parted.items():
+        print(f"  streams of the {name}: {len(served) - len(rows)} of "
+              f"{len(served)} equal; parted (request, token, gaps of the two "
+              f"tokens to the row max, prefix-hit tokens first engine / "
+              f"this one): {rows}")
+    print(f"  spill copy probe: {copy_ms:.2f} ms to copy a {nbytes / 2 ** 20:.0f}"
+          f" MiB block to the host, {crc_ms:.2f} ms for its CRC32 (medians "
+          f"of 10)")
+    nonzero = lambda c: {k: v for k, v in c.items() if v}  # noqa: E731
+    print(f"  launches: engine {nonzero(engine_launches)}; teacher forcing "
+          f"{nonzero(forward_launches)}; phase "
+          f"{time.monotonic() - t_phase:.1f} s ({card_line()})")
+    return {k: engine_launches[k] + forward_launches[k]
+            for k in engine_launches}
 
 
 def card_decode_count(torch, eng):
@@ -5925,15 +6224,16 @@ def static_deploy_phases(torch, K):
         raise AssertionError(f"fresh-process load off by {err}")
 
     print(f"[predictor ernie] create_predictor over the jit.save artifact "
-          f"(IR optimisation: torch.compile, {jit.DEFAULT_BACKEND}); "
-          f"{card_line()}")
+          f"(f32 at {STATIC_F32_LAYERS} layers with IR optimisation: "
+          f"torch.compile, {jit.DEFAULT_BACKEND}; bf16 at 12 layers the "
+          f"exported program as it is); {card_line()}")
     preds = {}
     for dt in models:
         config = inference.Config(prefix[dt] + ".pdmodel",
                                   prefix[dt] + ".pdiparams")
-        # f32: the exported graph as it is (the compiled serving path is
-        # held in bf16; a third f32 compile would cost ~40 s)
-        config.switch_ir_optim(dt == bf16)
+        # the predictor's compile is held at the f32 depth: each 12-layer
+        # bf16 compile cost 24-40 s, and to_static holds that program
+        config.switch_ir_optim(dt == f32)
         preds[dt] = inference.create_predictor(config)
 
     def handles(p):
@@ -5946,10 +6246,10 @@ def static_deploy_phases(torch, K):
             return p.get_output_handle("output_0")._value
         return run
 
-    held("predictor f32", handles(preds[f32]), big, f32)
+    _, wall = held("predictor f32", handles(preds[f32]), big, f32)
+    print(f"  compile + first call of predictor f32 {big}: {wall:.1f} s")
     for s in STATIC_BATCHES:
-        _, wall = held("predictor bf16", handles(preds[bf16]), s, bf16)
-        print(f"  compile + first call of predictor bf16 {s}: {wall:.1f} s")
+        held("predictor bf16", handles(preds[bf16]), s, bf16)
     p0 = preds[bf16]
     p0.get_input_handle("input_0").copy_from_cpu(ids[big].cpu().numpy())
     p0.run()
@@ -5964,8 +6264,8 @@ def static_deploy_phases(torch, K):
     if not (err <= STATIC_BF16_RATIO * ref16[big]
             and clone._served is p0._served):
         raise AssertionError("predictor handle workflow disagrees")
-    timing["predictor"] = _serve_timing(torch, "predictor bf16",
-                                        handles(p0), xs)
+    timing["predictor"] = _serve_timing(
+        torch, "predictor bf16 (the exported program)", handles(p0), xs)
 
     print(f"[static ernie] static.data('input_ids', [None, 128]), "
           f"Executor.run (compiled, f32 at {STATIC_F32_LAYERS} layers), "
@@ -5981,8 +6281,8 @@ def static_deploy_phases(torch, K):
         name = str(dt)[6:]
         if dt == f32:
             # the compiled route is held once, in f32 at STATIC_F32_LAYERS
-            # layers (to_static and the predictor hold the compiled 12-layer
-            # bf16 forward, whose every compile costs 25-47 s)
+            # layers (to_static holds the compiled 12-layer bf16 forward,
+            # whose every compile costs 25-47 s)
             def run(v, exe=exe, prog=main_prog, logits=logits):
                 return exe.run(prog, feed={"input_ids": v},
                                fetch_list=[logits], return_numpy=False)[0]
@@ -7341,6 +7641,10 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     model, launches = serving_phase(torch, K)
+    tenancy = serving_tenancy_phase(torch, K, model)
+    launches = {k: launches[k] + tenancy[k] for k in launches}
+    gc.collect()
+    torch.cuda.empty_cache()
     t_new = time.monotonic()
     profile_decode_step(torch, model, K)
     faults_phase(torch, model)

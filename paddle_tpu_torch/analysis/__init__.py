@@ -9,8 +9,13 @@
   made while holding a lock (socket / pipe / fsync / ``time.sleep``). Off
   (the default) it hands back raw ``threading`` locks: zero overhead.
 
-The reference's AST lint framework (``analysis/lint.py``) is not ported
-yet (ROADMAP Queue 1).
+- :mod:`paddle_tpu_torch.analysis.lint` — the AST lint framework: passes
+  for silently swallowed exceptions, unnamed threads, wall-clock duration
+  math, time and tracer leaks in compiled functions, host syncs in the
+  engine's step functions and the kernel wrappers, and fault-site /
+  metric doc drift. Findings are keyed and grandfathered in
+  ``analysis/baseline.json``; ``python -m paddle_tpu_torch.analysis.lint
+  --check`` is the gate (pure stdlib: not imported here).
 """
 from . import locksan  # noqa: F401
 from .locksan import Lock, RLock, allow_blocking  # noqa: F401

@@ -81,7 +81,7 @@ def _resolve_armed() -> bool:
         from ..framework.flags import flag_value
 
         val = bool(flag_value("FLAGS_locksan"))
-    except Exception:  # flags registry not imported yet; env fallback below
+    except Exception:  # lint: allow-silent(flags registry not imported yet; env fallback below)
         val = os.environ.get("FLAGS_locksan", "").lower() in (
             "1", "true", "yes", "on")
     return val
@@ -146,7 +146,7 @@ def _stack(skip: int = 2) -> list:
                                          limit=_STACK_LIMIT)
         return [f"{os.path.basename(f.filename)}:{f.lineno} in {f.name}"
                 for f in frames]
-    except Exception:  # stack capture is best-effort; a report without frames beats a crash
+    except Exception:  # lint: allow-silent(stack capture is best-effort; a report without frames beats a crash)
         return []
 
 
@@ -195,7 +195,7 @@ def _emit(v: Violation):
         if _NUM_DUMPS[0] < _MAX_DUMPS:
             _NUM_DUMPS[0] += 1
             flight().dump(reason=kind)
-    except Exception:  # the sanitizer must never alter the semantics of the code it watches
+    except Exception:  # lint: allow-silent(the sanitizer must never alter the semantics of the code it watches)
         pass
     finally:
         _TLS.in_locksan = False
@@ -352,7 +352,7 @@ def _caller_name() -> str:
     try:
         f = sys._getframe(2)
         return f"{os.path.basename(f.f_code.co_filename)}:{f.f_lineno}"
-    except Exception:  # naming fallback only; an anonymous node still participates in the graph
+    except Exception:  # lint: allow-silent(naming fallback only; an anonymous node still participates in the graph)
         return "anonymous"
 
 
@@ -392,7 +392,7 @@ def _note_blocking(call: str):
     if getattr(_TLS, "allow_depth", 0) > 0:
         try:
             _metrics()[3].inc()
-        except Exception:  # metrics unavailable this early is fine; the waiver still waives
+        except Exception:  # lint: allow-silent(metrics unavailable this early is fine; the waiver still waives)
             pass
         return
     held = [rec[0].name for rec in st]

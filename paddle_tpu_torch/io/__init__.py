@@ -491,7 +491,7 @@ class DataLoader:
                 for b in self._raw_iter():
                     if not put(b):
                         return
-            except BaseException as e:  # re-raised in the consumer
+            except BaseException as e:  # lint: allow-silent(re-raised in the consumer)
                 err.append(e)
             finally:
                 put(sentinel)

@@ -607,6 +607,7 @@ def _launch_fwd(q, k, v, out, lse, B, Sq, Sk, causal, scale, drop, m4,
     tma = _tma_rows(D, H, Hkv, q, k, v, out)
     design = design or _flash_design(q.dtype, D, tma)
     common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+              # lint: allow-host-sync(a Python scalar argument, no device value)
               lse.data_ptr(), B, H, Hkv, Sq, Sk, D, float(scale),
               int(bool(causal)))
     tail = (*drop, *_mask_args(m4),
@@ -637,6 +638,7 @@ def _launch_bwd(q, k, v, g, lse, dg, dq, dk, dv, B, Sq, Sk, causal, scale,
     design = design or _flash_design(q.dtype, D, tma)
     common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
               lse.data_ptr(), dg.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+              # lint: allow-host-sync(a Python scalar argument, no device value)
               dv.data_ptr(), B, H, Hkv, Sq, Sk, D, float(scale),
               int(bool(causal)))
     tail = (*drop, *_mask_args(m4),
@@ -822,6 +824,7 @@ def flash_attention_fwd(q, k, v, causal=False, sm_scale=None, dropout_p=0.0,
     int) fixes the mask, the same eager and compiled; else one is drawn
     per call (:func:`_seed`). ``mask``: a bool attention mask (True =
     attend, see :func:`mask_view`)."""
+    # lint: allow-host-sync(a Python scalar argument, no device value)
     dropout_p = float(dropout_p)
     _check_shapes(q, k, v, causal)
     B, Sq, H, _ = q.shape
@@ -859,6 +862,7 @@ def _check_varlen(q, k, v, cu_q, cu_k, causal):
     hosts = []
     for name, cu, T in (("cu_seqlens_q", cu_q, q.shape[0]),
                         ("cu_seqlens_k", cu_k, k.shape[0])):
+        # lint: allow-host-sync(validating cu_seqlens needs them on the host; the varlen entry's documented sync)
         h = [int(x) for x in cu.tolist()]
         if h[0] != 0 or any(b < a for a, b in zip(h, h[1:])) or h[-1] > T:
             raise ValueError(f"flash_attn_varlen: {name} must start at 0, "
@@ -1087,6 +1091,7 @@ def flash_attn_varlen(q, k, v, cu_q, cu_k, causal=False, sm_scale=None,
     sized from ``max_seqlen_*`` (at least each sequence's length), else
     from the total tokens, with no host read and no check of
     ``cu_seqlens``' values."""
+    # lint: allow-host-sync(a Python scalar argument, no device value)
     dropout_p = float(dropout_p)
     seed = _seed(dropout_p, seed, q.device)
     if torch.compiler.is_compiling():

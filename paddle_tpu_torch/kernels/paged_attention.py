@@ -221,6 +221,7 @@ def paged_attention_cuda(q, kv_pool, block_tables, context_lens, *,
              out.data_ptr(), None if part is None else part.data_ptr(),
              None if sem is None else sem.data_ptr(), S, Hq, Hkv, bs, D, M,
              plan.qg, plan.r, plan.nc, plan.lpr, plan.ch, plan.splits,
+             # lint: allow-host-sync(a Python scalar argument, no device value)
              plan.pps, float(scale), _DTYPES[q.dtype], stream)
     _build.check(err, "paged_attention", "paged_attention_fwd launch")
     LAUNCHES["paged_attention"] += 1

@@ -28,9 +28,30 @@ distribution only (``nn/decode.py``).
 Failure containment: an exception in one request's prefill fails *that*
 request (its error attached) and returns its slot and blocks; an exception
 in the batched decode fails the requests of that batch; the engine keeps
-serving the queue. A watchdog counts decode steps slower than
-``watchdog_timeout_s``, and a stall detector fails the queue head (with a
-flight-recorder dump) rather than spinning when no progress is possible.
+serving the queue. Per-request deadlines (``add_request(deadline_s=)``)
+cancel a request with :class:`DeadlineExceeded` wherever it is, each step;
+a queued one never reaches a prefill. A watchdog counts decode steps
+slower than ``watchdog_timeout_s``, and a stall detector fails the queue
+head (with a flight-recorder dump) rather than spinning when no progress
+is possible.
+
+Memory pressure: ``kv_spill_blocks=N`` arms the cache's bounded host spill
+tier (eviction demotes CRC32-stamped K/V to host RAM, a prefix hit
+promotes it back; a corrupt or faulted promotion re-prefills, never serves
+wrong K/V), tracked by the memory monitor's ``kv_spill_host`` tag under its
+cap; ``kv_high_watermark`` / ``kv_low_watermark`` latch the scheduler's
+backpressure, which is forced into ``stats()["slo"]["shed"]`` (reason
+``kv_watermark``).
+
+Tenancy (``tenancy=``, a :class:`~.tenancy.TenantRegistry` or its dict):
+requests carry a tenant and a priority; the scheduler's fair queue admits
+by the tenants' weights, the cache evicts an over-quota tenant's cached
+blocks first, and ``stats()["tenancy"]`` holds per-tenant counters, SLO
+windows and the roofline cost attributed to each tenant: a prefill to its
+request's tenant, a decode step split evenly over its batch. The request
+path only records (tenant, step signature, share); the flops and bytes are
+resolved when ``stats()`` reads the roofline, so per-tenant flops sum to
+the engine's.
 
 Telemetry, wired where the reference wires it: the labelled
 ``serving_*{engine=...}`` families (``stats()`` reads its counters back
@@ -51,8 +72,6 @@ is read, never on the request path;
 ``serving.prefill``, ``serving.decode``, ``serving.decode.slot``,
 ``serving.compile`` here, ``serving.admit`` in the scheduler and
 ``serving.kv.*`` in the cache.
-Tenancy, deadlines, KV watermarks and the spill tier of the reference are
-later slices.
 
 ``naive_generate`` is the uncached baseline (the full forward over the
 whole prefix at every step) that the engine must reproduce.
@@ -71,18 +90,20 @@ from .. import telemetry
 from ..nn.decode import sample_logits
 from ..utils import faults
 from .kv_cache import PagedCacheView, PagedKVCache
-from .scheduler import Request, RequestState, SamplingParams, Scheduler
+from .scheduler import (DeadlineExceeded, Request, RequestState,
+                        SamplingParams, Scheduler)
+from .tenancy import TenantAccounting, TenantRegistry
 
 __all__ = ["LLMEngine", "naive_generate", "STATS_KEYS"]
 
-# canonical stats() schema: the reference's less "tenancy" (a later slice)
+# canonical stats() schema, the reference's
 STATS_KEYS = frozenset({
     "queue_depth", "num_running", "num_finished", "num_failed",
     "num_cancelled", "num_rejected", "blocks_used", "blocks_free",
     "block_high_water", "cache_utilization", "num_preemptions",
     "decode_traces", "prefill_traces", "total_generated_tokens",
     "tokens_per_sec", "mean_ttft", "watchdog_trips", "last_decode_s",
-    "slo", "prefix_cache", "perf",
+    "slo", "prefix_cache", "perf", "tenancy",
 })
 
 # distinguishes concurrent engines' series in the process-global registry
@@ -96,8 +117,7 @@ _TOKEN_BUCKETS = (0.0001, 0.00025, 0.0005, 0.001, 0.0025, 0.005, 0.01,
 
 def _engine_metrics(label: str) -> SimpleNamespace:
     """Resolve this engine's labelled children in the global registry once;
-    the hot paths touch only the returned handles. The reference's
-    ``serving_kv_pressure*`` families come with the KV watermarks."""
+    the hot paths touch only the returned handles."""
     reg = telemetry.registry()
     ls = ("engine",)
 
@@ -127,6 +147,11 @@ def _engine_metrics(label: str) -> SimpleNamespace:
                    "decode steps slower than watchdog_timeout_s"),
         stalls=C("serving_stall_failures_total",
                  "requests failed by the no-progress stall detector"),
+        pressure_events=C("serving_kv_pressure_events_total",
+                          "device-pool high-watermark latches"),
+        pressure=G("serving_kv_pressure",
+                   "1 while the device pool is above the high watermark "
+                   "(admissions queue, the SLO shed signal is forced)"),
         queue_depth=G("serving_queue_depth", "requests waiting"),
         running=G("serving_running_requests", "requests in decode slots"),
         blocks_used=G("serving_kv_blocks_used", "live KV blocks"),
@@ -206,13 +231,25 @@ class LLMEngine:
     slo_window_s:  SLO observation window
     prefix_cache:  content-addressed KV-block prefix caching (on by
                    default, as in the reference)
+    kv_spill_blocks: bound (in blocks) on the host spill tier under the
+                   prefix cache; None / 0 = eviction destroys
+    kv_high_watermark / kv_low_watermark: device-pool backpressure
+                   (fractions of usable blocks referenced): above high,
+                   admissions queue and ``stats()["slo"]["shed"]`` is
+                   forced; the latch clears below low (default 0.75 x
+                   high). None = off
+    tenancy:       a ``TenantRegistry`` (or its ``to_dict()``): weights for
+                   the fair queue, cached-block quotas, SLO overrides;
+                   None = every request is the "anonymous" tenant (FIFO)
     """
 
     def __init__(self, model, *, block_size=16, num_blocks=None, max_slots=4,
                  max_model_len=None, eos_token_id=None, max_queue=None,
                  max_preemptions_per_request=16, watchdog_timeout_s=None,
                  stall_limit=8, slo_ttft_s=None, slo_tpot_s=None,
-                 slo_window_s=120.0, prefix_cache=True):
+                 slo_window_s=120.0, prefix_cache=True, kv_spill_blocks=None,
+                 kv_high_watermark=None, kv_low_watermark=None,
+                 tenancy=None):
         cfg = model.config
         self.model = model
         self.device = model.device
@@ -234,17 +271,28 @@ class LLMEngine:
         self.cache = PagedKVCache(
             cfg.num_hidden_layers, num_blocks, cfg.num_key_value_heads,
             self.block_size, cfg.head_dim, dtype=kv_dtype,
-            device=self.device, prefix_cache=self.prefix_cache)
+            device=self.device, prefix_cache=self.prefix_cache,
+            spill_blocks=kv_spill_blocks if self.prefix_cache else None)
         self.engine_label = str(next(_ENGINE_IDS))
         self._m = _engine_metrics(self.engine_label)
         self.slo = telemetry.SLOTracker(
             ttft_slo_s=slo_ttft_s, tpot_slo_s=slo_tpot_s,
             window_s=slo_window_s, engine_label=self.engine_label)
+        if isinstance(tenancy, dict):
+            tenancy = TenantRegistry.from_dict(tenancy)
+        self.tenancy = tenancy if tenancy is not None else TenantRegistry()
+        self.cache.set_tenant_quotas(self.tenancy.block_quotas())
+        self._tenancy_acct = TenantAccounting(
+            self.tenancy, self.engine_label, ttft_slo_s=slo_ttft_s,
+            tpot_slo_s=slo_tpot_s, window_s=slo_window_s,
+            peaks=telemetry.cost.platform_peaks(device=self.device))
         self.scheduler = Scheduler(
             self.cache, self.max_slots, self.max_model_len,
             max_queue=max_queue,
             max_preemptions_per_request=max_preemptions_per_request,
-            on_event=self._on_sched_event)
+            on_event=self._on_sched_event,
+            high_watermark=kv_high_watermark,
+            low_watermark=kv_low_watermark, tenancy=self.tenancy)
         self._next_rid = 0
 
         # distinct step signatures run: (kind, P or (P, NPB) or "decode")
@@ -271,6 +319,11 @@ class LLMEngine:
         self._pending_walls: deque = deque(maxlen=512)  # before the estimate
         self._twins = None    # (FakeTensorMode, {layers: (model, pool)})
         self._roofline_fracs: dict[str, list] = {"prefill": [], "decode": []}
+        # tenant cost attribution: (tenant, kind, bucket) -> summed share,
+        # priced when stats() resolves the estimates; steps_run counts the
+        # steps of each (kind, bucket), the engine's own total
+        self._pending_charges: dict[tuple, float] = {}
+        self.steps_run: dict[tuple, int] = {}
 
         # performance observability (telemetry.perf)
         self._watcher = telemetry.compile_watcher()
@@ -282,6 +335,12 @@ class LLMEngine:
         self._block_bytes = self._pool_bytes // max(num_blocks, 1)
         self._mm.add("params", self._params_bytes)
         self._mm.add("kv_pool", self._pool_bytes)
+        if self.cache.spill_blocks:
+            # the host spill pool grows up to its capacity by design: the
+            # leak sentinel flags it only past that bound
+            self._mm.expect_bounded(
+                "kv_spill_host",
+                cap_bytes=self.cache.spill_blocks * self._block_bytes)
 
         self.finished: list[Request] = []
         self.failed: list[Request] = []
@@ -305,20 +364,34 @@ class LLMEngine:
     # public API
     # ------------------------------------------------------------------
     def add_request(self, prompt, sampling: SamplingParams | None = None,
-                    on_token=None, trace_id: str | None = None,
-                    trace_parent: int | None = None) -> Request:
+                    on_token=None, deadline_s: float | None = None,
+                    trace_id: str | None = None,
+                    trace_parent: int | None = None,
+                    on_watermark=None, watermark_every: int = 8,
+                    tenant: str = "anonymous", priority: int = 0) -> Request:
         """Queue a prompt (token ids); returns the live request handle
         (``output_tokens`` grows as the engine steps; ``on_token(req, tok)``
-        streams each new token). ``trace_id`` is the request-trace context
-        a caller minted (``telemetry.reqtrace``): every span this request
-        produces carries it."""
+        streams each new token). Past ``deadline_s`` seconds the request
+        is CANCELLED with :class:`DeadlineExceeded` attached. ``trace_id``
+        is the request-trace context a caller minted
+        (``telemetry.reqtrace``): every span this request produces carries
+        it. ``on_watermark(req, n)`` fires whenever the output length
+        crosses a multiple of ``watermark_every``. ``tenant`` attributes
+        the request for fair admission, quotas and cost; ``priority``
+        orders requests within that tenant only."""
         req = Request(rid=self._next_rid, prompt=[int(t) for t in prompt],
                       sampling=sampling or SamplingParams(),
                       on_token=on_token, trace_id=trace_id,
-                      trace_parent=trace_parent)
+                      trace_parent=trace_parent, on_watermark=on_watermark,
+                      watermark_every=watermark_every,
+                      tenant=str(tenant or "anonymous"),
+                      priority=int(priority))
+        if deadline_s is not None:
+            req.deadline = time.monotonic() + float(deadline_s)
         self._next_rid += 1
         self.scheduler.add(req)           # raises EngineClosed / QueueFull
         self._requests[req.rid] = req
+        self._tenancy_acct.note_request(req.tenant)
         return req
 
     def cancel(self, rid: int, reason: str = "cancelled") -> bool:
@@ -339,6 +412,8 @@ class LLMEngine:
         self.closed = True
         self._mm.sub("params", self._params_bytes)
         self._mm.sub("kv_pool", self._pool_bytes)
+        if self.cache.spill_blocks:
+            self._mm.set("kv_spill_host", 0)
         for req in self.scheduler.close():
             if req.state is RequestState.FAILED:
                 self.failed.append(req)
@@ -349,15 +424,17 @@ class LLMEngine:
 
     @torch.inference_mode()
     def step(self) -> bool:
-        """One engine iteration: admit + prefill new requests (each inside
-        its own failure boundary), then one batched decode step over the
-        running slots. Returns True while there is work left."""
+        """One engine iteration: sweep deadlines, admit + prefill new
+        requests (each inside its own failure boundary), then one batched
+        decode step over the running slots. Returns True while there is
+        work left."""
         if self.closed:
             return False
         if self._serve_start is None and self.scheduler.has_work():
             self._serve_start = time.monotonic()
         had_work = self.scheduler.has_work()
         self._progressed = False
+        self._sweep_deadlines()
         for slot, req in self.scheduler.admit():
             self._progressed = True
             try:
@@ -458,6 +535,8 @@ class LLMEngine:
             # compile (step-signature) counts, the decode step's phase
             # breakdown, memory accounting and the roofline block
             "perf": self._perf_block(),
+            # per-tenant counters, SLO windows and attributed roofline cost
+            "tenancy": self._tenancy_block(),
         }
 
     def _perf_block(self) -> dict:
@@ -492,7 +571,8 @@ class LLMEngine:
     def _resolve_costs(self):
         """Count each pending signature's step, shape-only (once per process
         and fingerprint: identical engines share the estimate), then turn
-        the walls that waited for it into achieved fractions."""
+        the walls that waited for it into achieved fractions and charge
+        the tenants' recorded shares."""
         for key, spec in list(self._pending_costs.items()):
             kind, bucket = key
             name = f"engine.{kind}"
@@ -507,6 +587,29 @@ class LLMEngine:
                  for _ in range(len(self._pending_walls))]
         for kind, bucket, wall_s in walls:
             self._note_roofline(kind, bucket, wall_s)
+        charges, self._pending_charges = self._pending_charges, {}
+        for (tenant, kind, bucket), share in charges.items():
+            est = self._trace_costs.get((kind, bucket))
+            if est is not None:
+                self._tenancy_acct.note_cost(tenant, est["flops"] * share,
+                                             est["bytes"] * share)
+
+    def _charge_tenant(self, tenant: str, kind: str, bucket: str,
+                       share: float = 1.0):
+        """Record ``share`` of one executed step for ``tenant``: a prefill
+        charges its request's tenant in full, a decode step each member of
+        its batch 1 / batch. Priced by :meth:`_resolve_costs`; a step that
+        ran with telemetry off has no estimate and is never priced, as in
+        the reference."""
+        key = (tenant, kind, bucket)
+        self._pending_charges[key] = self._pending_charges.get(key, 0.0) \
+            + share
+
+    def _tenancy_block(self) -> dict:
+        """stats()["tenancy"]: the accounting's summary, with every
+        recorded step priced first."""
+        self._resolve_costs()
+        return self._tenancy_acct.summary()
 
     def _count_step(self, kind: str, spec: tuple) -> dict:
         """The estimate of one step of ``spec``'s shapes, counted shape-only
@@ -647,6 +750,20 @@ class LLMEngine:
             m.preemptions.inc()
         elif kind == "admit" and req is not None:
             m.queue_time.observe(req.admit_time - req.arrival_time)
+            # the worst-case tokens this admission holds the engine for,
+            # the fair queue's charge
+            self._tenancy_acct.note_admitted(
+                req.tenant, len(req.prompt) + req.sampling.max_new_tokens)
+        elif kind == "deadline_queued" and req is not None:
+            # expired while queued, never prefilled: a cancel like any other
+            m.cancelled.inc()
+            self.cancelled.append(req)
+            self._record_lifecycle(req)
+        elif kind == "kv_pressure":
+            m.pressure_events.inc()
+            m.pressure.set(1)
+        elif kind == "kv_pressure_clear":
+            m.pressure.set(0)
 
     def _record_slo(self, req: Request):
         """One rolling-window observation per terminal request: finished
@@ -676,6 +793,13 @@ class LLMEngine:
         m.high_water.set(alloc.high_water)
         m.utilization.set(self.cache.utilization())
         self._mm.set("kv_blocks", alloc.num_used * self._block_bytes)
+        if self.cache.spill_blocks:
+            self._mm.set("kv_spill_host", self.cache.spilled_bytes)
+        # the watermark latch (admit() may not run again once the queue
+        # drains) rides the SLO tracker's shed signal
+        self.scheduler._update_pressure()
+        self.slo.set_pressure(self.scheduler.mem_pressure,
+                              reason="kv_watermark")
 
     def _record_lifecycle(self, req: Request):
         """Emit the request's queued -> prefill -> decode lifecycle as
@@ -686,6 +810,7 @@ class LLMEngine:
             return
         req._spans_recorded = True
         self._record_slo(req)
+        self._tenancy_acct.note_terminal(req)
         tr = telemetry.tracer()
         tid = 100_000 + req.rid
         tid_name = f"request-{req.rid}"
@@ -737,6 +862,21 @@ class LLMEngine:
                     and req.rid not in self._failed_rids):
                 self.failed.append(req)
                 self._failed_rids.add(req.rid)
+                self._record_lifecycle(req)
+
+    def _sweep_deadlines(self):
+        """Cancel every waiting or running request past its deadline, with
+        :class:`DeadlineExceeded` attached."""
+        now = time.monotonic()
+        for req in list(self.scheduler.waiting) + list(
+                self.scheduler.running.values()):
+            if req.past_deadline(now):
+                err = DeadlineExceeded(
+                    f"request {req.rid} missed its deadline "
+                    f"({len(req.output_tokens)} of "
+                    f"{req.sampling.max_new_tokens} tokens generated)")
+                self.scheduler.cancel(req.rid, reason="deadline", error=err)
+                self.cancelled.append(req)
                 self._record_lifecycle(req)
 
     def _check_stall(self, had_work: bool):
@@ -847,10 +987,11 @@ class LLMEngine:
         t0 = time.monotonic()
         with telemetry.span("engine.prefill", rid=req.rid, tokens=L,
                             padded=P, engine=self.engine_label, **span_kw):
-            tok = int(_prefill_forward(
+            # lint: allow-host-sync(the sampled token to the host: the scheduler and the stream need it)
+            tok = _prefill_forward(
                 self.model, self.cache.pool, self.block_size,
                 self._tensor(padded), self._tensor(bt), pbt, cached, L,
-                req.sampling, len(req.output_tokens)))
+                req.sampling, len(req.output_tokens)).item()
         wall = time.monotonic() - t0
         self._watcher.record_call("engine.prefill", sig,
                                   wall_s=wall if new else None,
@@ -858,6 +999,9 @@ class LLMEngine:
         if not new:
             self._note_roofline("prefill", bucket, wall)
         self.prefill_calls += 1
+        self.steps_run[("prefill", bucket)] = \
+            self.steps_run.get(("prefill", bucket), 0) + 1
+        self._charge_tenant(req.tenant, "prefill", bucket)
         self.cache.commit_prefix(req.rid, toks)
         self._emit(slot, req, tok)
 
@@ -921,6 +1065,7 @@ class LLMEngine:
                 new = self._new_sig("decode", "decode")
                 if new:
                     cost_est = self._note_signature("decode", "decode", ())
+                # lint: allow-host-sync(the sampled tokens to the host, once a step: the scheduler and the streams need them)
                 toks = self._decode_step(
                     self._tensor(tokens), self._tensor(bt), self._tensor(ctx),
                     (temps, top_ks, top_ps, seeds, steps)).tolist()
@@ -954,6 +1099,11 @@ class LLMEngine:
             self._note_roofline("decode", "decode", self.last_decode_s)
         self.decode_s += self.last_decode_s
         self.decode_tokens += len(running)
+        self.steps_run[("decode", "decode")] = \
+            self.steps_run.get(("decode", "decode"), 0) + 1
+        share = 1.0 / len(running)
+        for req in running.values():
+            self._charge_tenant(req.tenant, "decode", "decode", share)
         if self.prefix_cache:
             # a decode write that just filled its block completes another
             # full token block: index it so later admissions can share it
@@ -969,6 +1119,7 @@ class LLMEngine:
         self._progressed = True
         self._total_generated += 1
         self._m.tokens.inc()
+        self._tenancy_acct.note_tokens(req.tenant)
         if len(req.output_tokens) == 1:
             # the trace-id exemplar links a slow TTFT bucket straight to
             # the request trace that landed in it (OpenMetrics exemplars)

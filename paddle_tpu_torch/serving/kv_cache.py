@@ -24,19 +24,40 @@ content-addressed through a hash chain; admission maps the longest cached
 block-aligned prefix into the new table as shared blocks (refcount + 1) so
 only the tail is prefilled; the first write into a shared block copies it
 (copy-on-write); completed prefixes nobody references sit in an LRU pool
-that is evicted on demand. The reference's host spill tier, cluster KV
-fabric and tenant quotas are later slices.
+that is evicted on demand. Per-tenant quotas
+(:meth:`PagedKVCache.set_tenant_quotas`) order that eviction: an
+over-quota tenant's cached blocks go first.
+
+Host spill tier (``spill_blocks=N``): eviction *demotes* a cached block
+instead of destroying it. Its K/V is copied to a bounded host pool (numpy,
+the block's bytes viewed as integers of its element width, since numpy
+has no bfloat16) keyed by the same content address and stamped with a
+CRC32. A prefix match that runs off the end of the device index continues
+through the spill pool: each spilled block is promoted back into a device
+block (CRC verified first; a corrupt or faulted promotion drops the entry
+and the request prefills those tokens, never wrong K/V) and parked in the
+device LRU. Both copies synchronise the host with the card (a spill reads
+the block back; a promote writes it from pageable memory, so the host
+buffer may go as soon as the copy returns): ``spill_s`` / ``promote_s``
+sum the host seconds of the copies and their CRC32 passes. The cluster KV
+fabric is a later slice.
 
 Telemetry as in the reference: allocator traffic and prefix-cache moves
 land in the flight recorder (``kv.alloc`` / ``kv.share`` / ``kv.free`` /
-``kv.evict`` / ``kv.cow``), the prefix cache's running totals in the
-``kv_prefix_*`` families, and ``serving.kv.alloc`` / ``serving.kv.share``
-/ ``serving.kv.cow`` are fault sites (``utils.faults``).
+``kv.evict`` / ``kv.cow`` / ``kv.spill`` / ``kv.promote`` /
+``kv.quota_evict``), the running totals in the ``kv_prefix_*``,
+``kv_spill_*``, ``kv_promote_*`` and ``tenant_*`` families, and
+``serving.kv.alloc`` / ``serving.kv.share`` / ``serving.kv.cow`` /
+``serving.kv.spill`` / ``serving.kv.promote`` are fault sites
+(``utils.faults``).
 """
 from __future__ import annotations
 
 import hashlib
+import time
+import zlib
 from collections import OrderedDict
+from dataclasses import dataclass
 from types import SimpleNamespace
 
 import numpy as np
@@ -54,9 +75,8 @@ __all__ = ["BlockAllocator", "PagedKVCache", "PagedCacheView", "DenseKVCache",
 SCRATCH_BLOCK = 0  # reserved: masked writes from inactive slots land here
 
 
-# prefix-cache metric families (process-global; per-engine gauges live on
-# the engine's labelled series), resolved lazily. The reference's spill-tier
-# and tenant families come with those features.
+# prefix-cache, spill-tier and tenant metric families (process-global;
+# per-engine gauges live on the engine's labelled series), resolved lazily
 _PM = None
 
 
@@ -85,6 +105,36 @@ def _prefix_metrics() -> SimpleNamespace:
                 "prefix matches dropped whole (stale/corrupt index)"),
             cached=reg.gauge("kv_prefix_cached_blocks",
                              "blocks held rc==0 in the evictable LRU pool"),
+            spills=reg.counter(
+                "kv_spill_total",
+                "cached blocks demoted to the host-RAM spill tier"),
+            spill_dropped=reg.counter(
+                "kv_spill_dropped_total",
+                "spill entries destroyed for host-pool capacity"),
+            spill_errors=reg.counter(
+                "kv_spill_errors_total",
+                "demotions that failed (eviction destroyed instead)"),
+            promotes=reg.counter(
+                "kv_promote_total",
+                "spilled blocks promoted back to device blocks"),
+            promote_errors=reg.counter(
+                "kv_promote_errors_total",
+                "promotions that failed (entry dropped, full prefill)"),
+            promote_corrupt=reg.counter(
+                "kv_promote_corrupt_total",
+                "promotions refused by the CRC check (entry dropped)"),
+            spilled=reg.gauge(
+                "kv_spill_blocks", "blocks resident in the host spill pool"),
+            spilled_bytes=reg.gauge(
+                "kv_spill_bytes", "host-RAM bytes held by the spill pool"),
+            t_cached=reg.gauge(
+                "tenant_cached_blocks",
+                "rc==0 cached prefix blocks held, by owning tenant",
+                ("tenant",)),
+            t_quota_evict=reg.counter(
+                "tenant_quota_evictions_total",
+                "cached blocks evicted ahead of LRU order because their "
+                "tenant exceeded its block quota", ("tenant",)),
         )
     return _PM
 
@@ -216,6 +266,25 @@ class BlockAllocator:
             self._free.append(b)
 
 
+# numpy has no bfloat16: a spilled block's bytes live as integers of the
+# pool's element width
+_INT_OF_WIDTH = {1: torch.uint8, 2: torch.int16, 4: torch.int32,
+                 8: torch.int64}
+
+
+@dataclass
+class _SpillEntry:
+    """One block's K/V demoted to host RAM: the index key it answered to
+    on the device, its chain hash, the host copy ([num_layers, 2,
+    kv_heads, block_size, head_dim] integers of the pool's element width)
+    and the CRC32 stamped at demotion."""
+
+    key: tuple
+    hash: str
+    kv: np.ndarray
+    crc: int
+
+
 def _chain_hash(parent_hash: str, block_tokens) -> str:
     """Content address of a full token block given its prefix's hash, so a
     block's hash names the entire token prefix ending at it."""
@@ -226,12 +295,14 @@ def _chain_hash(parent_hash: str, block_tokens) -> str:
 class PagedKVCache:
     """The block pool plus per-sequence block tables (host bookkeeping),
     and with ``prefix_cache=True`` the content-addressed prefix index, the
-    LRU pool of unreferenced completed prefixes and copy-on-write. The
-    pool lies on ``cuda`` unless ``device="cpu"``."""
+    LRU pool of unreferenced completed prefixes, copy-on-write, tenant
+    quotas and (``spill_blocks``) the host spill tier. The pool lies on
+    ``cuda`` unless ``device="cpu"``."""
 
     def __init__(self, num_layers, num_blocks, kv_heads, block_size,
                  head_dim, dtype=torch.float32, device=None,
-                 prefix_cache: bool = False):
+                 prefix_cache: bool = False,
+                 spill_blocks: int | None = None):
         self.pool = torch.zeros(
             (num_layers, num_blocks, 2, kv_heads, block_size, head_dim),
             dtype=dtype, device=resolve_device(device))
@@ -246,6 +317,23 @@ class PagedKVCache:
         self._lru: OrderedDict[int, None] = OrderedDict()  # rc==0, evictable
         self._seq_hashes: dict[object, list[str]] = {}     # committed chain
         self.seq_cached_tokens: dict[object, int] = {}     # last admission
+        # host spill tier: key -> _SpillEntry, oldest first; bounded at
+        # spill_blocks entries (0 / None: eviction destroys)
+        self.spill_blocks = int(spill_blocks or 0)
+        self._spill: OrderedDict[tuple, _SpillEntry] = OrderedDict()
+        # blocks a match walk has collected but not yet refcounted: a
+        # promotion's own allocation must not evict them
+        self._pinned: set[int] = set()
+        # per-tenant cached-block quotas: each LRU-parked block belongs to
+        # the tenant whose sequence parked it; an over-quota tenant's
+        # blocks are first in eviction order
+        self._seq_tenant: dict[object, str] = {}
+        self._block_tenant: dict[int, str] = {}
+        self._tenant_cached: dict[str, int] = {}
+        self._tenant_quota: dict[str, int] = {}
+        self._park_tenant: str | None = None   # allocate() in progress
+        self.quota_evictions: dict[str, int] = {}
+        self._block_nbytes = int(self.pool.nbytes) // max(int(num_blocks), 1)
         self.prefix_hits = 0
         self.prefix_misses = 0
         self.prefix_blocks_saved = 0
@@ -253,6 +341,15 @@ class PagedKVCache:
         self.cow_copies = 0
         self.prefix_evictions = 0
         self.stale_drops = 0
+        self.spills = 0
+        self.spill_drops = 0
+        self.spill_errors = 0
+        self.promotes = 0
+        self.promote_errors = 0
+        self.promote_corrupt_drops = 0
+        # host seconds of the spill tier's copies and CRC32 passes
+        self.spill_s = 0.0
+        self.promote_s = 0.0
 
     def blocks_for(self, num_tokens: int) -> int:
         return -(-int(num_tokens) // self.block_size)
@@ -293,17 +390,39 @@ class PagedKVCache:
             telemetry.record_event("kv.share", stale=True,
                                    tokens=len(tokens))
             return [], []
-        if not self._index:
+        if not self._index and not self._spill:
             return blocks, hashes
         bs = self.block_size
+        limit = (len(tokens) - 1) // bs
         parent = ""
-        for i in range((len(tokens) - 1) // bs):
+        for i in range(limit):
             toks = tuple(int(t) for t in tokens[i * bs:(i + 1) * bs])
             b = self._index.get((parent, toks))
             if b is None:
+                # the device chain ends here; the spill tier may continue
+                # it. The walk's blocks are pinned: a promotion's own
+                # allocation must not evict what this match will share.
+                self._pinned = set(blocks)
+                try:
+                    for j in range(i, limit):
+                        toks = tuple(int(t)
+                                     for t in tokens[j * bs:(j + 1) * bs])
+                        entry = self._spill.get((parent, toks))
+                        if entry is None:
+                            break
+                        pb = self._promote(entry)
+                        if pb is None:
+                            break
+                        self._pinned.add(pb)
+                        blocks.append(pb)
+                        parent = entry.hash
+                        hashes.append(parent)
+                finally:
+                    self._pinned = set()
                 break
             blocks.append(b)
-            parent = self._block_hash[b]
+            h = self._block_hash.get(b)
+            parent = h if h is not None else _chain_hash(parent, toks)
             hashes.append(parent)
         return blocks, hashes
 
@@ -338,57 +457,265 @@ class PagedKVCache:
             self._register(table[i], parent, toks)
             hashes.append(_chain_hash(parent, toks))
 
-    def _evict_one(self) -> int | None:
-        """Reclaim the least-recently-released cached block: drop its index
-        entry and return it to the free list. Only rc==0 blocks live in the
-        LRU, so eviction never touches a referenced block."""
-        if not self._lru:
+    # -- per-tenant quotas --------------------------------------------------
+    def set_tenant_quotas(self, quotas) -> None:
+        """Arm per-tenant cached-block quotas (``{tenant: max_blocks}``,
+        from ``TenantRegistry.block_quotas()``): an eviction-order policy,
+        an over-quota tenant's cached blocks go first (its oldest); live
+        references are never touched."""
+        self._tenant_quota = {str(t): int(q)
+                              for t, q in (quotas or {}).items()}
+
+    def _lru_park(self, block: int, tenant: str | None = None) -> None:
+        """A block entered the evictable LRU: attribute it to its tenant."""
+        self._lru[block] = None
+        t = tenant or self._park_tenant or "anonymous"
+        self._block_tenant[block] = t
+        n = self._tenant_cached.get(t, 0) + 1
+        self._tenant_cached[t] = n
+        if telemetry.enabled():
+            _prefix_metrics().t_cached.labels(tenant=t).set(n)
+
+    def _lru_unpark(self, block: int) -> None:
+        """A block left the LRU (shared back in, or evicted)."""
+        if block not in self._lru:
+            return
+        del self._lru[block]
+        t = self._block_tenant.pop(block, None)
+        if t is None:
+            return
+        n = max(0, self._tenant_cached.get(t, 1) - 1)
+        if n:
+            self._tenant_cached[t] = n
+        else:
+            self._tenant_cached.pop(t, None)
+        if telemetry.enabled():
+            _prefix_metrics().t_cached.labels(tenant=t).set(n)
+
+    def _quota_victim(self) -> int | None:
+        """The oldest unpinned cached block of any over-quota tenant, or
+        None when every tenant is within quota."""
+        if not self._tenant_quota:
             return None
-        block, _ = self._lru.popitem(last=False)
+        over = {t for t, q in self._tenant_quota.items()
+                if self._tenant_cached.get(t, 0) > q}
+        if not over:
+            return None
+        return next((b for b in self._lru
+                     if b not in self._pinned
+                     and self._block_tenant.get(b) in over), None)
+
+    def _evict_one(self) -> int | None:
+        """Reclaim a cached block: an over-quota tenant's oldest first,
+        else the least recently released. Only rc==0 blocks live in the
+        LRU, so eviction never touches a referenced block. With the spill
+        tier armed the block's K/V is demoted to the host first. None when
+        every LRU entry is pinned by a match walk in progress."""
+        block = self._quota_victim()
+        over_quota = block is not None
+        if block is None:
+            block = next((b for b in self._lru if b not in self._pinned),
+                         None)
+        if block is None:
+            return None
+        tenant = self._block_tenant.get(block)
+        self._lru_unpark(block)
+        if over_quota:
+            self.quota_evictions[tenant] = \
+                self.quota_evictions.get(tenant, 0) + 1
+            if telemetry.enabled():
+                _prefix_metrics().t_quota_evict.labels(tenant=tenant).inc()
+            telemetry.record_event(
+                "kv.quota_evict", block=block, tenant=tenant,
+                cached=self._tenant_cached.get(tenant, 0))
+        key = self._block_key.get(block)
+        h = self._block_hash.get(block)
         self._unregister(block)
+        spilled = False
+        if key is not None and h is not None:
+            spilled = self._spill_block(block, key, h)
         self.allocator.reclaim([block])
         self.prefix_evictions += 1
         pm = _prefix_metrics()
         pm.evictions.inc()
         pm.cached.set(self.allocator.num_cached)
-        telemetry.record_event("kv.evict", block=block, spilled=False,
+        telemetry.record_event("kv.evict", block=block, spilled=spilled,
                                cached=self.allocator.num_cached)
         return block
 
+    # -- host spill tier -----------------------------------------------------
+    @property
+    def spilled_bytes(self) -> int:
+        return len(self._spill) * self._block_nbytes
+
+    def _sync_spill_gauges(self, pm=None):
+        pm = pm or _prefix_metrics()
+        pm.spilled.set(len(self._spill))
+        pm.spilled_bytes.set(self.spilled_bytes)
+
+    def _spill_block(self, block: int, key: tuple, h: str) -> bool:
+        """Demote an evicted block's K/V to the host pool, CRC32-stamped.
+        A failure (injected or real) falls back to destroy-eviction: slower
+        later, never wrong. True when the entry landed."""
+        if not self.spill_blocks:
+            return False
+        pm = _prefix_metrics()
+        t0 = time.monotonic()
+        try:
+            act = faults.inject("serving.kv.spill", block=block)
+            # the block's bytes as integers of the element width (numpy
+            # has no bfloat16), one contiguous copy the host owns; from the
+            # card it syncs
+            width = _INT_OF_WIDTH[self.pool.element_size()]
+            # lint: allow-host-sync(the spill copy: a demoted block's bytes go to host RAM)
+            kv = self.pool[:, block].view(width).to(
+                "cpu", copy=True,
+                memory_format=torch.contiguous_format).numpy()
+            crc = zlib.crc32(kv)          # over the buffer, no bytes copy
+            if act == "corrupt":
+                # host-RAM bit rot after the stamp: a later promotion must
+                # catch the mismatch and drop the entry
+                kv.view(np.uint8).reshape(-1)[0] ^= 0xFF
+        except Exception as e:
+            self.spill_errors += 1
+            pm.spill_errors.inc()
+            telemetry.record_event(
+                "kv.spill", block=block, ok=False,
+                error=f"{type(e).__name__}: {e}")
+            return False
+        finally:
+            self.spill_s += time.monotonic() - t0
+        while len(self._spill) >= self.spill_blocks:
+            self._spill.popitem(last=False)
+            self.spill_drops += 1
+            pm.spill_dropped.inc()
+        self._spill[key] = _SpillEntry(key, h, kv, crc)
+        self.spills += 1
+        pm.spills.inc()
+        self._sync_spill_gauges(pm)
+        telemetry.record_event("kv.spill", block=block, ok=True,
+                               spilled=len(self._spill))
+        return True
+
+    def _promote(self, entry: _SpillEntry) -> int | None:
+        """Promote one spilled block back into a device block: verify the
+        CRC stamp, allocate a block (demoting others on demand), copy the
+        K/V into ``pool[:, block]``, re-register the content address and
+        park the block cached, so the caller's share() owns the refcount.
+        A failure drops the entry and returns None: the match stops there
+        and the request prefills those tokens (never wrong K/V); a pool
+        that is dry keeps the entry for a later attempt."""
+        pm = _prefix_metrics()
+        t0 = time.monotonic()
+        try:
+            act = faults.inject("serving.kv.promote",
+                                blocks=len(self._spill))
+            crc_ok = zlib.crc32(entry.kv) == entry.crc
+        except Exception as e:
+            self._spill.pop(entry.key, None)
+            self.promote_errors += 1
+            pm.promote_errors.inc()
+            self._sync_spill_gauges(pm)
+            telemetry.record_event("kv.promote", ok=False,
+                                   error=f"{type(e).__name__}: {e}")
+            return None
+        finally:
+            self.promote_s += time.monotonic() - t0
+        if act == "corrupt" or not crc_ok:
+            self._spill.pop(entry.key, None)
+            self.promote_corrupt_drops += 1
+            pm.promote_corrupt.inc()
+            self._sync_spill_gauges(pm)
+            telemetry.record_event("kv.promote", ok=False, corrupt=True)
+            return None
+        if entry.key in self._index:     # equal content re-registered since
+            self._spill.pop(entry.key, None)
+            self._sync_spill_gauges(pm)
+            return self._index[entry.key]
+        out = self._alloc_evict(1)
+        if out is None:
+            self.promote_errors += 1
+            pm.promote_errors.inc()
+            telemetry.record_event("kv.promote", ok=False, exhausted=True)
+            return None
+        [block] = out
+        t0 = time.monotonic()
+        try:
+            # from pageable host memory: the copy returns once the host
+            # buffer has been read, so dropping the entry below is safe
+            kv = torch.from_numpy(entry.kv).to(self.pool.device)
+            self.pool[:, block] = kv.view(self.pool.dtype)
+        except Exception as e:
+            self.allocator.free([block])
+            self._spill.pop(entry.key, None)
+            self.promote_errors += 1
+            pm.promote_errors.inc()
+            self._sync_spill_gauges(pm)
+            telemetry.record_event("kv.promote", ok=False,
+                                   error=f"{type(e).__name__}: {e}")
+            return None
+        finally:
+            self.promote_s += time.monotonic() - t0
+        self._spill.pop(entry.key, None)
+        self._index[entry.key] = block
+        self._block_key[block] = entry.key
+        self._block_hash[block] = entry.hash
+        self.allocator.release([block])          # rc 1 -> 0: parked cached
+        self._lru_park(block)
+        self.promotes += 1
+        pm.promotes.inc()
+        pm.cached.set(self.allocator.num_cached)
+        self._sync_spill_gauges(pm)
+        telemetry.record_event("kv.promote", ok=True, block=block,
+                               spilled=len(self._spill))
+        return block
+
     def _alloc_evict(self, n: int):
-        """Allocate ``n`` fresh blocks, evicting LRU cached prefixes on
-        demand — what makes cached blocks *effectively* free."""
+        """Allocate ``n`` fresh blocks, evicting (demoting) cached prefixes
+        on demand — what makes cached blocks *effectively* free."""
         if n <= 0:
             return []
         out = self.allocator.alloc(n)
-        while out is None and self._evict_one() is not None:
+        while out is None and self._lru:
+            if self._evict_one() is None:    # every LRU entry pinned
+                break
             out = self.allocator.alloc(n)
         return out
 
     # -- sequence lifecycle ------------------------------------------------
-    def allocate(self, seq_id, num_tokens: int, tokens=None) -> bool:
+    def allocate(self, seq_id, num_tokens: int, tokens=None,
+                 tenant: str | None = None) -> bool:
         """Give ``seq_id`` a table covering ``num_tokens`` tokens. With the
         prefix cache on and the token ids supplied, the longest cached
-        prefix is mapped in as shared blocks and only the tail is freshly
-        allocated; ``seq_cached_tokens[seq_id]`` records the hit."""
+        prefix (device, then spill tier) is mapped in as shared blocks and
+        only the tail is freshly allocated; ``seq_cached_tokens[seq_id]``
+        records the hit. ``tenant`` owns the blocks it later parks."""
         if seq_id in self.tables:
             raise ValueError(f"sequence {seq_id!r} already has a table")
-        matched, hashes = ([], [])
-        if self.prefix_cache and tokens is not None:
-            matched, hashes = self.match_prefix(tokens)
-        if matched:
-            self.allocator.share(matched)
-            for b in matched:
-                self._lru.pop(b, None)
-        tail = self._alloc_evict(self.blocks_for(num_tokens) - len(matched))
-        if tail is None:
-            if matched:   # roll back; registered blocks park in the LRU
-                for b in self.allocator.release(matched):
-                    self._lru[b] = None
-                _prefix_metrics().cached.set(self.allocator.num_cached)
-            return False
+        matched: list[int] = []
+        hashes: list[str] = []
+        self._park_tenant = tenant
+        try:
+            if self.prefix_cache and tokens is not None:
+                matched, hashes = self.match_prefix(tokens)
+            if matched:
+                self.allocator.share(matched)
+                for b in matched:
+                    self._lru_unpark(b)
+            tail = self._alloc_evict(self.blocks_for(num_tokens)
+                                     - len(matched))
+            if tail is None:
+                if matched:   # roll back; registered blocks park again
+                    for b in self.allocator.release(matched):
+                        self._lru_park(b, tenant)
+                    _prefix_metrics().cached.set(self.allocator.num_cached)
+                return False
+        finally:
+            self._park_tenant = None
         self.tables[seq_id] = matched + tail
         self._seq_hashes[seq_id] = list(hashes)
+        if tenant is not None:
+            self._seq_tenant[seq_id] = str(tenant)
         cached_tokens = len(matched) * self.block_size
         self.seq_cached_tokens[seq_id] = cached_tokens
         if self.prefix_cache and tokens is not None:
@@ -458,9 +785,24 @@ class PagedKVCache:
                                dst=new_block)
         return True
 
+    def fork(self, parent_id, child_id) -> None:
+        """Give ``child_id`` a table sharing every one of ``parent_id``'s
+        blocks (rc + 1 each): parallel sampling / best-of-n. The first
+        divergent write on either side goes through copy-on-write."""
+        if child_id in self.tables:
+            raise ValueError(f"sequence {child_id!r} already has a table")
+        table = self._table(parent_id)
+        self.allocator.share(table)
+        self.tables[child_id] = list(table)
+        self._seq_hashes[child_id] = list(self._seq_hashes.get(parent_id, []))
+        self.seq_cached_tokens[child_id] = 0
+        if parent_id in self._seq_tenant:
+            self._seq_tenant[child_id] = self._seq_tenant[parent_id]
+
     def free_seq(self, seq_id):
         """Drop ``seq_id``'s references. Indexed blocks reaching rc == 0
-        park in the LRU instead of the free list."""
+        park in the LRU (owned by the sequence's tenant) instead of the
+        free list."""
         if seq_id not in self.tables:
             raise ValueError(
                 f"unknown sequence {seq_id!r}: no block table (never "
@@ -468,13 +810,14 @@ class PagedKVCache:
         table = self.tables.pop(seq_id)
         self._seq_hashes.pop(seq_id, None)
         self.seq_cached_tokens.pop(seq_id, None)
+        tenant = self._seq_tenant.pop(seq_id, None)
         plain = [b for b in table if b not in self._block_key]
         registered = [b for b in table if b in self._block_key]
         if plain:
             self.allocator.free(plain)
         if registered:
             for b in self.allocator.release(registered):
-                self._lru[b] = None              # newest end of the LRU
+                self._lru_park(b, tenant)        # newest end of the LRU
             _prefix_metrics().cached.set(self.allocator.num_cached)
 
     def utilization(self) -> float:
@@ -494,6 +837,25 @@ class PagedKVCache:
             "stale_drops": self.stale_drops,
             "cached_blocks": self.allocator.num_cached,
             "indexed_blocks": len(self._block_key),
+            "tenants": {
+                t: {"cached_blocks": self._tenant_cached.get(t, 0),
+                    "quota": self._tenant_quota.get(t),
+                    "quota_evictions": self.quota_evictions.get(t, 0)}
+                for t in sorted(set(self._tenant_cached)
+                                | set(self._tenant_quota)
+                                | set(self.quota_evictions))},
+            "spill": {
+                "enabled": self.spill_blocks > 0,
+                "limit_blocks": self.spill_blocks,
+                "spilled_blocks": len(self._spill),
+                "spilled_bytes": self.spilled_bytes,
+                "spills": self.spills,
+                "spill_drops": self.spill_drops,
+                "spill_errors": self.spill_errors,
+                "promotes": self.promotes,
+                "promote_errors": self.promote_errors,
+                "promote_corrupt_drops": self.promote_corrupt_drops,
+            },
         }
 
     def table_array(self, seq_ids, max_blocks: int) -> np.ndarray:

@@ -441,7 +441,7 @@ class AlertEngine:
             return None
         try:
             return rule.exemplar_fn()
-        except Exception:  # exemplars are garnish; the page still goes out without one
+        except Exception:  # lint: allow-silent(exemplars are garnish; the page still goes out without one)
             return None
 
     def evaluate_once(self) -> list[dict]:
@@ -455,7 +455,7 @@ class AlertEngine:
         for rule in rules:
             try:
                 results = rule.evaluate_all(self.history, now)
-            except Exception:  # one bad rule must not stop the pager; next pass retries
+            except Exception:  # lint: allow-silent(one bad rule must not stop the pager; next pass retries)
                 continue
             for key, severity, active, value, info in results:
                 self._step(rule, key, severity, active, value, info,
@@ -533,7 +533,7 @@ class AlertEngine:
         while not self._stop.wait(self.interval_s):
             try:
                 self.evaluate_once()
-            except Exception:  # the evaluator must outlive any one bad pass; next tick retries
+            except Exception:  # lint: allow-silent(the evaluator must outlive any one bad pass; next tick retries)
                 pass
 
     def stop(self):

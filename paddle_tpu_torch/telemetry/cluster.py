@@ -149,7 +149,7 @@ def stack_snapshot() -> dict:
             label = f"{names.get(ident, 'thread')}-{ident}"
             out[label] = [ln.rstrip("\n")
                           for ln in traceback.format_stack(frame)]
-    except Exception:  # stack snapshot never raises; partial dump beats none
+    except Exception:  # lint: allow-silent(stack snapshot never raises; partial dump beats none)
         pass
     return out
 
@@ -236,7 +236,7 @@ class ClockResponder:
             while not self._stop.wait(self.poll_s):
                 try:
                     self.serve_once()
-                except Exception:  # transient store error; retry next tick
+                except Exception:  # lint: allow-silent(transient store error; retry next tick)
                     pass
         self._thread = threading.Thread(target=run, daemon=True,
                                         name="cluster-clock-responder")
@@ -337,7 +337,7 @@ class RankPublisher:
                 self.clock_estimate = estimate_clock_offset(
                     self.store, self.rank, probes=self.clock_probes,
                     clock=self._clock)
-            except Exception:  # no clock responder; offsets recorded as unknown
+            except Exception:  # lint: allow-silent(no clock responder; offsets recorded as unknown)
                 self.clock_estimate = None
         self.publish_once()
         install(self)
@@ -492,7 +492,7 @@ def trigger_postmortem(reason: str) -> str | None:
         return None
     try:
         return p.trigger_postmortem(reason)
-    except Exception:  # best-effort postmortem; None = no publisher installed
+    except Exception:  # lint: allow-silent(best-effort postmortem; None = no publisher installed)
         return None
 
 
@@ -563,7 +563,7 @@ class ClusterMonitor:
     def _read(self, rank: int, leaf: str):
         try:
             return _get_json(self.store, _k(rank, leaf))
-        except Exception:  # unreachable rank reads as absent; staleness is surfaced upstream
+        except Exception:  # lint: allow-silent(unreachable rank reads as absent; staleness is surfaced upstream)
             return None
 
     def offset(self, rank: int) -> float:
@@ -892,7 +892,7 @@ class ClusterAggregator:
                         r for r, p in payloads.items() if p.get("pyprof")),
                 }, f, indent=1)
             return bundle
-        except Exception:  # aggregation is best-effort; None = bundle unavailable
+        except Exception:  # lint: allow-silent(aggregation is best-effort; None = bundle unavailable)
             return None
 
 

@@ -64,7 +64,7 @@ def _gather_context() -> dict:
     for name, fn in sorted(_CONTEXT_PROVIDERS.items()):
         try:
             out[name] = fn()
-        except Exception as e:  # a broken provider must not kill the postmortem; marker says which one
+        except Exception as e:  # lint: allow-silent(a broken provider must not kill the postmortem; marker says which one)
             out[name] = {"error": f"{type(e).__name__}: {e}"}
     return out
 
@@ -145,7 +145,7 @@ class FlightRecorder:
             self.num_dumps += 1
             self.last_dump_path = path
             return path
-        except Exception:  # dump is best-effort; None tells the caller it failed
+        except Exception:  # lint: allow-silent(dump is best-effort; None tells the caller it failed)
             return None
 
 

@@ -373,7 +373,7 @@ class TimeSeriesStore:
                 continue
             try:
                 self.sample_once()
-            except Exception:  # the sampler must outlive any one bad snapshot; next tick retries
+            except Exception:  # lint: allow-silent(the sampler must outlive any one bad snapshot; next tick retries)
                 pass
 
     def stop(self):

@@ -802,7 +802,7 @@ def run_meta() -> dict:
         meta["git_sha"] = subprocess.run(
             ["git", "rev-parse", "--short", "HEAD"], cwd=repo, timeout=5,
             capture_output=True, text=True).stdout.strip() or None
-    except Exception:  # absence is recorded as None in the report
+    except Exception:  # lint: allow-silent(absence is recorded as None in the report)
         meta["git_sha"] = None
     return meta
 

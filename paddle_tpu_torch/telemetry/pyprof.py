@@ -156,7 +156,7 @@ class SamplingProfiler:
                 continue
             try:
                 self.sample_once()
-            except Exception:  # the profiler must outlive any one bad tick; next tick retries
+            except Exception:  # lint: allow-silent(the profiler must outlive any one bad tick; next tick retries)
                 pass
 
     def stop(self):

@@ -52,7 +52,7 @@ def epoch_unix() -> float:
     module-load monotonic epoch). Cross-rank trace merge
     (:func:`telemetry.cluster.merge_traces`) uses this plus a per-rank
     clock offset to place every rank's events on one shared timeline."""
-    # this IS the wall<->mono offset computation
+    # lint: allow-wallclock(this IS the wall<->mono offset computation)
     return time.time() - (time.monotonic() - _EPOCH)
 
 
@@ -224,7 +224,7 @@ class _SpanCtx:
 
                 self._ann = record_function(self.name)
                 self._ann.__enter__()
-            except Exception:  # never let telemetry break the caller
+            except Exception:  # lint: allow-silent(never let telemetry break the caller)
                 self._ann = None
         self.t0 = time.monotonic()
         return self

@@ -304,7 +304,7 @@ def _emit_telemetry(site: str, kind: str, hit: int, ctx: dict):
         telemetry.record_event("fault.injected", site=site, fault=kind,
                                hit=hit, **safe_ctx)
     except Exception:
-        pass  # telemetry must never alter fault semantics
+        pass  # lint: allow-silent(telemetry must never alter fault semantics)
 
 
 _ACTIVE: FaultPlan | None = None
@@ -335,7 +335,7 @@ def active_plan() -> FaultPlan | None:
     try:
         from ..framework.flags import flag_value
         text = flag_value("FLAGS_fault_plan")
-    except Exception:
+    except Exception:  # lint: allow-silent(flags registry not imported yet: no plan armed)
         return None
     if not text:
         return None

@@ -8,8 +8,8 @@ and greedy decoding:
 - fault plans (``serving.prefill:error@2``, ``serving.kv.alloc:exhaust``,
   allocator exhaustion into the stall detector, ``serving.decode.slot``,
   ``serving.compile``) leave the requests in the reference's states;
-- ``stats()`` has the reference's ``STATS_KEYS`` less ``"tenancy"`` (a later
-  slice) and keeps its shape with telemetry disabled;
+- ``stats()`` has the reference's ``STATS_KEYS`` and keeps its shape with
+  telemetry disabled;
 - the roofline cost model: serving counts nothing; the first ``stats()``
   counts each step signature shape-only, and the engine's prefill and
   decode ``matmul_flops`` equal the reference's ``jaxpr_cost`` exactly
@@ -18,9 +18,6 @@ and greedy decoding:
   sampling parameters the reference's jitted step takes as device inputs
   (the port samples from host lists), and the decode estimate equals a
   count of the engine's own decode step.
-
-The families the reference registers for features of later slices (the KV
-watermarks' ``serving_kv_pressure*``) are left out of the comparison.
 """
 import numpy as np
 import pytest
@@ -45,7 +42,6 @@ from paddle_tpu_torch.utils import faults as t_faults
 torch.set_num_threads(1)
 CFG = dict(vocab=61, hidden=32, layers=2, heads=4, kv_heads=2, inter=64,
            seq=64)
-LATER = ("serving_kv_pressure",)         # KV watermarks: a later slice
 FAMILIES = ("serving_", "kv_prefix_", "slo_")
 
 
@@ -78,13 +74,13 @@ def _engines(models, **kw):
 def _families(tel):
     return {m.name: (m.kind, m.label_names)
             for m in tel.registry().metrics()
-            if m.name.startswith(FAMILIES) and not m.name.startswith(LATER)}
+            if m.name.startswith(FAMILIES)}
 
 
 def _series(tel, label):
     out = {}
     for m in tel.registry().metrics():
-        if not m.name.startswith("serving_") or m.name.startswith(LATER):
+        if not m.name.startswith("serving_"):
             continue
         for labels, ch in m.series():
             if labels.get("engine") != label:
@@ -232,7 +228,7 @@ def test_watchdog_and_stats_keys(models):
     _serve(je, JSamplingParams, _prompts()[:2], max_new=4)
     _serve(te, SamplingParams, _prompts()[:2], max_new=4)
     st, jst = te.stats(), je.stats()
-    assert STATS_KEYS == J_STATS_KEYS - {"tenancy"} == set(st)
+    assert STATS_KEYS == J_STATS_KEYS == set(st)
     assert st["watchdog_trips"] == jst["watchdog_trips"] > 0
     assert st["decode_traces"] == 1
     assert st["prefill_traces"] == jst["prefill_traces"]
