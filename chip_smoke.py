@@ -97,7 +97,15 @@ CUDA toolkit (``nvcc``). It imports nothing of JAX or of ``paddle_tpu``.
    device events and the ``engine.decode`` host annotations in the trace;
    ``[faults]`` serves 3 requests under ``serving.prefill:error@2``:
    request 2 FAILED with its ``FaultError``, the others the tokens of an
-   unfaulted run, a flight dump naming the fault.
+   unfaulted run, a flight dump naming the fault. ``[serving fleet]``
+   then serves the same model as two replicas behind the port's HTTP
+   gateway (``serving_fleet_phase``): one in this process, one a child
+   process that builds the same seeded 7B model; a KV-fabric directory in
+   the port's TCPStore, a prefix migrated between the replicas, the child
+   SIGKILLed mid-stream and restarted, an idempotent replay; every stream
+   equals a fleet-free engine's (or parts at a bf16 near-tie), and the
+   in-process replica's paged-attention and RMSNorm launches equal its
+   engine's steps times the model's structure.
 5. Whole-step check: one ``LlamaPipelineTrainer`` forward and backward
    on a narrow model with the 7B head (hidden 512, 4 heads of 128,
    2 layers, vocab 32000, batch 2 x 512) in bf16 on the card, against the
@@ -506,6 +514,7 @@ import math
 import os
 import subprocess
 import sys
+import threading
 import time
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
@@ -3366,6 +3375,438 @@ def faults_phase(torch, model):
           f"the unfaulted run's tokens; the flight dump ({doc['num_events']} "
           f"events) names fault.injected at serving.prefill hit "
           f"{fired[0]['hit']}")
+
+
+FLEET_ENGINE = dict(block_size=16, max_slots=4, max_model_len=1024)
+FLEET_NEW = 16            # tokens each [serving fleet] request asks for
+FLEET_FETCH_FRAMES = 4    # 7B blocks one migration moves (8 MiB each)
+
+
+def _sse_request(port, body, headers, timeout=300):
+    """POST one streamed completion; returns the status, the raw body
+    lines, the tokens, each token event's host time and the finish
+    reason."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    t0 = time.monotonic()
+    conn.request("POST", "/v1/completions", json.dumps(body),
+                 {"Content-Type": "application/json", **headers})
+    resp = conn.getresponse()
+    out = {"status": resp.status, "t0": t0, "lines": [], "tokens": [],
+           "times": [], "finish": None, "error": None}
+    try:
+        while True:
+            line = resp.readline()
+            if not line:
+                break
+            out["lines"].append(line)
+            text = line.decode().strip()
+            if text == "data: [DONE]":
+                break
+            if not text.startswith("data: "):
+                continue
+            doc = json.loads(text[6:])
+            ch = doc["choices"][0]
+            got = ch.get("token_ids") or []
+            out["tokens"] += got
+            out["times"] += [time.monotonic()] * len(got)
+            out["finish"] = ch.get("finish_reason") or out["finish"]
+            if doc.get("error"):
+                out["error"] = doc["error"]["message"]
+    finally:
+        conn.close()
+    return out
+
+
+def _parting_gaps(torch, model, prompt, a, b, sp):
+    """Where the streams ``a`` and ``b`` of ``prompt`` part, and each
+    side's gap to the best score of the no-cache forward's row there:
+    for greedy sampling the logit gap to the row max; for seeded sampling
+    the Gumbel-perturbed score's gap (the draw the engines make,
+    ``nn.decode.sample_logits``), times the temperature so that both are
+    in logit units (both within TF_TOL: a bf16 near-tie)."""
+    from paddle_tpu_torch.nn.decode import _uniform
+
+    d = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+    with torch.inference_mode():
+        ids = torch.tensor([prompt + a[:d]], device=model.device)
+        row = model(ids)[0, -1].float()
+    if sp["temperature"] > 0:
+        u = _uniform(row.shape[0], sp["seed"], d, row.device)
+        row = row - sp["temperature"] * torch.log(-torch.log(u))
+    top = row.max()
+    return d, (top - row[a[d]]).item(), (top - row[b[d]]).item()
+
+
+def serving_fleet_phase(torch, K, model):
+    """[serving fleet]: the port's serving front door on the card. Two
+    Llama-2-7B replicas (FLEET_ENGINE: bf16, block 16, 4 slots, 1024
+    tokens): ``r0`` a ``LocalReplica`` whose engine runs over the [serving]
+    phase's model in this process (its kernel launches are counted here),
+    ``r1`` a ``ProcReplica`` whose child (``python -m
+    paddle_tpu_torch.serving.replica_worker``) builds the same seeded
+    model on the card. Both publish their prefixes to the KV fabric's
+    directory in the port's TCPStore; a ``FleetRouter(kv_fabric=...)``
+    places and migrates; the port's ``Gateway`` (journaled) serves them
+    on 127.0.0.1. Twelve streamed HTTP requests of FLEET_NEW tokens (half
+    share a 256-token prefix; greedy and seeded): one shared-prefix
+    request first; then three requests whose prefix affinity names the
+    prefix's holder, so that the next shared-prefix request is placed on
+    the other replica and pulls FLEET_FETCH_FRAMES blocks of the prefix
+    over the fabric; ``r1`` is SIGKILLed once one of its requests has
+    streamed 3 tokens, the request fails over to ``r0`` (replay and
+    suppress), ``r1`` restarts, and the other requests follow; one
+    ``Idempotency-Key`` request is sent again and must replay byte for
+    byte. Every request ends with FLEET_NEW tokens equal to a fleet-free
+    ``LLMEngine``'s on the same model, or parts from them only where both
+    tokens lie within TF_TOL of the row's best score (a bf16 near-tie;
+    a ``replay_mismatch`` there is accepted too). The router counted a
+    failover, at least 3 suppressed tokens and migrated blocks with no
+    corrupt frame; r0's paged-attention and RMSNorm launches equal 32 a
+    decode step and 65 a forward of the steps its engine ran. Prints
+    TTFT, decode tokens/s through the gateway, the failover latency, the
+    host ms a migrated block costs, r1's start and restart seconds and
+    the phase's seconds; returns r0's launches."""
+    import shutil
+
+    from paddle_tpu_torch.distributed import TCPStore
+    from paddle_tpu_torch.serving import (FleetRouter, Gateway, LLMEngine,
+                                          LocalReplica, ProcReplica,
+                                          ReplicaState, SamplingParams)
+    from paddle_tpu_torch.serving import kv_fabric
+
+    t_phase = time.monotonic()
+    L = model.config.num_hidden_layers
+    rng = torch.Generator().manual_seed(22)
+
+    def toks(n):
+        return torch.randint(0, 32000, (n,), generator=rng).tolist()
+
+    shared = toks(256)
+    greedy = {"temperature": 0.0}
+    # a mix of greedy and seeded top-p requests; the even ones share the
+    # prefix
+    plan = []
+    for i, n in enumerate((40, 120, 17, 300, 60, 33, 90, 500, 25, 64, 150,
+                           8)):
+        prompt = shared + toks(n) if i % 2 == 0 else toks(n + 100)
+        sp = (dict(greedy) if i % 3 else
+              {"temperature": 0.8, "top_p": 0.9, "seed": 100 + i})
+        plan.append((prompt, sp))
+
+    # the fleet-free reference streams, on this thread, before the fleet
+    ref_eng = LLMEngine(model, **FLEET_ENGINE)
+    ref_reqs = [ref_eng.add_request(p, SamplingParams(
+        max_new_tokens=FLEET_NEW, **sp)) for p, sp in plan]
+    ref_eng.run()
+    ref = [r.output_tokens for r in ref_reqs]
+    ref_eng.close()
+    del ref_eng, ref_reqs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "paddle_tpu_torch", "csrc", "build", "fleet")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    store = TCPStore(is_master=True)
+    endpoint = f"127.0.0.1:{store.port}"
+    fabric = {"store": endpoint, "lease_s": 30.0}
+    engines = []
+
+    def factory():
+        eng = LLMEngine(model, **FLEET_ENGINE)
+        engines.append(eng)
+        return eng
+
+    warmup = toks(20)
+    r0 = LocalReplica("r0", factory, stats_interval_s=0.05, warmup=warmup,
+                      fabric=fabric)
+    spec = {"seed": 0, "llama_7b": {"layers": L, "dtype": "bfloat16"},
+            "engine": FLEET_ENGINE, "stats_interval_s": 0.05,
+            "warmup": warmup, "fabric": dict(fabric)}
+    r1 = ProcReplica("r1", spec, log_path=os.path.join(work, "r1.log"))
+    router = FleetRouter(
+        [r0, r1], probe_interval_s=0.1, probe_timeout_s=120.0,
+        affinity_block_size=FLEET_ENGINE["block_size"], max_retries=1,
+        kv_fabric={"store": endpoint, "lease_s": 30.0,
+                   "fetch_timeout_s": 120.0,
+                   "max_fetch_frames": FLEET_FETCH_FRAMES,
+                   "max_fetch_bytes": 64 << 20, "cache_ttl_s": 0.0})
+    # the migrations' host seconds (donor export, frames through the
+    # pipe, the ingest command handed on) and the receivers' ingest
+    # replies, seen where the router takes them
+    mig_s, ingested = [], []
+    migrate, on_event = router._migrate, router._on_event
+
+    def timed_migrate(*a):
+        t = time.monotonic()
+        try:
+            return migrate(*a)
+        finally:
+            mig_s.append(time.monotonic() - t)
+
+    def watched(rep, ev):
+        if ev.get("ev") == "kv_ingested":
+            ingested.append((rep.rid, dict(ev)))
+        return on_event(rep, ev)
+
+    router._migrate, router._on_event = timed_migrate, watched
+    gw = None
+    try:
+        t0 = time.monotonic()
+        router.start()
+
+        def wait_healthy(rep, what, limit=300.0):
+            deadline = time.monotonic() + limit
+            while rep.state is not ReplicaState.HEALTHY:
+                if time.monotonic() > deadline or \
+                        rep.state is ReplicaState.UNHEALTHY:
+                    log = open(os.path.join(work, "r1.log")).read()[-3000:]
+                    raise AssertionError(f"{what}: {rep.rid} is "
+                                         f"{rep.state.value}; r1 log: {log}")
+                time.sleep(0.02)
+            return time.monotonic()
+
+        t_r0 = wait_healthy(r0, "start") - t0
+        t_r1 = wait_healthy(r1, "start") - t0
+        gw = Gateway(router, journal_dir=os.path.join(work, "journal"),
+                     journal_watermark_every=4).start()
+        [eng0] = engines
+        d0 = eng0.steps_run.get(("decode", "decode"), 0)
+        p0 = eng0.prefill_calls
+        K.reset_launch_counts()
+        t_traffic = time.monotonic()
+        results = {}
+
+        def send(i, headers=None):
+            prompt, sp = plan[i]
+            body = {"prompt": prompt, "max_tokens": FLEET_NEW,
+                    "stream": True, **sp}
+
+            def run():
+                try:
+                    results[i] = _sse_request(gw.port, body, headers or {})
+                except Exception as e:  # lint: allow-silent(the error is the request's result, checked below)
+                    results[i] = {"status": None, "tokens": [],
+                                  "error": f"{type(e).__name__}: {e}"}
+            th = threading.Thread(target=run, name=f"fleet-client-{i}",
+                                  daemon=True)
+            th.start()
+            return th
+
+        def rr_of(i):
+            for gid in range(64):
+                rr = router.find_request(gid)
+                if rr is not None and rr.prompt == plan[i][0]:
+                    return rr
+            return None
+
+        def wait_dispatched(i, limit=120.0):
+            deadline = time.monotonic() + limit
+            while time.monotonic() < deadline:
+                rr = rr_of(i)
+                if rr is not None and rr.replica is not None:
+                    return rr
+                time.sleep(0.005)
+            raise AssertionError(f"request {i} was never dispatched")
+
+        # 1. the prefix lands on one replica and in the directory
+        threads = {0: send(0)}
+        threads[0].join(300)
+        holder = rr_of(0).replica
+        hashes = kv_fabric.chain_hashes(plan[2][0],
+                                        FLEET_ENGINE["block_size"])
+        deadline = time.monotonic() + 60
+        while router._fabric.dir.lookup(hashes).get(holder, 0) < 16:
+            if time.monotonic() > deadline:
+                raise AssertionError(f"the directory never showed {holder} "
+                                     f"holding the prefix")
+            time.sleep(0.02)
+        other = "r1" if holder == "r0" else "r0"
+        # 2. load the holder through prefix affinity, then a shared-prefix
+        #    request lands on the other replica and migrates the prefix
+        picks = [i for i in (1, 3, 5, 7, 9, 11)
+                 if router._order[router._affinity_key(plan[i][0])
+                                  % 2] == holder][:3]
+        if len(picks) < 3:
+            raise AssertionError(f"only {picks} of the unshared prompts "
+                                 f"prefer {holder}")
+        for i in picks:
+            threads[i] = send(i)
+            wait_dispatched(i)
+        threads[2] = send(2, {"Idempotency-Key": "fleet-idem-2"})
+        rr2 = wait_dispatched(2)
+        st = router.stats()
+        if rr2.replica != other or st["migrations"] < 1:
+            raise AssertionError(f"the second shared-prefix request went "
+                                 f"to {rr2.replica} with "
+                                 f"{st['migrations']} migrations")
+        # 3. SIGKILL r1 once one of its requests streamed 3 tokens
+        deadline = time.monotonic() + 120
+        victim = None
+        while victim is None:
+            for i in list(threads):
+                rr = rr_of(i)
+                if rr is not None and rr.replica == "r1" and \
+                        not rr.terminal and len(rr.tokens) >= 3:
+                    victim = (i, rr, len(rr.tokens))
+                    break
+            if time.monotonic() > deadline:
+                raise AssertionError("no r1 request streamed 3 tokens")
+            time.sleep(0.002)
+        t_kill = time.monotonic()
+        r1.kill()
+        pid1 = r1.pid
+        deadline = time.monotonic() + 60
+        while r1.state is not ReplicaState.UNHEALTHY:
+            if time.monotonic() > deadline:
+                raise AssertionError("the router never saw r1 die")
+            time.sleep(0.005)
+        # the tokens r1 had streamed when the router took it for dead:
+        # the next one comes from the failover
+        victim = (victim[0], victim[1], len(victim[1].tokens))
+        t_re = time.monotonic()
+        router.restart("r1")
+        t_restart = wait_healthy(r1, "restart") - t_re
+        if r1.pid == pid1:
+            raise AssertionError("r1 restarted in the same process")
+        # 4. the rest of the traffic
+        for i in range(len(plan)):
+            if i not in threads:
+                threads[i] = send(i)
+        for th in threads.values():
+            th.join(300)
+        wall = time.monotonic() - t_traffic
+        launches = K.launch_counts()
+        d_steps = eng0.steps_run.get(("decode", "decode"), 0) - d0
+        p_steps = eng0.prefill_calls - p0
+        # 5. the idempotent retry replays byte for byte
+        again = _sse_request(gw.port, {"prompt": plan[2][0],
+                                       "max_tokens": FLEET_NEW,
+                                       "stream": True, **plan[2][1]},
+                             {"Idempotency-Key": "fleet-idem-2"})
+        if again["lines"] != results[2]["lines"]:
+            raise AssertionError("the Idempotency-Key retry did not replay "
+                                 "the stream byte for byte")
+        st = router.stats()
+        fab0 = eng0.cache.prefix_stats()["fabric"]
+        promote_ms = eng0.cache.promote_s * 1e3
+    finally:
+        if gw is not None:
+            gw.stop()
+        router.close()
+        if r1.proc is not None and r1.alive:
+            r1.proc.kill()
+            r1.proc.wait(30)
+        store.close()
+
+    # the streams against the fleet-free engine's
+    parted = []
+    for i, (prompt, sp) in enumerate(plan):
+        res = results.get(i) or {}
+        rr = rr_of(i)
+        if res.get("status") != 200:
+            raise AssertionError(f"request {i}: HTTP {res.get('status')} "
+                                 f"{res.get('error')}")
+        got = res["tokens"]
+        mismatch = rr is not None and rr.finish_reason == "replay_mismatch"
+        if got == ref[i] and not mismatch:
+            if res["finish"] != "length" or len(got) != FLEET_NEW:
+                raise AssertionError(f"request {i}: {len(got)} tokens, "
+                                     f"finish {res['finish']}")
+            continue
+        if got == ref[i][:len(got)] and mismatch:
+            # the replay parted from the streamed tokens: where?
+            a, b = rr.tokens, ref[i]
+        else:
+            a, b = got, ref[i]
+        if a == b[:len(a)]:
+            raise AssertionError(f"request {i}: {len(got)} tokens, finish "
+                                 f"{res['finish']} ({res.get('error')})")
+        d, ga, gb = _parting_gaps(torch, model, prompt, a, b, sp)
+        parted.append((i, d, ga, gb, res["finish"]))
+        if max(ga, gb) > TF_TOL:
+            raise AssertionError(
+                f"request {i} parts from the fleet-free stream at token {d} "
+                f"with gaps {ga:.4f} / {gb:.4f} (limit {TF_TOL}): not a "
+                f"bf16 near-tie")
+        if not mismatch and (res["finish"] != "length"
+                             or len(got) != FLEET_NEW):
+            raise AssertionError(f"request {i}: {len(got)} tokens, finish "
+                                 f"{res['finish']}")
+    if st["failovers"] < 1 or st["replay_suppressed"] < 3:
+        raise AssertionError(f"failovers {st['failovers']}, suppressed "
+                             f"{st['replay_suppressed']}")
+    landed = sum(ev.get("ingested") or 0 for _, ev in ingested)
+    spoiled = sum((ev.get("corrupt") or 0) + (ev.get("errors") or 0)
+                  for _, ev in ingested)
+    if st["migrated_blocks"] < 1 or landed < 1 or spoiled:
+        raise AssertionError(f"migrated blocks {st['migrated_blocks']}, "
+                             f"ingest replies {ingested}")
+    want = {"paged_attention": L * d_steps,
+            "rmsnorm": (2 * L + 1) * (d_steps + p_steps)}
+    for k, n in want.items():
+        if launches[k] != n:
+            raise AssertionError(f"r0 ran {d_steps} decode steps and "
+                                 f"{p_steps} prefills: {k} launched "
+                                 f"{launches[k]} times, want {n}")
+    ttft = [results[i]["times"][0] - results[i]["t0"] for i in results
+            if results[i]["times"]]
+    # decode rates from the router's stamps (the clients read their
+    # sockets in bursts): a stream's tokens after its first over its
+    # first-to-last span, and the fleet's over the union of those spans
+    spans = [(rr.first_token_time, rr.finish_time, len(rr.tokens))
+             for rr in (rr_of(i) for i in range(len(plan)))
+             if rr is not None and rr.first_token_time is not None
+             and rr.finish_time is not None]
+    rates = [(n - 1) / (t1 - t0) for t0, t1, n in spans if t1 > t0]
+    busy, reach = 0.0, -math.inf
+    for t0, t1, _ in sorted(spans):
+        busy += max(0.0, t1 - max(t0, reach))
+        reach = max(reach, t1)
+    decoded = sum(n - 1 for _, _, n in spans)
+    vi, vrr, vn = victim
+    after = [t for t in results[vi]["times"][vn:]]
+    fo_ms = (after[0] - t_kill) * 1e3 if after else float("nan")
+    print(f"[serving fleet] 2 Llama-2-7B replicas ({L} layers, bf16): r0 "
+          f"in this process over the [serving] model, r1 a child process; "
+          f"r0 healthy {t_r0:.1f} s, r1 {t_r1:.1f} s after start; "
+          f"{len(plan)} streamed requests x {FLEET_NEW} tokens through the "
+          f"gateway in {wall:.2f} s")
+    print(f"  TTFT mean {sum(ttft) / len(ttft) * 1e3:.1f} ms (max "
+          f"{max(ttft) * 1e3:.1f} ms) at the clients; decode "
+          f"{sum(rates) / len(rates):.1f} tokens/s a stream (mean; "
+          f"{min(rates):.1f}-{max(rates):.1f}), {decoded / busy:.1f} tokens/s "
+          f"over the fleet while streams ran ({busy:.2f} s of the "
+          f"{wall:.2f} s)")
+    print(f"  SIGKILL r1 (pid {pid1}) with request {vi} at {vn} tokens: "
+          f"failover latency {fo_ms:.1f} ms to its next client token; r1 "
+          f"restarted in {t_restart:.1f} s")
+    blocks = st["migrated_blocks"]
+    print(f"  fabric: {st['migrations']} migrations ({st['migration_failures']}"
+          f" failed), {blocks} blocks of "
+          f"{eng0.cache._block_nbytes >> 20} "
+          f"MiB, {landed} ingested, none corrupt; host "
+          f"{sum(mig_s) * 1e3 / max(blocks, 1):.1f} ms a migrated block "
+          f"(donor copy, frames through the pipe, ingest handed on; "
+          f"{len(mig_s)} migrations took {[round(x * 1e3, 1) for x in mig_s]}"
+          f" ms); r0's promotions {promote_ms:.1f} ms in all; directory "
+          f"hits {st['directory_hits']}, placements "
+          f"{st['directory_placements']}; r0 fabric {fab0}")
+    print(f"  router: failovers {st['failovers']}, replay suppressed "
+          f"{st['replay_suppressed']}, mismatches "
+          f"{st['replay_mismatches']}, deaths {st['replica_deaths']}, "
+          f"restarts {st['replica_restarts']}; idempotent retry replayed "
+          f"{len(again['lines'])} lines byte for byte")
+    for i, d, ga, gb, fin in parted:
+        print(f"  request {i} parts from the fleet-free stream at token {d} "
+              f"(gaps {ga:.4f} / {gb:.4f}, a bf16 near-tie; finish {fin})")
+    print(f"  launches on r0 ({d_steps} decode steps, {p_steps} prefills): "
+          f"{ {k: launches[k] for k in want} }")
+    print(f"[serving fleet] {time.monotonic() - t_phase:.1f} s")
+    return launches
 
 
 def busy_ms(kernels):
@@ -7650,6 +8091,8 @@ def main() -> int:
     faults_phase(torch, model)
     print(f"[serving phases] profile, telemetry cost, profiler and faults "
           f"{time.monotonic() - t_new:.1f} s")
+    fleet = serving_fleet_phase(torch, K, model)
+    launches = {k: launches[k] + fleet[k] for k in launches}
     del model
     gc.collect()
     torch.cuda.empty_cache()

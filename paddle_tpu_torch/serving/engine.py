@@ -70,8 +70,12 @@ kernels' plain versions; sampling counted as greedy) when the roofline
 is read, never on the request path;
 ``serving_roofline_frac`` is published from that read on. Fault sites:
 ``serving.prefill``, ``serving.decode``, ``serving.decode.slot``,
-``serving.compile`` here, ``serving.admit`` in the scheduler and
-``serving.kv.*`` in the cache.
+``serving.compile`` and ``serving.kv.fetch`` here, ``serving.admit`` in
+the scheduler and the other ``serving.kv.*`` in the cache.
+
+KV fabric: ``export_kv_frames`` / ``ingest_kv_frames`` are the donor and
+receiver halves of a cross-replica block migration (``kv_fabric.py``),
+which the fleet router drives through its replicas.
 
 ``naive_generate`` is the uncached baseline (the full forward over the
 whole prefix at every step) that the engine must reproduce.
@@ -483,6 +487,48 @@ class LLMEngine:
                     raise req.error
                 return
             self.step()
+
+    # ------------------------------------------------------------------
+    # KV fabric (cross-replica block migration — serving/kv_fabric.py)
+    # ------------------------------------------------------------------
+    def export_kv_frames(self, hashes, *, max_frames: int | None = None,
+                         max_bytes: int | None = None) -> list[dict]:
+        """Donor half of a KV-block migration: serialize the longest
+        consecutive run of ``hashes`` (prefix chain-hashes) this engine's
+        cache holds, as CRC32-stamped wire frames. Fault site
+        ``serving.kv.fetch``: ``error`` raises (the fetch fails at the
+        router), ``delay`` sleeps (the router's fetch timeout fires),
+        ``stale`` answers empty (the directory entry aged out from under
+        the caller), ``corrupt`` bit-rots one frame after its stamp (the
+        receiver's CRC check must refuse it). Every kind degrades the
+        admitting side to local prefill — never wrong K/V. Call it on the
+        thread that steps this engine (it reads the pool)."""
+        from . import kv_fabric
+
+        hashes = list(hashes)
+        act = faults.inject("serving.kv.fetch", hashes=len(hashes),
+                            engine=self.engine_label)
+        if act == "stale":
+            telemetry.record_event("kv.fabric.export", stale=True,
+                                   engine=self.engine_label)
+            return []
+        frames = kv_fabric.export_frames(self.cache, hashes,
+                                         max_frames=max_frames,
+                                         max_bytes=max_bytes)
+        if act == "corrupt" and frames:
+            kv_fabric.corrupt_frame(frames[-1])
+        return frames
+
+    def ingest_kv_frames(self, frames) -> dict:
+        """Receiver half: CRC-verify and promote migrated frames into the
+        local prefix cache through the spill tier's promotion
+        (``PagedKVCache._promote`` re-verifies every stamp); a frame of
+        another dtype or block shape than this pool's is refused. Returns
+        the ``{"ingested", "corrupt", "errors"}`` counts; whatever did not
+        land verified simply prefills locally on admission."""
+        from . import kv_fabric
+
+        return kv_fabric.ingest_frames(self.cache, frames)
 
     def stats(self) -> dict:
         """Serving counters (:data:`STATS_KEYS`), read back from this

@@ -40,7 +40,9 @@ device LRU. Both copies synchronise the host with the card (a spill reads
 the block back; a promote writes it from pageable memory, so the host
 buffer may go as soon as the copy returns): ``spill_s`` / ``promote_s``
 sum the host seconds of the copies and their CRC32 passes. The cluster KV
-fabric is a later slice.
+fabric (``serving/kv_fabric.py``) exports blocks as frames of the same
+host copies and ingests them through the same promotion; its counts are
+``prefix_stats()["fabric"]``.
 
 Telemetry as in the reference: allocator traffic and prefix-cache moves
 land in the flight recorder (``kv.alloc`` / ``kv.share`` / ``kv.free`` /
@@ -350,6 +352,14 @@ class PagedKVCache:
         # host seconds of the spill tier's copies and CRC32 passes
         self.spill_s = 0.0
         self.promote_s = 0.0
+        # cross-replica KV fabric (serving/kv_fabric.py): donor-side
+        # exports and receiver-side ingests of serialized block frames
+        self.fabric_exports = 0
+        self.fabric_export_frames = 0
+        self.fabric_ingests = 0
+        self.fabric_ingested_blocks = 0
+        self.fabric_ingest_corrupt = 0
+        self.fabric_ingest_errors = 0
 
     def blocks_for(self, num_tokens: int) -> int:
         return -(-int(num_tokens) // self.block_size)
@@ -855,6 +865,14 @@ class PagedKVCache:
                 "promotes": self.promotes,
                 "promote_errors": self.promote_errors,
                 "promote_corrupt_drops": self.promote_corrupt_drops,
+            },
+            "fabric": {
+                "exports": self.fabric_exports,
+                "export_frames": self.fabric_export_frames,
+                "ingests": self.fabric_ingests,
+                "ingested_blocks": self.fabric_ingested_blocks,
+                "ingest_corrupt": self.fabric_ingest_corrupt,
+                "ingest_errors": self.fabric_ingest_errors,
             },
         }
 

@@ -1,7 +1,8 @@
 """Cluster observability plane: cross-rank telemetry over the TCPStore
 (counterpart of ``paddle_tpu/telemetry/cluster.py``). The ``store`` is
-duck-typed; the port's ``TCPStore`` arrives with ``distributed`` (ROADMAP
-Queue 1), so until then a caller passes its own store.
+duck-typed: the port's ``distributed.TCPStore`` or any object with its
+surface; :func:`start_from_env` dials a ``TCPStore`` at
+``$PADDLE_TELEMETRY_STORE`` when none is passed.
 
 Single-process telemetry (metrics registry, span tracer, flight recorder)
 answers "what is *this* process doing"; every multi-rank failure mode asks
@@ -509,10 +510,10 @@ def start_from_env(store=None, **kwargs) -> RankPublisher | None:
     world = int(os.environ.get("PADDLE_TPU_NUM_PROCESSES")
                 or os.environ.get("PADDLE_TRAINERS_NUM") or 1)
     if store is None:
-        raise NotImplementedError(
-            f"${STORE_ENV}={endpoint} asks for a telemetry publisher, but "
-            f"the port has no TCPStore yet (it comes with distributed): "
-            f"pass store= explicitly")
+        from ..distributed.tcp_store import TCPStore
+
+        host, _, port = endpoint.rpartition(":")
+        store = TCPStore(host or "127.0.0.1", int(port))
     return RankPublisher(store, rank, world, **kwargs).start()
 
 

@@ -641,8 +641,22 @@ def test_cluster_publish_and_aggregate_in_process():
 
 
 def test_start_from_env_needs_an_explicit_store(monkeypatch):
+    # no store passed: the endpoint in $PADDLE_TELEMETRY_STORE is dialled
+    # as a TCPStore, as the reference does (a live store:
+    # tests/test_torch_tcp_store.py); an unreachable one raises there
+    from paddle_tpu_torch.distributed import tcp_store
+
+    dialled = []
+
+    class Unreachable:
+        def __init__(self, host, port):
+            dialled.append((host, port))
+            raise tcp_store.StoreTimeout(f"could not reach {host}:{port}")
+
+    monkeypatch.setattr(tcp_store, "TCPStore", Unreachable)
     monkeypatch.setenv("PADDLE_TELEMETRY_STORE", "127.0.0.1:1")
-    with pytest.raises(NotImplementedError, match="store="):
+    with pytest.raises(tcp_store.StoreTimeout, match="127.0.0.1:1"):
         t_cluster.start_from_env()
+    assert dialled == [("127.0.0.1", 1)]
     monkeypatch.delenv("PADDLE_TELEMETRY_STORE")
     assert t_cluster.start_from_env() is None
