@@ -112,15 +112,19 @@ CUDA toolkit (``nvcc``). It imports nothing of JAX or of ``paddle_tpu``.
    same f32 masters in f32 on the CPU through the plain versions: the loss
    within STEP_LOSS_TOL, each parameter's gradient within STEP_GRAD_REL_L2
    relative L2 error. This holds the autograd wiring of every kernel.
-6. Training phase: the serving model freed, ``LlamaPipelineTrainer`` on
-   Llama-2-7B's widths at TRAIN_LAYERS layers (f32 masters, bf16 compute,
-   remat "dots", AdamW lr 1e-4 as ``bench.py`` trains) takes 1 warm-up
+6. Training phase: the serving model freed, the bench's configuration
+   (``init_parallel_env()`` over NCCL at a world of one,
+   ``build_mesh(degrees={"dp": 1})``, ``LlamaPipelineTrainer(cfg, mesh,
+   AdamW, n_micro=1, zero_stage=1)``) on Llama-2-7B's widths at
+   TRAIN_LAYERS layers (f32 masters, bf16 compute, remat "dots", AdamW lr
+   1e-4 as ``bench.py`` trains) takes 1 warm-up
    step and 5 timed steps on one seeded batch of 4 x 2048 tokens: every
    loss finite, the last below the first. Prints step wall time, tokens/s,
    MFU (``matmul_flops_per_token(2048)`` against 989 TFLOP/s), peak device
    memory, and a profile of one more step. The counters are zeroed just
    before the 5 steps and read just after; a training kernel never
-   launched there fails the run.
+   launched there fails the run, and so does a launch count a step other
+   than the one-device trainer's, or an NCCL kernel in the profiled step.
 7. Whole ERNIE step: ``ErnieForMaskedLM`` at hidden 256 (4 heads of 64,
    2 layers, vocab 40000, attention dropout 0.1, hidden dropout 0), batch
    2 x 512, one forward, backward and AdamW step (LinearWarmup, global-norm
@@ -452,7 +456,7 @@ CUDA toolkit (``nvcc``). It imports nothing of JAX or of ``paddle_tpu``.
 43. ``[eager ops]`` also runs the registry's other 184 ops
     (``ops.parity``, ``ops.detection``, fft's three, the activations,
     ``rnn``, the aliases; ``tools/eager_op_cases.py`` REGISTRY_CASES) on
-    the card against the CPU and requires ``op_coverage()`` 405 of 460.
+    the card against the CPU and requires ``op_coverage()`` 412 of 460.
 44. ``[op aliases]``: the six aliases that reach kernels (``flash_attn``,
     ``flash_attn_unpadded``, ``layer_norm``, ``cross_entropy_with_softmax``,
     ``warpctc``, ``warprnnt``) through ``OPS[name].fn`` at Llama's, row
@@ -469,6 +473,20 @@ CUDA toolkit (``nvcc``). It imports nothing of JAX or of ``paddle_tpu``.
     card against CPU. ``[containers]``: a TensorArray round trip on the
     card. ``[nan inf]``: ``FLAGS_check_nan_inf`` raises on ``log(-1)``
     with the op's name; off, no hook (``[densenet]`` ran so).
+48. ``[distributed]`` (after ``[training]``): two ranks started by the
+    port's ``spawn`` share the one card over gloo with CUDA tensors (the
+    machine has one card, and NCCL refuses two ranks on one device), at
+    Llama-2-7B's widths cut to DIST_LAYERS layers, ``[2, DIST_SEQ]``
+    tokens a rank: dp=2, mp=2 and pp=2 (1F1B, 4 micro-batches) each held
+    to a world-1 run of the same weights and batch (the loss within
+    STEP_LOSS_TOL relative, every gradient within STEP_GRAD_REL_L2
+    relative L2), a checkpoint saved at mp=2 and loaded bitwise at a
+    world of one, sep=2 ring attention at ``[1, 2 DIST_SEQ, 32, 128]``
+    bf16 causal against one-card flash over the whole sequence, and NCCL
+    tried on the two ranks. A case that gloo refuses (it cannot send a
+    CUDA tensor point to point) prints gloo's own error; a case that
+    fails otherwise, or disagrees, fails the run. Step times there are
+    host-staged gloo, not NVLink.
 
 Flash design: bf16 at every head width whose rows TMA reads (16-byte head
 rows, or the Conformer's 8-byte rows of 36 inside 16-byte token rows)
@@ -488,7 +506,8 @@ exponentials sets ``bound_ms`` (``bound_set_by``; exponentials count
 under "operations" in ``bound_by``).
 
 The ``launches`` of the JSON line sum the main path's runs: the engine,
-the no-cache forward, the 5 Llama training steps, the ERNIE steps, the
+the no-cache forward, the 5 Llama training steps, ``[distributed]``'s
+mesh runs on both ranks, the ERNIE steps, the
 Conformer-CTC and the RNN-T steps, the encoder steps, the
 ``F.flash_attn_unpadded`` call, the ``[op aliases]`` calls, the Whisper
 ``generate`` and its
@@ -512,6 +531,7 @@ import gc
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -577,6 +597,39 @@ STEP_GRAD_REL_L2 = 5e-2
 TRAIN_LAYERS = 8               # 7B widths; depth cut to fit one 80 GB card
 TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd", "rmsnorm",
                  "rmsnorm_bwd", "softmax_ce", "softmax_ce_bwd")
+
+
+def train_per_step(layers):
+    """Launches a Llama training step makes at remat "dots": each layer's
+    flash forward twice (forward, recompute) and backward once; two
+    RMSNorms a layer twice plus the final one, their backwards once; the
+    head's softmax-CE forward and backward (PERF.md section 6)."""
+    return {"flash_attention": 2 * layers, "flash_attention_bwd": layers,
+            "rmsnorm": 4 * layers + 1, "rmsnorm_bwd": 2 * layers + 1,
+            "softmax_ce": 1, "softmax_ce_bwd": 1}
+
+
+# [distributed]: two ranks share the one card over gloo at Llama-2-7B's
+# widths cut to DIST_LAYERS layers, [2, 2048] tokens a rank; a collective
+# that gloo leaves hanging raises after DIST_TIMEOUT_S
+DIST_LAYERS = 2
+DIST_SEQ = 2048
+DIST_TIMEOUT_S = 90.0
+DIST_JOIN_S = 300
+# in this order: the collectives first, then the point-to-point sends
+# (gloo may abort a rank on those), then NCCL's two ranks on one card
+DIST_CASES = ("dp", "mp", "mp_f32", "checkpoint", "pp", "sep",
+              "nccl_two_ranks_one_card")
+# mp_f32: mp=2 in f32 against a world-1 f32 run, to the tier-1 tests' f32
+# limits: with no bf16 rounding the gap is the reduction order's alone
+DIST_F32_LOSS_TOL, DIST_F32_GRAD_REL_L2 = 1e-5, 1e-4
+# the only refusals a case may end in: gloo's abort at the writev of a
+# CUDA pointer (pp's and the ring's sends), or its error that a device
+# type is unsupported; the other rank then sees its connection closed.
+# Any other error, inside torch.distributed or not, fails the phase.
+GLOO_REFUSAL = re.compile(r"pair\.cc:\d+\] writev \S+: Bad address"
+                          r"|unsupported device type")
+GLOO_PEER_CLOSED = re.compile(r"pair\.cc:\d+\] Connection closed by peer")
 # ERNIE slice. LayerNorm: f32 outputs differ from the plain version's by
 # summation order only (atol 1e-5 at |out| ~ 5); bf16 ones by one rounding
 # of the same f32 value, so by at most one bf16 step of the output's scale.
@@ -3895,10 +3948,11 @@ def whole_step_check(torch, K):
     cfg = train_config(2, 512, 4, 1376, 512)
     print("[whole step] hidden 512, 4 heads of 128, 2 layers, vocab 32000, "
           "batch 2 x 512: bf16 on the card vs f32 on the CPU")
-    card = LlamaPipelineTrainer(cfg, AdamW(learning_rate=1e-4),
-                                generator=torch.Generator(
+    card = LlamaPipelineTrainer(cfg, None, AdamW(learning_rate=1e-4),
+                                n_micro=1, generator=torch.Generator(
                                     device="cuda").manual_seed(1))
-    cpu = LlamaPipelineTrainer(cfg, AdamW(learning_rate=1e-4), device="cpu")
+    cpu = LlamaPipelineTrainer(cfg, None, AdamW(learning_rate=1e-4),
+                               n_micro=1, device="cpu")
     cpu.model.load_state_dict(
         {k: v.cpu() for k, v in card.model.state_dict().items()})
     rng = torch.Generator().manual_seed(3)
@@ -3947,20 +4001,30 @@ def kernel_share(kernels):
 
 
 def training_phase(torch, K):
-    """LlamaPipelineTrainer at Llama-2-7B's widths, TRAIN_LAYERS deep."""
+    """The bench's configuration: ``init_parallel_env()`` (NCCL, a world
+    of one), ``build_mesh(degrees={"dp": 1})`` and the mesh trainer at
+    Llama-2-7B's widths, TRAIN_LAYERS deep."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    import paddle_tpu_torch.distributed as dist
     from paddle_tpu_torch.models import LlamaPipelineTrainer
     from paddle_tpu_torch.optimizer import AdamW
 
     B, S = 4, 2048
     cfg = train_config(TRAIN_LAYERS, 4096, 32, 11008, S)
+    env = dist.init_parallel_env()
+    backend = torch.distributed.get_backend()
+    mesh = dist.build_mesh(degrees={"dp": 1})
     print(f"[training] Llama-2-7B widths, {TRAIN_LAYERS} layers, batch "
-          f"{B} x {S}, f32 masters, bf16 compute, remat dots, AdamW lr 1e-4")
+          f"{B} x {S}, f32 masters, bf16 compute, remat dots, AdamW lr 1e-4;"
+          f" init_parallel_env: {backend}, world {env.world_size}; "
+          f"build_mesh(dp=1) {dict(zip(mesh.mesh_dim_names, mesh.shape))}; "
+          f"n_micro 1, zero_stage 1")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
-    tr = LlamaPipelineTrainer(cfg, AdamW(learning_rate=1e-4), remat="dots",
+    tr = LlamaPipelineTrainer(cfg, mesh, AdamW(learning_rate=1e-4),
+                              n_micro=1, zero_stage=1, remat="dots",
                               generator=torch.Generator(
                                   device="cuda").manual_seed(0))
     torch.cuda.synchronize()
@@ -3991,6 +4055,12 @@ def training_phase(torch, K):
     if missing:
         raise AssertionError(f"the training steps never launched {missing}")
     all_sm90("the training steps", counts)
+    per_step = train_per_step(TRAIN_LAYERS)
+    wrong = {k: counts[k] for k, n in per_step.items() if counts[k] != 5 * n}
+    if wrong:
+        raise AssertionError(f"launches in 5 steps {wrong}, want 5 x "
+                             f"{per_step}")
+    print(f"  launches a step equal the one-device counts: {per_step}")
     step = sum(walls) / len(walls)
     tok_s = B * S / step
     flops = tr.matmul_flops_per_token(S)
@@ -4009,6 +4079,10 @@ def training_phase(torch, K):
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not kernels:
         raise AssertionError("the profiled training step traced no kernel")
+    nccl = [k.name for k in kernels if "nccl" in k.name.lower()]
+    print(f"  NCCL kernels in the profiled step: {len(nccl)}")
+    if nccl:
+        raise AssertionError(f"a world of one ran NCCL kernels: {nccl[:3]}")
     busy = busy_ms(kernels)
     # the step is device-bound (the host runs ahead), so its own wall under
     # the profiler, not the mean of other steps, is the base of the share
@@ -4035,7 +4109,399 @@ def training_phase(torch, K):
     t2 = time.monotonic()
     print(f"  one step split: forward + backward {(t1 - t0) * 1e3:.1f} ms, "
           f"AdamW update {(t2 - t1) * 1e3:.1f} ms")
+    del tr
+    dist.set_hybrid_communicate_group(None)
+    torch.distributed.destroy_process_group()
     return counts
+
+
+def _rel_l2(a, b):
+    a, b = a.detach().float(), b.detach().float()
+    return float((a - b).norm() / b.norm())
+
+
+def _gloo_case(name, fn):
+    """Run one [distributed] case on this rank: its result, or the error
+    that stopped it and where, and its seconds."""
+    import traceback
+
+    t0 = time.monotonic()
+    try:
+        res = {"ok": True, **fn()}
+    except Exception as e:  # lint: allow-silent(reported to the parent, which fails the phase unless gloo refused)
+        tb = traceback.extract_tb(e.__traceback__)
+        res = {"ok": False, "error": f"{type(e).__name__}: {e}"[:500],
+               "where": [f"{os.path.basename(f.filename)}:{f.lineno} "
+                         f"{f.name}" for f in tb[-6:]]}
+    res["seconds"] = round(time.monotonic() - t0, 2)
+    return res
+
+
+def _dist_file(root, rank, name):
+    return os.path.join(root, f"rank{rank}.{name}.json")
+
+
+def _dist_write(root, rank, name, obj):
+    path = _dist_file(root, rank, name)
+    with open(path + ".tmp", "w") as f:
+        json.dump(obj, f)
+    os.replace(path + ".tmp", path)
+
+
+def _dist_read(root, rank, name):
+    try:
+        with open(_dist_file(root, rank, name)) as f:
+            return json.load(f)
+    except FileNotFoundError:
+        return None
+
+
+def distributed_rank(root, names, layers, hidden, heads, inter, seq):
+    """One rank of ``[distributed]`` (started by the port's ``spawn``):
+    gloo with CUDA tensors, both ranks on the one card; a config of
+    ``layers`` x ``hidden`` (``heads`` heads, MLP ``inter``, vocab 32000)
+    and ``[2, seq]`` tokens a rank (``[1, 2 seq]`` for ring attention).
+
+    Runs the cases ``names`` in order and writes each one's result to
+    ``root`` as it ends: gloo aborts the process on a transfer it cannot
+    make (a CUDA pointer handed to ``writev``), so the parent reads what
+    the earlier cases left and quotes the abort from this rank's stderr,
+    which goes to ``root/rank<r>.err``."""
+    import torch
+
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch import kernels as K
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.framework.flags import set_flags
+    from paddle_tpu_torch.kernels.flash_attention import flash_attention_fwd
+    from paddle_tpu_torch.models import LlamaPipelineTrainer
+    from paddle_tpu_torch.optimizer import AdamW
+
+    r = int(os.environ["PADDLE_TRAINER_ID"])
+    sys.stderr.flush()
+    os.dup2(os.open(os.path.join(root, f"rank{r}.err"),
+                    os.O_WRONLY | os.O_CREAT | os.O_APPEND, 0o644), 2)
+    t0 = time.monotonic()
+    dist.init_parallel_env(backend="gloo")
+    set_flags({"FLAGS_collective_timeout_s": DIST_TIMEOUT_S})
+    dev = dist.parallel.env_device()
+    _dist_write(root, r, "init", {
+        "init_s": round(time.monotonic() - t0, 2), "device": str(dev),
+        "backend": torch.distributed.get_backend()})
+    cfg = train_config(layers, hidden, heads, inter, seq)
+    data = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randint(0, 32000, (4, seq), device=dev, generator=data)
+    y = torch.randint(0, 32000, (4, seq), device=dev, generator=data)
+    cfg_dtype = torch.bfloat16 if dev.type == "cuda" else torch.float32
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def free():
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+    def gen():
+        return torch.Generator(device=dev).manual_seed(0)
+
+    mesh_launches: dict = {}
+
+    @contextlib.contextmanager
+    def tally():
+        """Count the launches of the mesh runs (not of their world-1
+        references)."""
+        before = K.launch_counts()
+        try:
+            yield
+        finally:
+            for k, n in K.launch_counts().items():
+                mesh_launches[k] = mesh_launches.get(k, 0) + n - before[k]
+
+    refs: dict = {}
+
+    def reference(rows, dtype):
+        """The world-1 run (no mesh) of the same weights and the first
+        ``rows`` rows of the batch, computing in ``dtype``."""
+        if (rows, dtype) not in refs:
+            refs.clear()
+            free()
+            tr = LlamaPipelineTrainer(cfg, None, AdamW(learning_rate=1e-4),
+                                      n_micro=1, compute_dtype=dtype,
+                                      generator=gen())
+            loss = tr.loss_and_grads(x[:rows], y[:rows]).item()
+            refs[rows, dtype] = loss, {n: p.grad
+                                       for n, p in tr.named_parameters()}
+        return refs[rows, dtype]
+
+    def held(degrees, rows, n_micro=1, dtype=cfg_dtype, **kw):
+        def run():
+            ref = reference(rows, dtype)
+            mesh = dist.build_mesh(degrees=degrees)
+            tr = LlamaPipelineTrainer(cfg, mesh, AdamW(learning_rate=1e-4),
+                                      n_micro=n_micro, zero_stage=1,
+                                      compute_dtype=dtype, generator=gen(),
+                                      **kw)
+            sync()
+            t = time.monotonic()
+            with tally():
+                loss = tr.loss_and_grads(x[:rows], y[:rows]).item()
+            sync()
+            step_s = time.monotonic() - t
+            worst, worst_name = 0.0, None
+            for n, p in tr.named_parameters():
+                e = _rel_l2(p.grad, tr.shard_of(n, ref[1][n]))
+                if e > worst:
+                    worst, worst_name = e, n
+            return {"loss": loss, "ref_loss": ref[0],
+                    "loss_rel": abs(loss - ref[0]) / abs(ref[0]),
+                    "grad_rel_l2": worst, "worst": worst_name,
+                    "step_s": round(step_s, 3)}
+        return run
+
+    def sep():
+        from paddle_tpu_torch.distributed.mesh import (
+            HybridCommunicateGroup, set_hybrid_communicate_group)
+
+        refs.clear()
+        free()
+        set_hybrid_communicate_group(HybridCommunicateGroup(
+            None, dist.build_mesh(degrees={"sep": 2})))
+        g = torch.Generator(device=dev).manual_seed(2)
+        q, k, v, do = (torch.randn(1, 2 * seq, heads, hidden // heads,
+                                   device=dev, generator=g,
+                                   dtype=cfg_dtype)
+                       for _ in range(4))
+        blk = slice(r * seq, (r + 1) * seq)
+        want = [t.detach().requires_grad_() for t in (q, k, v)]
+        o_full, _ = flash_attention_fwd(*want, causal=True)
+        (o_full.float() * do.float()).sum().backward()
+        mine = [t[:, blk].detach().clone().requires_grad_() for t in (q, k, v)]
+        sync()
+        t = time.monotonic()
+        with tally():
+            o = dist.ring_attention(*mine, causal=True)
+            (o.float() * do[:, blk].float()).sum().backward()
+        sync()
+        res = {"step_s": round(time.monotonic() - t, 3),
+               "out_rel_l2": _rel_l2(o, o_full[:, blk])}
+        for name, a, b in zip(("dq", "dk", "dv"), mine, want):
+            res[f"{name}_rel_l2"] = _rel_l2(a.grad, b.grad[:, blk])
+        return res
+
+    def checkpoint():
+        refs.clear()
+        free()
+        mesh = dist.build_mesh(degrees={"mp": 2})
+        tr = LlamaPipelineTrainer(cfg, mesh, AdamW(learning_rate=1e-4),
+                                  n_micro=1, zero_stage=1, generator=gen())
+        with tally():
+            tr.step(x[:2], y[:2])
+        path = os.path.join(root, "ckpt_mp2")
+        t = time.monotonic()
+        tr.save_checkpoint(path)
+        save_s = time.monotonic() - t
+        one = LlamaPipelineTrainer(cfg, None, AdamW(learning_rate=1e-4),
+                                   n_micro=1, generator=gen())
+        t = time.monotonic()
+        _, extra = one.load_checkpoint(path)
+        load_s = time.monotonic() - t
+        worst = 0.0
+        loaded = dict(one.named_parameters())
+        for n, p in tr.named_parameters():
+            want = tr.shard_of(n, loaded[n].detach())
+            worst = max(worst, float((p.detach() - want).abs().max()))
+        return {"max_abs_diff": worst, "step_count": extra["step_count"],
+                "save_s": round(save_s, 2), "load_s": round(load_s, 2)}
+
+    def nccl():
+        set_flags({"FLAGS_collective_timeout_s": 30.0})
+        os.environ["NCCL_DEBUG"] = "WARN"   # its error then names the reason
+        pg = torch.distributed.new_group(backend="nccl")
+        t = torch.ones(1, device=dev)
+        C.all_reduce(t, group=C.Group(pg))
+        sync()
+        return {"sum": float(t.item())}
+
+    cases = {"dp": held({"dp": 2}, 4), "mp": held({"mp": 2}, 2),
+             "mp_f32": held({"mp": 2}, 2, dtype=torch.float32),
+             "checkpoint": checkpoint,
+             "pp": held({"pp": 2}, 4, n_micro=4, pp_schedule="1f1b"),
+             "sep": sep, "nccl_two_ranks_one_card": nccl}
+    for name in names:
+        print(f"[distributed] rank {r}: {name}", file=sys.stderr, flush=True)
+        mesh_launches.clear()
+        res = _gloo_case(name, cases[name])
+        res["launches"] = {k: n for k, n in mesh_launches.items() if n}
+        _dist_write(root, r, name, res)
+        free()
+
+
+def _dist_abort(root, rank, name):
+    """What this rank's stderr says after it began ``name``: the lines
+    naming the abort (C++ ``terminate``, an error), else its last lines."""
+    try:
+        with open(os.path.join(root, f"rank{rank}.err")) as f:
+            text = f.read()
+    except FileNotFoundError:
+        return ""
+    text = text.split(f"[distributed] rank {rank}: {name}\n")[-1]
+    lines = [ln.strip() for ln in text.splitlines() if ln.strip()]
+    picked = [ln for ln in lines if "terminate called" in ln
+              or "what():" in ln or "Error" in ln or "error" in ln]
+    return " | ".join((picked or lines)[-3:])[:600]
+
+
+def distributed_phase(torch, K, cpu=False, dims=None):
+    """[distributed]: two ranks on the one card (the port's ``spawn``,
+    ``backend="gloo"``, CUDA tensors), each case held to a world-1 run of
+    the same weights and batch, or reported with gloo's own refusal.
+
+    A case that gloo refuses by aborting the rank ends that pair of
+    ranks; a new pair runs the cases after it. ``cpu=True`` with small
+    ``dims`` (layers, hidden, heads, inter, seq) rehearses the phase on
+    the CPU."""
+    import shutil
+
+    from paddle_tpu_torch.distributed import spawn
+
+    dims = dims or (DIST_LAYERS, 4096, 32, 11008, DIST_SEQ)
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.join(here, "paddle_tpu_torch", "csrc", "build",
+                        "dist_smoke")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    print(f"[distributed] 2 ranks on the one card over gloo (CUDA tensors "
+          f"staged through host memory by gloo, not NVLink): Llama-2-7B "
+          f"widths cut to {dims[0]} layers, [2, {dims[4]}] tokens a "
+          f"rank; dp=2, mp=2, pp=2 (1F1B, 4 micro-batches) against a "
+          f"world-1 run of the same weights and batch (loss within "
+          f"{STEP_LOSS_TOL}, every gradient within {STEP_GRAD_REL_L2} "
+          f"relative L2), mp=2 in f32 against an f32 world-1 run (loss "
+          f"within {DIST_F32_LOSS_TOL}, gradients within "
+          f"{DIST_F32_GRAD_REL_L2}), a checkpoint saved at mp=2 loaded at "
+          f"world size 1, sep=2 ring attention [1, {2 * dims[4]}, {dims[2]}, "
+          f"{dims[1] // dims[2]}] causal against one-card flash")
+    where = {"device": "cpu"} if cpu else {"backend": "gloo"}
+    t0 = time.monotonic()
+    deadline = t0 + DIST_JOIN_S       # for every pair together
+    remaining = list(DIST_CASES)
+    per_case: dict = {}
+    pairs = 0
+    try:
+        while remaining:
+            pairs += 1
+            ctx = spawn(distributed_rank, args=(root, tuple(remaining), *dims),
+                        nprocs=2, join=False,
+                        init_method=f"file://{root}/rdzv{pairs}",
+                        env={"OMP_NUM_THREADS": "4"}, **where)
+            ended = None
+            try:
+                # until both ranks exit, one dies, or every case is in (a
+                # rank's NCCL probe may hang its exit: it is stopped below)
+                while ended is None:
+                    try:
+                        if ctx.join(timeout=1.0):
+                            ended = "both ranks exited 0"
+                    except RuntimeError as e:
+                        ended = str(e).splitlines()[0]
+                    if ended is None and all(
+                            _dist_read(root, rk, n) is not None
+                            for n in remaining for rk in range(2)):
+                        ended = "every case in"
+                    if ended is None and time.monotonic() > deadline:
+                        ended = f"still running {DIST_JOIN_S} s after the "\
+                                f"first pair started"
+            finally:
+                ctx.terminate()
+            init = [_dist_read(root, rk, "init") for rk in range(2)]
+            if any(i is None for i in init):
+                raise AssertionError(f"[distributed] pair {pairs}: a rank did "
+                                     f"not join ({ended}): "
+                                     f"{[_dist_abort(root, rk, '') for rk in range(2)]}")
+            print(f"  pair {pairs} for {remaining}: backend "
+                  f"{init[0]['backend']}, devices {init[0]['device']} and "
+                  f"{init[1]['device']}, joined in {init[0]['init_s']} / "
+                  f"{init[1]['init_s']} s; ended: {ended}")
+            for rk in range(2):
+                os.remove(_dist_file(root, rk, "init"))
+            for name in list(remaining):
+                per = [_dist_read(root, rk, name) for rk in range(2)]
+                remaining.remove(name)
+                if all(p is not None for p in per):
+                    per_case[name] = per
+                    continue
+                # this case ended the pair: quote each rank's abort
+                for rk in range(2):
+                    if per[rk] is None:
+                        said = _dist_abort(root, rk, name) or ended
+                        per[rk] = {"ok": False, "error": said,
+                                   "where": ["the rank ended: " + ended],
+                                   "seconds": None}
+                per_case[name] = per
+                break
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    wall = time.monotonic() - t0
+    carried, refused = [], []
+    launches: dict = {}
+    partial: dict = {}
+    for name in DIST_CASES:
+        per = per_case[name]
+        secs = max((c["seconds"] or 0.0) for c in per)
+        if all(c["ok"] for c in per):
+            print(f"  {name}: carried in {secs} s: "
+                  f"{json.dumps([{k: v for k, v in c.items() if k not in ('ok', 'launches')} for c in per])}")
+            carried.append(name)
+            if name == "nccl_two_ranks_one_card":
+                continue
+            for c in per:
+                for k, n in c.get("launches", {}).items():
+                    launches[k] = launches.get(k, 0) + n
+                loss_tol, grad_tol = (
+                    (DIST_F32_LOSS_TOL, DIST_F32_GRAD_REL_L2)
+                    if name == "mp_f32" else
+                    (STEP_LOSS_TOL, STEP_GRAD_REL_L2))
+                if name in ("dp", "pp", "mp", "mp_f32") and (
+                        c["loss_rel"] > loss_tol
+                        or c["grad_rel_l2"] > grad_tol):
+                    raise AssertionError(f"[distributed] {name} disagrees "
+                                         f"with the world-1 run: {c}")
+                if name == "sep" and (
+                        c["out_rel_l2"] > STEP_LOSS_TOL or
+                        max(c[f"{g}_rel_l2"] for g in ("dq", "dk", "dv"))
+                        > STEP_GRAD_REL_L2):
+                    raise AssertionError(f"[distributed] ring attention "
+                                         f"disagrees with flash: {c}")
+                if name == "checkpoint" and c["max_abs_diff"] != 0.0:
+                    raise AssertionError(f"[distributed] the checkpoint did "
+                                         f"not load back exactly: {c}")
+            continue
+        errors = [c.get("error") or "" for c in per if not c["ok"]]
+        print(f"  {name}: refused after {secs} s: " + " | ".join(errors))
+        print(f"    where: {[c.get('where') for c in per]}")
+        refused.append(name)
+        if name == "nccl_two_ranks_one_card":
+            continue
+        for c in per:
+            for k, n in c.get("launches", {}).items():
+                partial[k] = partial.get(k, 0) + n
+        # gloo's own refusal on one rank at least, the peer's closed
+        # connection at most on the other: anything else is a fault
+        if not any(GLOO_REFUSAL.search(e) for e in errors) or not all(
+                GLOO_REFUSAL.search(e) or GLOO_PEER_CLOSED.search(e)
+                for e in errors):
+            raise AssertionError(f"[distributed] {name} failed, and not by "
+                                 f"gloo's refusal of a CUDA tensor: "
+                                 f"{errors}")
+    print(f"[distributed] gloo carried {carried}; refused {refused}; "
+          f"{pairs} pairs of ranks; {wall:.1f} s")
+    print(f"  launches of the carried cases' mesh runs on both ranks: "
+          f"{launches}")
+    print(f"  launches of the refused cases before gloo refused them (not "
+          f"counted): {partial}")
+    return launches
 
 
 def ernie_batch(torch, B, S, vocab, seed, device):
@@ -6223,7 +6689,7 @@ def eager_ops_phase(torch):
     off. The random ops run on the card for their shapes, dtypes and
     finiteness only (they agree in distribution, which the CPU tests
     hold). Prints the counts, the ops left out with the reason, and
-    ``op_coverage()``, which must be 405 of 460."""
+    ``op_coverage()``, which must be 412 of 460."""
     import numpy as np
 
     import paddle_tpu_torch as paddle
@@ -6346,9 +6812,10 @@ def eager_ops_phase(torch):
     print(f"  op_coverage(): {cov['covered']} of {cov['total']} reference "
           f"ops ({100 * cov['pct']:.1f}%), {cov['registered']} registered; "
           f"missing: {len(cov['missing']) - len(missing)} sparse.* (no "
-          f"sparse tensors yet), {missing} (no distributed yet)")
-    if cov["covered"] != 405:
-        raise AssertionError(f"op_coverage(): {cov['covered']}, want 405")
+          f"sparse tensors yet), others {missing}")
+    if cov["covered"] != 412 or missing:
+        raise AssertionError(f"op_coverage(): {cov['covered']}, want 412; "
+                             f"missing beside sparse.*: {missing}")
     return ran
 
 
@@ -8102,6 +8569,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     trained = training_phase(torch, K)
     launches = {k: launches.get(k, 0) + trained[k] for k in trained}
+    gc.collect()
+    torch.cuda.empty_cache()
+    spread = distributed_phase(torch, K)
+    launches = {k: launches.get(k, 0) + spread.get(k, 0) for k in launches}
     gc.collect()
     torch.cuda.empty_cache()
 

@@ -18,11 +18,15 @@ Paddle enforces. Only the flags the port acts on are registered:
 - ``FLAGS_locksan``: arm LockSan (``analysis.locksan``): locks made after
   it is set record their acquisition order and report inversions and
   blocking calls under a lock (set it in the environment at process start
-  so module-level locks are made armed).
+  so module-level locks are made armed);
+- ``FLAGS_collective_timeout_s``: a collective of ``distributed.collective``
+  that has not completed after this many seconds raises
+  ``CollectiveTimeoutError`` naming the op, the group and the rank (0, the
+  default: no guard).
 
-The JAX package's other flags (the Pallas policy, collective timeouts,
-the allocator strategy) wait for the modules that would act on them
-(ROADMAP) and raise as unknown until then.
+The JAX package's other flags (the Pallas policy, the allocator
+strategy) wait for the modules that would act on them (ROADMAP) and raise
+as unknown until then.
 """
 from __future__ import annotations
 
@@ -141,3 +145,7 @@ register_flag("FLAGS_locksan", False,
               "(paddle_tpu_torch.analysis.locksan): instrumented locks "
               "record acquisition order and blocking-calls-under-lock; set "
               "at process start so module-level locks are created armed")
+register_flag("FLAGS_collective_timeout_s", 0.0,
+              "seconds an eager collective may take before it raises "
+              "CollectiveTimeoutError (op, group axis, size and rank in the "
+              "message); 0 disables the guard")

@@ -7,17 +7,24 @@ from the generator of its tensor's device, so they stay on the card; the
 flash kernels' per-call dropout seed comes from the CPU generator
 (:func:`next_seed`), so drawing it never waits for the card (the TPU
 passes its seed to the kernel in SMEM; here it is a kernel argument).
-One ``seed(n)`` makes a run reproducible. The bits differ from JAX's from
-the same seed: the tests hand both packages the same numpy noise where
-they compare bits.
+One ``seed(n)`` makes a run reproducible. Inside :func:`rng_scope`
+(``distributed.fleet_random``'s tracker) draws come from the scope's
+generator instead, and :func:`rand` draws the scope's full logical shape
+and hands back this rank's slice of it, so a tensor-parallel dropout mask
+is the single-device one, cut. The bits differ from JAX's from the same
+seed: the tests hand both packages the same numpy noise where they
+compare bits.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
-__all__ = ["seed", "get_generator", "weights_generator", "next_seed"]
+__all__ = ["seed", "get_generator", "weights_generator", "next_seed",
+           "rng_scope", "rand", "generator_states", "set_generator_states"]
 
-_state = {"seed": 0}
+_state = {"seed": 0, "scope": None}
 _generators: dict[torch.device, torch.Generator] = {}
 
 
@@ -37,8 +44,11 @@ def seed(n: int) -> None:
 
 def get_generator(device="cpu") -> torch.Generator:
     """The generator of ``device`` (created at first use from the current
-    seed)."""
+    seed); inside :func:`rng_scope`, the scope's generator for it."""
     dev = _key(device)
+    scope = _state["scope"]
+    if scope is not None:
+        return scope.generator(dev)
     g = _generators.get(dev)
     if g is None:
         g = _generators[dev] = torch.Generator(device=dev)
@@ -62,3 +72,61 @@ def next_seed() -> int:
     the host from the CPU generator."""
     return int(torch.randint(0, 2 ** 31 - 1, (1,),
                              generator=get_generator("cpu")).item())
+
+
+@contextlib.contextmanager
+def rng_scope(scope):
+    """Draw from ``scope`` inside: ``scope.generator(device)`` answers
+    :func:`get_generator`, and ``scope.shard`` (``None`` or ``(dim, rank,
+    n)``) makes :func:`rand` draw the logical shape (``n`` times the dim)
+    and return slice ``rank`` of it."""
+    prev = _state["scope"]
+    _state["scope"] = scope
+    try:
+        yield scope
+    finally:
+        _state["scope"] = prev
+
+
+def rand(shape, device, generator=None) -> torch.Tensor:
+    """Uniform ``[0, 1)`` of ``shape`` on ``device`` from ``generator``
+    (default :func:`get_generator`); under a sharded :func:`rng_scope`,
+    this rank's slice of the draw of the logical shape."""
+    g = generator if generator is not None else get_generator(device)
+    scope = _state["scope"]
+    shard = getattr(scope, "shard", None) if generator is None else None
+    if shard is None:
+        return torch.rand(shape, device=device, generator=g)
+    dim, rank, n = shard
+    shape = list(shape)
+    dim %= len(shape)
+    full = list(shape)
+    full[dim] *= n
+    u = torch.rand(full, device=device, generator=g)
+    return u.narrow(dim, rank * shape[dim], shape[dim])
+
+
+def generator_states() -> dict:
+    """A snapshot of every generator's state (the devices', the active
+    :func:`rng_scope`'s, and the seed) for :func:`set_generator_states`
+    (``distributed.recompute`` replays a forward's draws with it)."""
+    scope = _state["scope"]
+    return {"seed": _state["seed"],
+            "gens": {d: g.get_state() for d, g in _generators.items()},
+            "scope": scope,
+            "scope_gens": ({} if scope is None else
+                           {d: g.get_state()
+                            for d, g in scope.generators().items()})}
+
+
+def set_generator_states(snap: dict) -> None:
+    _state["seed"] = snap["seed"]
+    for d, st in snap["gens"].items():
+        g = _generators.get(d)
+        if g is None:
+            g = _generators[d] = torch.Generator(device=d)
+        g.set_state(st)
+    scope = snap["scope"]
+    if scope is not None:
+        for d, st in snap["scope_gens"].items():
+            scope.generator(d).set_state(st)

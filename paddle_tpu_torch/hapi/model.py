@@ -28,8 +28,13 @@ convolution is the exception: ``lax.conv_general_dilated`` refuses mixed
 dtypes, so the reference cannot train a conv net under hapi's O1, and here
 a convolution handed bf16 inputs with f32 weights raises ``TypeError``.
 
-Not ported (ROADMAP Queue 1): the ``DistributedEngine`` route of
-``prepare`` and ``train_batch_guarded``.
+Under an active hybrid mesh of more than one rank (``fleet.init`` /
+``distributed.init_parallel_env``), ``prepare`` routes ``fit`` /
+``evaluate`` / ``predict`` through ``distributed.DistributedEngine``, as
+the reference's does: every rank passes the whole batch, takes its rows,
+and gets the whole batch's loss and outputs (so metrics see every row).
+
+Not ported (ROADMAP Queue 1): ``train_batch_guarded``.
 """
 from __future__ import annotations
 
@@ -159,6 +164,7 @@ class Model:
         self._metrics = []
         self._amp_dtype = None
         self._pending = False   # gradients of update=False batches in .grad
+        self._engine = None
 
     @property
     def device(self) -> torch.device:
@@ -176,6 +182,16 @@ class Model:
                  else amp_configs)
         self._amp_dtype = torch.bfloat16 if level in _AMP_LEVELS else None
         self._pending = False
+        self._engine = None
+        from ..distributed.mesh import get_hybrid_communicate_group
+
+        hcg = get_hybrid_communicate_group()
+        if hcg is not None and hcg.nranks > 1:
+            from ..distributed.engine import DistributedEngine
+
+            self._engine = DistributedEngine(
+                self.network, loss_fn=loss, optimizer=optimizer,
+                strategy=hcg.strategy, mesh=hcg.mesh)
 
     # -- batches ------------------------------------------------------------
     def _forward(self, inputs):
@@ -188,6 +204,12 @@ class Model:
         return [o.float() if o.is_floating_point() else o for o in outs]
 
     def train_batch(self, inputs, labels=None, update=True):
+        if self._engine is not None:
+            labels = _as_list(labels)
+            loss, outs = self._engine.train_step_outs(_as_list(inputs),
+                                                      labels, update=update)
+            self._optimizer._step_count += 1
+            return [float(loss)], self._update_metrics(outs, labels)
         dev = self.device
         inputs = [_to_tensor(i, dev) for i in _as_list(inputs)]
         labels = [_to_tensor(lbl, dev) for lbl in _as_list(labels)]
@@ -209,12 +231,19 @@ class Model:
         """Apply gradients left in ``.grad`` by ``update=False`` batches (a
         loader without ``len()``, or a ``num_iters`` stop inside a group),
         so they neither drop nor leak into the next epoch."""
+        if self._engine is not None:
+            self._engine.flush_accum_grads()
+            return
         if self._pending:
             self._optimizer._apply()
             self._optimizer.clear_grad()
             self._pending = False
 
     def eval_batch(self, inputs, labels=None):
+        if self._engine is not None:
+            labels = _as_list(labels)
+            loss, outs = self._engine.eval_step(_as_list(inputs), labels)
+            return [float(loss)], self._update_metrics(outs, labels)
         dev = self.device
         inputs = [_to_tensor(i, dev) for i in _as_list(inputs)]
         labels = [_to_tensor(lbl, dev) for lbl in _as_list(labels)]
@@ -226,6 +255,9 @@ class Model:
         return [loss.item()], metrics
 
     def predict_batch(self, inputs):
+        if self._engine is not None:
+            return [_to_np(o) for o in
+                    self._engine.predict_step(_as_list(inputs))]
         dev = self.device
         inputs = [_to_tensor(i, dev) for i in _as_list(inputs)]
         with torch.no_grad(), _mode(self.network, False):
@@ -407,6 +439,8 @@ class Model:
         reference's names and layouts, ``nn.layer.paddle_state_dict``) and,
         with ``training``, ``path.pdopt`` (the optimizer's), in
         ``framework.io``'s format: either package loads them."""
+        if self._engine is not None:
+            self._engine.sync_to_layer()
         fio.save(paddle_state_dict(self.network), path + ".pdparams")
         if training and self._optimizer is not None:
             fio.save(self._optimizer.state_dict(), path + ".pdopt")
@@ -420,6 +454,8 @@ class Model:
         if (missing or unexpected) and not skip_mismatch:
             raise ValueError(f"Model.load: missing {missing}, unexpected "
                              f"{unexpected}")
+        if self._engine is not None:
+            self._engine.reset_state()
         if (not reset_optimizer and self._optimizer is not None
                 and os.path.exists(path + ".pdopt")):
             self._optimizer.set_state_dict(fio.load(path + ".pdopt"))

@@ -8,7 +8,8 @@ model's device and dtype) and check the names. :func:`state_from_jax`
 (Llama) drops the RoPE tables, which neither package persists;
 :func:`trainer_state_from_jax` maps the reference trainer's stacked
 parameter dict (``LlamaPipelineTrainer._state[0]``) onto the port
-model's names; :func:`ernie_state_from_jax`,
+model's names; :func:`rank_state_from_jax` cuts either of those into one
+rank's shards of a hybrid mesh; :func:`ernie_state_from_jax`,
 :func:`conformer_state_from_jax` (with the batch-norm buffers),
 :func:`whisper_state_from_jax` and :func:`vision_state_from_jax` (with
 the batch-norm buffers) raise ``KeyError`` on a name the port model
@@ -21,7 +22,8 @@ import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["state_from_jax", "trainer_state_from_jax", "ernie_state_from_jax",
+__all__ = ["state_from_jax", "trainer_state_from_jax", "rank_state_from_jax",
+           "ernie_state_from_jax",
            "conformer_state_from_jax", "whisper_state_from_jax",
            "vision_state_from_jax"]
 
@@ -64,6 +66,83 @@ def trainer_state_from_jax(params: dict[str, np.ndarray]
         else:
             raise KeyError(f"unknown reference trainer parameter {name!r}")
     return state_from_jax(flat)
+
+
+def _mp_shard(name, a, config, rank, n):
+    """Rank ``rank``'s shard (of ``n``) of the logical Llama parameter
+    ``name`` (Paddle's ``[in, out]`` layouts). The fused projections split
+    per head and per half: ``qkv_proj``'s columns are q, k and v, and a
+    rank takes its heads of each; ``gate_up_proj``'s are gate and up, and
+    a rank takes its part of each. A contiguous column split would hand a
+    rank some other rank's heads."""
+    if n == 1:
+        return a
+    c = config
+
+    def rows(x):
+        k = x.shape[0] // n
+        return x[rank * k:(rank + 1) * k]
+
+    def cols(x, segments):
+        out, start = [], 0
+        for seg in segments:
+            k = seg // n
+            out.append(x[:, start + rank * k:start + (rank + 1) * k])
+            start += seg
+        return np.concatenate(out, axis=1)
+
+    leaf = name.rsplit(".", 2)[-2] if name.count(".") >= 1 else name
+    if name == "embed_tokens.weight" or leaf in ("o_proj", "down_proj"):
+        return rows(a)
+    if leaf == "qkv_proj":
+        q = c.num_attention_heads * c.head_dim
+        kv = c.num_key_value_heads * c.head_dim
+        return cols(a, [q, kv, kv])
+    if leaf == "gate_up_proj":
+        return cols(a, [c.intermediate_size] * 2)
+    if name == "lm_head.weight":
+        return cols(a, [a.shape[1]])
+    return a                                      # norms: replicated
+
+
+def rank_state_from_jax(params: dict[str, np.ndarray], config, coords: dict,
+                        degrees: dict, vpp: int = 1
+                        ) -> dict[str, torch.Tensor]:
+    """One rank's shards of the reference Llama's logical parameters.
+
+    params:  the reference model's ``state_dict`` arrays or its trainer's
+             stacked ``_state[0]`` (``blocks.*`` names are unstacked).
+    coords:  this rank's mesh coordinates ``{"dp", "sharding", "pp", "sep",
+             "mp"}`` (missing: 0); degrees likewise (missing: 1).
+    vpp:     chunks per pipeline rank (the interleaved schedule).
+
+    Returns ``{global name: tensor}``: the decoder layers of this rank's
+    virtual stages (``layers.<global index>.*``), the embedding on the
+    first stage, the final norm and head on the last, each cut to this
+    rank's mp shard. dp, sharding and sep ranks hold the same weights
+    (ZeRO slices the optimizer state, not these)."""
+    if any(k.startswith("blocks.") for k in params):
+        full = trainer_state_from_jax(params)
+    else:
+        full = state_from_jax(params)
+    S, st = int(degrees.get("pp", 1)), int(coords.get("pp", 0))
+    n, r = int(degrees.get("mp", 1)), int(coords.get("mp", 0))
+    L = config.num_hidden_layers
+    lpv = L // (S * vpp)
+    mine = {i for c in range(vpp)
+            for i in range((c * S + st) * lpv, (c * S + st + 1) * lpv)}
+    out = {}
+    for name, t in full.items():
+        if name.startswith("layers."):
+            if int(name.split(".")[1]) not in mine:
+                continue
+        elif name == "embed_tokens.weight" and st != 0:
+            continue
+        elif name in ("norm.weight", "lm_head.weight") and st != S - 1:
+            continue
+        out[name] = torch.tensor(np.ascontiguousarray(
+            _mp_shard(name, t.numpy(), config, r, n)))
+    return out
 
 
 def _check_names(arrays, model):

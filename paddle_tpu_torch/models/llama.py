@@ -3,9 +3,15 @@
 The architecture and the attribute names are the reference's, so a
 reference ``state_dict`` converts key for key (``models/convert.py``):
 RMSNorm, rotate-half RoPE, GQA attention with a fused ``qkv_proj``, SwiGLU
-MLP with a fused ``gate_up_proj``, untied ``lm_head``. The reference's
-tensor-parallel layers are plain ``nn.Linear(bias=False)`` / ``nn.Embedding``
-here (world size 1; tensor parallelism waits for the distributed slice).
+MLP with a fused ``gate_up_proj``, untied ``lm_head``. The projections are
+the reference's tensor-parallel layers (``distributed.mp_layers``): with
+an mp group of more than one rank (the active mesh's, or ``mp_group=``)
+each rank holds its heads of ``qkv_proj`` (its part of q, of k and of v),
+its halves of ``gate_up_proj``'s gate and up, its rows of ``o_proj`` and
+``down_proj``, its vocabulary rows of the embedding and of the head;
+with one rank they are plain products and issue no collective. The
+initial weights are the logical ones at any degree (each rank draws the
+whole weight from the same generator and keeps its shard).
 
 Kernels on this path: RMSNorm twice per layer and once at the head, and
 flash attention for the no-cache forward; both are differentiable
@@ -23,6 +29,8 @@ import torch
 from torch import nn
 
 from ..core.device import resolve_device
+from ..distributed.mp_layers import (ColumnParallelLinear, RowParallelLinear,
+                                     VocabParallelEmbedding, mp_info)
 from ..nn import functional as F
 from ..nn.layers import RMSNorm
 from ..nn.layer import Layer
@@ -92,19 +100,32 @@ def apply_rope_at(x, cos, sin, positions):
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], -1).to(x.dtype)
 
 
+def _tp(device, dtype, generator, mp_group):
+    """The keyword arguments every projection of one model shares."""
+    return dict(device=device, dtype=dtype, generator=generator,
+                mp_group=mp_group, init=f"normal:{INIT_STD}")
+
+
 class LlamaAttention(Layer):
-    def __init__(self, config: LlamaConfig, device=None, dtype=None):
+    def __init__(self, config: LlamaConfig, device=None, dtype=None,
+                 generator=None, mp_group=None):
         super().__init__()
         c = config
-        self.num_heads = c.num_attention_heads
-        self.num_kv_heads = c.num_key_value_heads
+        _, _, n = mp_info(mp_group)
+        if c.num_key_value_heads % n:
+            raise ValueError(f"{c.num_key_value_heads} KV heads do not split "
+                             f"over {n} mp ranks")
+        self.num_heads = c.num_attention_heads // n
+        self.num_kv_heads = c.num_key_value_heads // n
         self.head_dim = c.head_dim
-        qkv_out = (c.num_attention_heads + 2 * c.num_key_value_heads) * c.head_dim
-        self.qkv_proj = nn.Linear(c.hidden_size, qkv_out, bias=False,
-                                  device=device, dtype=dtype)
-        self.o_proj = nn.Linear(c.num_attention_heads * c.head_dim,
-                                c.hidden_size, bias=False, device=device,
-                                dtype=dtype)
+        q, kv = c.num_attention_heads * c.head_dim, \
+            c.num_key_value_heads * c.head_dim
+        kw = _tp(device, dtype, generator, mp_group)
+        self.qkv_proj = ColumnParallelLinear(
+            c.hidden_size, q + 2 * kv, has_bias=False, gather_output=False,
+            segments=[q, kv, kv], **kw)
+        self.o_proj = RowParallelLinear(q, c.hidden_size, has_bias=False,
+                                        input_is_parallel=True, **kw)
         self.layer_idx = 0  # set by LlamaForCausalLM for KV-cache routing
 
     def forward(self, x, rope_cos, rope_sin, cache=None, positions=None):
@@ -131,13 +152,18 @@ class LlamaAttention(Layer):
 
 
 class LlamaMLP(Layer):
-    def __init__(self, config: LlamaConfig, device=None, dtype=None):
+    def __init__(self, config: LlamaConfig, device=None, dtype=None,
+                 generator=None, mp_group=None):
         super().__init__()
         c = config
-        self.gate_up_proj = nn.Linear(c.hidden_size, 2 * c.intermediate_size,
-                                      bias=False, device=device, dtype=dtype)
-        self.down_proj = nn.Linear(c.intermediate_size, c.hidden_size,
-                                   bias=False, device=device, dtype=dtype)
+        kw = _tp(device, dtype, generator, mp_group)
+        self.gate_up_proj = ColumnParallelLinear(
+            c.hidden_size, 2 * c.intermediate_size, has_bias=False,
+            gather_output=False,
+            segments=[c.intermediate_size, c.intermediate_size], **kw)
+        self.down_proj = RowParallelLinear(c.intermediate_size,
+                                           c.hidden_size, has_bias=False,
+                                           input_is_parallel=True, **kw)
 
     def forward(self, x):
         gate, up = self.gate_up_proj(x).chunk(2, dim=-1)
@@ -145,15 +171,18 @@ class LlamaMLP(Layer):
 
 
 class LlamaDecoderLayer(Layer):
-    def __init__(self, config: LlamaConfig, device=None, dtype=None):
+    def __init__(self, config: LlamaConfig, device=None, dtype=None,
+                 generator=None, mp_group=None):
         super().__init__()
         eps = config.rms_norm_eps
-        self.input_layernorm = RMSNorm(config.hidden_size, eps,
-                                       device=device, dtype=dtype)
-        self.self_attn = LlamaAttention(config, device=device, dtype=dtype)
+        kw = dict(device=device, dtype=dtype)
+        self.input_layernorm = RMSNorm(config.hidden_size, eps, **kw)
+        self.self_attn = LlamaAttention(config, generator=generator,
+                                        mp_group=mp_group, **kw)
         self.post_attention_layernorm = RMSNorm(config.hidden_size, eps,
-                                                device=device, dtype=dtype)
-        self.mlp = LlamaMLP(config, device=device, dtype=dtype)
+                                                **kw)
+        self.mlp = LlamaMLP(config, generator=generator, mp_group=mp_group,
+                            **kw)
 
     def forward(self, x, rope_cos, rope_sin, cache=None, positions=None):
         h = x + self.self_attn(self.input_layernorm(x), rope_cos, rope_sin,
@@ -169,36 +198,49 @@ class LlamaForCausalLM(Layer):
     dtype:     parameter dtype (the RoPE tables stay f32).
     generator: a ``torch.Generator`` on the model's device for the seeded
                init (normal, std ``INIT_STD``, for the linear and embedding
-               weights; norm weights start at 1). Default: seed 0.
+               weights, drawn whole in parameter order; norm weights start
+               at 1). Default: seed 0.
+    mp_group:  the tensor-parallel group (default: the active mesh's mp
+               axis; none, one rank, without a mesh).
+    layers:    the global indices of the decoder layers this model holds
+               (a pipeline stage's; default all). Every layer's weights are
+               drawn all the same, so a stage holds the weights the whole
+               model would.
     """
 
     def __init__(self, config: LlamaConfig, device=None, dtype=torch.float32,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, mp_group=None,
+                 layers=None):
         super().__init__()
         dev = resolve_device(device)
         self.config = config
-        self.embed_tokens = nn.Embedding(config.vocab_size, config.hidden_size,
-                                         device=dev, dtype=dtype)
-        self.layers = nn.ModuleList(
-            [LlamaDecoderLayer(config, device=dev, dtype=dtype)
-             for _ in range(config.num_hidden_layers)])
-        for i, layer in enumerate(self.layers):
+        if generator is None:
+            generator = torch.Generator(device=dev).manual_seed(0)
+        keep = (set(range(config.num_hidden_layers)) if layers is None
+                else set(layers))
+        kw = dict(device=dev, dtype=dtype, generator=generator,
+                  mp_group=mp_group)
+        self.embed_tokens = VocabParallelEmbedding(
+            config.vocab_size, config.hidden_size, **kw,
+            init=f"normal:{INIT_STD}")
+        built = []
+        for i in range(config.num_hidden_layers):
+            layer = LlamaDecoderLayer(config, **kw)
             layer.self_attn.layer_idx = i
+            if i in keep:
+                built.append(layer)
+        self.layers = nn.ModuleList(built)
+        self.layer_ids = sorted(keep)
         self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps,
                             device=dev, dtype=dtype)
-        self.lm_head = nn.Linear(config.hidden_size, config.vocab_size,
-                                 bias=False, device=dev, dtype=dtype)
+        self.lm_head = ColumnParallelLinear(
+            config.hidden_size, config.vocab_size, has_bias=False,
+            gather_output=True, **kw, init=f"normal:{INIT_STD}")
         cos, sin = _rope_tables(config.head_dim,
                                 config.max_position_embeddings,
                                 config.rope_theta, device=dev)
         self.register_buffer("rope_cos", cos, persistent=False)
         self.register_buffer("rope_sin", sin, persistent=False)
-        if generator is None:
-            generator = torch.Generator(device=dev).manual_seed(0)
-        with torch.no_grad():
-            for name, p in self.named_parameters():
-                if not name.endswith("layernorm.weight") and name != "norm.weight":
-                    p.normal_(0.0, INIT_STD, generator=generator)
 
     @property
     def device(self) -> torch.device:

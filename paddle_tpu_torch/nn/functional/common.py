@@ -20,6 +20,7 @@ import numpy as np
 import torch
 import torch.nn.functional as TF
 
+from ...framework import random as frandom
 from ...framework.random import get_generator
 from ...ops.manipulation import pad  # noqa: F401  (re-exported)
 
@@ -55,8 +56,7 @@ def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
         axes = [a % x.ndim for a in (axis if isinstance(axis, (list, tuple))
                                      else [axis])]
         shape = [s if i in axes else 1 for i, s in enumerate(shape)]
-    g = generator if generator is not None else get_generator(x.device)
-    keep = torch.rand(shape, device=x.device, generator=g) < (1.0 - p)
+    keep = frandom.rand(shape, x.device, generator) < (1.0 - p)
     if mode == "upscale_in_train":
         return torch.where(keep, x / (1.0 - p), 0.0).to(x.dtype)
     return torch.where(keep, x, 0.0).to(x.dtype)

@@ -70,6 +70,22 @@ _STATIC_ALIASES = {"assign_value": "assign", "tril_triu": "tril",
                    "unpool": "max_unpool2d"}
 
 
+# collective / pipeline static ops: covered by the verbs of
+# ``distributed.collective`` (the JAX package's ``_STATIC_COLLECTIVES``)
+_STATIC_COLLECTIVES = {
+    "all_gather", "all_reduce", "broadcast", "reduce", "reduce_scatter",
+    "p_recv", "p_recv_array", "p_send", "p_send_array",
+}
+
+
+def _collective_covered(name):
+    from ..distributed import collective
+
+    base = name.replace("p_recv", "recv").replace("p_send", "send")
+    base = base.removesuffix("_array")
+    return hasattr(collective, base) or hasattr(collective, name)
+
+
 def _registered(name):
     return name in OPS or name.rstrip("_") in OPS
 
@@ -82,8 +98,9 @@ def _covered(name):
     if name.startswith("static."):
         base = name[len("static."):]
         alias = _STATIC_ALIASES.get(base)
-        return _registered(base) or (alias is not None
-                                     and _registered(alias))
+        if _registered(base) or (alias is not None and _registered(alias)):
+            return True
+        return base in _STATIC_COLLECTIVES and _collective_covered(base)
     return _registered(name)
 
 

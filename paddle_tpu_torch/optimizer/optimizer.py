@@ -77,17 +77,27 @@ class Optimizer:
         reference does)."""
         if self._parameter_list is None:
             raise ValueError("Optimizer constructed without parameters")
-        lr = self.get_lr()
-        wd = self._weight_decay
         pairs = [(p, g) for p in self._parameter_list
                  if (g := raw_grad(p)) is not None and p.requires_grad]
         if self._grad_clip is not None:
             pairs = self._grad_clip(pairs)
-        for p, g in pairs:
-            g = g.to(p.dtype)
+        self._update_pairs(pairs)
+
+    @torch.no_grad()
+    def _update_pairs(self, pairs, states=None) -> None:
+        """The rule on each ``(param, grad)`` pair of clipped gradients,
+        L2 decay folded in first. ``states``: each pair's state dict, for
+        a caller that updates slices of its parameters
+        (``distributed.engine.ShardedUpdate``); default each parameter's
+        own (:meth:`state_for`)."""
+        lr = self.get_lr()
+        wd = self._weight_decay
+        for i, (p, g) in enumerate(pairs):
+            g = g.to(p.device, p.dtype)
             if wd and not self._decoupled_wd:    # L2 decay folded into g
                 g = g + torch.mul(p, float(wd))   # torch's op: no wrapping
-            self.update(p, g, self.state_for(p), lr)
+            self.update(p, g, self.state_for(p) if states is None
+                        else states[i], lr)
 
     def clear_grad(self) -> None:
         """Drop every parameter's gradient (``.grad = None``, PyTorch's way

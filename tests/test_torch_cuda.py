@@ -114,6 +114,13 @@ atol 1e-5 (the card's convolutions and GEMMs sum in another order); an
 O1 step of ShuffleNetV2 and one of GoogLeNet (main loss plus 0.3 x each
 auxiliary head's) launch exactly one softmax-CE forward and backward a
 head: 1 / 1 and 3 / 3.
+
+Distributed slice: ring attention's per-block flash and ``(out, lse)``
+merge (``distributed.sequence_parallel``), a rank's view of two blocks,
+on the card against the same on CPU copies (the plain versions), outputs
+and gradients at the bf16 attention tolerances above; the trainer through
+``init_parallel_env()`` (NCCL, a world of one) and ``build_mesh(dp=1)``
+launches per step exactly what the mesh-less trainer launches.
 """
 import math
 
@@ -539,9 +546,11 @@ def test_trainer_step_on_the_card_matches_the_cpu(gen):
                      inter=256, seq=64)
     x = torch.randint(0, 97, (2, 48), generator=torch.Generator().manual_seed(1))
     y = torch.randint(0, 97, (2, 48), generator=torch.Generator().manual_seed(2))
-    on_card = LlamaPipelineTrainer(cfg, AdamW(learning_rate=1e-3),
+    on_card = LlamaPipelineTrainer(cfg, None, AdamW(learning_rate=1e-3),
+                                   n_micro=1,
                                    compute_dtype=torch.float32, generator=gen)
-    on_cpu = LlamaPipelineTrainer(cfg, AdamW(learning_rate=1e-3),
+    on_cpu = LlamaPipelineTrainer(cfg, None, AdamW(learning_rate=1e-3),
+                                  n_micro=1,
                                   device="cpu")
     on_cpu.model.load_state_dict(
         {k: v.cpu() for k, v in on_card.model.state_dict().items()})
@@ -2438,3 +2447,83 @@ def test_a_span_shows_in_torch_profiler_during_a_trace(gen):
     names = [e.name for e in prof.events()]
     assert "engine.decode" in names
     assert any("paged" in n for n in names)
+
+
+# ---------------------------------------------------------------------------
+# distributed slice: ring blocks, and the world-1 NCCL trainer
+# ---------------------------------------------------------------------------
+
+def _ring_rank_one(q, k, v):
+    """Rank 1 of a 2-rank causal ring, in one process: its queries
+    against rank 0's K/V block (full) and its own (causal diagonal),
+    merged."""
+    from paddle_tpu_torch.distributed.sequence_parallel import (
+        block_flash, merge_partials)
+
+    S = q.shape[1] // 2
+    qb = q[:, S:]
+    o0, l0 = block_flash(qb, k[:, :S], v[:, :S], None, False)
+    o1, l1 = block_flash(qb, k[:, S:], v[:, S:], None, True)
+    out, _ = merge_partials(o0, l0, o1, l1)
+    return out.to(q.dtype)
+
+
+def test_ring_blocks_and_merge_on_the_card_match_the_plain_versions(gen):
+    q, k, v, do = (torch.randn(1, 256, 4, 64, device="cuda", generator=gen,
+                               dtype=torch.bfloat16) for _ in range(4))
+    do = do[:, 128:]
+    card = [t.clone().requires_grad_() for t in (q, k, v)]
+    cpu = [t.detach().cpu().requires_grad_() for t in (q, k, v)]
+    before = K.launch_counts()
+    out = _ring_rank_one(*card)
+    (out.float() * do.float()).sum().backward()
+    launched = {n: c - before[n] for n, c in K.launch_counts().items()}
+    assert launched["flash_attention"] == 2
+    assert launched["flash_attention_bwd"] == 2
+    want = _ring_rank_one(*cpu)
+    (want.float() * do.cpu().float()).sum().backward()
+    _close(out, want.cuda(), **_tol(torch.bfloat16))
+    for a, b in zip(card, cpu):
+        _close(a.grad, b.grad.cuda(), **_grad_tol(torch.bfloat16, b.grad))
+    # and the merge is the whole sequence's causal attention
+    full, _ = flash_attention_fwd(q, k, v, causal=True)
+    _close(out, full[:, 128:], **_tol(torch.bfloat16))
+
+
+def test_world_one_nccl_trainer_launches_the_one_device_counts(gen):
+    import torch.distributed as tdist
+
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.core import device as D
+    from paddle_tpu_torch.distributed import parallel
+    from paddle_tpu_torch.models import LlamaPipelineTrainer, llama_tiny
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = llama_tiny(vocab=97, hidden=128, layers=2, heads=2, kv_heads=1,
+                     inter=256, seq=64)
+    x = torch.randint(0, 97, (2, 48), generator=torch.Generator()
+                      .manual_seed(1))
+    prev = D._state["device"]
+    dist.init_parallel_env()
+    try:
+        assert tdist.get_backend() == "nccl" and tdist.get_world_size() == 1
+        counts, losses = [], []
+        for mesh in (dist.build_mesh(degrees={"dp": 1}), None):
+            tr = LlamaPipelineTrainer(
+                cfg, mesh, AdamW(learning_rate=1e-3), n_micro=1,
+                zero_stage=1, generator=torch.Generator(
+                    device="cuda").manual_seed(0))
+            tr.step(x, x.roll(1, 1))                   # warm-up
+            before = K.launch_counts()
+            losses.append(tr.step(x, x.roll(1, 1)).item())
+            counts.append({n: c - before[n]
+                           for n, c in K.launch_counts().items()})
+        assert counts[0] == counts[1]
+        assert counts[0]["flash_attention"] == 4        # 2 L, remat dots
+        assert counts[0]["rmsnorm"] == 9 and counts[0]["softmax_ce"] == 1
+        assert losses[0] == pytest.approx(losses[1], rel=1e-6)
+    finally:
+        dist.set_hybrid_communicate_group(None)
+        tdist.destroy_process_group()
+        parallel._env.update(device=None, backend=None)
+        D._state["device"] = prev

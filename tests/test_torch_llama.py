@@ -68,13 +68,14 @@ def test_state_from_jax_transposes_linears_only(pair):
     assert set(st) == set(tm.state_dict())
     w = np.asarray(params["layers.0.self_attn.qkv_proj.weight"])
     # the converter keeps the reference's layout (F4); the model's state
-    # dict speaks it too, and holds the linear weights transposed inside
+    # dict speaks it too, and its tensor-parallel projections hold their
+    # weights in that [in, out] layout (the port's nn.Linear's)
     np.testing.assert_array_equal(
         st["layers.0.self_attn.qkv_proj.weight"].numpy(), w)
     np.testing.assert_array_equal(
         tm.state_dict()["layers.0.self_attn.qkv_proj.weight"].numpy(), w)
     np.testing.assert_array_equal(
-        tm.layers[0].self_attn.qkv_proj.weight.detach().numpy(), w.T)
+        tm.layers[0].self_attn.qkv_proj.weight.detach().numpy(), w)
     np.testing.assert_array_equal(st["embed_tokens.weight"].numpy(),
                                   np.asarray(params["embed_tokens.weight"]))
 

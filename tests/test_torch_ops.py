@@ -247,18 +247,16 @@ def test_every_registered_op_is_tested_or_named():
 
 
 def test_op_coverage_counts_the_ports_registry():
-    """405 of the reference's 460 applicable ops: all but the 48
-    ``sparse.*`` names (no sparse tensors yet) and the 7 static
-    collectives (no ``distributed`` yet)."""
+    """412 of the reference's 460 applicable ops: all but the 48
+    ``sparse.*`` names (no sparse tensors yet); the 7 static collectives
+    count against ``distributed.collective``'s verbs."""
     cov = T.op_coverage()
     assert cov["registered"] == len(TOPS) == 408
     assert cov["covered"] + len(cov["missing"]) == cov["total"] == 460
-    assert cov["covered"] == 405
+    assert cov["covered"] == 412
     rest = [n for n in cov["missing"] if not n.startswith("sparse.")]
     assert len(cov["missing"]) - len(rest) == 48
-    assert sorted(rest) == [f"static.{n}" for n in (
-        "all_gather", "all_reduce", "broadcast", "p_recv", "p_recv_array",
-        "reduce", "reduce_scatter")]
+    assert rest == []
     assert "matmul" not in cov["missing"] and "concat" not in cov["missing"]
 
 

@@ -44,6 +44,7 @@ from paddle_tpu_torch.kernels.softmax_ce import (
 from paddle_tpu_torch.models import (LlamaPipelineTrainer, llama_tiny,
                                      trainer_state_from_jax)
 from paddle_tpu_torch.nn.functional import cross_entropy
+from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
 from paddle_tpu_torch.optimizer import Adam, AdamW
 
 torch.set_num_threads(1)
@@ -450,7 +451,8 @@ def test_trainer_three_steps_match_reference():
     finally:
         set_hybrid_communicate_group(None)
 
-    tr = LlamaPipelineTrainer(llama_tiny(**CFG), AdamW(learning_rate=LR),
+    tr = LlamaPipelineTrainer(llama_tiny(**CFG), None,
+                              AdamW(learning_rate=LR), n_micro=1,
                               device="cpu")
     missing, unexpected = tr.model.load_state_dict(
         trainer_state_from_jax(init))
@@ -478,7 +480,8 @@ def test_remat_policies_give_the_same_loss_and_grads(remat):
     x = torch.from_numpy(np.random.RandomState(8).randint(0, 128, (2, 16)))
     out = {}
     for policy in ("off", remat):
-        tr = LlamaPipelineTrainer(llama_tiny(**CFG), AdamW(), remat=policy,
+        tr = LlamaPipelineTrainer(llama_tiny(**CFG), None, AdamW(),
+                                  n_micro=1, remat=policy,
                                   device="cpu", seed=3)
         loss = tr.loss_and_grads(x, x.roll(-1, 1))
         out[policy] = (loss, [p.grad for p in tr.model.parameters()])
@@ -492,13 +495,41 @@ def test_micro_batches_accumulate_the_full_batch_gradient():
     x = torch.from_numpy(np.random.RandomState(9).randint(0, 128, (4, 16)))
     out = []
     for n_micro in (1, 2):
-        tr = LlamaPipelineTrainer(llama_tiny(**CFG), AdamW(), n_micro=n_micro,
+        tr = LlamaPipelineTrainer(llama_tiny(**CFG), None, AdamW(),
+                                  n_micro=n_micro,
                                   device="cpu", seed=4)
         out.append((tr.loss_and_grads(x, x.roll(1, 1)),
                     [p.grad for p in tr.model.parameters()]))
     torch.testing.assert_close(out[1][0], out[0][0], atol=1e-6, rtol=0)
     for a, b in zip(out[1][1], out[0][1]):
         torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-5)
+
+
+@pytest.mark.parametrize("make", [
+    lambda: AdamW(learning_rate=1e-2, weight_decay=0.1,
+                  grad_clip=ClipGradByGlobalNorm(0.5)),
+    lambda: Adam(learning_rate=1e-2, weight_decay=0.1)],
+    ids=["adamw_clip", "adam_l2"])
+def test_mesh_less_step_is_the_optimizers_own_step(make):
+    """A trainer without a mesh updates through ``ShardedUpdate`` over one
+    rank, as a mesh trainer does; its masters move bit for bit as the
+    optimizer's own ``step()`` moves them on the same gradients (the
+    clip, the L2 decay folded in, the rule)."""
+    rng = np.random.RandomState(11)
+    x = torch.from_numpy(rng.randint(0, 128, (2, 16)))
+    y = torch.from_numpy(rng.randint(0, 128, (2, 16)))
+    tr, twin = (LlamaPipelineTrainer(llama_tiny(**CFG), None, make(),
+                                     n_micro=1, device="cpu", seed=5)
+                for _ in range(2))
+    for _ in range(2):
+        tr.step(x, y)
+        twin.loss_and_grads(x, y)
+        twin.optimizer.step()
+        twin.optimizer.clear_grad()
+    assert tr.optimizer._step_count == twin.optimizer._step_count == 2
+    for (n, a), b in zip(tr.model.named_parameters(),
+                         twin.model.parameters()):
+        assert torch.equal(a, b), n
 
 
 def test_trainer_state_from_jax_unstacks_and_transposes():
@@ -521,10 +552,10 @@ def test_trainer_state_from_jax_unstacks_and_transposes():
 
 def test_trainer_rejects_unknown_options():
     with pytest.raises(ValueError):
-        LlamaPipelineTrainer(llama_tiny(**CFG), AdamW(), remat="some",
+        LlamaPipelineTrainer(llama_tiny(**CFG), None, AdamW(), remat="some",
                              device="cpu")
     with pytest.raises(ValueError):
-        LlamaPipelineTrainer(llama_tiny(**CFG), AdamW(), n_micro=0,
+        LlamaPipelineTrainer(llama_tiny(**CFG), None, AdamW(), n_micro=0,
                              device="cpu")
 
 
